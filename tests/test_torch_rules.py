@@ -1,0 +1,83 @@
+"""Rules of the port: it imports neither JAX nor the JAX package, and its
+entry points never fall back to the CPU when CUDA is asked for and absent.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "optax", "kubeshare_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "kubeshare_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for want in ("kubeshare_tpu_torch/ops/fused_adam.py",
+                 "kubeshare_tpu_torch/isolation/proxy.py", "chip_smoke.py"):
+        assert want in names
+    assert (ROOT / "kubeshare_tpu_torch/csrc/fused_adam.cu").exists()
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    # decided inside the fixture: this machine may or may not have a card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_run_training_without_device_raises(no_cuda):
+    from kubeshare_tpu_torch.models import common, tinymlp
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.run_training(tinymlp.init, tinymlp.loss_fn, tinymlp.batch_fn,
+                            steps=1)
+
+
+def test_chip_proxy_without_device_raises(no_cuda):
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ChipProxy()
+
+
+def test_resolve_device(no_cuda):
+    from kubeshare_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_model_cli_defaults_to_cuda(no_cuda):
+    from kubeshare_tpu_torch.models import common, tinymlp
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.main_cli("tinymlp", tinymlp.init, tinymlp.loss_fn,
+                        tinymlp.batch_fn, argv=["--steps", "1"])

@@ -72,6 +72,7 @@ class _Executable:
     out_nbytes: int
     ncarry: int
     cost: _Cost
+    warmed: bool = False          # its first (warm-up) burst has run
 
 
 @dataclass
@@ -490,6 +491,17 @@ class ChipProxy:
                            burst_ms: float) -> None:
         cost = exe.cost
         with self._slock:  # the cost model is shared across sessions
+            if not exe.warmed:
+                # A session's first run of an eager program pays one-time
+                # costs (the caching allocator growing, cuBLAS and cuDNN
+                # handles for the session's serving thread) that later
+                # steps do not. step_ms is refreshed only by 1-step
+                # bursts, so such a reading would stand for the whole
+                # run, and short tail bursts would then drag loop_step_ms
+                # to ~0 and let bursts overrun the window/4 clamp. So it
+                # feeds nothing.
+                exe.warmed = True
+                return
             if repeat == 1:
                 cost.step_ms = (burst_ms if cost.step_ms <= 0.0
                                 else 0.5 * cost.step_ms + 0.5 * burst_ms)

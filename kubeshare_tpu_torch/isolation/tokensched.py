@@ -128,19 +128,6 @@ class PyTokenCore:
             c.vtime += used_ms / c.request
         self._holder = None
 
-    def set_effective(self, name: str, request: float, limit: float) -> None:
-        """Adjust a client's effective share in place (elastic burst
-        credit, doc/autopilot.md): same validation as add_client, takes
-        hold at the next grant decision — usage history and vtime are
-        untouched, so revoking is symmetric and instant."""
-        if request <= 0 or limit <= 0 or limit > 1 or request > limit:
-            raise ValueError(f"bad request/limit: {request}/{limit}")
-        c = self._clients.get(name)
-        if c is None:
-            raise KeyError(name)
-        c.request = request
-        c.limit = limit
-
     def window_usage(self, name: str, now_ms: float) -> float:
         return self._clients[name].window_usage(now_ms, self.window_ms)
 
@@ -171,7 +158,7 @@ class TokenScheduler:
 
     def __init__(self, window_ms: float = WINDOW_MS,
                  base_quota_ms: float = BASE_QUOTA_MS,
-                 min_quota_ms: float = MIN_QUOTA_MS, clock=None):
+                 min_quota_ms: float = MIN_QUOTA_MS):
         self._core = PyTokenCore(window_ms, base_quota_ms, min_quota_ms)
         self._cond = threading.Condition()
         self._grants: dict[str, float] = {}    # name -> granted quota_ms
@@ -180,7 +167,6 @@ class TokenScheduler:
         self._waiting: dict[str, deque] = {}
         self._holding: set[str] = set()
         self._shares: dict[str, tuple[float, float]] = {}
-        self._clock = clock or _now_ms
         self.window_ms = window_ms
 
     @property
@@ -230,7 +216,7 @@ class TokenScheduler:
         shares to round-robin."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
-            self._core.release_token(name, used_ms, self._clock())
+            self._core.release_token(name, used_ms, _now_ms())
             self._holding.discard(name)
             self._core.request_token(name)
             self._cond.notify_all()
@@ -238,13 +224,13 @@ class TokenScheduler:
 
     def release(self, name: str, used_ms: float) -> None:
         with self._cond:
-            self._core.release_token(name, used_ms, self._clock())
+            self._core.release_token(name, used_ms, _now_ms())
             self._holding.discard(name)
             self._cond.notify_all()
 
     def window_usage(self, name: str) -> float:
         with self._cond:
-            return self._core.window_usage(name, self._clock())
+            return self._core.window_usage(name, _now_ms())
 
     def close(self) -> None:
         with self._cond:
@@ -271,7 +257,7 @@ class TokenScheduler:
         q.append(ticket)
         try:
             while True:
-                result = self._core.poll(self._clock())
+                result = self._core.poll(_now_ms())
                 if isinstance(result, tuple):
                     granted, quota = result
                     self._grants[granted] = quota
@@ -279,14 +265,14 @@ class TokenScheduler:
                 if name in self._grants and q[0] is ticket:
                     return self._take_grant(name, q)
                 try:
-                    self._core.window_usage(name, self._clock())
+                    self._core.window_usage(name, _now_ms())
                 except KeyError:
                     raise RuntimeError(f"{name}: client removed while "
                                        "waiting for token") from None
                 if isinstance(result, tuple) or result == _INF:
                     wait = None
                 else:
-                    wait = max(0.001, (result - self._clock()) / 1000.0)
+                    wait = max(0.001, (result - _now_ms()) / 1000.0)
                 if deadline is not None:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:

@@ -18,14 +18,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-
-#: every kernel source of the package (``csrc/<name>.cu``)
-KERNELS = ("fused_adam",)
 
 #: IEEE division and square root (no --use_fast_math), and no contraction
 #: of a*b+c into one FMA, so the kernels round exactly where their plain
@@ -36,8 +32,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: compiler output of each build (ptxas register/spill report)
-build_logs: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -64,36 +58,21 @@ def _stale(name: str) -> bool:
             or os.path.getmtime(lib) < os.path.getmtime(src))
 
 
-def build_all(names=KERNELS) -> dict[str, float]:
-    """Compile every stale kernel library, one ``nvcc`` per source, all
-    started together. Returns seconds per library built."""
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` into its library. Returns the compiler
+    output (the ptxas register/spill report)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    with _lock:
-        for name in names:
-            if not _stale(name):
-                continue
-            src, lib = _paths(name)
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, lib, time.perf_counter())
-        took = {}
-        failed = []
-        for name, (proc, tmp, lib, t0) in procs.items():
-            out, _ = proc.communicate()
-            build_logs[name] = out
-            if proc.returncode != 0:
-                failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
-                continue
-            # atomic publish: a concurrent loader never sees half a file
-            os.replace(tmp, lib)
-            took[name] = time.perf_counter() - t0
-        if failed:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return took
+    src, lib = _paths(name)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
+                           f"{proc.returncode}\n{proc.stdout}")
+    # atomic publish: a concurrent loader never sees half a file
+    os.replace(tmp, lib)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -101,11 +80,11 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    if _stale(name):
-        build_all((name,))
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            if _stale(name):
+                build(name)
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
     return lib

@@ -57,7 +57,7 @@ def main(argv=None) -> int:
     from kubeshare_tpu_torch.ops import build
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
 
-    build.build_all()
+    build.load("fused_adam")
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

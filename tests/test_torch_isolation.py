@@ -231,6 +231,43 @@ def test_hbm_accounting_balances_after_chain(proxy):
         assert acc["hbm_used"] == live == c.usage()["hbm_used"]
 
 
+def test_warmup_burst_feeds_no_cost_model():
+    """A session's first burst of a program pays one-time costs and is
+    not timed into the cost model: the second burst is one step again
+    and sets step_ms, and only then do bursts grow."""
+    # a burst budget (2 s) far above a CPU step, so growth is certain
+    proxy = ChipProxy(device="cpu",
+                      scheduler=TokenScheduler(10000.0, 1000.0, 5.0))
+    proxy.serve()
+    try:
+        _check_warmup(proxy)
+    finally:
+        proxy.close()
+
+
+def _check_warmup(proxy):
+    with ProxyClient("127.0.0.1", proxy.port, "warm", 0.5, 1.0,
+                     timeout=30) as c:
+        carry, batch, loop = _client_setup(c, 4)
+        (cost,) = proxy._costs.values()
+        lasts = []
+        for _ in range(3):
+            carry, loss = loop(64, carry, *batch)
+            c.free(loss)
+            lasts.append((loop.last_n, cost.step_ms > 0.0))
+        assert lasts[:2] == [(1, False), (1, True)]
+        assert lasts[2][0] > 1
+    # a second session's first burst of the same program feeds nothing
+    # either, though the model it shares is already timed
+    with ProxyClient("127.0.0.1", proxy.port, "warm-2", 0.5, 1.0,
+                     timeout=30) as c:
+        carry, batch, loop = _client_setup(c, 5)
+        before = (cost.step_ms, cost.loop_step_ms)
+        carry, loss = loop(64, carry, *batch)
+        assert loop.last_n > 1
+        assert (cost.step_ms, cost.loop_step_ms) == before
+
+
 def test_memory_cap_refuses_before_allocation(proxy):
     params = programs.initial_carry(TINY, 0)
     carry_bytes = sum(a.nbytes for a in tree_leaves(params))

@@ -7,18 +7,26 @@ Runs from the root of a checkout and needs one CUDA card. Phases, each
 failing the run (non-zero exit, no result line) when it fails:
 
 1. the card's name and power limit (``nvidia-smi``), torch/CUDA versions;
-2. the build of every hand-written kernel from ``kubeshare_tpu_torch/csrc``;
+2. the build of every hand-written kernel from ``kubeshare_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together;
 3. each kernel held against its plain PyTorch version on the card, at the
    shapes the main path gives it, then timed beside its plain version,
-   one PyTorch library call computing the same function, and its bound;
-4. a small-input check of the whole train step: card against CPU;
-5. the main path, with every kernel's launch count set to 0 first:
-   a. exclusive — mnist at full width (batch 128, bf16 activations)
-      trains alone through ``run_training``, then as a fused loop;
-   b. co-located — a ``ChipProxy`` with a ``TokenScheduler`` on the card,
-      two threaded ``ProxyClient``s at request 0.5 / limit 1.0 each train
-      mnist through ``compile_loop`` + ``chain``;
-6. the outputs of the main path: finite, of the expected shapes.
+   one PyTorch library call computing the same function, and its bound
+   (plus one flash-attention timing at seq 8192, off the main path);
+4. small-input checks of whole train steps, card against CPU: mnist, and
+   the transformer with flash attention;
+5. the main paths, each with every kernel's launch count set to 0 just
+   before it and read just after:
+   a. mnist exclusive — full width (batch 128, bf16 activations), alone
+      through ``run_training``, then as a fused loop;
+   b. mnist co-located — a ``ChipProxy`` with a ``TokenScheduler`` on the
+      card, two threaded ``ProxyClient``s at request 0.5 / limit 1.0 each
+      train mnist through ``compile_loop`` + ``chain``;
+   c. transformer exclusive — the LM at full width (batch 8, seq 256,
+      vocab 4096, dim 256, 8 heads, 4 layers, bf16) with flash attention,
+      alone, then as a fused loop;
+   d. transformer co-located — as b, with ``"attention": "flash"``;
+6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -35,14 +43,22 @@ import sys
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
-# TPU-side Adam kernel this port replaces (file:line of its Pallas body)
+# TPU-side kernels this port replaces (file:line of each Pallas body)
 ADAM_REPLACES = "kubeshare_tpu/ops/fused_adam.py:49"
 ADAM_SOURCE = "kubeshare_tpu_torch/csrc/fused_adam.cu"
-# Published H100 SXM peaks (data sheet, dense): HBM3 bytes/s and fp32
-# FLOP/s outside the tensor cores
+FLASH_REPLACES = {"fwd": "kubeshare_tpu/ops/flash_attention.py:80",
+                  "dq": "kubeshare_tpu/ops/flash_attention.py:223",
+                  "dkv": "kubeshare_tpu/ops/flash_attention.py:256"}
+FLASH_SOURCE = "kubeshare_tpu_torch/csrc/flash_attention.cu"
+KERNELS = ("fused_adam", "flash_attention")
+# Published H100 SXM peaks (data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
+# outside the tensor cores, bf16 FLOP/s of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 # Adam per fp32 parameter: read p, g, m, v and write p, m, v
 ADAM_BYTES_PER_PARAM = 7 * 4
 # m_new 3, v_new 4, m_hat 1, v_hat 1, sqrt 1, +eps 1, lr* 1, / 1, p- 1
@@ -50,11 +66,27 @@ ADAM_OPS_PER_PARAM = 14
 # kernel vs plain version on the card: both IEEE fp32, same operation order
 KERNEL_ATOL = 1e-6
 KERNEL_RTOL = 1e-6
+# flash attention on the transformer's main path: (batch, seq, heads, head
+# dim), bf16, causal; and one long-context shape off the main path
+FLASH_SHAPE = (8, 256, 8, 32)
+LONG_SHAPE = (1, 8192, 8, 32)
+# operations per visible (q, k) pair and head-dim element: the forward's
+# two products (S = QK^T, PV), dQ's three (S, dP = dO V^T, dS K) and
+# dK/dV's four (S, P^T dO, dP, dS^T Q), two operations (multiply, add) each
+FLASH_OPS_PER_PAIR_DIM = {"fwd": 4, "dq": 6, "dkv": 8}
 
 WINDOW_MS = 1000.0           # shortened accounting window for the smoke
 COLOCATED_SETTLE_S = 1.0
-COLOCATED_MEASURE_S = 4.0    # four windows measured
 CHUNK = 100
+# windows measured: four for mnist; eight for the transformer, whose
+# bursts (~16 steps of ~14 ms) are a quarter window each
+COLOCATED_MEASURE_S = {"mnist": 4.0, "transformer": 8.0}
+# steps asked of one measured chain call (each ~1-2 s while shared)
+CHAIN_STEPS = {"mnist": CHUNK * 8, "transformer": 32}
+LM_SPEC = {"program": "train_step", "model": "transformer",
+           "attention": "flash",
+           "optimizer": {"name": "fused_adam", "lr": 1e-3, "b1": 0.9,
+                         "b2": 0.999, "eps": 1e-8}}
 
 
 def log(msg: str) -> None:
@@ -99,16 +131,18 @@ def cuda_time_ms(fn, iters: int, flush) -> float:
 
 
 def adam_check(dev, rng) -> float:
-    """Kernel against plain version at every mnist leaf shape, a ragged
-    length, a large one and an unaligned view. Returns max abs error."""
+    """Kernel against plain version at every leaf shape of both main paths
+    (mnist and the full-width transformer), a ragged length, a large one
+    and an unaligned view. Returns max abs error."""
     import numpy as np
     import torch
 
-    from kubeshare_tpu_torch.models import mnist
+    from kubeshare_tpu_torch.models import mnist, transformer
     from kubeshare_tpu_torch.ops import fused_adam as fa
     from kubeshare_tpu_torch.utils.tree import tree_leaves
 
-    shapes = [np.shape(a) for a in tree_leaves(mnist.init(0))]
+    leaves = tree_leaves(mnist.init(0)) + tree_leaves(transformer.init(0))
+    shapes = list(dict.fromkeys(np.shape(a) for a in leaves))
     shapes += [(37,), (1 << 20,)]
     cases = [(s, 0) for s in shapes] + [((1000,), 1)]   # 4-byte offset
     worst = 0.0
@@ -241,32 +275,33 @@ def step_check(dev) -> dict:
             "param_max_abs_err_firm": worst}
 
 
-def exclusive(dev) -> dict:
-    """mnist alone on the card: the per-step loop of run_training, then a
-    fused loop (CHUNK steps between barriers, as a proxy burst runs)."""
-    from kubeshare_tpu_torch.models import common, mnist
+def exclusive(dev, init_fn, loss_fn, batch_fn, steps: int,
+              fused_s: float) -> dict:
+    """One model alone on the card: the per-step loop of run_training, then
+    a fused loop (CHUNK steps between barriers, as a proxy burst runs)."""
+    from kubeshare_tpu_torch.models import common
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
     from kubeshare_tpu_torch.utils.device import synchronize
 
-    res = common.run_training(mnist.init, mnist.loss_fn, mnist.batch_fn,
-                              steps=300, device=dev)
+    res = common.run_training(init_fn, loss_fn, batch_fn, steps=steps,
+                              device=dev)
     check(math.isfinite(res.final_loss) and math.isfinite(res.first_loss),
           f"exclusive loss not finite: {res}")
     check(res.final_loss < res.first_loss,
           f"exclusive loss did not fall: {res.first_loss} -> "
           f"{res.final_loss}")
 
-    params = common.to_device(mnist.init(0), dev)
-    batch = common.to_device(mnist.batch_fn(1), dev)
+    params = common.to_device(init_fn(0), dev)
+    batch = common.to_device(batch_fn(1), dev)
     opt = fused_adam(1e-3)
     state = opt.init(params)
-    step = common.make_train_step(mnist.loss_fn, opt)
+    step = common.make_train_step(loss_fn, opt)
     for _ in range(CHUNK):
         params, state, loss = step(params, state, batch)
     float(loss)
     fused_steps = 0
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 3.0:
+    while time.perf_counter() - t0 < fused_s:
         for _ in range(CHUNK):
             params, state, loss = step(params, state, batch)
         float(loss)
@@ -280,8 +315,11 @@ def exclusive(dev) -> dict:
             "fused_steps": fused_steps + CHUNK}
 
 
-def colocated(dev) -> dict:
-    """Two mnist trainers at request 0.5 through the port's proxy."""
+def colocated(dev, spec: dict, batch_fn, chain_steps: int,
+              measure_s: float) -> dict:
+    """Two trainers of ``spec`` at request 0.5 through the port's proxy,
+    measured for ``measure_s`` seconds; each measured chain call asks for
+    ``chain_steps`` steps."""
     import numpy as np
 
     from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
@@ -289,12 +327,8 @@ def colocated(dev) -> dict:
     from kubeshare_tpu_torch.isolation.client import ProxyClient
     from kubeshare_tpu_torch.isolation.proxy import ChipProxy
     from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
-    from kubeshare_tpu_torch.models import mnist
     from kubeshare_tpu_torch.utils.tree import tree_leaves
 
-    spec = {"program": "train_step", "model": "mnist",
-            "optimizer": {"name": "fused_adam", "lr": 1e-3, "b1": 0.9,
-                          "b2": 0.999, "eps": 1e-8}}
     proxy = ChipProxy(device=dev, scheduler=TokenScheduler(
         WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS))
     proxy.serve()
@@ -311,7 +345,7 @@ def colocated(dev) -> dict:
             # host-side staging only: the proxy alone touches the card
             with ProxyClient("127.0.0.1", proxy.port, name, 0.5, 1.0) as c:
                 carry = c.put_tree(programs.initial_carry(spec, seed))
-                batch = c.put_tree(tuple(mnist.batch_fn(seed + 1)))
+                batch = c.put_tree(tuple(batch_fn(seed + 1)))
                 loop = c.compile_loop(spec, carry, *batch)
                 for _ in range(3):      # seed the burst cost model
                     carry, loss = loop(CHUNK, carry, *batch)
@@ -325,8 +359,8 @@ def colocated(dev) -> dict:
                 used0 = c.usage()["exec_ms_total"]
                 steps = 0
                 start = time.perf_counter()
-                while time.perf_counter() - start < COLOCATED_MEASURE_S:
-                    carry, loss = loop.chain(CHUNK * 8, carry, *batch)
+                while time.perf_counter() - start < measure_s:
+                    carry, loss = loop.chain(chain_steps, carry, *batch)
                     steps += loop.last_n
                     last_loss = c.get(loss)
                     c.free(loss)
@@ -395,6 +429,259 @@ def colocated(dev) -> dict:
             "window_ms": WINDOW_MS}
 
 
+def _flash_inputs(dev, rng, b, s, h, hk, d, dtype, fused=False):
+    """q (b, s, h, d), k and v (b, s, hk, d) in ``dtype``, dO fp32. With
+    ``fused``, q, k and v are strided views of one (b, s, (h + 2 hk) d)
+    tensor, sliced as ``mha_apply`` slices the fused qkv product."""
+    import torch
+
+    randn = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape).astype("float32")).to(dev)
+    dout = randn(b, s, h, d)
+    if not fused:
+        make = lambda heads: randn(b, s, heads, d).to(dtype)
+        return make(h), make(hk), make(hk), dout
+    qkv = randn(b, s, (h + 2 * hk) * d).to(dtype)
+    q = qkv[..., :h * d].reshape(b, s, h, d)
+    k = qkv[..., h * d:(h + hk) * d].reshape(b, s, hk, d)
+    v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
+    return q, k, v, dout
+
+
+def flash_check(dev, rng) -> dict:
+    """Each flash kernel against its plain version on the same inputs: the
+    main path's shape, dense and as the main path gives it (strided views
+    of the fused qkv product), GQA, a window, non-causal and fp32 inputs.
+    The backward passes take the plain forward's lse and D, so each kernel
+    is held alone. Returns each kernel's worst max abs error."""
+    import torch
+
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
+    b, s, h, d = FLASH_SHAPE
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, kv heads, dtype, causal, window, q/k/v strided views)
+    cases = [("main path", h, bf16, True, None, False),
+             ("main path (strided)", h, bf16, True, None, True),
+             ("gqa hk=2", 2, bf16, True, None, False),
+             ("gqa hk=2 (strided)", 2, bf16, True, None, True),
+             ("window 100", h, bf16, True, 100, False),
+             ("non-causal", h, bf16, False, None, False),
+             ("fp32 inputs", h, f32, True, None, False)]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    scale = 1.0 / math.sqrt(d)
+    for label, hk, dtype, causal, window, fused in cases:
+        q, k, v, dout = _flash_inputs(dev, rng, b, s, h, hk, d, dtype,
+                                      fused)
+        check(fused == (not q.is_contiguous()),
+              f"flash {label}: q is {'' if fused else 'not '}contiguous")
+        o, lse = fl.flash_fwd(q, k, v, causal, window, scale)
+        ro, rlse = fl.flash_fwd_reference(q, k, v, causal, window, scale)
+        dcap = (dout * ro).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, rlse, dcap, causal, window, scale)
+        dq = fl.flash_dq(*args)
+        dk, dv = fl.flash_dkv(*args)
+        rdq = fl.flash_dq_reference(*args)
+        rdk, rdv = fl.flash_dkv_reference(*args)
+        torch.cuda.synchronize()
+        parts = []
+        for kernel, name, got, want in (
+                ("fwd", "O", o, ro), ("fwd", "lse", lse, rlse),
+                ("dq", "dQ", dq, rdq), ("dkv", "dK", dk, rdk),
+                ("dkv", "dV", dv, rdv)):
+            atol, rtol = fl.KERNEL_TOL[got.dtype]
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"flash {kernel} {label}: {name} is {got.dtype} "
+                  f"{tuple(got.shape)}, plain {want.dtype} "
+                  f"{tuple(want.shape)}")
+            got, want = got.float(), want.float()
+            err = (got - want).abs()
+            abs_err = float(err.max())
+            rel_err = float((err / want.abs().clamp_min(atol)).max())
+            check(bool(torch.isfinite(got).all())
+                  and bool((err <= atol + rtol * want.abs()).all()),
+                  f"flash {kernel} disagrees with its plain version "
+                  f"({label}, {name}): max abs err {abs_err}, rel "
+                  f"{rel_err}, tolerance atol {atol} rtol {rtol}")
+            worst[kernel] = max(worst[kernel], abs_err)
+            parts.append(f"{name} {abs_err:.2e}/{rel_err:.2e}")
+        log(f"  flash {label} ({dtype}, hk={hk}): ok, max abs/rel err "
+            + ", ".join(parts))
+    return worst
+
+
+def _visible_pairs(s: int, causal: bool, window) -> int:
+    """(q, k) pairs a causal (windowed) row set sees: the work this run's
+    mask leaves, not the s*s the kernels could do."""
+    if not causal:
+        return s * s
+    import numpy as np
+
+    seen = np.arange(1, s + 1)
+    return int(np.minimum(seen, window).sum() if window else seen.sum())
+
+
+def flash_bounds(shape, in_bytes: int, causal=True, window=None) -> dict:
+    """Least time of each pass: each input read once and each output
+    written once over the memory rate, against the visible pairs'
+    operations over the inputs' peak (bf16 tensor cores or fp32)."""
+    b, s, h, d = shape
+    pairs = b * h * _visible_pairs(s, causal, window)
+    q = b * s * h * d * in_bytes
+    kv = 2 * q                       # k and v, hk = h on the main path
+    o32 = b * s * h * d * 4          # O, or dO, in fp32
+    row = b * h * s * 4              # lse or D
+    moved = {"fwd": q + kv + o32 + row,
+             "dq": q + kv + o32 + 2 * row + q,
+             "dkv": q + kv + o32 + 2 * row + kv}
+    peak = PEAK_BF16_FLOPS if in_bytes == 2 else PEAK_FP32_FLOPS
+    out = {}
+    for name, nbytes in moved.items():
+        byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        op_ms = FLASH_OPS_PER_PAIR_DIM[name] * d * pairs / peak * 1e3
+        out[name] = {"bound_ms": max(byte_ms, op_ms),
+                     "bound_by": "bytes" if byte_ms >= op_ms
+                     else "operations",
+                     "bytes": nbytes, "visible_pairs": pairs}
+    return out
+
+
+def flash_timing(dev, rng, shape, iters: int, plain: bool) -> dict:
+    """The three kernels at ``shape`` (bf16, causal) beside their plain
+    versions (when ``plain``) and ``scaled_dot_product_attention`` with
+    ``is_causal=True``: its forward against ours, its backward (dQ, dK and
+    dV in one call) against each of ours, and forward+backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
+    b, s, h, d = shape
+    q, k, v, dout = _flash_inputs(dev, rng, b, s, h, h, d, torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fl.flash_fwd(q, k, v, True, None, scale)
+    dcap = (dout * o).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, dout, lse, dcap, True, None, scale)
+    fns = {"fwd": (partial(fl.flash_fwd, q, k, v, True, None, scale),
+                   partial(fl.flash_fwd_reference, q, k, v, True, None,
+                           scale)),
+           "dq": (partial(fl.flash_dq, *bwd),
+                  partial(fl.flash_dq_reference, *bwd)),
+           "dkv": (partial(fl.flash_dkv, *bwd),
+                   partial(fl.flash_dkv_reference, *bwd))}
+    # the library's own (b, h, s, d) layout, made once outside the timing
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    gt = dout.transpose(1, 2).contiguous().to(torch.bfloat16)
+    sdpa = partial(F.scaled_dot_product_attention, qt, kt, vt,
+                   is_causal=True)
+    out = sdpa()
+
+    def lib_fwd():
+        with torch.no_grad():
+            return sdpa()
+
+    lib = {"fwd": lib_fwd,
+           "bwd": lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                              retain_graph=True),
+           "fwd_bwd": lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt)}
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    res: dict = {}
+    for name, (kernel, ref) in fns.items():
+        runs = {"kernel": [], "plain": []}
+        order = ("plain", "kernel", "kernel", "plain") if plain else \
+            ("kernel", "kernel")
+        for which in order:
+            fn = kernel if which == "kernel" else ref
+            runs[which].append(cuda_time_ms(fn, iters, flush))
+        res[name] = {"ms": min(runs["kernel"]),
+                     "plain_ms": min(runs["plain"]) if plain else None,
+                     "runs_ms": runs}
+    lib_ms = {name: min(cuda_time_ms(fn, iters, flush) for _ in range(2))
+              for name, fn in lib.items()}
+    bounds = flash_bounds(shape, 2)
+    for name in fns:
+        res[name].update(bounds[name])
+        res[name]["library_ms"] = lib_ms["fwd" if name == "fwd" else "bwd"]
+    res["library_ms"] = lib_ms
+    res["kernel_fwd_bwd_ms"] = sum(res[n]["ms"] for n in fns)
+    return res
+
+
+def transformer_step_check(dev) -> dict:
+    """One small transformer train step with flash attention (fp32
+    activations, head dim 32 as at full width) on the card (kernels)
+    against the CPU (plain versions): loss to 1e-5 relative, grads to
+    1e-4 (the flash gradient bar), params as in step_check."""
+    import numpy as np
+    import torch
+
+    from kubeshare_tpu_torch.models import common, transformer
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    lr = 1e-3
+    params = transformer.init(7, seq_len=64, vocab=128, dim=256, layers=2)
+    batch = common.synthetic_token_batch(8, 2, 64, 128)
+    saved = transformer.DTYPE
+    transformer.DTYPE = torch.float32
+    try:
+        out = {}
+        for where in ("cpu", dev):
+            p = common.to_device(params, where)
+            b = common.to_device(batch, where)
+            _, grads = common.value_and_grad(transformer.flash_loss_fn, p, b)
+            opt = fused_adam(lr)
+            step = common.make_train_step(transformer.flash_loss_fn, opt)
+            p, _, loss = step(p, opt.init(p), b)
+            out[str(where)] = (float(loss),
+                               [t.cpu().numpy() for t in tree_leaves(p)],
+                               [t.cpu().numpy() for t in tree_leaves(grads)])
+    finally:
+        transformer.DTYPE = saved
+    (lc, pc, gc), (lg, pg, gg) = out["cpu"], out[str(dev)]
+    check(abs(lc - lg) <= 1e-5 * max(1.0, abs(lc)),
+          f"transformer step loss cuda {lg} vs cpu {lc}")
+    grad_err = max(float(np.abs(a - b).max()) for a, b in zip(gc, gg))
+    check(grad_err <= 1e-4, f"transformer grads cuda vs cpu off by "
+          f"{grad_err}")
+    worst = 0.0
+    for a, b, g in zip(pc, pg, gc):
+        d = np.abs(a - b)
+        check(d.max() <= 2 * lr + 1e-6, f"param moved {d.max()} apart")
+        firm = np.abs(g) > 1e-4
+        if firm.any():
+            check(d[firm].max() <= 1e-6,
+                  f"param with |g|>1e-4 off by {d[firm].max()}")
+            worst = max(worst, float(d[firm].max()))
+    return {"loss_cpu": lc, "loss_cuda": lg, "grad_max_abs_err": grad_err,
+            "param_max_abs_err_firm": worst}
+
+
+def _timed_build(name: str) -> tuple[float, str]:
+    from kubeshare_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    text = build.build(name)
+    return time.perf_counter() - t0, text
+
+
+def _counts() -> dict:
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+    from kubeshare_tpu_torch.ops import fused_adam as fa
+
+    return {"fused_adam": fa.launches,
+            **{f"flash_{k}": n for k, n in fl.launches.items()}}
+
+
+def _reset_counts() -> None:
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+    from kubeshare_tpu_torch.ops import fused_adam as fa
+
+    fa.reset_launches()
+    fl.reset_launches()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument("--out", default="",
@@ -410,8 +697,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from kubeshare_tpu_torch.ops import build
-        from kubeshare_tpu_torch.ops import fused_adam as fa
+        from kubeshare_tpu_torch.models import mnist, transformer
+        from kubeshare_tpu_torch.ops import flash_attention as fl
+        from kubeshare_tpu_torch.utils.tree import tree_leaves
     except ImportError as e:
         print(f"chip_smoke: the kubeshare_tpu_torch package is missing "
               f"({e}); run from the root of a checkout", file=sys.stderr)
@@ -430,12 +718,18 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
     out: dict = {"card": card}
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    text = build.build("fused_adam")
-    out["build_s"] = time.perf_counter() - t0
-    log(f"build: fused_adam {out['build_s']:.1f} s")
-    for line in text.strip().splitlines():
-        log(f"  [fused_adam] {line}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        jobs = {name: pool.submit(_timed_build, name) for name in KERNELS}
+        builds = {name: job.result() for name, job in jobs.items()}
+    out["build_s"] = {name: secs for name, (secs, _) in builds.items()}
+    out["build_wall_s"] = time.perf_counter() - t0
+    for name, (secs, text) in builds.items():
+        log(f"build: {name} {secs:.1f} s")
+        for line in text.strip().splitlines():
+            log(f"  [{name}] {line}")
+    log(f"build: all kernels {out['build_wall_s']:.1f} s wall")
 
     rng = np.random.default_rng(0)
     log("kernel check (kernel vs plain, atol "
@@ -448,33 +742,88 @@ def main(argv=None) -> int:
         f"{adam['library_ms']:.4f} ms, bound {adam['bound_ms']:.4f} ms "
         f"({adam['bound_by']})")
     out["fused_adam"] = dict(adam, max_abs_err=max_err)
+
+    tol = {str(k): v for k, v in fl.KERNEL_TOL.items()}
+    log(f"flash kernel check (kernel vs plain, (atol, rtol) by output "
+        f"dtype {tol}):")
+    flash_err = flash_check(dev, rng)
+    flash = flash_timing(dev, rng, FLASH_SHAPE, 50, plain=True)
+    for name in ("fwd", "dq", "dkv"):
+        r = flash[name]
+        log(f"flash {name} at {FLASH_SHAPE} bf16 causal: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{'forward' if name == 'fwd' else 'backward'} "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    log(f"flash fwd+dq+dkv {flash['kernel_fwd_bwd_ms']:.4f} ms, sdpa "
+        f"forward+backward {flash['library_ms']['fwd_bwd']:.4f} ms")
+    out["flash"] = dict(flash, max_abs_err=flash_err)
+    long = flash_timing(dev, rng, LONG_SHAPE, 5, plain=False)
+    log(f"flash at {LONG_SHAPE} bf16 causal (off the main path, "
+        f"informational): kernel fwd {long['fwd']['ms']:.3f} / dq "
+        f"{long['dq']['ms']:.3f} / dkv {long['dkv']['ms']:.3f} ms, bound "
+        f"{long['fwd']['bound_ms']:.4f} / {long['dq']['bound_ms']:.4f} / "
+        f"{long['dkv']['bound_ms']:.4f} ms ({long['fwd']['bound_by']}); "
+        f"sdpa forward {long['library_ms']['fwd']:.3f}, backward "
+        f"{long['library_ms']['bwd']:.3f}, forward+backward "
+        f"{long['library_ms']['fwd_bwd']:.3f} ms")
+    out["flash_long_context"] = long
+
     out["step_check"] = step_check(dev)
     log(f"train step card vs cpu: {out['step_check']}")
+    out["transformer_step_check"] = transformer_step_check(dev)
+    log(f"transformer train step card vs cpu: "
+        f"{out['transformer_step_check']}")
 
-    # --- main path: counts from 0 -------------------------------------
-    fa.reset_launches()
-    excl = exclusive(dev)
-    excl_launches = fa.launches
-    want = 8 * (excl["plain_steps"] + excl["warmup_steps"]
-                + excl["fused_steps"])
-    check(excl_launches == want,
-          f"exclusive phase: {excl_launches} Adam launches, expected {want}")
-    log(f"exclusive: {json.dumps(excl)}; adam launches {excl_launches}")
-    col = colocated(dev)
-    total_launches = fa.launches
-    col_launches = total_launches - excl_launches
-    measured = sum(c["steps"] for c in col["clients"].values())
-    check(col_launches >= 8 * measured,
-          f"co-located phase: {col_launches} Adam launches for "
-          f"{measured} measured steps")
-    exclusive_sps = max(excl["plain_steps_per_sec"],
-                        excl["fused_steps_per_sec"])
-    col["ratio_to_exclusive"] = (col["aggregate_steps_per_sec"]
-                                 / exclusive_sps)
-    col["adam_launches"] = col_launches
-    log(f"co-located: {json.dumps(col)}")
-    out.update(exclusive=excl, colocated=col,
-               launches={"fused_adam": total_launches},
+    # --- main paths: counts from 0 before each, read after each ---------
+    phases: dict = {}
+    adam_leaves = {"mnist": len(tree_leaves(mnist.init(0))),
+                   "transformer": len(tree_leaves(transformer.init(0)))}
+    for model, mod, loss_fn, steps, fused_s in (
+            ("mnist", mnist, mnist.loss_fn, 300, 3.0),
+            ("transformer", transformer, transformer.flash_loss_fn, 100,
+             2.0)):
+        _reset_counts()
+        excl = exclusive(dev, mod.init, loss_fn, mod.batch_fn, steps,
+                         fused_s)
+        got = _counts()
+        ran = excl["plain_steps"] + excl["warmup_steps"] + excl["fused_steps"]
+        want = {"fused_adam": adam_leaves[model] * ran}
+        if model == "transformer":
+            want.update({f"flash_{k}": transformer.LAYERS * ran
+                         for k in ("fwd", "dq", "dkv")})
+        for kernel, n in want.items():
+            check(got[kernel] == n,
+                  f"{model} exclusive: {got[kernel]} {kernel} launches, "
+                  f"expected {n}")
+        excl["launches"] = got
+        log(f"{model} exclusive: {json.dumps(excl)}")
+
+        spec = LM_SPEC if model == "transformer" else {
+            "program": "train_step", "model": "mnist",
+            "optimizer": LM_SPEC["optimizer"]}
+        _reset_counts()
+        col = colocated(dev, spec, mod.batch_fn, CHAIN_STEPS[model],
+                        COLOCATED_MEASURE_S[model])
+        got = _counts()
+        measured = sum(c["steps"] for c in col["clients"].values())
+        for kernel, n in want.items():
+            per_step = n // ran
+            check(got[kernel] >= per_step * measured,
+                  f"{model} co-located: {got[kernel]} {kernel} launches "
+                  f"for {measured} measured steps")
+        exclusive_sps = max(excl["plain_steps_per_sec"],
+                            excl["fused_steps_per_sec"])
+        col["ratio_to_exclusive"] = (col["aggregate_steps_per_sec"]
+                                     / exclusive_sps)
+        col["launches"] = got
+        log(f"{model} co-located: {json.dumps(col)}")
+        phases[model] = {"exclusive": excl, "colocated": col}
+
+    launches = {k: sum(p[m]["launches"][k] for p in phases.values()
+                       for m in ("exclusive", "colocated"))
+                for k in _counts()}
+    out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -482,14 +831,24 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
 
-    log(f"card: {card}")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_adam", "route": "cuda", "source": ADAM_SOURCE,
-        "replaces": ADAM_REPLACES, "launches": total_launches,
+        "replaces": ADAM_REPLACES, "launches": launches["fused_adam"],
         "max_abs_err": max_err, "ms": adam["ms"],
         "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
-        "bound_by": adam["bound_by"], "library_ms": adam["library_ms"]}]}),
-        flush=True)
+        "bound_by": adam["bound_by"], "library_ms": adam["library_ms"]}]
+    for name in ("fwd", "dq", "dkv"):
+        r = flash[name]
+        kernels.append({
+            "name": f"flash_attention_{name}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[name],
+            "launches": launches[f"flash_{name}"],
+            "max_abs_err": flash_err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(f"seconds: {out['seconds']:.1f}")
+    log(f"card: {card}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,14 +9,19 @@ in-place custom kernel, so in the port a program travels as a named
      "optimizer": {"name": "fused_adam", "lr": 1e-3, "b1": 0.9,
                    "b2": 0.999, "eps": 1e-8}}
 
-and the proxy resolves it against this package's own modules. A resolved
+and the proxy resolves it against this package's own modules, at the
+model module's own sizes. One optional field, ``"attention": "dense" |
+"flash"``, picks the attention body of a model that has one (the
+transformer; what a JAX client says by closing ``flash_attention`` into
+its program); any other field is refused. A resolved
 :class:`Program` is a loop program: ``program(carry, consts) -> (carry,
 aux)`` over flat lists of tensors, the first ``ncarry`` of its arguments
 threading from one step to the next. Arbitrary user programs (through
 ``torch.export`` or the attach path) are later work.
 
 ``train_step``'s carry is ``(params, opt_state)`` flattened in tree order
-(dict keys sorted), its consts the batch ``(x, y)``, its aux the loss.
+(dict keys sorted), its consts the model's batch (``(x, y)`` images and
+labels, or ``(tokens, targets)``), its aux the loss.
 The optimizer updates the carry IN PLACE: the tensors a step returns are
 the tensors it was given, which is why the proxy consumes (forgets) a
 loop program's carry handles on every dispatch.
@@ -35,6 +40,8 @@ from ..ops.fused_adam import fused_adam
 from ..utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PROGRAMS = ("train_step",)
+SPEC_FIELDS = ("program", "model", "optimizer", "attention")
+ATTENTION = ("dense", "flash")
 _ADAM_DEFAULTS = {"lr": 1e-3, "b1": 0.9, "b2": 0.999, "eps": 1e-8}
 
 _TORCH_DTYPES = {
@@ -68,6 +75,10 @@ class Program:
     as the JAX proxy counts it)."""
 
     def __init__(self, spec: dict, in_meta: list, ncarry: int):
+        unknown = sorted(set(spec) - set(SPEC_FIELDS))
+        if unknown:
+            raise ValueError(f"unknown spec fields {unknown}; have "
+                             f"{SPEC_FIELDS}")
         if spec.get("program") not in PROGRAMS:
             raise ValueError(f"unknown program {spec.get('program')!r}; "
                              f"have {PROGRAMS}")
@@ -82,6 +93,7 @@ class Program:
         if unknown:
             raise ValueError(f"unknown fused_adam options {sorted(unknown)}")
         hyper = {k: float(opt.get(k, v)) for k, v in _ADAM_DEFAULTS.items()}
+        loss_fn = _loss_fn(model, spec.get("attention", "dense"))
 
         leaves, self._carry_def = tree_flatten(_carry(model.init(0)))
         want = [_meta(np.shape(a), "float32") for a in leaves]
@@ -90,23 +102,13 @@ class Program:
                 f"train_step carry for {spec['model']} must be (params, "
                 f"fused_adam state): {len(want)} float32 leaves "
                 f"{want}, got {self.in_meta[:ncarry]}")
-        consts = self.in_meta[ncarry:]
-        x_like = model.batch_fn(0)[0]
-        if (len(consts) != 2 or consts[0][1] != "float32"
-                or consts[0][0][1:] != x_like.shape[1:]
-                or len(consts[1][0]) != 1
-                or consts[1][0][0] != consts[0][0][0]
-                or not consts[1][1].startswith("int")):
-            raise ValueError(
-                f"train_step consts are the batch (x, y): x float32 "
-                f"(B, {', '.join(map(str, x_like.shape[1:]))}), y int (B,); "
-                f"got {consts}")
+        _check_consts(model, spec["model"], self.in_meta[ncarry:])
         self.out_meta = want + [((), "float32")]
         self.naux = 1
         self.out_nbytes = sum(
             int(np.prod(s, dtype=np.int64)) * np.dtype(d).itemsize
             for s, d in self.out_meta)
-        self._step = make_train_step(model.loss_fn, fused_adam(**hyper))
+        self._step = make_train_step(loss_fn, fused_adam(**hyper))
 
     @property
     def key(self) -> str:
@@ -132,6 +134,39 @@ def initial_carry(spec: dict, seed: int = 0) -> tuple[dict, dict]:
     """Host-side ``(params, opt_state)`` for ``spec``'s model, made from
     ``seed``, as numpy trees ready for ``ProxyClient.put_tree``."""
     return _carry(get_model(str(spec["model"])).init(seed))
+
+
+def _loss_fn(model, attention: str):
+    """The model's loss with the spec's attention body."""
+    if attention not in ATTENTION:
+        raise ValueError(f"attention must be one of {ATTENTION}, got "
+                         f"{attention!r}")
+    if attention == "dense":
+        return model.loss_fn
+    if not hasattr(model, "flash_loss_fn"):
+        raise ValueError(f"{model.__name__} has no attention to make flash")
+    return model.flash_loss_fn
+
+
+def _check_consts(model, name: str, consts: list) -> None:
+    """The consts are one batch of the model: as many arrays as its
+    ``batch_fn`` makes, each of the same rank, trailing shape and kind
+    (float32, or any int), all with one batch size."""
+    like = [np.asarray(a) for a in model.batch_fn(0)]
+
+    def fits(meta, a) -> bool:
+        shape, dtype = meta
+        kind = "f" if dtype == "float32" else (
+            "i" if dtype.startswith("int") else None)
+        return (len(shape) == a.ndim and shape[1:] == a.shape[1:]
+                and kind == a.dtype.kind)
+
+    if (len(consts) != len(like) or len({s[:1] for s, _ in consts}) != 1
+            or not all(map(fits, consts, like))):
+        want = [(f"(B, {', '.join(map(str, a.shape[1:]))})",
+                 "float32" if a.dtype.kind == "f" else "int") for a in like]
+        raise ValueError(f"train_step consts for {name} are its "
+                         f"batch {want}; got {consts}")
 
 
 def _carry(params: dict) -> tuple[dict, dict]:

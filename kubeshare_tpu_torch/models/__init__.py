@@ -3,7 +3,7 @@ numpy arrays in the JAX package's layout), ``loss_fn(params, batch)``,
 ``batch_fn(seed)`` and a ``python -m kubeshare_tpu_torch.models.<name>``
 CLI; ``common.run_training`` provides the timed loop."""
 
-MODEL_NAMES = ("mnist", "tinymlp")
+MODEL_NAMES = ("mnist", "tinymlp", "transformer")
 
 
 def get_model(name: str):

@@ -50,12 +50,15 @@ def to_device(tree, device) -> object:
 
 def value_and_grad(loss_fn: Callable, params, batch):
     """``(loss, grads)`` of ``loss_fn(params, batch)`` with respect to
-    every leaf of ``params``; ``params`` itself is left untouched."""
+    every leaf of ``params``; ``params`` itself is left untouched. A leaf
+    the loss does not use gets a zero gradient, as under ``jax.grad`` (the
+    transformer's position table with RoPE on)."""
     leaves, treedef = tree_flatten(params)
     req = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
         loss = loss_fn(tree_unflatten(treedef, req), batch)
-        grads = torch.autograd.grad(loss, req)
+        grads = torch.autograd.grad(loss, req, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), tree_unflatten(treedef, list(grads))
 
 
@@ -82,6 +85,16 @@ def synthetic_image_batch(seed: int, batch_size: int, hw: int, channels: int,
     x = rng.standard_normal((batch_size, hw, hw, channels)).astype(np.float32)
     y = rng.integers(0, classes, (batch_size,)).astype(np.int64)
     return x, y
+
+
+def synthetic_token_batch(seed: int, batch_size: int, seq_len: int,
+                          vocab: int) -> tuple[np.ndarray, np.ndarray]:
+    """One token batch made from ``seed``: int tokens ``(B, S+1)`` split
+    into next-token ``(inputs, targets)``, each ``(B, S)``."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (batch_size, seq_len + 1)).astype(
+        np.int64)
+    return tokens[:, :-1], tokens[:, 1:]
 
 
 def run_training(init_fn: Callable, loss_fn: Callable, batch_fn: Callable,

@@ -1,8 +1,9 @@
 """Layer primitives as plain functions over parameter dicts.
 
-Counterpart of ``kubeshare_tpu/ops/layers.py`` for the layers mnist and
-tinymlp use: dense, conv2d and max-pool. The public layouts are the JAX
-package's, so a parameter tree crosses between the two unchanged:
+Counterpart of ``kubeshare_tpu/ops/layers.py`` for the layers mnist,
+tinymlp and the transformer use: dense, conv2d, max-pool and layernorm.
+The public layouts are the JAX package's, so a parameter tree crosses
+between the two unchanged:
 
 - activations are NHWC;
 - conv ``w`` is HWIO ``(kh, kw, in, out)``, dense ``w`` is ``(in, out)``.
@@ -78,3 +79,21 @@ def max_pool(x: torch.Tensor, window: int = 2,
     stride = stride or window
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
     return y.permute(0, 2, 3, 1)
+
+
+# --- layernorm ---------------------------------------------------------------
+
+def layernorm_init(dim: int) -> dict:
+    return {"scale": np.ones((dim,), np.float32),
+            "bias": np.zeros((dim,), np.float32)}
+
+
+def layernorm_apply(params: dict, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Normalize the trailing axis in fp32 with the population variance,
+    then cast back to the input dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)

@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
-"""Where an mnist train step of the PyTorch/CUDA port spends its time.
+"""Where a train step of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_step_profile.py [--steps 100] [--out result.json]
-                                          [--trace trace.json]
+    python3 scripts/torch_step_profile.py [--model mnist|transformer]
+        [--steps 100] [--out result.json] [--trace trace.json]
 
-Needs one CUDA card. Runs the port's mnist at full width (batch 128, bf16
-activations, fused-Adam kernel) two ways, as the north-star path does:
+Needs one CUDA card. Runs the port's model at full width with the
+fused-Adam kernel, two ways, as the main path does:
+
+- ``mnist`` (default): batch 128, bf16 activations;
+- ``transformer``: batch 8, seq 256, vocab 4096, dim 256, 8 heads, 4
+  layers, bf16, with the flash-attention kernels as the attention body.
+
+The two ways:
 
 - ``per_step``: one step, then a host read of the loss (the exclusive
   loop of ``run_training``);
@@ -15,8 +21,8 @@ activations, fused-Adam kernel) two ways, as the north-star path does:
 For each it reports the wall time per step without the profiler, and
 under ``torch.profiler`` the device time per step (the sum of kernel
 times), the device's idle share of the wall time (unprofiled and
-profiled), the fused-Adam kernel's share of device time and the top
-kernels by device time. Prints one JSON object as its last line.
+profiled), each hand-written kernel's time and share of device time and
+the top kernels by device time. Prints one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -29,6 +35,12 @@ import sys
 import time
 
 
+#: the port's kernels and a substring of their CUDA function names
+KERNEL_TAGS = {"fused_adam": "adam_", "flash_fwd": "flash_fwd_kernel",
+               "flash_dq": "flash_dq_kernel",
+               "flash_dkv": "flash_dkv_kernel"}
+
+
 def _self_device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         value = getattr(evt, name, None)
@@ -39,6 +51,8 @@ def _self_device_us(evt) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="torch_step_profile.py")
+    parser.add_argument("--model", choices=("mnist", "transformer"),
+                        default="mnist")
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--out", default="")
     parser.add_argument("--trace", default="",
@@ -53,22 +67,27 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from kubeshare_tpu_torch.models import common, mnist
+    from kubeshare_tpu_torch.models import common, mnist, transformer
     from kubeshare_tpu_torch.ops import build
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
 
+    model, loss_fn = {"mnist": (mnist, mnist.loss_fn),
+                      "transformer": (transformer,
+                                      transformer.flash_loss_fn)}[args.model]
     build.load("fused_adam")
+    if args.model == "transformer":
+        build.load("flash_attention")
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    params = common.to_device(mnist.init(0), dev)
-    batch = common.to_device(mnist.batch_fn(1), dev)
+    params = common.to_device(model.init(0), dev)
+    batch = common.to_device(model.batch_fn(1), dev)
     opt = fused_adam(1e-3)
     state = opt.init(params)
-    step = common.make_train_step(mnist.loss_fn, opt)
+    step = common.make_train_step(loss_fn, opt)
 
     def per_step():
         nonlocal params, state
@@ -84,7 +103,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
 
     result = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "steps": args.steps}
+              "cuda": torch.version.cuda, "model": args.model,
+              "steps": args.steps}
     for name, fn in (("per_step", per_step), ("burst", burst)):
         fn()                                  # warm up
         torch.cuda.synchronize(dev)
@@ -106,8 +126,11 @@ def main(argv=None) -> int:
                 if str(e.device_type).endswith("CUDA")]
         rows = [r for r in rows if r[1] > 0]
         device_ms = sum(r[1] for r in rows)
-        adam_ms = sum(r[1] for r in rows if "adam_" in r[0]
-                      and "_fused_adam" not in r[0])
+        # the port's own kernels, by the names of their CUDA functions
+        # (torch's _fused_adam, never called by the port, excluded)
+        ours = {name: sum(r[1] for r in rows if tag in r[0]
+                          and "_fused_adam" not in r[0])
+                for name, tag in KERNEL_TAGS.items()}
         rows.sort(key=lambda r: -r[1])
         result[name] = {
             "wall_ms_per_step": wall_ms,
@@ -118,9 +141,10 @@ def main(argv=None) -> int:
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "device_idle_share_profiled": max(
                 0.0, 1.0 - device_ms / prof_wall_ms),
-            "fused_adam_ms_per_step": adam_ms,
-            "fused_adam_share_of_device": (adam_ms / device_ms
-                                           if device_ms else None),
+            "kernel_ms_per_step": ours,
+            "kernel_share_of_device": {
+                k: (ms / device_ms if device_ms else None)
+                for k, ms in ours.items()},
             "kernels_per_step": sum(r[2] for r in rows) / args.steps,
             "top": [{"name": k[:90], "ms_per_step": ms,
                      "calls_per_step": c / args.steps}

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from kubeshare_tpu_torch.models import common, mnist
+from kubeshare_tpu_torch.ops import flash_attention as tfl
 from kubeshare_tpu_torch.ops import fused_adam as tfa
 from kubeshare_tpu_torch.utils.tree import tree_leaves
 
@@ -82,3 +83,89 @@ def test_mnist_train_step_card_matches_cpu(cuda, monkeypatch):
         np.testing.assert_allclose(b, a, atol=2 * lr + 1e-6, rtol=0)
         firm = np.abs(g) > 1e-4
         np.testing.assert_allclose(b[firm], a[firm], atol=1e-5, rtol=0)
+
+
+# --- flash attention ---------------------------------------------------------
+
+def _qkv(cuda, b, s, h, hk, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    make = lambda heads: torch.from_numpy(rng.standard_normal(
+        (b, s, heads, d)).astype(np.float32)).to(cuda, dtype)
+    return make(h), make(hk), make(hk)
+
+
+def _assert_kernel_close(got, want):
+    atol, rtol = tfl.KERNEL_TOL[got.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+FLASH_SHAPES = [
+    # (b, s, h, hk, d, dtype, causal, window)
+    (8, 256, 8, 8, 32, torch.bfloat16, True, None),    # the main path
+    (8, 256, 8, 2, 32, torch.bfloat16, True, None),    # GQA
+    (8, 256, 8, 8, 32, torch.bfloat16, True, 100),     # window
+    (8, 256, 8, 8, 32, torch.bfloat16, False, None),
+    (8, 256, 8, 8, 32, torch.float32, True, None),
+    (2, 48, 4, 1, 8, torch.float32, True, 7),          # ragged tiles, MQA
+    (1, 80, 2, 2, 8, torch.bfloat16, False, None),
+    (2, 128, 4, 2, 8, torch.bfloat16, True, None),     # the small preset
+]
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,dtype,causal,window", FLASH_SHAPES)
+def test_flash_kernels_match_plain_on_card(cuda, b, s, h, hk, d, dtype,
+                                           causal, window):
+    q, k, v = _qkv(cuda, b, s, h, hk, d, dtype)
+    dout = torch.randn(b, s, h, d, device=cuda)
+    scale = 1.0 / np.sqrt(d)
+    before = dict(tfl.launches)
+    o, lse = tfl.flash_fwd(q, k, v, causal, window, scale)
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, causal, window, scale)
+    _assert_kernel_close(o, ro)
+    _assert_kernel_close(lse, rlse)
+    dcap = (dout * ro).sum(-1).transpose(1, 2)
+    dq = tfl.flash_dq(q, k, v, dout, rlse, dcap, causal, window, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, dout, rlse, dcap, causal, window, scale)
+    rdq = tfl.flash_dq_reference(q, k, v, dout, rlse, dcap, causal, window,
+                                 scale)
+    rdk, rdv = tfl.flash_dkv_reference(q, k, v, dout, rlse, dcap, causal,
+                                       window, scale)
+    torch.cuda.synchronize()
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        _assert_kernel_close(got, want)
+    assert {n: tfl.launches[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+
+
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    """flash_attention_lse through autograd on strided views of one fused
+    product (the transformer's layout), card against CPU, fp32."""
+    rng = np.random.default_rng(5)
+    fused = rng.standard_normal((2, 64, 8 * 8 + 2 * 2 * 8)).astype(
+        np.float32)
+    w = torch.from_numpy(rng.standard_normal((2, 64, 8, 8)).astype(
+        np.float32))
+    out = {}
+    for where in ("cpu", cuda):
+        f = torch.tensor(fused, device=where, requires_grad=True)
+        q = f[..., :64].reshape(2, 64, 8, 8)
+        k = f[..., 64:80].reshape(2, 64, 2, 8)
+        v = f[..., 80:].reshape(2, 64, 2, 8)
+        o, lse = tfl.flash_attention_lse(q, k, v, block_q=32, block_k=32,
+                                         window=20)
+        ((o * w.to(where)).sum() + torch.sin(lse).sum()).backward()
+        out[str(where)] = (o.detach().cpu(), f.grad.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_refuses_what_the_kernels_do_not_take(cuda):
+    for d in (16, 64, 128):
+        q, k, v = _qkv(cuda, 1, 32, 2, 2, d, torch.float32)
+        with pytest.raises(ValueError, match="head dims"):
+            tfl.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda, 1, 32, 2, 2, 32, torch.float16)
+    with pytest.raises(TypeError):
+        tfl.flash_attention(q, k, v)

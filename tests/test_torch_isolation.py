@@ -3,6 +3,8 @@ the frozen wire, and a CPU ``ChipProxy`` driven by threaded clients."""
 
 import threading
 import time
+import types
+from functools import partial
 
 import numpy as np
 import pytest
@@ -15,12 +17,17 @@ from kubeshare_tpu_torch.isolation.client import ProxyClient, RemoteBuffer
 from kubeshare_tpu_torch.isolation.proxy import ChipProxy
 from kubeshare_tpu_torch.isolation.tokensched import (PyTokenCore,
                                                       TokenScheduler)
-from kubeshare_tpu_torch.models import mnist, tinymlp
+from kubeshare_tpu_torch.models import common, mnist, tinymlp, transformer
+from kubeshare_tpu_torch.ops.flash_attention import flash_attention
 from kubeshare_tpu_torch.utils.tree import tree_leaves
 
 WINDOW, BASE, MIN = 1000.0, 100.0, 10.0
 TINY = {"program": "train_step", "model": "tinymlp",
         "optimizer": {"name": "fused_adam", "lr": 1e-2}}
+LM = {"program": "train_step", "model": "transformer", "attention": "flash",
+      "optimizer": {"name": "fused_adam", "lr": 1e-2}}
+# the transformer the proxy resolves in these tests (see ``small_lm``)
+SMALL_LM = {"seq_len": 32, "vocab": 64, "dim": 32, "layers": 1}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -340,3 +347,143 @@ def test_proxy_unregister_frees_session(proxy):
     c.close()
     assert "gone" not in proxy.hbm_accounting()
     assert "gone" not in proxy.scheduler.accounting()["clients"]
+
+
+# --- transformer through the proxy -------------------------------------------
+
+def _lm_batch(seed):
+    return common.synthetic_token_batch(seed, 2, 32, 64)
+
+
+@pytest.fixture
+def small_lm(monkeypatch):
+    """The proxy resolves "transformer" to the LM at SMALL_LM's sizes: a
+    spec cannot size a model, so the test swaps the module the proxy
+    finds (the proxy runs in this process)."""
+    small = types.SimpleNamespace(
+        __name__=transformer.__name__,
+        init=partial(transformer.init, **SMALL_LM),
+        loss_fn=transformer.loss_fn, flash_loss_fn=transformer.flash_loss_fn,
+        batch_fn=partial(common.synthetic_token_batch, batch_size=2,
+                         seq_len=32, vocab=64))
+    real = programs.get_model
+    monkeypatch.setattr(programs, "get_model", lambda name: small
+                        if name == "transformer" else real(name))
+
+
+def test_two_clients_train_transformer_with_flash(proxy, small_lm,
+                                                  monkeypatch):
+    """Two threaded clients train a small transformer whose attention is
+    the flash op, through compile_loop and chain: int token consts cross
+    put, both make progress and the loss falls."""
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return flash_attention(*args, **kwargs)
+
+    monkeypatch.setattr(transformer, "flash_attention", counted)
+    results, errors = {}, {}
+
+    def trainer(name, seed):
+        try:
+            with ProxyClient("127.0.0.1", proxy.port, name, 0.5, 1.0,
+                             timeout=60) as c:
+                batch = _lm_batch(seed + 1)
+                carry = c.put_tree(programs.initial_carry(LM, seed))
+                consts = c.put_tree(tuple(batch))
+                assert [b.dtype for b in consts] == ["int64", "int64"]
+                np.testing.assert_array_equal(c.get(consts[0]), batch[0])
+                loop = c.compile_loop(LM, carry, *consts)
+                carry, loss = loop(1, carry, *consts)
+                first = float(c.get(loss))
+                steps = 0
+                for _ in range(4):
+                    carry, loss = loop.chain(16, carry, *consts)
+                    steps += loop.last_n
+                    c.free(loss)
+                carry, loss = loop(1, carry, *consts)
+                results[name] = (steps, first, float(c.get(loss)))
+        except BaseException as e:   # surfaced below
+            errors[name] = e
+
+    threads = [threading.Thread(target=trainer, args=(n, s))
+               for n, s in (("lm-a", 1), ("lm-b", 2))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=240)
+        assert not t.is_alive()
+    if errors:
+        raise next(iter(errors.values()))
+    for steps, first, last in results.values():
+        assert steps >= 4
+        assert np.isfinite(last) and last < first
+    assert calls       # the flash op ran inside the proxy's programs
+
+
+def test_programs_keep_separate_cost_models(proxy, small_lm):
+    """A transformer program and an mnist program on one proxy: two
+    program keys, two cost models, each timed by its own bursts."""
+    with ProxyClient("127.0.0.1", proxy.port, "lm", 0.5, 1.0,
+                     timeout=60) as a, \
+            ProxyClient("127.0.0.1", proxy.port, "conv", 0.5, 1.0,
+                        timeout=60) as b:
+        mspec = {"program": "train_step", "model": "mnist"}
+        carry, consts = _lm_setup(a)
+        la = a.compile_loop(LM, carry, *consts)
+        mb = b.put_tree(tuple(x[:8] for x in mnist.batch_fn(3)))
+        mc = b.put_tree(programs.initial_carry(mspec, 0))
+        lb = b.compile_loop(mspec, mc, *mb)
+        assert len(proxy._costs) == 2
+        ca, cb = (_executable(proxy, name).cost for name in ("lm", "conv"))
+        assert ca is not cb
+        for _ in range(2):      # warm-up burst, then the one that times
+            carry, loss = la(4, carry, *consts)
+            a.free(loss)
+            mc, loss = lb(4, mc, *mb)
+            b.free(loss)
+        assert ca.step_ms > 0.0 and cb.step_ms > 0.0
+        assert ca.step_ms != cb.step_ms
+
+
+def _lm_setup(c):
+    carry = c.put_tree(programs.initial_carry(LM, 0))
+    return carry, c.put_tree(tuple(_lm_batch(1)))
+
+
+def _executable(proxy, name):
+    (exe,) = proxy._sessions[name].executables.values()
+    return exe
+
+
+def test_compile_validates_model_fields(proxy, small_lm):
+    with ProxyClient("127.0.0.1", proxy.port, "fields", 0.5, 1.0,
+                     timeout=60) as c:
+        carry, consts = _lm_setup(c)
+        with pytest.raises(RuntimeError, match="attention"):
+            c.compile_loop(dict(LM, attention="ring"), carry, *consts)
+        with pytest.raises(RuntimeError, match="unknown spec fields"):
+            c.compile_loop(dict(LM, init={"experts": 2}), carry, *consts)
+        floats = c.put_tree(tuple(x.astype(np.float32)
+                                  for x in _lm_batch(1)))
+        with pytest.raises(RuntimeError, match="consts"):
+            c.compile_loop(LM, carry, *floats)
+        tb = c.put_tree(tuple(tinymlp.batch_fn(0)))
+        tc = c.put_tree(programs.initial_carry(TINY, 0))
+        with pytest.raises(RuntimeError, match="carry"):
+            c.compile_loop(LM, tc, *consts)
+        with pytest.raises(RuntimeError, match="no attention"):
+            c.compile_loop(dict(TINY, attention="flash"), tc, *tb)
+
+
+def test_spec_cannot_size_the_model(monkeypatch):
+    """A spec that asks for model sizes is refused before anything is
+    built: the proxy builds only the model module's own sizes."""
+    built = []
+    monkeypatch.setattr(transformer, "init",
+                        lambda *a, **k: built.append(1))
+    spec = dict(LM, init={"vocab": 10_000_000, "dim": 10_000})
+    with pytest.raises(ValueError, match="unknown spec fields"):
+        programs.resolve(spec, [((4,), "float32")], 1)
+    assert not built

@@ -30,9 +30,12 @@ def _imported_roots(path):
 def test_port_sources_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("kubeshare_tpu_torch/ops/fused_adam.py",
+                 "kubeshare_tpu_torch/ops/flash_attention.py",
+                 "kubeshare_tpu_torch/models/transformer.py",
                  "kubeshare_tpu_torch/isolation/proxy.py", "chip_smoke.py"):
         assert want in names
-    assert (ROOT / "kubeshare_tpu_torch/csrc/fused_adam.cu").exists()
+    for kernel in ("fused_adam", "flash_attention"):
+        assert (ROOT / f"kubeshare_tpu_torch/csrc/{kernel}.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -81,3 +84,22 @@ def test_model_cli_defaults_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         common.main_cli("tinymlp", tinymlp.init, tinymlp.loss_fn,
                         tinymlp.batch_fn, argv=["--steps", "1"])
+
+
+def test_transformer_entry_points_default_to_cuda(no_cuda):
+    from kubeshare_tpu_torch.models import common, transformer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.run_training(transformer.init, transformer.flash_loss_fn,
+                            transformer.batch_fn, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.main_cli("transformer", transformer.init, transformer.loss_fn,
+                        transformer.batch_fn, argv=["--steps", "1"])
+
+
+def test_flash_attention_runs_on_cuda_or_cpu_only():
+    from kubeshare_tpu_torch.ops.flash_attention import flash_attention
+
+    q = torch.zeros(1, 16, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)

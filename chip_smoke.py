@@ -8,11 +8,15 @@ failing the run (non-zero exit, no result line) when it fails:
 
 1. the card's name and power limit (``nvidia-smi``), torch/CUDA versions;
 2. the build of every hand-written kernel from ``kubeshare_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together;
+   one ``nvcc`` per source, all started together, and the tensor-core
+   instructions (HMMA) of the bf16 flash forward counted in its SASS;
 3. each kernel held against its plain PyTorch version on the card, at the
-   shapes the main path gives it, then timed beside its plain version,
-   one PyTorch library call computing the same function, and its bound
-   (plus one flash-attention timing at seq 8192, off the main path);
+   shapes the main path gives it (fused Adam also over the whole mnist
+   and transformer trees in one multi-tensor launch; flash attention also
+   through autograd in bf16, where its forward's lse feeds the backward
+   kernels), then timed beside its plain version, one PyTorch library
+   call computing the same function, and its bound (plus flash attention
+   at seq 8192, off the main path);
 4. small-input checks of whole train steps, card against CPU: mnist, and
    the transformer with flash attention;
 5. the main paths, each with every kernel's launch count set to 0 just
@@ -38,6 +42,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -111,16 +116,43 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+_cycles_per_ms = None
+
+
+def _sleep_ms(ms: float) -> None:
+    """Keep the card busy for about ``ms``: ``torch.cuda._sleep`` spins a
+    number of clock cycles, calibrated once against CUDA events."""
+    global _cycles_per_ms
+    import torch
+
+    if _cycles_per_ms is None:
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        torch.cuda._sleep(10_000_000)
+        e.record()
+        e.synchronize()
+        _cycles_per_ms = 10_000_000 / s.elapsed_time(e)
+    torch.cuda._sleep(int(ms * _cycles_per_ms))
+
+
 def cuda_time_ms(fn, iters: int, flush) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, CUDA events
+    """Mean device time of ``fn()`` over ``iters`` calls: CUDA events
     around each call, with the L2 cache flushed before each (outside the
-    events): in a train step the optimizer finds its state cold."""
+    events): in a train step the optimizer finds its state cold. The card
+    first sleeps while the host queues every call, so the events time the
+    card's work, not gaps where it waits for the host."""
     import torch
 
     for _ in range(5):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once_ms = (time.perf_counter() - t0) * 1e3
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    _sleep_ms(min(2 * iters * (once_ms + 0.1), 5000.0))
     for s, e in zip(starts, ends):
         flush.zero_()
         s.record()
@@ -130,10 +162,43 @@ def cuda_time_ms(fn, iters: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def host_time_ms(fn, iters: int) -> float:
+    """Host time of one ``fn()`` call: ``iters`` calls back to back, no
+    synchronization among them. Where the card is the slower of the two,
+    this reads the card's rate instead."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def _check_adam_close(label: str, pairs) -> float:
+    """Kernel results against plain ones, element by element at
+    KERNEL_ATOL/RTOL. Returns the max abs error."""
+    worst = 0.0
+    for got, want in pairs:
+        err = (got - want).abs()
+        bad = err > KERNEL_ATOL + KERNEL_RTOL * want.abs()
+        check(not bool(bad.any()),
+              f"fused_adam disagrees with its plain version at {label}: "
+              f"max abs err {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
 def adam_check(dev, rng) -> float:
     """Kernel against plain version at every leaf shape of both main paths
     (mnist and the full-width transformer), a ragged length, a large one
-    and an unaligned view. Returns max abs error."""
+    and an unaligned view, each a one-leaf table; then the whole mnist and
+    transformer trees in one multi-tensor launch each, their first leaf an
+    unaligned view. Returns max abs error."""
     import numpy as np
     import torch
 
@@ -141,10 +206,13 @@ def adam_check(dev, rng) -> float:
     from kubeshare_tpu_torch.ops import fused_adam as fa
     from kubeshare_tpu_torch.utils.tree import tree_leaves
 
-    leaves = tree_leaves(mnist.init(0)) + tree_leaves(transformer.init(0))
-    shapes = list(dict.fromkeys(np.shape(a) for a in leaves))
+    trees = {"mnist": tree_leaves(mnist.init(0)),
+             "transformer": tree_leaves(transformer.init(0))}
+    shapes = list(dict.fromkeys(np.shape(a) for leaves in trees.values()
+                                for a in leaves))
     shapes += [(37,), (1 << 20,)]
     cases = [(s, 0) for s in shapes] + [((1000,), 1)]   # 4-byte offset
+    step = torch.tensor(3.0, device=dev)
     worst = 0.0
     for shape, offset in cases:
         n = int(np.prod(shape))
@@ -152,37 +220,56 @@ def adam_check(dev, rng) -> float:
                 for _ in range(4)]
         host[3] = np.abs(host[3])
         base = [torch.from_numpy(h).to(dev) for h in host]
-        step = torch.tensor(3.0, device=dev)
         views = lambda: [b.clone()[offset:].view(shape) for b in base]
         kp, kg, km, kv = views()
         fa.adam_update(kp, kg, km, kv, step, lr=1e-2)
         rp, rg, rm, rv = views()
         fa.adam_update_reference(rp, rg, rm, rv, step, lr=1e-2)
         torch.cuda.synchronize()
-        for got, want in ((kp, rp), (km, rm), (kv, rv)):
-            err = (got - want).abs()
-            bad = err > KERNEL_ATOL + KERNEL_RTOL * want.abs()
-            check(not bool(bad.any()),
-                  f"fused_adam disagrees with its plain version at "
-                  f"{shape} (offset {offset}): max abs err "
-                  f"{float(err.max())}")
-            worst = max(worst, float(err.max()))
+        label = f"{shape} (offset {offset})"
+        worst = max(worst, _check_adam_close(
+            label, ((kp, rp), (km, rm), (kv, rv))))
         log(f"  fused_adam {shape}{' +4B offset' if offset else ''}: "
             f"ok, max abs err {float((kp - rp).abs().max()):.3e}")
+    for model, leaves in trees.items():
+        shapes = [np.shape(a) for a in leaves]
+        host = [[rng.standard_normal(int(np.prod(s)) + (j == 0)).astype(
+            np.float32) for j, s in enumerate(shapes)] for _ in range(4)]
+        host[3] = [np.abs(a) for a in host[3]]
+        base = [[torch.from_numpy(a).to(dev) for a in h] for h in host]
+        # leaf 0 starts 4 bytes into its storage: the scalar path
+        tree = lambda: [[b.clone()[(j == 0):].view(s)
+                         for j, (b, s) in enumerate(zip(bs, shapes))]
+                        for bs in base]
+        kern, plain = tree(), tree()
+        check(kern[0][0].data_ptr() % 16 != 0, "leaf 0 is aligned")
+        before = fa.launches
+        fa.adam_update_tree(*kern, step, lr=1e-2)
+        launched = fa.launches - before
+        for p, g, m, v in zip(*plain):
+            fa.adam_update_reference(p, g, m, v, step, lr=1e-2)
+        torch.cuda.synchronize()
+        check(launched == fa.tree_launches(leaves) == 1,
+              f"fused_adam over the {model} tree: {launched} launches")
+        err = _check_adam_close(f"the {model} tree", [
+            (k, r) for i in (0, 2, 3) for k, r in zip(kern[i], plain[i])])
+        worst = max(worst, err)
+        log(f"  fused_adam {model} tree ({len(leaves)} leaves, leaf 0 "
+            f"+4B offset) in {launched} launch: ok, max abs err {err:.3e}")
     return worst
 
 
-def adam_timing(dev, rng) -> dict:
-    """Kernel, plain version and torch._fused_adam_ over the whole mnist
-    tree (one optimizer step), plus the bound of that work."""
+def adam_timing(dev, rng, init_fn) -> dict:
+    """Kernel (one multi-tensor launch), plain version (leaf by leaf) and
+    torch._fused_adam_ over the whole tree of ``init_fn`` (one optimizer
+    step), plus the bound of that work."""
     import numpy as np
     import torch
 
-    from kubeshare_tpu_torch.models import mnist
     from kubeshare_tpu_torch.ops import fused_adam as fa
     from kubeshare_tpu_torch.utils.tree import tree_leaves
 
-    leaves = [np.asarray(a) for a in tree_leaves(mnist.init(0))]
+    leaves = [np.asarray(a) for a in tree_leaves(init_fn(0))]
     n = sum(a.size for a in leaves)
     mk = lambda f: [torch.from_numpy(f(a)).to(dev) for a in leaves]
     ps = mk(lambda a: a.copy())
@@ -193,8 +280,7 @@ def adam_timing(dev, rng) -> dict:
     hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
 
     def kernel():
-        for p, g, m, v in zip(ps, gs, ms, vs):
-            fa.adam_update(p, g, m, v, count, **hyper)
+        fa.adam_update_tree(ps, gs, ms, vs, count, **hyper)
 
     def plain():
         for p, g, m, v in zip(ps, gs, ms, vs):
@@ -217,10 +303,13 @@ def adam_timing(dev, rng) -> dict:
     byte_ms = (n * ADAM_BYTES_PER_PARAM + 4) / PEAK_BYTES_PER_S * 1e3
     op_ms = n * ADAM_OPS_PER_PARAM / PEAK_FP32_FLOPS * 1e3
     return {"params": int(n), "leaves": len(leaves),
+            "launches": fa.tree_launches(leaves),
             "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
             "library_ms": min(runs["library"]),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "host_ms": {"kernel": host_time_ms(kernel, 200),
+                        "library": host_time_ms(library, 200)},
             "runs_ms": runs}
 
 
@@ -429,85 +518,162 @@ def colocated(dev, spec: dict, batch_fn, chain_steps: int,
             "window_ms": WINDOW_MS}
 
 
-def _flash_inputs(dev, rng, b, s, h, hk, d, dtype, fused=False):
+def _flash_inputs(dev, rng, b, s, h, hk, d, dtype, layout="dense"):
     """q (b, s, h, d), k and v (b, s, hk, d) in ``dtype``, dO fp32. With
-    ``fused``, q, k and v are strided views of one (b, s, (h + 2 hk) d)
-    tensor, sliced as ``mha_apply`` slices the fused qkv product."""
+    layout ``fused``, q, k and v are strided views of one (b, s, (h + 2 hk)
+    d) tensor, sliced as ``mha_apply`` slices the fused qkv product;
+    ``unaligned`` adds one element to that tensor's rows, so no row starts
+    16-byte aligned."""
     import torch
 
     randn = lambda *shape: torch.from_numpy(rng.standard_normal(
         shape).astype("float32")).to(dev)
     dout = randn(b, s, h, d)
-    if not fused:
+    if layout == "dense":
         make = lambda heads: randn(b, s, heads, d).to(dtype)
         return make(h), make(hk), make(hk), dout
-    qkv = randn(b, s, (h + 2 * hk) * d).to(dtype)
+    pad = 1 if layout == "unaligned" else 0
+    qkv = randn(b, s, (h + 2 * hk) * d + pad).to(dtype)
     q = qkv[..., :h * d].reshape(b, s, h, d)
     k = qkv[..., h * d:(h + hk) * d].reshape(b, s, hk, d)
-    v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
+    v = qkv[..., (h + hk) * d:(h + 2 * hk) * d].reshape(b, s, hk, d)
     return q, k, v, dout
+
+
+def _check_flash_close(kernel: str, label: str, name: str, got,
+                       want) -> tuple[float, float]:
+    """``got`` against ``want`` at KERNEL_TOL for got's dtype; returns the
+    max abs and rel errors."""
+    import torch
+
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
+    atol, rtol = fl.KERNEL_TOL[got.dtype]
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"flash {kernel} {label}: {name} is {got.dtype} "
+          f"{tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    abs_err = float(err.max())
+    rel_err = float((err / want.abs().clamp_min(atol)).max())
+    check(bool(torch.isfinite(got).all())
+          and bool((err <= atol + rtol * want.abs()).all()),
+          f"flash {kernel} disagrees with its plain version ({label}, "
+          f"{name}): max abs err {abs_err}, rel {rel_err}, tolerance atol "
+          f"{atol} rtol {rtol}")
+    return abs_err, rel_err
 
 
 def flash_check(dev, rng) -> dict:
     """Each flash kernel against its plain version on the same inputs: the
     main path's shape, dense and as the main path gives it (strided views
-    of the fused qkv product), GQA, a window, non-causal and fp32 inputs.
-    The backward passes take the plain forward's lse and D, so each kernel
-    is held alone. Returns each kernel's worst max abs error."""
+    of the fused qkv product, rows 16-byte aligned or not), GQA, a window,
+    non-causal, fp32 inputs, head dim 8 (the small preset), ragged
+    lengths, and the forward at seq 2048 (many k tiles, heaviest q tiles
+    launched first). The backward passes take the plain forward's lse and
+    D, so each kernel is held alone. Returns each kernel's worst max abs
+    error."""
     import torch
 
     from kubeshare_tpu_torch.ops import flash_attention as fl
 
     b, s, h, d = FLASH_SHAPE
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, kv heads, dtype, causal, window, q/k/v strided views)
-    cases = [("main path", h, bf16, True, None, False),
-             ("main path (strided)", h, bf16, True, None, True),
-             ("gqa hk=2", 2, bf16, True, None, False),
-             ("gqa hk=2 (strided)", 2, bf16, True, None, True),
-             ("window 100", h, bf16, True, 100, False),
-             ("non-causal", h, bf16, False, None, False),
-             ("fp32 inputs", h, f32, True, None, False)]
+    # (label, (b, s, h, d), kv heads, dtype, causal, window, layout,
+    #  backward too)
+    cases = [("main path", FLASH_SHAPE, h, bf16, True, None, "dense", True),
+             ("main path (strided)", FLASH_SHAPE, h, bf16, True, None,
+              "fused", True),
+             ("strided, rows not 16-byte aligned", FLASH_SHAPE, h, bf16,
+              True, None, "unaligned", True),
+             ("gqa hk=2", FLASH_SHAPE, 2, bf16, True, None, "dense", True),
+             ("gqa hk=2 (strided)", FLASH_SHAPE, 2, bf16, True, None,
+              "fused", True),
+             ("window 100", FLASH_SHAPE, h, bf16, True, 100, "dense", True),
+             ("non-causal", FLASH_SHAPE, h, bf16, False, None, "dense",
+              True),
+             ("fp32 inputs", FLASH_SHAPE, h, f32, True, None, "dense", True),
+             ("head dim 8 (small preset, strided)", (2, 128, 4, 8), 2, bf16,
+              True, None, "fused", True),
+             ("head dim 8, ragged s=48, window 7", (2, 48, 4, 8), 1, bf16,
+              True, 7, "dense", True),
+             ("head dim 8, ragged s=80, non-causal", (1, 80, 2, 8), 2, bf16,
+              False, None, "dense", True),
+             ("ragged s=80", (2, 80, 8, 32), 8, bf16, True, None, "dense",
+              True),
+             ("ragged s=200, window 70", (1, 200, 4, 32), 4, bf16, True, 70,
+              "dense", True),
+             ("seq 2048", (1, 2048, 8, 32), 8, bf16, True, None, "dense",
+              False)]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    scale = 1.0 / math.sqrt(d)
-    for label, hk, dtype, causal, window, fused in cases:
+    for label, shape, hk, dtype, causal, window, layout, bwd in cases:
+        b, s, h, d = shape
+        scale = 1.0 / math.sqrt(d)
         q, k, v, dout = _flash_inputs(dev, rng, b, s, h, hk, d, dtype,
-                                      fused)
-        check(fused == (not q.is_contiguous()),
-              f"flash {label}: q is {'' if fused else 'not '}contiguous")
+                                      layout)
+        check((layout == "dense") == q.is_contiguous(),
+              f"flash {label}: q is {'' if q.is_contiguous() else 'not '}"
+              "contiguous")
         o, lse = fl.flash_fwd(q, k, v, causal, window, scale)
         ro, rlse = fl.flash_fwd_reference(q, k, v, causal, window, scale)
-        dcap = (dout * ro).sum(-1).transpose(1, 2)
-        args = (q, k, v, dout, rlse, dcap, causal, window, scale)
-        dq = fl.flash_dq(*args)
-        dk, dv = fl.flash_dkv(*args)
-        rdq = fl.flash_dq_reference(*args)
-        rdk, rdv = fl.flash_dkv_reference(*args)
+        pairs = [("fwd", "O", o, ro), ("fwd", "lse", lse, rlse)]
+        if bwd:
+            dcap = (dout * ro).sum(-1).transpose(1, 2)
+            args = (q, k, v, dout, rlse, dcap, causal, window, scale)
+            dk, dv = fl.flash_dkv(*args)
+            rdk, rdv = fl.flash_dkv_reference(*args)
+            pairs += [("dq", "dQ", fl.flash_dq(*args),
+                       fl.flash_dq_reference(*args)),
+                      ("dkv", "dK", dk, rdk), ("dkv", "dV", dv, rdv)]
         torch.cuda.synchronize()
         parts = []
-        for kernel, name, got, want in (
-                ("fwd", "O", o, ro), ("fwd", "lse", lse, rlse),
-                ("dq", "dQ", dq, rdq), ("dkv", "dK", dk, rdk),
-                ("dkv", "dV", dv, rdv)):
-            atol, rtol = fl.KERNEL_TOL[got.dtype]
-            check(got.dtype == want.dtype and got.shape == want.shape,
-                  f"flash {kernel} {label}: {name} is {got.dtype} "
-                  f"{tuple(got.shape)}, plain {want.dtype} "
-                  f"{tuple(want.shape)}")
-            got, want = got.float(), want.float()
-            err = (got - want).abs()
-            abs_err = float(err.max())
-            rel_err = float((err / want.abs().clamp_min(atol)).max())
-            check(bool(torch.isfinite(got).all())
-                  and bool((err <= atol + rtol * want.abs()).all()),
-                  f"flash {kernel} disagrees with its plain version "
-                  f"({label}, {name}): max abs err {abs_err}, rel "
-                  f"{rel_err}, tolerance atol {atol} rtol {rtol}")
+        for kernel, name, got, want in pairs:
+            abs_err, rel_err = _check_flash_close(kernel, label, name, got,
+                                                  want)
             worst[kernel] = max(worst[kernel], abs_err)
             parts.append(f"{name} {abs_err:.2e}/{rel_err:.2e}")
-        log(f"  flash {label} ({dtype}, hk={hk}): ok, max abs/rel err "
-            + ", ".join(parts))
+        log(f"  flash {label} ({dtype}, {shape}, hk={hk}): ok, max abs/rel "
+            "err " + ", ".join(parts))
     return worst
+
+
+def flash_autograd_check(dev, rng) -> dict:
+    """``flash_attention`` through autograd on bf16 q/k/v, strided views
+    of one fused tensor at the main path's shape: the kernel forward's lse
+    and O feed the two backward kernels. Held against the plain versions
+    on the same inputs: O to the fp32 tolerance, dQ, dK and dV to the bf16
+    one. Returns the max abs error of each."""
+    import torch
+
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
+    b, s, h, d = FLASH_SHAPE
+    scale = 1.0 / math.sqrt(d)
+    fused = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
+        "float32")).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        "float32")).to(dev)
+    views = lambda x: [x[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
+                       for i in range(3)]
+    f = fused.clone().requires_grad_(True)
+    o = fl.flash_attention(*views(f))
+    (o * w).sum().backward()
+    q, k, v = views(fused)
+    ro, rlse = fl.flash_fwd_reference(q, k, v, True, None, scale)
+    dcap = (w * ro).sum(-1).transpose(1, 2)
+    args = (q, k, v, w, rlse, dcap, True, None, scale)
+    rdk, rdv = fl.flash_dkv_reference(*args)
+    torch.cuda.synchronize()
+    label = "bf16 autograd (strided)"
+    errs = {}
+    for name, got, want in (("O", o.detach(), ro),
+                            *zip(("dQ", "dK", "dV"), views(f.grad),
+                                 (fl.flash_dq_reference(*args), rdk, rdv))):
+        errs[name] = _check_flash_close("autograd", label, name, got,
+                                        want)[0]
+    log(f"  flash {label} {FLASH_SHAPE}: ok, max abs err "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    return errs
 
 
 def _visible_pairs(s: int, causal: bool, window) -> int:
@@ -596,9 +762,12 @@ def flash_timing(dev, rng, shape, iters: int, plain: bool) -> dict:
             runs[which].append(cuda_time_ms(fn, iters, flush))
         res[name] = {"ms": min(runs["kernel"]),
                      "plain_ms": min(runs["plain"]) if plain else None,
+                     "host_ms": host_time_ms(kernel, 4 * iters),
                      "runs_ms": runs}
     lib_ms = {name: min(cuda_time_ms(fn, iters, flush) for _ in range(2))
               for name, fn in lib.items()}
+    res["library_host_ms"] = {name: host_time_ms(fn, 4 * iters)
+                              for name, fn in lib.items()}
     bounds = flash_bounds(shape, 2)
     for name in fns:
         res[name].update(bounds[name])
@@ -666,6 +835,42 @@ def _timed_build(name: str) -> tuple[float, str]:
     return time.perf_counter() - t0, text
 
 
+def _kernel_name(mangled: str) -> str:
+    """``_ZN<ns><name>I<template args>E...`` -> ``<name>I<template args>E``
+    (the kernels live in one anonymous namespace)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    args = re.match(r"I\w*?EE", rest[m.end() + len(name):])
+    return name + (args.group(0)[:-1] if args else "")
+
+
+def sass_mma_counts(name: str) -> dict:
+    """Tensor-core instructions (HMMA) in each kernel function of the
+    built library ``name``, read from its SASS with the toolkit's
+    cuobjdump."""
+    from kubeshare_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", os.path.join(build.BUILD_DIR, f"lib{name}.so")],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = _kernel_name(line.split("Function :")[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def _counts() -> dict:
     from kubeshare_tpu_torch.ops import flash_attention as fl
     from kubeshare_tpu_torch.ops import fused_adam as fa
@@ -699,7 +904,7 @@ def main(argv=None) -> int:
     try:
         from kubeshare_tpu_torch.models import mnist, transformer
         from kubeshare_tpu_torch.ops import flash_attention as fl
-        from kubeshare_tpu_torch.utils.tree import tree_leaves
+        from kubeshare_tpu_torch.ops import fused_adam as fa
     except ImportError as e:
         print(f"chip_smoke: the kubeshare_tpu_torch package is missing "
               f"({e}); run from the root of a checkout", file=sys.stderr)
@@ -730,31 +935,47 @@ def main(argv=None) -> int:
         for line in text.strip().splitlines():
             log(f"  [{name}] {line}")
     log(f"build: all kernels {out['build_wall_s']:.1f} s wall")
+    mma = sass_mma_counts("flash_attention")
+    fwd_mma = {k: n for k, n in mma.items() if "flash_fwd_mma_kernel" in k}
+    check(len(fwd_mma) == 2 * len(fl.HEAD_DIMS) and all(fwd_mma.values()),
+          f"the bf16 flash forward has no tensor-core instructions: {mma}")
+    out["sass_hmma"] = mma
+    log("sass: HMMA instructions by kernel: " + ", ".join(
+        f"{k} {n}" for k, n in sorted(mma.items())))
 
     rng = np.random.default_rng(0)
     log("kernel check (kernel vs plain, atol "
         f"{KERNEL_ATOL}, rtol {KERNEL_RTOL}):")
     max_err = adam_check(dev, rng)
-    adam = adam_timing(dev, rng)
-    log(f"fused_adam over the mnist tree ({adam['params']} params, "
-        f"{adam['leaves']} launches): kernel {adam['ms']:.4f} ms, plain "
-        f"{adam['plain_ms']:.4f} ms, torch._fused_adam_ "
-        f"{adam['library_ms']:.4f} ms, bound {adam['bound_ms']:.4f} ms "
-        f"({adam['bound_by']})")
-    out["fused_adam"] = dict(adam, max_abs_err=max_err)
+    adam_by_tree = {}
+    for model, mod in (("transformer", transformer), ("mnist", mnist)):
+        r = adam_by_tree[model] = adam_timing(dev, rng, mod.init)
+        log(f"fused_adam over the {model} tree ({r['params']} params, "
+            f"{r['leaves']} leaves, {r['launches']} launch): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"torch._fused_adam_ {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); host ms a call: "
+            f"kernel {r['host_ms']['kernel']:.4f}, torch._fused_adam_ "
+            f"{r['host_ms']['library']:.4f}")
+    adam = adam_by_tree["mnist"]
+    out["fused_adam"] = dict(adam, max_abs_err=max_err,
+                             transformer_tree=adam_by_tree["transformer"])
 
     tol = {str(k): v for k, v in fl.KERNEL_TOL.items()}
     log(f"flash kernel check (kernel vs plain, (atol, rtol) by output "
         f"dtype {tol}):")
     flash_err = flash_check(dev, rng)
+    out["flash_autograd_max_abs_err"] = flash_autograd_check(dev, rng)
     flash = flash_timing(dev, rng, FLASH_SHAPE, 50, plain=True)
     for name in ("fwd", "dq", "dkv"):
         r = flash[name]
+        lib = "fwd" if name == "fwd" else "bwd"
         log(f"flash {name} at {FLASH_SHAPE} bf16 causal: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
             f"{'forward' if name == 'fwd' else 'backward'} "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}); host ms a call: kernel {r['host_ms']:.4f}, "
+            f"sdpa {flash['library_host_ms'][lib]:.4f}")
     log(f"flash fwd+dq+dkv {flash['kernel_fwd_bwd_ms']:.4f} ms, sdpa "
         f"forward+backward {flash['library_ms']['fwd_bwd']:.4f} ms")
     out["flash"] = dict(flash, max_abs_err=flash_err)
@@ -777,8 +998,9 @@ def main(argv=None) -> int:
 
     # --- main paths: counts from 0 before each, read after each ---------
     phases: dict = {}
-    adam_leaves = {"mnist": len(tree_leaves(mnist.init(0))),
-                   "transformer": len(tree_leaves(transformer.init(0)))}
+    # fused Adam launches one optimizer step makes over each model's tree
+    adam_launches = {"mnist": fa.tree_launches(mnist.init(0)),
+                     "transformer": fa.tree_launches(transformer.init(0))}
     for model, mod, loss_fn, steps, fused_s in (
             ("mnist", mnist, mnist.loss_fn, 300, 3.0),
             ("transformer", transformer, transformer.flash_loss_fn, 100,
@@ -788,7 +1010,7 @@ def main(argv=None) -> int:
                          fused_s)
         got = _counts()
         ran = excl["plain_steps"] + excl["warmup_steps"] + excl["fused_steps"]
-        want = {"fused_adam": adam_leaves[model] * ran}
+        want = {"fused_adam": adam_launches[model] * ran}
         if model == "transformer":
             want.update({f"flash_{k}": transformer.LAYERS * ran
                          for k in ("fwd", "dq", "dkv")})
@@ -807,9 +1029,11 @@ def main(argv=None) -> int:
                         COLOCATED_MEASURE_S[model])
         got = _counts()
         measured = sum(c["steps"] for c in col["clients"].values())
-        for kernel, n in want.items():
-            per_step = n // ran
-            check(got[kernel] >= per_step * measured,
+        per_step = {"fused_adam": adam_launches[model],
+                    **{k: transformer.LAYERS for k in want
+                       if k.startswith("flash_")}}
+        for kernel in want:
+            check(got[kernel] >= per_step[kernel] * measured,
                   f"{model} co-located: {got[kernel]} {kernel} launches "
                   f"for {measured} measured steps")
         exclusive_sps = max(excl["plain_steps_per_sec"],

@@ -11,8 +11,10 @@ an H100 (bytes) and what the simple design does about it. Two
 
 Each pass picks by where its tensors lie: CPU tensors take the plain
 version (``*_reference``), CUDA tensors launch the kernel or raise. There
-is no fallback from one to the other. The plain backward recomputes P from
-the saved lse, as the kernels do.
+is no fallback from one to the other. The forward picks its kernel by
+dtype: bf16 inputs (the transformer's main path) run on the tensor cores,
+fp32 inputs on the CUDA cores; both are hand-written. The plain backward
+recomputes P from the saved lse, as the kernels do.
 
 Layout: (batch, seq, heads, head_dim), as the JAX package. q, k and v may
 be strided views (the transformer slices them out of one fused product):
@@ -20,9 +22,12 @@ the kernels take each one's strides, with a dense head dim, and the
 wrapper makes a tensor dense only when its head dim is not.
 
 The kernels agree with their plain versions to a tolerance, not bit for
-bit: ``expf``/``logf`` on the card and torch's ``exp``/``log`` differ in
-the last bits, and the kernels sum in another order (keys in tiles of 64,
-the head dim in order) than torch's matrix products.
+bit: ``expf``/``ex2.approx``/``logf`` on the card and torch's
+``exp``/``log`` differ in the last bits, and the kernels sum in another order (keys in
+tiles of 64, the head dim in order or in the tensor cores) than torch's
+matrix products. The bf16 forward takes P.V as two bf16 products, of
+bf16(P) and of the rest, so O keeps ~16 bits of P, inside the fp32
+tolerance.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import threading
 
 import torch
 
+from ..utils.device import launch_on
 from .attention import MASK_VALUE, kv_groups
 
 BLOCK_Q = 128
@@ -216,11 +222,9 @@ def _launch(name, pointers, tensors, q, k, causal, window, scale):
     strides = [st for x in tensors for st in x.stride()[:3]]
     strides += [0] * (12 - len(strides))
     arr = (ctypes.c_longlong * 12)(*strides)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fns[name](*pointers, arr, int(q.dtype == torch.bfloat16), b, h,
-                       hk, s_q, s_kv, d, int(causal), int(window or 0),
-                       scale, stream)
+    rc = launch_on(q.device, lambda stream: fns[name](
+        *pointers, arr, int(q.dtype == torch.bfloat16), b, h, hk, s_q, s_kv,
+        d, int(causal), int(window or 0), scale, stream))
     if rc != 0:
         raise RuntimeError(f"flash_attention {name} kernel launch failed: "
                            f"{fns['error'](rc).decode()} ({rc})")
@@ -236,7 +240,9 @@ def _device_kind(q) -> str:
 
 
 def flash_fwd(q, k, v, causal, window, scale):
-    """Forward pass: ``(O fp32 (b, s_q, h, d), lse fp32 (b, h, s_q))``."""
+    """Forward pass: ``(O fp32 (b, s_q, h, d), lse fp32 (b, h, s_q))``.
+    On the card bf16 q/k/v launch the tensor-core kernel, fp32 the
+    CUDA-core one (``csrc`` picks by the dtype flag ``_launch`` passes)."""
     if _device_kind(q) == "cpu":
         return flash_fwd_reference(q, k, v, causal, window, scale)
     _check_cuda(q, k, v)

@@ -27,3 +27,17 @@ def synchronize(device: torch.device) -> None:
     without this measures the enqueue, not the work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def launch_on(device: torch.device, launch):
+    """``launch(stream)`` with ``device`` current on the calling thread and
+    ``stream`` that device's current CUDA stream, as a raw handle (an
+    int): a hand-written kernel launches on the thread's current device,
+    on the stream torch queues that device's work on. Switches devices
+    only when ``device`` is not the current one already."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return launch(torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return launch(torch._C._cuda_getCurrentRawStream(index))

@@ -21,8 +21,9 @@ The two ways:
 For each it reports the wall time per step without the profiler, and
 under ``torch.profiler`` the device time per step (the sum of kernel
 times), the device's idle share of the wall time (unprofiled and
-profiled), each hand-written kernel's time and share of device time and
-the top kernels by device time. Prints one JSON object as its last line.
+profiled), each hand-written kernel's time, launches and share of device
+time and the top kernels by device time. Prints one JSON object as its
+last line.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ import time
 
 
 #: the port's kernels and a substring of their CUDA function names
-KERNEL_TAGS = {"fused_adam": "adam_", "flash_fwd": "flash_fwd_kernel",
-               "flash_dq": "flash_dq_kernel",
+#: ("flash_fwd" names both forwards: flash_fwd_mma_kernel for bf16 inputs,
+#: flash_fwd_kernel for fp32)
+KERNEL_TAGS = {"fused_adam": "adam_multi_tensor_kernel",
+               "flash_fwd": "flash_fwd", "flash_dq": "flash_dq_kernel",
                "flash_dkv": "flash_dkv_kernel"}
 
 
@@ -127,10 +130,10 @@ def main(argv=None) -> int:
         rows = [r for r in rows if r[1] > 0]
         device_ms = sum(r[1] for r in rows)
         # the port's own kernels, by the names of their CUDA functions
-        # (torch's _fused_adam, never called by the port, excluded)
-        ours = {name: sum(r[1] for r in rows if tag in r[0]
-                          and "_fused_adam" not in r[0])
+        ours = {name: sum(r[1] for r in rows if tag in r[0])
                 for name, tag in KERNEL_TAGS.items()}
+        ours_calls = {name: sum(r[2] for r in rows if tag in r[0])
+                      / args.steps for name, tag in KERNEL_TAGS.items()}
         rows.sort(key=lambda r: -r[1])
         result[name] = {
             "wall_ms_per_step": wall_ms,
@@ -142,6 +145,7 @@ def main(argv=None) -> int:
             "device_idle_share_profiled": max(
                 0.0, 1.0 - device_ms / prof_wall_ms),
             "kernel_ms_per_step": ours,
+            "kernel_launches_per_step": ours_calls,
             "kernel_share_of_device": {
                 k: (ms / device_ms if device_ms else None)
                 for k, ms in ours.items()},

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from kubeshare_tpu_torch.models import common, mnist
+from kubeshare_tpu_torch.models import common, mnist, transformer
 from kubeshare_tpu_torch.ops import flash_attention as tfl
 from kubeshare_tpu_torch.ops import fused_adam as tfa
 from kubeshare_tpu_torch.utils.tree import tree_leaves
@@ -45,6 +45,61 @@ def test_kernel_matches_plain_on_card(cuda, shape):
     assert tfa.launches == before + 1
     for i in (0, 2, 3):
         torch.testing.assert_close(kern[i], plain[i], rtol=1e-6, atol=1e-6)
+
+
+def _adam_trees(cuda, init_fn, seed, copies=2):
+    """``copies`` identical (p, g, m, v) lists of the model's leaf shapes
+    on the card (random, v >= 0), the first leaf of each a view that
+    starts 4 bytes into its storage (not 16-byte aligned: the kernel's
+    scalar path)."""
+    rng = np.random.default_rng(seed)
+    shapes = [np.shape(a) for a in tree_leaves(init_fn(0))]
+    host = []
+    for i in range(4):
+        leaves = [rng.normal(size=int(np.prod(s)) + (j == 0)).astype(
+            np.float32) for j, s in enumerate(shapes)]
+        host.append([np.abs(a) for a in leaves] if i == 3 else leaves)
+    return [[[torch.from_numpy(a).to(cuda)[(j == 0):].view(s)
+              for j, (a, s) in enumerate(zip(leaves, shapes))]
+             for leaves in host] for _ in range(copies)]
+
+
+@pytest.mark.parametrize("model", [mnist, transformer],
+                         ids=["mnist", "transformer"])
+def test_multi_tensor_adam_matches_plain_on_card(cuda, model):
+    """One launch updates the whole tree (an unaligned leaf included),
+    bit for bit as the plain version leaf by leaf."""
+    kern, plain = _adam_trees(cuda, model.init, 4)
+    assert kern[0][0].data_ptr() % 16 != 0
+    step = torch.tensor(3.0, device=cuda)
+    before = tfa.launches
+    tfa.adam_update_tree(*kern, step, lr=1e-2)
+    for p, g, m, v in zip(*plain):
+        tfa.adam_update_reference(p, g, m, v, step, lr=1e-2)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1 == before + tfa.tree_launches(kern[0])
+    for i in (0, 2, 3):
+        for got, want in zip(kern[i], plain[i]):
+            assert torch.equal(got, want)
+
+
+def test_multi_tensor_adam_splits_a_large_tree_on_card(cuda):
+    """A tree of more leaves than one table takes the fewest launches."""
+    n = 2 * tfa.TABLE_LEAVES + 3
+    rng = np.random.default_rng(6)
+    tree = [[torch.from_numpy(np.abs(rng.normal(size=5 + i)).astype(
+        np.float32)).to(cuda) for i in range(n)] for _ in range(4)]
+    plain = [[t.clone() for t in leaves] for leaves in tree]
+    step = torch.tensor(2.0, device=cuda)
+    before = tfa.launches
+    tfa.adam_update_tree(*tree, step)
+    for p, g, m, v in zip(*plain):
+        tfa.adam_update_reference(p, g, m, v, step)
+    torch.cuda.synchronize()
+    assert tfa.launches - before == tfa.tree_launches(tree[0]) == 3
+    for i in (0, 2, 3):
+        for got, want in zip(tree[i], plain[i]):
+            assert torch.equal(got, want)
 
 
 def test_kernel_refuses_bad_args_on_card(cuda):
@@ -94,6 +149,19 @@ def _qkv(cuda, b, s, h, hk, d, dtype, seed=0):
     return make(h), make(hk), make(hk)
 
 
+def _fused_qkv(cuda, b, s, h, hk, d, dtype, pad=0, seed=0):
+    """q, k, v as strided views of one (b, s, (h + 2 hk) d + pad) tensor,
+    sliced as mha_apply slices the fused qkv product; an odd ``pad`` makes
+    the rows not 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, s, (h + 2 * hk) * d + pad)).astype(np.float32)).to(cuda, dtype)
+    q = qkv[..., :h * d].reshape(b, s, h, d)
+    k = qkv[..., h * d:(h + hk) * d].reshape(b, s, hk, d)
+    v = qkv[..., (h + hk) * d:(h + 2 * hk) * d].reshape(b, s, hk, d)
+    return q, k, v
+
+
 def _assert_kernel_close(got, want):
     atol, rtol = tfl.KERNEL_TOL[got.dtype]
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -111,6 +179,10 @@ FLASH_SHAPES = [
     (2, 48, 4, 1, 8, torch.float32, True, 7),          # ragged tiles, MQA
     (1, 80, 2, 2, 8, torch.bfloat16, False, None),
     (2, 128, 4, 2, 8, torch.bfloat16, True, None),     # the small preset
+    (2, 48, 4, 1, 8, torch.bfloat16, True, 7),         # ragged, bf16
+    (2, 48, 4, 2, 32, torch.bfloat16, True, None),
+    (1, 80, 2, 2, 32, torch.bfloat16, False, None),
+    (1, 200, 4, 4, 32, torch.bfloat16, True, 70),      # ragged, window
 ]
 
 
@@ -137,6 +209,59 @@ def test_flash_kernels_match_plain_on_card(cuda, b, s, h, hk, d, dtype,
         _assert_kernel_close(got, want)
     assert {n: tfl.launches[n] - before[n] for n in before} == \
         {"fwd": 1, "dq": 1, "dkv": 1}
+
+
+@pytest.mark.parametrize("pad", [0, 1], ids=["aligned", "unaligned"])
+def test_flash_fwd_on_strided_views_on_card(cuda, pad):
+    """The bf16 forward on q/k/v views of one fused tensor: rows 16-byte
+    aligned (cp.async copies) and not (the same kernel's plain loads)."""
+    q, k, v = _fused_qkv(cuda, 2, 256, 8, 2, 32, torch.bfloat16, pad)
+    assert not q.is_contiguous()
+    o, lse = tfl.flash_fwd(q, k, v, True, None, 32 ** -0.5)
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, True, None, 32 ** -0.5)
+    _assert_kernel_close(o, ro)
+    _assert_kernel_close(lse, rlse)
+
+
+def test_flash_fwd_long_sequence_on_card(cuda):
+    """Seq 2048: 32 k tiles for the last q tile, launched first."""
+    q, k, v = _qkv(cuda, 1, 2048, 8, 8, 32, torch.bfloat16, seed=3)
+    o, lse = tfl.flash_fwd(q, k, v, True, None, 32 ** -0.5)
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, True, None, 32 ** -0.5)
+    _assert_kernel_close(o, ro)
+    _assert_kernel_close(lse, rlse)
+
+
+def test_flash_bf16_autograd_on_card_matches_plain(cuda):
+    """flash_attention through autograd on bf16 strided views at the main
+    path's shape: the kernel forward's lse feeds the backward kernels.
+    Held against the plain versions on the same inputs: O to the fp32
+    tolerance, the gradients to the bf16 one."""
+    b, s, h, d = 8, 256, 8, 32
+    rng = np.random.default_rng(9)
+    fused = torch.from_numpy(rng.standard_normal(
+        (b, s, 3 * h * d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(cuda)
+    f = fused.clone().requires_grad_(True)
+    views = lambda x: [x[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
+                       for i in range(3)]
+    before = dict(tfl.launches)
+    o = tfl.flash_attention(*views(f))
+    (o * w).sum().backward()
+    assert {n: tfl.launches[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    q, k, v = views(fused)
+    scale = d ** -0.5
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, True, None, scale)
+    dcap = (w * ro).sum(-1).transpose(1, 2)
+    args = (q, k, v, w, rlse, dcap, True, None, scale)
+    rdq = tfl.flash_dq_reference(*args)
+    rdk, rdv = tfl.flash_dkv_reference(*args)
+    torch.cuda.synchronize()
+    _assert_kernel_close(o.detach(), ro)
+    for got, want in zip(views(f.grad), (rdq, rdk, rdv)):
+        _assert_kernel_close(got, want)
 
 
 def test_flash_autograd_on_card_matches_cpu(cuda):

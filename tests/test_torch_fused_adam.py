@@ -128,3 +128,115 @@ def test_other_devices_raise():
     meta = torch.empty(4, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa.adam_update(meta, meta, meta, meta, 1)
+
+
+def _tree(seed):
+    rng = np.random.default_rng(seed)
+    leaf = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    return {"conv": {"w": leaf(3, 3, 1, 4), "b": leaf(4)},
+            "fc": [leaf(37), leaf(8, 5)]}
+
+
+def test_tree_step_matches_per_leaf_and_jax_tree():
+    """adam_update_tree on CPU leaves (the plain counterpart of the one
+    multi-tensor launch) equals the plain step leaf by leaf, bit for bit,
+    and the JAX package's adam_update_tree at 1e-6."""
+    p, g, m, v = (_tree(s) for s in (3, 4, 5, 6))
+    v = tree_map(np.abs, v)
+    torch_tree = lambda t: tree_map(lambda a: torch.from_numpy(a.copy()), t)
+    tp, tg, tm, tv = (torch_tree(t) for t in (p, g, m, v))
+    out = tfa.adam_update_tree(tp, tg, tm, tv, 2, lr=1e-2)
+    assert out[0] is tp and out[1] is tm and out[2] is tv
+    lp, lg, lm, lv = (tree_leaves(torch_tree(t)) for t in (p, g, m, v))
+    for leaf in zip(lp, lg, lm, lv):
+        tfa.adam_update_reference(*leaf, 2, lr=1e-2)
+    for got, want in zip(tree_leaves((tp, tm, tv)), lp + lm + lv):
+        assert torch.equal(got, want)
+    jp, jm, jv = jfa.adam_update_tree(
+        *(tree_map(jnp.asarray, t) for t in (p, g, m, v)), step=2, lr=1e-2)
+    for got, want in zip(tree_leaves((tp, tm, tv)),
+                         tree_leaves((jp, jm, jv))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_leaves,want", [
+    (0, 0), (1, 1), (tfa.TABLE_LEAVES, 1), (tfa.TABLE_LEAVES + 1, 2),
+    (2 * tfa.TABLE_LEAVES + 3, 3)])
+def test_launch_plan_splits_only_past_one_table(n_leaves, want):
+    tree = {f"w{i:03d}": np.zeros((i % 3 + 1, 2), np.float32)
+            for i in range(n_leaves)}
+    tree["empty"] = np.zeros((0, 4), np.float32)   # takes no launch
+    assert tfa.tree_launches(tree) == want
+    assert tfa.tree_launches(tree_map(torch.from_numpy, tree)) == want
+
+
+def test_launch_plan_of_the_models():
+    """One launch a step for each model the port trains (mnist's 8
+    leaves, the transformer's 46)."""
+    from kubeshare_tpu_torch.models import mnist, transformer
+
+    assert len(tree_leaves(mnist.init(0))) == 8
+    assert tfa.tree_launches(mnist.init(0)) == 1
+    lm = transformer.init(0, seq_len=16, vocab=32, dim=32, layers=4)
+    assert len(tree_leaves(lm)) == 46
+    assert tfa.tree_launches(lm) == 1
+
+
+def test_tree_refuses_mismatched_trees_and_devices():
+    p = {"a": torch.zeros(4), "b": torch.zeros(3)}
+    with pytest.raises(ValueError, match="structure"):
+        tfa.adam_update_tree(p, {"a": torch.zeros(4)}, p, p, 1)
+    meta = {"a": torch.zeros(4), "b": torch.empty(3, device="meta")}
+    with pytest.raises(ValueError, match="leaf on meta"):
+        tfa.adam_update_tree(meta, meta, meta, meta, 1)
+
+
+def test_launch_tables_of_a_tree():
+    """The host side of the multi-tensor launch, on CPU tensors: the
+    table rows (p, g, m, v pointers and the size of each non-empty leaf),
+    cut into TABLE_LEAVES-leaf launches and cached by layout."""
+    n = tfa.TABLE_LEAVES + 2
+    ps, gs, ms, vs = ([torch.zeros(i % 4) for i in range(n)]
+                      for _ in range(4))
+    ptrs, sizes = tfa._table_rows(ps, gs, ms, vs)
+    live = [i for i in range(n) if i % 4]
+    assert sizes == [i % 4 for i in live]
+    assert ptrs == [x.data_ptr() for i in live
+                    for x in (ps[i], gs[i], ms[i], vs[i])]
+    tables = tfa._layout_tables(ps, gs, ms, vs)
+    assert [t[2] for t in tables] == [len(live)]
+    assert [p for t in tables for p in t[0]] == ptrs
+    assert tfa._layout_tables(ps, gs, ms, vs) is tables
+    # a new gradient at another address: a new layout, checked and built
+    gs[1] = torch.ones(1)
+    assert tfa._layout_tables(ps, gs, ms, vs) is not tables
+    many = [torch.zeros(3) for _ in range(2 * tfa.TABLE_LEAVES + 1)]
+    ptrs, sizes = tfa._table_rows(many, many, many, many)
+    tables = tfa._ctypes_tables(ptrs, sizes)
+    assert [t[2] for t in tables] == [tfa.TABLE_LEAVES] * 2 + [1]
+    assert [p for t in tables for p in t[0]] == ptrs
+    assert [s for t in tables for s in t[1]] == sizes
+
+
+def test_a_known_layout_still_refuses_what_changed_in_place():
+    ps, gs, ms, vs = ([torch.zeros(4)] for _ in range(4))
+    tfa._layout_tables(ps, gs, ms, vs)
+    ps[0].requires_grad_(True)
+    with pytest.raises(ValueError, match="requires grad"):
+        tfa._layout_tables(ps, gs, ms, vs)
+    ps[0].requires_grad_(False)
+    tfa._layout_tables(ps, gs, ms, vs)
+    with pytest.raises(TypeError, match="float32"):
+        tfa._layout_tables(ps, [gs[0].view(torch.int32)], ms, vs)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda x: x.double(), TypeError),
+    (lambda x: x[:3], ValueError),
+    (lambda x: x.reshape(2, 2).t(), ValueError),
+    (lambda x: x.clone().requires_grad_(True), ValueError)])
+def test_launch_tables_refuse_what_the_kernel_does_not_take(bad, err):
+    p = torch.zeros(4)
+    with pytest.raises(err):
+        tfa._table_rows([p], [p], [bad(p)], [p])

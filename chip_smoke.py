@@ -9,7 +9,8 @@ failing the run (non-zero exit, no result line) when it fails:
 1. the card's name and power limit (``nvidia-smi``), torch/CUDA versions;
 2. the build of every hand-written kernel from ``kubeshare_tpu_torch/csrc``,
    one ``nvcc`` per source, all started together, and the tensor-core
-   instructions (HMMA) of the bf16 flash forward counted in its SASS;
+   instructions (HMMA) of the bf16 flash kernels (forward, dQ, dK/dV)
+   counted in their SASS;
 3. each kernel held against its plain PyTorch version on the card, at the
    shapes the main path gives it (fused Adam also over the whole mnist
    and transformer trees in one multi-tensor launch; flash attention also
@@ -58,6 +59,9 @@ FLASH_REPLACES = {"fwd": "kubeshare_tpu/ops/flash_attention.py:80",
                   "dq": "kubeshare_tpu/ops/flash_attention.py:223",
                   "dkv": "kubeshare_tpu/ops/flash_attention.py:256"}
 FLASH_SOURCE = "kubeshare_tpu_torch/csrc/flash_attention.cu"
+# the bf16 flash kernels, which must run on the tensor cores
+FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                     "flash_dkv_mma_kernel")
 KERNELS = ("fused_adam", "flash_attention")
 # Published H100 SXM peaks (data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores, bf16 FLOP/s of the tensor cores
@@ -936,9 +940,11 @@ def main(argv=None) -> int:
             log(f"  [{name}] {line}")
     log(f"build: all kernels {out['build_wall_s']:.1f} s wall")
     mma = sass_mma_counts("flash_attention")
-    fwd_mma = {k: n for k, n in mma.items() if "flash_fwd_mma_kernel" in k}
-    check(len(fwd_mma) == 2 * len(fl.HEAD_DIMS) and all(fwd_mma.values()),
-          f"the bf16 flash forward has no tensor-core instructions: {mma}")
+    for name in FLASH_MMA_KERNELS:
+        # one function per head dim and cp.async or plain loads
+        found = {k: n for k, n in mma.items() if k.startswith(name + "I")}
+        check(len(found) == 2 * len(fl.HEAD_DIMS) and all(found.values()),
+              f"{name} lacks tensor-core instructions: {mma}")
     out["sass_hmma"] = mma
     log("sass: HMMA instructions by kernel: " + ", ".join(
         f"{k} {n}" for k, n in sorted(mma.items())))
@@ -976,6 +982,8 @@ def main(argv=None) -> int:
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}); host ms a call: kernel {r['host_ms']:.4f}, "
             f"sdpa {flash['library_host_ms'][lib]:.4f}")
+    log(f"flash dq+dkv {flash['dq']['ms'] + flash['dkv']['ms']:.4f} ms, "
+        f"sdpa backward {flash['library_ms']['bwd']:.4f} ms")
     log(f"flash fwd+dq+dkv {flash['kernel_fwd_bwd_ms']:.4f} ms, sdpa "
         f"forward+backward {flash['library_ms']['fwd_bwd']:.4f} ms")
     out["flash"] = dict(flash, max_abs_err=flash_err)
@@ -987,7 +995,8 @@ def main(argv=None) -> int:
         f"{long['dkv']['bound_ms']:.4f} ms ({long['fwd']['bound_by']}); "
         f"sdpa forward {long['library_ms']['fwd']:.3f}, backward "
         f"{long['library_ms']['bwd']:.3f}, forward+backward "
-        f"{long['library_ms']['fwd_bwd']:.3f} ms")
+        f"{long['library_ms']['fwd_bwd']:.3f} ms; dq+dkv "
+        f"{long['dq']['ms'] + long['dkv']['ms']:.3f} ms")
     out["flash_long_context"] = long
 
     out["step_check"] = step_check(dev)

@@ -1,11 +1,14 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV.
 //
 // Replaces the three Pallas TPU kernels of kubeshare_tpu/ops/flash_attention.py
-// behind one custom_vjp:
-// - flash_fwd_mma_kernel (bf16 inputs) and flash_fwd_kernel (fp32 inputs)
+// behind one custom_vjp. Each pass has a tensor-core kernel for bf16 inputs
+// (the transformer's main path) and a CUDA-core kernel for fp32 inputs:
+// - flash_fwd_mma_kernel, flash_fwd_kernel
 //                     <- `_kernel`          (launched by `_flash_fwd`)
-// - flash_dq_kernel   <- `_bwd_dq_kernel`   (launched by `_flash_bwd`)
-// - flash_dkv_kernel  <- `_bwd_dkv_kernel`  (launched by `_flash_bwd`)
+// - flash_dq_mma_kernel, flash_dq_kernel
+//                     <- `_bwd_dq_kernel`   (launched by `_flash_bwd`)
+// - flash_dkv_mma_kernel, flash_dkv_kernel
+//                     <- `_bwd_dkv_kernel`  (launched by `_flash_bwd`)
 //
 // What bounds them on the card: bytes. At the transformer's shape (q, k, v
 // (8, 256, 8, 32) bf16, causal) the forward reads q, k and v once (3 x 1 MB)
@@ -13,45 +16,76 @@
 // 3.35 TB/s. Its arithmetic is 2 x 2 x 32 operations on each of the ~2.1 M
 // visible (q, k) pairs, 0.27 us of bf16 tensor-core work. At long context
 // (1, 8192, 8, 32) the operations bound it: 34 G of them, 35 us. The
-// backward passes are bound the same way.
+// backward passes are bound the same way, with three (dQ) and four (dK/dV)
+// products a pair instead of two.
 //
-// The bf16 forward (flash_fwd_mma_kernel), the transformer's main path,
-// runs on the tensor cores:
-// - one block of 4 warps per (b*h row, 64-row q tile); each warp owns 16
-//   q rows, held in registers as mma fragments (ldmatrix) for the whole
-//   k loop, and skips a k tile none of its rows sees. The q tiles are
-//   launched heaviest first (the causal rows that see the most keys), so
-//   the long rows do not form a tail;
-// - k/v tiles of 64 keys move through a two-stage ring in shared memory
-//   with 16-byte cp.async copies, the next tile in flight while the
-//   current one is computed. A shared row is padded to an odd number of
-//   16-byte pieces, so the eight rows an ldmatrix phase reads fall in
-//   distinct banks. q, k or v rows that are not 16-byte aligned take the
-//   same kernel with plain loads (kAsync = false), chosen at launch;
-// - S = Q.K^T is mma.sync m16n8k16 (bf16 in, fp32 accumulate); bf16
+// The bf16 kernels share one design:
+// - one block of 4 warps per (b*h row, 64-row tile); each warp owns 16 rows
+//   of the tile (q rows for the forward and dQ, keys for dK/dV), held in
+//   registers as mma fragments (ldmatrix) for the whole loop, and skips a
+//   tile none of its rows meets. The tiles are launched heaviest first:
+//   the causal q tiles that see the most keys, the key tiles that the most
+//   q tiles see;
+// - the tiles walked by the loop (k/v for the forward and dQ, q/dO for
+//   dK/dV) move through a two-stage ring in shared memory, the next tile in
+//   flight while the current one is computed: bf16 rows by 16-byte
+//   cp.async copies, fp32 dO rows read into registers ahead and split into
+//   shared memory after the compute. A shared row is padded to an odd
+//   number of 16-byte pieces, so the eight rows an ldmatrix phase reads
+//   fall in distinct banks. q, k or v rows that are not 16-byte aligned
+//   take the same kernel with plain loads (kAsync = false), chosen at
+//   launch;
+// - every product is mma.sync m16n8k16 (bf16 in, fp32 accumulate). bf16
 //   products are exact in fp32, and the scale is applied to the fp32
 //   product (q is not rounded to bf16 after scaling: 1/sqrt(32) is not a
 //   power of two). Head dim 8 zero-pads the depth to 16;
-// - the online softmax runs on the accumulator fragments in registers,
-//   row max and sum across the quad of threads that holds a row
-//   (__shfl_xor_sync); the scale goes into the exponent, so a score costs
-//   one fused multiply-add and one ex2.approx: p = 2^(s scale log2(e) -
-//   m scale log2(e));
-// - O += P.V is two mma.sync against the same V fragment: P_hi = bf16(P)
-//   and P_lo = bf16(P - P_hi). V is exact in bf16 and P_hi + P_lo keeps
-//   ~16 bits of P, so O keeps the fp32 tolerance that rounding P to bf16
-//   (2^-9 relative) would break;
-// - ragged q/k edges and the causal/window band are masked on the
-//   fragments, zero-filled padding keys included (their score is set to
-//   the mask floor, not left at 0); fully masked k tiles are skipped.
+// - the exponent takes the scale: p = 2^(s scale log2(e) - m scale log2(e))
+//   in the forward, P = 2^(s scale log2(e) - lse log2(e)) in the backward,
+//   one fused multiply-add and one ex2.approx a score;
+// - ragged edges and the causal/window band are masked on the fragments,
+//   zero-filled padding rows included (their score is set to the mask
+//   floor, not left at 0); only tiles not wholly visible pay for it.
 //
-// The fp32 forward (flash_fwd_kernel, off the main path) and the backward
-// passes are the simple first versions: every pair is computed in fp32 on
-// the CUDA cores (67 TFLOP/s, not the tensor cores), so they run far above
-// the bound. What they keep from the flash schedule is the memory
-// argument: no (s x s) score matrix ever reaches device memory, every
-// output has exactly one writer (no atomics), and fully masked tiles are
-// skipped.
+// Which products are split, and why. The outputs are held to their fp32
+// plain versions at one bf16 ulp (KERNEL_TOL in ops/flash_attention.py),
+// and an operand rounded to bf16 once costs 2^-9 of each term. An fp32
+// operand x therefore goes in as two bf16 parts, hi = bf16(x) and lo =
+// bf16(x - hi), one mma.sync each; hi + lo keeps ~16 bits of x:
+// - P, whenever it is an A operand: the forward's O = P.V and dV = P^T.dO;
+// - dS, an A operand of dQ = dS.K and dK = dS^T.Q. These sums cancel
+//   heavily (without an lse cotangent every row of dS sums to 0), so one
+//   rounding of dS moves 6.5% of dQ's and 4.4% of dK's bf16 outputs by
+//   more than one ulp at the main shape (tests/test_torch_attention.py
+//   emulates this arithmetic);
+// - dO, which the interface passes in fp32 (on the main path it is the
+//   gradient of a bf16 cast, so its lo part is 0, but nothing relies on
+//   that): split once when its tile is staged, for dP = dO.V^T and dV.
+//   For dV both operands are split: P_hi dO_hi + P_hi dO_lo + P_lo dO_hi,
+//   the lo.lo product (~2^-18) dropped.
+// q, k and v are bf16 and exact, so S = Q.K^T, dP and dK's Q and dQ's K
+// take one product each.
+//
+// dQ (flash_dq_mma_kernel): a block per (b*h, q tile); each warp holds Q
+// and dO (hi, lo) of its 16 q rows and their lse and D in registers, and
+// walks the live k/v tiles: S = Q.K^T, P, dP = dO.V^T, dS = P (dP - D),
+// dQ += dS.K (K through ldmatrix.trans); scale once, at the end.
+//
+// dK/dV (flash_dkv_mma_kernel): a block per (b*hk, key tile); each warp
+// holds K and V of its 16 keys and walks the kv head's group of q heads x
+// the live q tiles, so the GQA group sum stays in registers. It computes
+// the transposed tiles, keys on the rows: S^T = K.Q^T, P^T with the lse by
+// column (from shared memory, beside D), dV += P^T.dO, dP^T = V.dO^T, dS^T
+// = P^T (dP^T - D), dK += dS^T.Q (dO and Q through ldmatrix.trans). P^T and
+// dS^T turn from accumulator layout into A fragments in registers. dK is
+// scaled at the end: the plain version's dS^T.(scale Q) in another order.
+//
+// The fp32 kernels (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel,
+// off the main path) are the simple first versions: every pair is computed
+// in fp32 on the CUDA cores (67 TFLOP/s, not the tensor cores), so they run
+// far above the bound. What they keep from the flash schedule is the
+// memory argument: no (s x s) score matrix ever reaches device memory,
+// every output has exactly one writer (no atomics), and fully masked tiles
+// are skipped.
 //
 // How the TPU grid translates. Pallas walks the innermost grid dimension in
 // order with the scratch carried across it; here one block loops over that
@@ -63,8 +97,10 @@
 //   q heads x q tiles, so the GQA group sum stays in registers and dK/dV are
 //   kv-sized. k and v are never expanded: q row (bi, hq) reads kv head
 //   hq / group (`_kv_row_map`).
-// The simple kernels' block has kTile = 64 threads, one per query row
-// (fp32 forward, dQ) or key row (dK/dV). k/v (or q/dO) tiles of 64 rows are
+// Each pass has one writer per output, as the TPU kernels: dQ is not folded
+// into the dK/dV pass with atomics, whose order would change the sums from
+// run to run. The fp32 kernels' block has kTile = 64 threads, one per query
+// row (forward, dQ) or key row (dK/dV). k/v (or q/dO) tiles of 64 rows are
 // staged in shared memory as fp32 and read by every thread of the block at
 // once (broadcast).
 //
@@ -80,41 +116,40 @@
 // - scores are fp32 products of the inputs times the scale (`_score_tile`);
 // - the mask floor is MASK_VALUE = -1e30, not -inf; the running max starts
 //   there, and alpha = m > MASK/2 ? exp(m - m_new) : 0,
-//   p = s > MASK/2 ? exp(s - m_new) : 0;
+//   p = s > MASK/2 ? exp(s - m_new) : 0; the backward's P is 0 there too;
 // - a row with nothing visible gives O = 0 and lse = m + log(1);
 // - dQ multiplies by scale once, at the end; dK takes it through the
-//   pre-scaled Qs; D = rowsum(dO * O) - g_lse comes from the caller;
+//   pre-scaled Qs (fp32 kernel) or at the end (bf16 kernel); D =
+//   rowsum(dO * O) - g_lse comes from the caller;
 // - O and lse are fp32; dQ, dK and dV are written in q's, k's and v's type.
 // The backward passes rebuild P from the forward's lse with their own fp32
 // score formula, so forward and backward agree to fp32 rounding.
 //
 // Head dims 8 and 32: 32 at the transformer's full width, 8 in its small
 // preset. Other head dims are refused (cudaErrorInvalidValue); a model that
-// needs one adds its case to by_head_dim (at 64 the dK/dV pass would hold
+// needs one adds its case to run() (at 64 the fp32 dK/dV pass would hold
 // 4 x 64 fp32 values a thread and spill).
 //
 // Built without --use_fast_math and with --fmad=false (ops/build.py): expf
-// and logf are the accurate library versions, the bf16 forward's fused
-// multiply-adds are written out (__fmaf_rn) and its ex2.approx is good to
+// and logf are the accurate library versions, the bf16 kernels' fused
+// multiply-adds are written out (__fmaf_rn) and their ex2.approx is good to
 // ~2^-22; all of them and the summation order differ from torch's, so the
 // kernels are held to their plain versions with a tolerance
 // (ops/flash_attention.py says which).
 //
-// Tried on the card and not kept: 8-warp blocks of 128 q rows (slower at
-// the main shape, no faster at seq 8192), and splitting a block's k tiles
-// between two groups of 4 warps with a merge at the end (a little faster
-// at the main shape, slower at seq 8192).
+// Tried on the card for the forward and not kept: 8-warp blocks of 128 q
+// rows (slower at the main shape, no faster at seq 8192), and splitting a
+// block's k tiles between two groups of 4 warps with a merge at the end (a
+// little faster at the main shape, slower at seq 8192).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr float kMask = -1e30f;  // MASK_VALUE of ops/attention.py
-constexpr int kTile = 64;        // threads per block; rows of a staged tile
+constexpr int kTile = 64;        // rows of a tile; fp32 kernels' threads
 constexpr int kChunk = 16;       // keys per online-softmax update
 
 struct Strides {
@@ -136,41 +171,18 @@ struct Args {
   Shape sh;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// `_live_fwd` for any q rows: does k tile kt hold a key that one of q rows
-// [r0, r1] sees?
-__device__ __forceinline__ bool rows_live(int r0, int r1, int kt,
-                                          const Shape& sh) {
-  if (!sh.causal) return true;
-  const long long k_first = (long long)kt * kTile;
-  return k_first <= r1 &&
-         (sh.window <= 0 || k_first + kTile - 1 > (long long)r0 - sh.window);
+// `_live_fwd` for any rows: does one of q rows [q0, q1] see one of keys
+// [k0, k1]?
+__device__ __forceinline__ bool band_meets(int q0, int q1, int k0, int k1,
+                                           const Shape& sh) {
+  return !sh.causal ||
+         (k0 <= q1 && (sh.window <= 0 || q0 - k1 < sh.window));
 }
 
 // `_live_fwd` at this kernel's tile: does k tile kt meet q tile qt's band?
 __device__ __forceinline__ bool tile_live(int qt, int kt, const Shape& sh) {
-  return rows_live(qt * kTile, qt * kTile + kTile - 1, kt, sh);
+  return band_meets(qt * kTile, qt * kTile + kTile - 1, kt * kTile,
+                    kt * kTile + kTile - 1, sh);
 }
 
 // `_score_tile`'s mask: same-origin causal, query i sees keys (i - window, i]
@@ -181,9 +193,9 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, const Shape& sh) {
 
 // Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
 // strided tensor, as fp32 times `mul`, into a shared tile; rows past n are 0.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
-                                          const T* base, Strides st,
+                                          const float* base, Strides st,
                                           int bi, int hh, int row0, int n,
                                           float mul) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += kTile) {
@@ -191,7 +203,7 @@ __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
     const int pos = row0 + r;
     float x = 0.f;
     if (pos < n) {
-      x = to_f32(base[bi * st.b + pos * st.s + hh * st.h + c]) * mul;
+      x = base[bi * st.b + pos * st.s + hh * st.h + c] * mul;
     }
     dst[r][c] = x;
   }
@@ -199,16 +211,15 @@ __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
 
 // A shared tile into rows [row0, row0 + kTile) of head hh of batch bi of a
 // dense (b, n, heads, D) tensor.
-template <typename T, int D>
-__device__ __forceinline__ void store_tile(T* base, float (*src)[D + 1],
+template <int D>
+__device__ __forceinline__ void store_tile(float* base, float (*src)[D + 1],
                                            int bi, int hh, int heads,
                                            int row0, int n) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += kTile) {
     const int r = idx / D, c = idx % D;
     const int pos = row0 + r;
     if (pos < n) {
-      base[(((long long)bi * n + pos) * heads + hh) * D + c] =
-          from_f32<T>(src[r][c]);
+      base[(((long long)bi * n + pos) * heads + hh) * D + c] = src[r][c];
     }
   }
 }
@@ -223,7 +234,7 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
 
 // Forward, fp32 inputs: one block per (b*h row, q tile), looping over the k
 // tiles.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
   __shared__ float ks[kTile][D + 1];
   __shared__ float vs[kTile][D + 1];
@@ -236,7 +247,7 @@ __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
 
   // the q tile (scaled in fp32) goes through shared memory, so its loads
   // are coalesced; each thread then keeps its own row
-  load_tile<T, D>(ks, static_cast<const T*>(a.q), a.sq, bi, hq, qt * kTile,
+  load_tile<D>(ks, static_cast<const float*>(a.q), a.sq, bi, hq, qt * kTile,
                   sh.s_q, sh.scale);
   __syncthreads();
   float qr[D], acc[D];
@@ -251,9 +262,9 @@ __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     if (!tile_live(qt, kt, sh)) continue;  // the same for the whole block
     __syncthreads();  // every reader of the previous tile is done
-    load_tile<T, D>(ks, static_cast<const T*>(a.k), a.sk, bi, hkv,
+    load_tile<D>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
                     kt * kTile, sh.s_kv, 1.f);
-    load_tile<T, D>(vs, static_cast<const T*>(a.v), a.sv, bi, hkv,
+    load_tile<D>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
                     kt * kTile, sh.s_kv, 1.f);
     __syncthreads();
     if (!valid) continue;
@@ -296,12 +307,12 @@ __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
   for (int d = 0; d < D; ++d) ks[threadIdx.x][d] = acc[d] / den;
   if (valid) a.lse[(long long)row * sh.s_q + qpos] = m + logf(den);
   __syncthreads();
-  store_tile<float, D>(a.o, ks, bi, hq, sh.h, qt * kTile, sh.s_q);
+  store_tile<D>(a.o, ks, bi, hq, sh.h, qt * kTile, sh.s_q);
 }
 
-// dQ: one block per (b*h row, q tile), looping over the k tiles.
-// dS = P * (dO . V^T - D); dQ = scale * dS . K.
-template <typename T, int D>
+// dQ, fp32 inputs: one block per (b*h row, q tile), looping over the k
+// tiles. dS = P * (dO . V^T - D); dQ = scale * dS . K.
+template <int D>
 __global__ void __launch_bounds__(kTile) flash_dq_kernel(Args a) {
   __shared__ float ks[kTile][D + 1];
   __shared__ float vs[kTile][D + 1];
@@ -312,9 +323,9 @@ __global__ void __launch_bounds__(kTile) flash_dq_kernel(Args a) {
   const int qpos = qt * kTile + threadIdx.x;
   const bool valid = qpos < sh.s_q;
 
-  load_tile<T, D>(ks, static_cast<const T*>(a.q), a.sq, bi, hq, qt * kTile,
+  load_tile<D>(ks, static_cast<const float*>(a.q), a.sq, bi, hq, qt * kTile,
                   sh.s_q, sh.scale);
-  load_tile<float, D>(vs, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
+  load_tile<D>(vs, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
   __syncthreads();
   float qr[D], dor[D], acc[D];
 #pragma unroll
@@ -331,9 +342,9 @@ __global__ void __launch_bounds__(kTile) flash_dq_kernel(Args a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     if (!tile_live(qt, kt, sh)) continue;
     __syncthreads();
-    load_tile<T, D>(ks, static_cast<const T*>(a.k), a.sk, bi, hkv,
+    load_tile<D>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
                     kt * kTile, sh.s_kv, 1.f);
-    load_tile<T, D>(vs, static_cast<const T*>(a.v), a.sv, bi, hkv,
+    load_tile<D>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
                     kt * kTile, sh.s_kv, 1.f);
     __syncthreads();
     if (!valid) continue;
@@ -352,13 +363,14 @@ __global__ void __launch_bounds__(kTile) flash_dq_kernel(Args a) {
 #pragma unroll
   for (int d = 0; d < D; ++d) ks[threadIdx.x][d] = sh.scale * acc[d];
   __syncthreads();
-  store_tile<T, D>(static_cast<T*>(a.dq), ks, bi, hq, sh.h, qt * kTile,
+  store_tile<D>(static_cast<float*>(a.dq), ks, bi, hq, sh.h, qt * kTile,
                    sh.s_q);
 }
 
-// dK/dV: one block per (b*hk row, k tile), looping over the kv head's group
-// of q heads x q tiles. dV = P^T . dO; dK = dS^T . Qs (Qs pre-scaled).
-template <typename T, int D>
+// dK/dV, fp32 inputs: one block per (b*hk row, k tile), looping over the
+// kv head's group of q heads x q tiles. dV = P^T . dO; dK = dS^T . Qs (Qs
+// pre-scaled).
+template <int D>
 __global__ void __launch_bounds__(kTile) flash_dkv_kernel(Args a) {
   __shared__ float qs[kTile][D + 1];
   __shared__ float dos[kTile][D + 1];
@@ -371,9 +383,9 @@ __global__ void __launch_bounds__(kTile) flash_dkv_kernel(Args a) {
   const int kpos = kt * kTile + threadIdx.x;
   const bool valid = kpos < sh.s_kv;
 
-  load_tile<T, D>(qs, static_cast<const T*>(a.k), a.sk, bi, hkv, kt * kTile,
+  load_tile<D>(qs, static_cast<const float*>(a.k), a.sk, bi, hkv, kt * kTile,
                   sh.s_kv, 1.f);
-  load_tile<T, D>(dos, static_cast<const T*>(a.v), a.sv, bi, hkv,
+  load_tile<D>(dos, static_cast<const float*>(a.v), a.sv, bi, hkv,
                   kt * kTile, sh.s_kv, 1.f);
   __syncthreads();
   float kr[D], vr[D], dk[D], dv[D];
@@ -391,9 +403,9 @@ __global__ void __launch_bounds__(kTile) flash_dkv_kernel(Args a) {
     const int qt = t % n_qt;
     if (!tile_live(qt, kt, sh)) continue;
     __syncthreads();
-    load_tile<T, D>(qs, static_cast<const T*>(a.q), a.sq, bi, hq,
+    load_tile<D>(qs, static_cast<const float*>(a.q), a.sq, bi, hq,
                     qt * kTile, sh.s_q, sh.scale);
-    load_tile<float, D>(dos, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
+    load_tile<D>(dos, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
     {
       const int pos = qt * kTile + threadIdx.x;
       const long long rix = ((long long)bi * sh.h + hq) * sh.s_q + pos;
@@ -421,19 +433,40 @@ __global__ void __launch_bounds__(kTile) flash_dkv_kernel(Args a) {
     dos[threadIdx.x][d] = dv[d];
   }
   __syncthreads();
-  store_tile<T, D>(static_cast<T*>(a.dk), qs, bi, hkv, sh.hk, kt * kTile,
+  store_tile<D>(static_cast<float*>(a.dk), qs, bi, hkv, sh.hk, kt * kTile,
                    sh.s_kv);
-  store_tile<T, D>(static_cast<T*>(a.dv), dos, bi, hkv, sh.hk, kt * kTile,
+  store_tile<D>(static_cast<float*>(a.dv), dos, bi, hkv, sh.hk, kt * kTile,
                    sh.s_kv);
 }
 
-// --- bf16 forward on the tensor cores ----------------------------------------
+// --- bf16 kernels on the tensor cores ----------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;  // 16 q rows each: a block takes kTile q rows
+constexpr int kWarps = 4;  // 16 rows each: a block takes kTile rows
 constexpr int kMmaThreads = kWarps * 32;
+constexpr int kNs = kTile / 8;  // n tiles (8 columns each) of a 16 x 64 tile
 constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kMmaThreads == 2 * kTile, "load_rows: a thread a row, twice");
+
+// elements of a shared row: an odd number of 16-byte pieces, so the eight
+// rows of an ldmatrix phase start in distinct banks
+template <int D>
+__host__ __device__ constexpr int smem_row() {
+  return (D / 8) % 2 ? D : D + 8;
+}
+
+// depth steps of a product over the head dim (head dim 8: one, zero-padded)
+template <int D>
+__host__ __device__ constexpr int depth_steps() {
+  return (D + 15) / 16;
+}
+
+// fp32 elements of a (kTile x D) tile a thread loads
+template <int D>
+__host__ __device__ constexpr int tile_share() {
+  return kTile * D / kMmaThreads;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -527,15 +560,49 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// does every one of q rows [r0, r1] see every key of k tile kt, all
-// inside s_kv?
-__device__ __forceinline__ bool rows_full(int r0, int r1, int kt,
-                                          const Shape& sh) {
-  const long long k_first = (long long)kt * kTile;
-  const long long k_last = k_first + kTile - 1;
-  if (k_last >= sh.s_kv) return false;
+// does every q of [q0, q1] see every key of [k0, k1], all inside s_q and
+// s_kv?
+__device__ __forceinline__ bool pairs_full(int q0, int q1, int k0, int k1,
+                                           const Shape& sh) {
+  if (q1 >= sh.s_q || k1 >= sh.s_kv) return false;
   if (!sh.causal) return true;
-  return k_last <= r0 && (sh.window <= 0 || r1 - k_first < sh.window);
+  return k1 <= q0 && (sh.window <= 0 || q1 - k0 < sh.window);
+}
+
+// A 16 x 64 score tile in accumulator layout, its rows from row0 and its
+// columns from col0 (q rows x keys, or keys x q columns when !rows_are_q):
+// the floor for every pair that is not visible or lies past s_q or s_kv
+__device__ __forceinline__ void mask_tile(float (&s)[kNs][4], int row0,
+                                          int col0, bool rows_are_q,
+                                          const Shape& sh, int lane) {
+#pragma unroll
+  for (int j = 0; j < kNs; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = row0 + lane / 4 + (c >> 1) * 8;
+      const int col = col0 + 8 * j + 2 * (lane % 4) + (c & 1);
+      const int qpos = rows_are_q ? r : col;
+      const int kpos = rows_are_q ? col : r;
+      if (qpos >= sh.s_q || kpos >= sh.s_kv || !visible(qpos, kpos, sh)) {
+        s[j][c] = kMask;
+      }
+    }
+  }
+}
+
+// The run [lo, hi] of the n_other tiles that meet the kTile rows from r0:
+// k tiles for q rows (rows_are_q), else q tiles for keys; empty: hi < lo
+__device__ __forceinline__ void live_run(int r0, int n_other, bool rows_are_q,
+                                         const Shape& sh, int& lo, int& hi) {
+  auto meets = [&](int t) {
+    const int t0 = t * kTile, t1 = t0 + kTile - 1;
+    return rows_are_q ? band_meets(r0, r0 + kTile - 1, t0, t1, sh)
+                      : band_meets(t0, t1, r0, r0 + kTile - 1, sh);
+  };
+  lo = 0;
+  while (lo < n_other && !meets(lo)) ++lo;
+  hi = lo - 1;
+  while (hi + 1 < n_other && meets(hi + 1)) ++hi;
 }
 
 // Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
@@ -563,18 +630,181 @@ __device__ __forceinline__ void load_bf16_tile(bf16* dst, const bf16* base,
   }
 }
 
+// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
+// fp32 strided tensor into registers: x[i] is element threadIdx.x + i *
+// kMmaThreads of the tile; rows past n are zero
+template <int D>
+__device__ __forceinline__ void load_f32_tile(float (&x)[tile_share<D>()],
+                                              const float* base, Strides st,
+                                              int bi, int hh, int row0,
+                                              int n) {
+#pragma unroll
+  for (int i = 0; i < tile_share<D>(); ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int pos = row0 + idx / D;
+    x[i] = pos < n ? base[bi * st.b + (long long)pos * st.s + hh * st.h +
+                          idx % D]
+                   : 0.f;
+  }
+}
+
+// x, as load_f32_tile left it, into two shared tiles of kRow-element rows:
+// hi = bf16(x) and lo = bf16(x - hi)
+template <int D, int kRow>
+__device__ __forceinline__ void store_split_tile(
+    bf16* hi, bf16* lo, const float (&x)[tile_share<D>()]) {
+#pragma unroll
+  for (int i = 0; i < tile_share<D>(); ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int at = (idx / D) * kRow + idx % D;
+    const bf16 h = __float2bfloat16_rn(x[i]);
+    hi[at] = h;
+    lo[at] = __float2bfloat16_rn(x[i] - __bfloat162float(h));
+  }
+}
+
+// The lse (times log2 e) and D of q rows [q0, q0 + kTile) of q head hq
+// into shared memory, one thread a value; rows past s_q are 0
+__device__ __forceinline__ void load_rows(float* ls, float* dcs,
+                                          const Args& a, int bi, int hq,
+                                          int q0) {
+  const Shape& sh = a.sh;
+  const int i = threadIdx.x % kTile;
+  const int pos = q0 + i;
+  const long long rix = ((long long)bi * sh.h + hq) * sh.s_q + pos;
+  if (threadIdx.x < kTile) {
+    ls[i] = pos < sh.s_q ? a.lse_in[rix] * kLog2e : 0.f;
+  } else {
+    dcs[i] = pos < sh.s_q ? a.dcap[rix] : 0.f;
+  }
+}
+
+// A fragments of 16 rows x D of a shared tile of kRow-element rows, from
+// `rows`, the first of them
+template <int D, int kRow>
+__device__ __forceinline__ void load_a(uint32_t (&f)[depth_steps<D>()][4],
+                                       const bf16* rows, int lane) {
+  const bf16* r = rows + (lane % 16) * kRow;
+  if constexpr (D == 8) {
+    uint32_t x[2];
+    ldsm_x2(x, r);
+    f[0][0] = x[0];
+    f[0][1] = x[1];
+    f[0][2] = 0u;  // depth 8..15: zero padding
+    f[0][3] = 0u;
+  } else {
+#pragma unroll
+    for (int s = 0; s < depth_steps<D>(); ++s) {
+      ldsm_x4(f[s], r + 16 * s + (lane / 16) * 8);
+    }
+  }
+}
+
+// acc (16 x 64) += A (16 x D, fragments) . B^T, B the 64 rows x D of a
+// shared tile of kRow-element rows: S = Q.K^T, dP = dO.V^T, S^T = K.Q^T,
+// dP^T = V.dO^T
+template <int D, int kRow>
+__device__ __forceinline__ void mma_abt(
+    float (&acc)[kNs][4], const uint32_t (&a)[depth_steps<D>()][4],
+    const bf16* b, int lane) {
+  if constexpr (D == 8) {
+#pragma unroll
+    for (int j = 0; j < kNs; j += 4) {
+      uint32_t x[4];  // n tiles j..j+3, depth 0..7
+      ldsm_x4(x, b + (8 * j + lane) * kRow);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mma_bf16(acc[j + e], a[0], x[e], 0u);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < depth_steps<D>(); ++s) {
+#pragma unroll
+      for (int j = 0; j < kNs; j += 2) {
+        uint32_t x[4];  // n tiles j, j+1 at depth 16s..16s+15
+        ldsm_x4(x, b + (8 * j + lane % 8 + (lane / 16) * 8) * kRow + 16 * s +
+                       ((lane / 8) % 2) * 8);
+        mma_bf16(acc[j], a[s], x[0], x[1]);
+        mma_bf16(acc[j + 1], a[s], x[2], x[3]);
+      }
+    }
+  }
+}
+
+// acc (16 x D) += X . B, X (16 x 64) fp32 in accumulator layout, taken as
+// bf16 hi + lo, and B the 64 rows x D of a shared tile of kRow-element rows
+// (ldmatrix.trans): O += P.V, dQ += dS.K, dV += P^T.dO, dK += dS^T.Q. With
+// kLoB, B is itself split (b hi, b_lo lo) and X_hi.B_lo is added; X_lo.B_lo
+// is dropped. Per accumulator: X_lo.B, X_hi.B_lo, X_hi.B, small first.
+template <int D, int kRow, bool kLoB>
+__device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
+                                       const float (&x)[kNs][4],
+                                       const bf16* b, const bf16* b_lo,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+    split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+    if constexpr (D == 8) {
+      const int at = (16 * kk + lane % 16) * kRow;
+      uint32_t y[2];
+      ldsm_x2_trans(y, b + at);
+      mma_bf16(acc[0], lo, y[0], y[1]);
+      if constexpr (kLoB) {
+        uint32_t z[2];
+        ldsm_x2_trans(z, b_lo + at);
+        mma_bf16(acc[0], hi, z[0], z[1]);
+      }
+      mma_bf16(acc[0], hi, y[0], y[1]);
+    } else {
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        // n tiles nd, nd+1 at rows 16kk..16kk+15
+        const int at = (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * kRow +
+                       8 * nd + (lane / 16) * 8;
+        uint32_t y[4];
+        ldsm_x4_trans(y, b + at);
+        mma_bf16(acc[nd], lo, y[0], y[1]);
+        mma_bf16(acc[nd + 1], lo, y[2], y[3]);
+        if constexpr (kLoB) {
+          uint32_t z[4];
+          ldsm_x4_trans(z, b_lo + at);
+          mma_bf16(acc[nd], hi, z[0], z[1]);
+          mma_bf16(acc[nd + 1], hi, z[2], z[3]);
+        }
+        mma_bf16(acc[nd], hi, y[0], y[1]);
+        mma_bf16(acc[nd + 1], hi, y[2], y[3]);
+      }
+    }
+  }
+}
+
+// One of this thread's two rows of a 16 x D accumulator (half 0: row
+// lane / 4, half 1: 8 below), times mul, as bf16 pairs into `out`, that
+// row's first element
+template <int D>
+__device__ __forceinline__ void store_row_bf16(bf16* out,
+                                                const float (&acc)[D / 8][4],
+                                                int half, float mul,
+                                                int lane) {
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    *reinterpret_cast<__nv_bfloat162*>(out + 8 * nd + 2 * (lane % 4)) =
+        __floats2bfloat162_rn(mul * acc[nd][2 * half],
+                              mul * acc[nd][2 * half + 1]);
+  }
+}
+
 // Forward, bf16 inputs: one block of kWarps warps per (b*h row, q tile),
 // looping over the live k tiles.
 template <int D, bool kAsync>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(Args a) {
   static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
-  // a shared row is an odd number of 16-byte pieces: the eight rows of an
-  // ldmatrix phase then start in distinct banks
-  constexpr int kRow = (D / 8) % 2 ? D : D + 8;
-  constexpr int kSteps = (D + 15) / 16;  // depth steps of S = Q.K^T
-  constexpr int kNs = kTile / 8;         // n tiles of S (8 keys each)
-  constexpr int kNo = D / 8;             // n tiles of O (8 dims each)
+  constexpr int kRow = smem_row<D>();
+  constexpr int kNo = D / 8;  // n tiles of O (8 dims each)
   __shared__ __align__(16) bf16 qs[kTile * kRow];
   __shared__ __align__(16) bf16 ks[2][kTile * kRow];
   __shared__ __align__(16) bf16 vs[2][kTile * kRow];
@@ -592,14 +822,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   const bf16* v = static_cast<const bf16*>(a.v);
 
   // the k tiles some row of the block sees are one run [kt_lo, kt_hi]
-  const int q_last = q_first + kTile - 1;
-  const int n_kt = (sh.s_kv + kTile - 1) / kTile;
-  int kt_lo = 0;
-  while (kt_lo < n_kt && !rows_live(q_first, q_last, kt_lo, sh)) ++kt_lo;
-  int kt_hi = kt_lo - 1;
-  while (kt_hi + 1 < n_kt && rows_live(q_first, q_last, kt_hi + 1, sh)) {
-    ++kt_hi;
-  }
+  int kt_lo, kt_hi;
+  live_run(q_first, (sh.s_kv + kTile - 1) / kTile, true, sh, kt_lo, kt_hi);
 
   load_bf16_tile<D, kRow, kAsync>(qs, q, a.sq, bi, hq, q_first, sh.s_q);
   if (kt_lo <= kt_hi) {
@@ -610,15 +834,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
   cp_async_commit();
 
-  float o[kNo][4];
-#pragma unroll
-  for (int nd = 0; nd < kNo; ++nd) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[nd][c] = 0.f;
-  }
+  float o[kNo][4] = {};
   float m[2] = {kMask, kMask};  // running max of the unscaled scores
   float l[2] = {0.f, 0.f};      // this thread's part of the running sum
-  uint32_t qf[kSteps][4];
+  uint32_t qf[depth_steps<D>()][4];
   const float scale2 = sh.scale * kLog2e;  // exp(scale s) = 2^(scale2 s)
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
@@ -634,66 +853,16 @@ __global__ void __launch_bounds__(kMmaThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kt_lo) {  // this warp's 16 q rows, once
-      const bf16* qrow = qs + (warp * 16 + lane % 16) * kRow;
-      if constexpr (D == 8) {
-        uint32_t r[2];
-        ldsm_x2(r, qrow);
-        qf[0][0] = r[0];
-        qf[0][1] = r[1];
-        qf[0][2] = 0u;  // depth 8..15: zero padding
-        qf[0][3] = 0u;
-      } else {
-#pragma unroll
-        for (int s = 0; s < kSteps; ++s) {
-          ldsm_x4(qf[s], qrow + 16 * s + (lane / 16) * 8);
-        }
-      }
-    }
-    if (rows_live(w_first, w_first + 15, kt, sh)) {  // warp-uniform
+    if (kt == kt_lo) load_a<D, kRow>(qf, qs + warp * 16 * kRow, lane);
+    const int k_first = kt * kTile;
+    if (band_meets(w_first, w_first + 15, k_first, k_first + kTile - 1,
+                   sh)) {  // warp-uniform
       // S = Q.K^T for this warp's 16 rows x 64 keys
-      float sc[kNs][4];
-#pragma unroll
-      for (int j = 0; j < kNs; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
-      }
-      const bf16* kst = ks[stage];
-      if constexpr (D == 8) {
-#pragma unroll
-        for (int j = 0; j < kNs; j += 4) {
-          uint32_t b[4];  // n tiles j..j+3, depth 0..7
-          ldsm_x4(b, kst + (8 * j + lane) * kRow);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mma_bf16(sc[j + e], qf[0], b[e], 0u);
-        }
-      } else {
-#pragma unroll
-        for (int s = 0; s < kSteps; ++s) {
-#pragma unroll
-          for (int j = 0; j < kNs; j += 2) {
-            uint32_t b[4];  // n tiles j, j+1 at depth 16s..16s+15
-            ldsm_x4(b, kst + (8 * j + lane % 8 + (lane / 16) * 8) * kRow +
-                           16 * s + ((lane / 8) % 2) * 8);
-            mma_bf16(sc[j], qf[s], b[0], b[1]);
-            mma_bf16(sc[j + 1], qf[s], b[2], b[3]);
-          }
-        }
-      }
-
-      // mask, padding keys past s_kv included
-      if (!rows_full(w_first, w_first + 15, kt, sh)) {
-#pragma unroll
-        for (int j = 0; j < kNs; ++j) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int kpos = kt * kTile + 8 * j + 2 * tq + (c & 1);
-            const int qpos = qpos0 + (c >> 1) * 8;
-            if (kpos >= sh.s_kv || !visible(qpos, kpos, sh)) {
-              sc[j][c] = kMask;
-            }
-          }
-        }
+      float sc[kNs][4] = {};
+      mma_abt<D, kRow>(sc, qf, ks[stage], lane);
+      if (!pairs_full(w_first, w_first + 15, k_first, k_first + kTile - 1,
+                      sh)) {
+        mask_tile(sc, w_first, k_first, true, sh, lane);
       }
 
       // online softmax; a row lives in the quad of lanes 4g..4g+3. The
@@ -733,34 +902,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         }
       }
 
-      // O += (P_hi + P_lo).V, 16 keys at a time
-      const bf16* vst = vs[stage];
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t hi[4], lo[4];
-        split_bf16(sc[2 * kk][0], sc[2 * kk][1], hi[0], lo[0]);
-        split_bf16(sc[2 * kk][2], sc[2 * kk][3], hi[1], lo[1]);
-        split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], hi[2], lo[2]);
-        split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], hi[3], lo[3]);
-        if constexpr (D == 8) {
-          uint32_t b[2];
-          ldsm_x2_trans(b, vst + (16 * kk + lane % 16) * kRow);
-          mma_bf16(o[0], lo, b[0], b[1]);
-          mma_bf16(o[0], hi, b[0], b[1]);
-        } else {
-#pragma unroll
-          for (int nd = 0; nd < kNo; nd += 2) {
-            uint32_t b[4];  // n tiles nd, nd+1 at keys 16kk..16kk+15
-            ldsm_x4_trans(
-                b, vst + (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * kRow +
-                       8 * nd + (lane / 16) * 8);
-            mma_bf16(o[nd], lo, b[0], b[1]);
-            mma_bf16(o[nd], hi, b[0], b[1]);
-            mma_bf16(o[nd + 1], lo, b[2], b[3]);
-            mma_bf16(o[nd + 1], hi, b[2], b[3]);
-          }
-        }
-      }
+      // O += (P_hi + P_lo).V
+      mma_xb<D, kRow, false>(o, sc, vs[stage], nullptr, lane);
     }
     __syncthreads();  // every warp is done with this stage
   }
@@ -788,6 +931,253 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// dQ, bf16 inputs: one block of kWarps warps per (b*h row, q tile),
+// looping over the live k/v tiles. dS = P (dO.V^T - D); dQ = scale dS.K.
+template <int D, bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dq_mma_kernel(Args a) {
+  static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
+  constexpr int kRow = smem_row<D>();
+  constexpr int kSteps = depth_steps<D>();
+  __shared__ __align__(16) bf16 qs[kTile * kRow];
+  __shared__ __align__(16) bf16 dos[2][kTile * kRow];  // dO: hi, lo
+  __shared__ __align__(16) bf16 ks[2][kTile * kRow];
+  __shared__ __align__(16) bf16 vs[2][kTile * kRow];
+
+  const Shape& sh = a.sh;
+  const int row = blockIdx.x;  // bi * h + hq
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int bi = row / sh.h, hq = row % sh.h, hkv = hq / sh.group;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w_first = q_first + warp * 16;  // this warp's rows: 16 from here
+  const int qpos0 = w_first + lane / 4;     // this thread's: qpos0, qpos0 + 8
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  int kt_lo, kt_hi;
+  live_run(q_first, (sh.s_kv + kTile - 1) / kTile, true, sh, kt_lo, kt_hi);
+
+  load_bf16_tile<D, kRow, kAsync>(qs, static_cast<const bf16*>(a.q), a.sq,
+                                  bi, hq, q_first, sh.s_q);
+  if (kt_lo <= kt_hi) {
+    load_bf16_tile<D, kRow, kAsync>(ks[0], k, a.sk, bi, hkv, kt_lo * kTile,
+                                    sh.s_kv);
+    load_bf16_tile<D, kRow, kAsync>(vs[0], v, a.sv, bi, hkv, kt_lo * kTile,
+                                    sh.s_kv);
+  }
+  cp_async_commit();
+  {
+    float x[tile_share<D>()];
+    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_first, sh.s_q);
+    store_split_tile<D, kRow>(dos[0], dos[1], x);
+  }
+  // this thread's rows qpos0 and qpos0 + 8: lse (times log2 e) and D
+  float lse2[2], dc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qpos0 + 8 * r;
+    const long long rix = (long long)row * sh.s_q + qpos;
+    lse2[r] = qpos < sh.s_q ? a.lse_in[rix] * kLog2e : 0.f;
+    dc[r] = qpos < sh.s_q ? a.dcap[rix] : 0.f;
+  }
+
+  float acc[D / 8][4] = {};
+  uint32_t qf[kSteps][4], dof[2][kSteps][4];  // Q; dO hi, lo
+  const float scale2 = sh.scale * kLog2e;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt < kt_hi) {  // the next tile lands while this one is computed
+      load_bf16_tile<D, kRow, kAsync>(ks[stage ^ 1], k, a.sk, bi, hkv,
+                                      (kt + 1) * kTile, sh.s_kv);
+      load_bf16_tile<D, kRow, kAsync>(vs[stage ^ 1], v, a.sv, bi, hkv,
+                                      (kt + 1) * kTile, sh.s_kv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == kt_lo) {  // this warp's 16 q rows of Q and dO, once
+      load_a<D, kRow>(qf, qs + warp * 16 * kRow, lane);
+      load_a<D, kRow>(dof[0], dos[0] + warp * 16 * kRow, lane);
+      load_a<D, kRow>(dof[1], dos[1] + warp * 16 * kRow, lane);
+    }
+    const int k_first = kt * kTile;
+    if (band_meets(w_first, w_first + 15, k_first, k_first + kTile - 1,
+                   sh)) {  // warp-uniform
+      // S = Q.K^T, then P = 2^(S scale2 - lse2): 16 q rows x 64 keys
+      float p[kNs][4] = {};
+      mma_abt<D, kRow>(p, qf, ks[stage], lane);
+      if (!pairs_full(w_first, w_first + 15, k_first, k_first + kTile - 1,
+                      sh)) {
+        mask_tile(p, w_first, k_first, true, sh, lane);
+      }
+      // dP = (dO_lo + dO_hi).V^T
+      float ds[kNs][4] = {};
+      mma_abt<D, kRow>(ds, dof[1], vs[stage], lane);
+      mma_abt<D, kRow>(ds, dof[0], vs[stage], lane);
+#pragma unroll
+      for (int j = 0; j < kNs; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = c >> 1;
+          const float pc = p[j][c] > 0.5f * kMask
+                               ? ex2(__fmaf_rn(p[j][c], scale2, -lse2[r]))
+                               : 0.f;
+          ds[j][c] = pc * (ds[j][c] - dc[r]);
+        }
+      }
+      // dQ += (dS_hi + dS_lo).K
+      mma_xb<D, kRow, false>(acc, ds, ks[stage], nullptr, lane);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  bf16* dq = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qpos0 + 8 * r;
+    if (qpos >= sh.s_q) continue;
+    store_row_bf16<D>(dq + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * D,
+                       acc, r, sh.scale, lane);
+  }
+}
+
+// dK/dV, bf16 inputs: one block of kWarps warps per (b*hk row, key tile),
+// looping over the kv head's group of q heads x the live q tiles, keys on
+// the rows. dV = P^T.dO; dS^T = P^T (V.dO^T - D); dK = scale dS^T.Q.
+template <int D, bool kAsync>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dkv_mma_kernel(Args a) {
+  static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
+  constexpr int kRow = smem_row<D>();
+  constexpr int kSteps = depth_steps<D>();
+  __shared__ __align__(16) bf16 ks[kTile * kRow];
+  __shared__ __align__(16) bf16 vs[kTile * kRow];
+  __shared__ __align__(16) bf16 qs[2][kTile * kRow];
+  __shared__ __align__(16) bf16 doh[2][kTile * kRow];  // dO: hi
+  __shared__ __align__(16) bf16 dol[2][kTile * kRow];  // and lo
+  __shared__ __align__(16) float ls[2][kTile];   // the q rows' lse log2 e
+  __shared__ __align__(16) float dcs[2][kTile];  // and D
+
+  const Shape& sh = a.sh;
+  const int row = blockIdx.x;  // bi * hk + hkv
+  // causal: key tile 0 is seen by the most q tiles, and launches first
+  const int k_first = blockIdx.y * kTile;
+  const int bi = row / sh.hk, hkv = row % sh.hk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tq = lane % 4;
+  const int w_first = k_first + warp * 16;  // this warp's keys: 16 from here
+  const int kpos0 = w_first + lane / 4;     // this thread's: kpos0, kpos0 + 8
+  const bf16* q = static_cast<const bf16*>(a.q);
+
+  // the q tiles that meet this key tile are one run [qt_lo, qt_hi], the
+  // same for every q head; the loop walks (q head, q tile) head-major
+  int qt_lo, qt_hi;
+  live_run(k_first, (sh.s_q + kTile - 1) / kTile, false, sh, qt_lo, qt_hi);
+  const int n_live = qt_hi - qt_lo + 1;
+  const int n_it = n_live > 0 ? sh.group * n_live : 0;
+  const int hq0 = hkv * sh.group;
+
+  load_bf16_tile<D, kRow, kAsync>(ks, static_cast<const bf16*>(a.k), a.sk,
+                                  bi, hkv, k_first, sh.s_kv);
+  load_bf16_tile<D, kRow, kAsync>(vs, static_cast<const bf16*>(a.v), a.sv,
+                                  bi, hkv, k_first, sh.s_kv);
+  // the q tile's dO goes through registers: read ahead, split into shared
+  // memory once the tile before it is computed
+  float x[tile_share<D>()];
+  if (n_it > 0) {
+    load_bf16_tile<D, kRow, kAsync>(qs[0], q, a.sq, bi, hq0, qt_lo * kTile,
+                                    sh.s_q);
+    load_rows(ls[0], dcs[0], a, bi, hq0, qt_lo * kTile);
+    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq0, qt_lo * kTile, sh.s_q);
+    store_split_tile<D, kRow>(doh[0], dol[0], x);
+  }
+  cp_async_commit();
+
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  uint32_t kf[kSteps][4], vf[kSteps][4];
+  const float scale2 = sh.scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    const int q_first = (qt_lo + it % n_live) * kTile;
+    const bool more = it + 1 < n_it;
+    if (more) {  // the next tile lands while this one is computed
+      const int hq = hq0 + (it + 1) / n_live;
+      const int q_next = (qt_lo + (it + 1) % n_live) * kTile;
+      load_bf16_tile<D, kRow, kAsync>(qs[stage ^ 1], q, a.sq, bi, hq,
+                                      q_next, sh.s_q);
+      cp_async_commit();
+      load_rows(ls[stage ^ 1], dcs[stage ^ 1], a, bi, hq, q_next);
+      load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_next, sh.s_q);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {  // this warp's 16 keys of K and V, once
+      load_a<D, kRow>(kf, ks + warp * 16 * kRow, lane);
+      load_a<D, kRow>(vf, vs + warp * 16 * kRow, lane);
+    }
+    if (w_first < sh.s_kv &&
+        band_meets(q_first, q_first + kTile - 1, w_first, w_first + 15,
+                   sh)) {  // warp-uniform
+      // S^T = K.Q^T, then P^T = 2^(S^T scale2 - lse2), the lse by column:
+      // 16 keys x 64 q
+      float p[kNs][4] = {};
+      mma_abt<D, kRow>(p, kf, qs[stage], lane);
+      if (!pairs_full(q_first, q_first + kTile - 1, w_first, w_first + 15,
+                      sh)) {
+        mask_tile(p, w_first, q_first, false, sh, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < kNs; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(&ls[stage][8 * j + 2 * tq]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float lc = c & 1 ? l2.y : l2.x;
+          p[j][c] = p[j][c] > 0.5f * kMask
+                        ? ex2(__fmaf_rn(p[j][c], scale2, -lc))
+                        : 0.f;
+        }
+      }
+      // dV += (P_hi + P_lo).(dO_hi + dO_lo), lo.lo dropped
+      mma_xb<D, kRow, true>(dv, p, doh[stage], dol[stage], lane);
+      // dP^T = V.(dO_lo + dO_hi)^T, then dS^T = P^T (dP^T - D), D by column
+      float ds[kNs][4] = {};
+      mma_abt<D, kRow>(ds, vf, dol[stage], lane);
+      mma_abt<D, kRow>(ds, vf, doh[stage], lane);
+#pragma unroll
+      for (int j = 0; j < kNs; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(&dcs[stage][8 * j + 2 * tq]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          ds[j][c] = p[j][c] * (ds[j][c] - (c & 1 ? d2.y : d2.x));
+        }
+      }
+      // dK += (dS_hi + dS_lo)^T.Q, scaled at the end
+      mma_xb<D, kRow, false>(dk, ds, qs[stage], nullptr, lane);
+    }
+    if (more) store_split_tile<D, kRow>(doh[stage ^ 1], dol[stage ^ 1], x);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  bf16* dk_out = static_cast<bf16*>(a.dk);
+  bf16* dv_out = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = kpos0 + 8 * r;
+    if (kpos >= sh.s_kv) continue;
+    const long long at = (((long long)bi * sh.s_kv + kpos) * sh.hk + hkv) * D;
+    store_row_bf16<D>(dk_out + at, dk, r, sh.scale, lane);
+    store_row_bf16<D>(dv_out + at, dv, r, 1.f, lane);
+  }
+}
+
 // cp.async needs every q, k and v row 16-byte aligned
 bool rows_aligned(const Args& a) {
   const Strides st[3] = {a.sq, a.sk, a.sv};
@@ -801,44 +1191,44 @@ bool rows_aligned(const Args& a) {
 
 enum Pass { kFwd, kDq, kDkv };
 
-template <typename T, int D>
-int launch(Pass pass, const Args& a, cudaStream_t stream) {
+// bf16 inputs launch the tensor-core kernels (the cp.async instantiation
+// when every q, k and v row is 16-byte aligned), fp32 the CUDA-core ones
+template <int D>
+int launch(Pass pass, const Args& a, bool bf16_in, cudaStream_t stream) {
   const Shape& sh = a.sh;
-  const unsigned q_tiles = (sh.s_q + kTile - 1) / kTile;
-  const unsigned k_tiles = (sh.s_kv + kTile - 1) / kTile;
+  const dim3 q_grid(sh.b * sh.h, (sh.s_q + kTile - 1) / kTile);
+  const dim3 k_grid(sh.b * sh.hk, (sh.s_kv + kTile - 1) / kTile);
+  const bool al = bf16_in && rows_aligned(a);
   switch (pass) {
     case kFwd:
-      if constexpr (std::is_same<T, bf16>::value) {
-        const dim3 grid(sh.b * sh.h, q_tiles);
-        if (rows_aligned(a)) {
-          flash_fwd_mma_kernel<D, true><<<grid, kMmaThreads, 0, stream>>>(a);
-        } else {
-          flash_fwd_mma_kernel<D, false><<<grid, kMmaThreads, 0, stream>>>(a);
-        }
+      if (!bf16_in) {
+        flash_fwd_kernel<D><<<q_grid, kTile, 0, stream>>>(a);
+      } else if (al) {
+        flash_fwd_mma_kernel<D, true><<<q_grid, kMmaThreads, 0, stream>>>(a);
       } else {
-        flash_fwd_kernel<T, D>
-            <<<dim3(sh.b * sh.h, q_tiles), kTile, 0, stream>>>(a);
+        flash_fwd_mma_kernel<D, false><<<q_grid, kMmaThreads, 0, stream>>>(a);
       }
       break;
     case kDq:
-      flash_dq_kernel<T, D>
-          <<<dim3(sh.b * sh.h, q_tiles), kTile, 0, stream>>>(a);
+      if (!bf16_in) {
+        flash_dq_kernel<D><<<q_grid, kTile, 0, stream>>>(a);
+      } else if (al) {
+        flash_dq_mma_kernel<D, true><<<q_grid, kMmaThreads, 0, stream>>>(a);
+      } else {
+        flash_dq_mma_kernel<D, false><<<q_grid, kMmaThreads, 0, stream>>>(a);
+      }
       break;
     case kDkv:
-      flash_dkv_kernel<T, D>
-          <<<dim3(sh.b * sh.hk, k_tiles), kTile, 0, stream>>>(a);
+      if (!bf16_in) {
+        flash_dkv_kernel<D><<<k_grid, kTile, 0, stream>>>(a);
+      } else if (al) {
+        flash_dkv_mma_kernel<D, true><<<k_grid, kMmaThreads, 0, stream>>>(a);
+      } else {
+        flash_dkv_mma_kernel<D, false><<<k_grid, kMmaThreads, 0, stream>>>(a);
+      }
       break;
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int by_head_dim(Pass pass, const Args& a, int d, cudaStream_t stream) {
-  switch (d) {
-    case 8: return launch<T, 8>(pass, a, stream);
-    case 32: return launch<T, 32>(pass, a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 // strides: 12 values, (b, s, h) of q, k, v and dO in that order
@@ -859,8 +1249,11 @@ int run(Pass pass, const Args& a, int is_bf16, int d, void* stream) {
   if (a.sh.hk <= 0 || a.sh.h % a.sh.hk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return is_bf16 ? by_head_dim<__nv_bfloat16>(pass, a, d, s)
-              : by_head_dim<float>(pass, a, d, s);
+  switch (d) {
+    case 8: return launch<8>(pass, a, is_bf16, s);
+    case 32: return launch<32>(pass, a, is_bf16, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

@@ -1,19 +1,19 @@
-"""Flash attention: three hand-written CUDA kernels, their plain PyTorch
-versions, and the autograd wiring.
+"""Flash attention: hand-written CUDA kernels for its three passes, their
+plain PyTorch versions, and the autograd wiring.
 
 Counterpart of ``kubeshare_tpu/ops/flash_attention.py``. Its three Pallas
 kernels become ``csrc/flash_attention.cu``: the forward (``_kernel``), dQ
 (``_bwd_dq_kernel``) and dK/dV (``_bwd_dkv_kernel``); the note at the top
 of that file says how the TPU grid translates, what bounds the kernels on
-an H100 (bytes) and what the simple design does about it. Two
+an H100 (bytes) and what the designs do about it. Two
 ``torch.autograd.Function``s stand in for the ``custom_vjp``s ``_flash`` and
 ``_flash_lse``.
 
 Each pass picks by where its tensors lie: CPU tensors take the plain
 version (``*_reference``), CUDA tensors launch the kernel or raise. There
-is no fallback from one to the other. The forward picks its kernel by
+is no fallback from one to the other. Each pass picks its kernel by
 dtype: bf16 inputs (the transformer's main path) run on the tensor cores,
-fp32 inputs on the CUDA cores; both are hand-written. The plain backward
+fp32 inputs on the CUDA cores; all are hand-written. The plain backward
 recomputes P from the saved lse, as the kernels do.
 
 Layout: (batch, seq, heads, head_dim), as the JAX package. q, k and v may
@@ -25,9 +25,10 @@ The kernels agree with their plain versions to a tolerance, not bit for
 bit: ``expf``/``ex2.approx``/``logf`` on the card and torch's
 ``exp``/``log`` differ in the last bits, and the kernels sum in another order (keys in
 tiles of 64, the head dim in order or in the tensor cores) than torch's
-matrix products. The bf16 forward takes P.V as two bf16 products, of
-bf16(P) and of the rest, so O keeps ~16 bits of P, inside the fp32
-tolerance.
+matrix products. The bf16 kernels take each fp32 operand of a product
+(P, dS, dO) as two bf16 parts, bf16(x) and bf16(x − bf16(x)), so it keeps
+~16 bits: O stays inside the fp32 tolerance, dQ, dK and dV inside one
+bf16 ulp (``csrc`` says which products are split).
 """
 
 from __future__ import annotations
@@ -242,7 +243,8 @@ def _device_kind(q) -> str:
 def flash_fwd(q, k, v, causal, window, scale):
     """Forward pass: ``(O fp32 (b, s_q, h, d), lse fp32 (b, h, s_q))``.
     On the card bf16 q/k/v launch the tensor-core kernel, fp32 the
-    CUDA-core one (``csrc`` picks by the dtype flag ``_launch`` passes)."""
+    CUDA-core one (``csrc`` picks by the dtype flag ``_launch`` passes; so
+    do the two backward passes)."""
     if _device_kind(q) == "cpu":
         return flash_fwd_reference(q, k, v, causal, window, scale)
     _check_cuda(q, k, v)
@@ -306,10 +308,12 @@ def _flash_bwd(ctx, g, g_lse):
     q, k, v, o, lse = ctx.saved_tensors
     causal, window, scale = ctx.cfg
     # D_i = rowsum(dO ∘ O) in plain torch, as the JAX code leaves it to
-    # XLA; an lse cotangent folds in as D − g_lse (dS = P ∘ (dP − D + g_lse))
-    dcap = (g.float() * o).sum(-1).transpose(1, 2)
+    # XLA; an lse cotangent folds in as D − g_lse (dS = P ∘ (dP − D +
+    # g_lse)). Made dense (b, h, s_q) once, so neither pass copies it.
+    dcap = (g.float() * o).sum(-1)
     if g_lse is not None:
-        dcap = dcap - g_lse.float().transpose(1, 2)
+        dcap = dcap - g_lse.float()
+    dcap = dcap.transpose(1, 2).contiguous()
     dq = flash_dq(q, k, v, g, lse, dcap, causal, window, scale)
     dk, dv = flash_dkv(q, k, v, g, lse, dcap, causal, window, scale)
     return dq, dk, dv

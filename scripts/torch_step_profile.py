@@ -21,9 +21,9 @@ The two ways:
 For each it reports the wall time per step without the profiler, and
 under ``torch.profiler`` the device time per step (the sum of kernel
 times), the device's idle share of the wall time (unprofiled and
-profiled), each hand-written kernel's time, launches and share of device
-time and the top kernels by device time. Prints one JSON object as its
-last line.
+profiled), each hand-written kernel's time, launches, share of device
+time and the names of the functions that ran, and the top kernels by
+device time. Prints one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -36,12 +36,12 @@ import sys
 import time
 
 
-#: the port's kernels and a substring of their CUDA function names
-#: ("flash_fwd" names both forwards: flash_fwd_mma_kernel for bf16 inputs,
-#: flash_fwd_kernel for fp32)
+#: the port's kernels and a substring of their CUDA function names (each
+#: flash pass names both of its kernels: flash_<pass>_mma_kernel for bf16
+#: inputs, flash_<pass>_kernel for fp32)
 KERNEL_TAGS = {"fused_adam": "adam_multi_tensor_kernel",
-               "flash_fwd": "flash_fwd", "flash_dq": "flash_dq_kernel",
-               "flash_dkv": "flash_dkv_kernel"}
+               "flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
+               "flash_dkv": "flash_dkv_"}
 
 
 def _self_device_us(evt) -> float:
@@ -134,6 +134,10 @@ def main(argv=None) -> int:
                 for name, tag in KERNEL_TAGS.items()}
         ours_calls = {name: sum(r[2] for r in rows if tag in r[0])
                       / args.steps for name, tag in KERNEL_TAGS.items()}
+        # which function of each ran: the bf16 step must show only the
+        # tensor-core flash kernels
+        ours_functions = {name: sorted({r[0] for r in rows if tag in r[0]})
+                          for name, tag in KERNEL_TAGS.items()}
         rows.sort(key=lambda r: -r[1])
         result[name] = {
             "wall_ms_per_step": wall_ms,
@@ -146,6 +150,7 @@ def main(argv=None) -> int:
                 0.0, 1.0 - device_ms / prof_wall_ms),
             "kernel_ms_per_step": ours,
             "kernel_launches_per_step": ours_calls,
+            "kernel_functions": ours_functions,
             "kernel_share_of_device": {
                 k: (ms / device_ms if device_ms else None)
                 for k, ms in ours.items()},

@@ -273,3 +273,113 @@ def test_flash_plain_passes_agree_with_autograd_of_dense():
     _close(o, dense.detach().numpy(), 1e-5)
     for got, t in ((dq, q), (dk, k), (dv, v)):
         _close(got, t.grad.numpy(), 1e-4)
+
+
+def test_flash_backward_builds_d_once(monkeypatch):
+    """Both backward passes get one dense fp32 (b, h, s_q) D = rowsum(dO ∘
+    O) − g_lse: the same tensor, so neither pass copies it."""
+    seen = {}
+    for name in ("flash_dq", "flash_dkv"):
+        def record(*args, _name=name, _real=getattr(tflash, name)):
+            seen[_name] = args
+            return _real(*args)
+        monkeypatch.setattr(tflash, name, record)
+    q, k, v = (torch.tensor(a, requires_grad=True) for a in
+               _inputs(hk=2, seed=31))
+    w = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        q.shape).astype(np.float32))
+    o, lse = tflash.flash_attention_lse(q, k, v, block_q=16, block_k=16)
+    ((o * w).sum() + torch.sin(lse).sum()).backward()
+    dcap = seen["flash_dq"][5]
+    assert seen["flash_dkv"][5] is dcap
+    assert dcap.is_contiguous() and dcap.dtype == torch.float32
+    want = ((w * o.detach()).sum(-1) - torch.cos(lse.detach())).transpose(1, 2)
+    torch.testing.assert_close(dcap, want)
+
+
+# --- the bf16 backward kernels' arithmetic -----------------------------------
+
+def _bf16_parts(x):
+    """fp32 x as its bf16 parts hi = bf16(x) and lo = bf16(x − hi), both
+    back in fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _emulated_mma_backward(q, k, v, dout, lse, dcap, causal, window, scale,
+                           split_ds=True):
+    """``(dQ, dK, dV)`` with the arithmetic of the bf16 backward kernels
+    (``csrc/flash_attention.cu``) in torch: every product takes
+    bf16-exact operands and sums in fp32; P, dS and dO go in as two bf16
+    parts each (dV drops P_lo·dO_lo); the scale multiplies dQ and dK at the
+    end. ``split_ds=False`` rounds dS to bf16 once instead."""
+    group = q.shape[2] // k.shape[2]
+    sc, qf, kf = tflash._masked_scores(q, k, causal, window, 1.0)
+    p = torch.where(sc > tattn.MASK_VALUE / 2,
+                    torch.exp(sc * scale - lse[..., None]), 0.0)
+    vf = v.float().repeat_interleave(group, dim=2)
+    do_hi, do_lo = _bf16_parts(dout.float())
+    dp = sum(torch.einsum("bqhd,bkhd->bhqk", part, vf)
+             for part in (do_lo, do_hi))
+    ds = p * (dp - dcap[..., None])
+    ds_parts = _bf16_parts(ds) if split_ds else (ds.to(torch.bfloat16).float(),)
+    dq = scale * sum(torch.einsum("bhqk,bkhd->bqhd", part, kf)
+                     for part in ds_parts)
+    dk = scale * sum(torch.einsum("bhqk,bqhd->bkhd", part, qf)
+                     for part in ds_parts)
+    p_hi, p_lo = _bf16_parts(p)
+    dv = sum(torch.einsum("bhqk,bqhd->bkhd", a, b)
+             for a, b in ((p_lo, do_hi), (p_hi, do_lo), (p_hi, do_hi)))
+    b, s_kv, hk, d = k.shape
+    kv_sized = lambda x: x.reshape(b, s_kv, hk, group, d).sum(dim=3).to(
+        torch.bfloat16)
+    return dq.to(torch.bfloat16), kv_sized(dk), kv_sized(dv)
+
+
+def _bf16_backward_case(shape, hk, window, seed=0):
+    """bf16 q, k, v and fp32 dO (not bf16-exact) at ``shape``, causal, with
+    the plain forward's lse and D: the backward's arguments and its plain
+    (dQ, dK, dV)."""
+    b, s, h, d = shape
+    rng = np.random.default_rng(seed)
+    randn = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32))
+    q = randn(b, s, h, d).to(torch.bfloat16)
+    k, v = (randn(b, s, hk, d).to(torch.bfloat16) for _ in range(2))
+    dout = randn(b, s, h, d)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = tflash.flash_fwd_reference(q, k, v, True, window, scale)
+    args = (q, k, v, dout, lse, (dout * o).sum(-1).transpose(1, 2), True,
+            window, scale)
+    return args, (tflash.flash_dq_reference(*args),
+                  *tflash.flash_dkv_reference(*args))
+
+
+def _share_outside_bf16_tol(got, want):
+    atol, rtol = tflash.KERNEL_TOL[torch.bfloat16]
+    err = (got.float() - want.float()).abs()
+    return float((err > atol + rtol * want.float().abs()).float().mean())
+
+
+@pytest.mark.parametrize("shape,hk,window", [((1, 256, 8, 32), 8, None),
+                                             ((1, 256, 8, 32), 2, 100)],
+                         ids=["main-path", "gqa-window"])
+def test_mma_backward_arithmetic_holds_bf16_tolerance(shape, hk, window):
+    """The kernels' split products keep dQ, dK and dV (in bf16) within
+    KERNEL_TOL of the fp32 plain versions: one bf16 ulp."""
+    args, want = _bf16_backward_case(shape, hk, window)
+    atol, rtol = tflash.KERNEL_TOL[torch.bfloat16]
+    for got, ref in zip(_emulated_mma_backward(*args), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_unsplit_ds_breaks_the_bf16_tolerance():
+    """Why dS is split: rounded to bf16 once, it moves a few percent of dQ
+    and dK by more than one bf16 ulp at the main shape (the sums over keys
+    and queries cancel); dV, which does not use dS, keeps its tolerance."""
+    args, want = _bf16_backward_case((1, 256, 8, 32), 8, None)
+    got = _emulated_mma_backward(*args, split_ds=False)
+    dq, dk, dv = (_share_outside_bf16_tol(g, w) for g, w in zip(got, want))
+    assert dq > 0.01 and dk > 0.01 and dv == 0.0

@@ -170,27 +170,43 @@ def _assert_kernel_close(got, want):
 
 
 FLASH_SHAPES = [
-    # (b, s, h, hk, d, dtype, causal, window)
-    (8, 256, 8, 8, 32, torch.bfloat16, True, None),    # the main path
-    (8, 256, 8, 2, 32, torch.bfloat16, True, None),    # GQA
-    (8, 256, 8, 8, 32, torch.bfloat16, True, 100),     # window
-    (8, 256, 8, 8, 32, torch.bfloat16, False, None),
-    (8, 256, 8, 8, 32, torch.float32, True, None),
-    (2, 48, 4, 1, 8, torch.float32, True, 7),          # ragged tiles, MQA
-    (1, 80, 2, 2, 8, torch.bfloat16, False, None),
-    (2, 128, 4, 2, 8, torch.bfloat16, True, None),     # the small preset
-    (2, 48, 4, 1, 8, torch.bfloat16, True, 7),         # ragged, bf16
-    (2, 48, 4, 2, 32, torch.bfloat16, True, None),
-    (1, 80, 2, 2, 32, torch.bfloat16, False, None),
-    (1, 200, 4, 4, 32, torch.bfloat16, True, 70),      # ragged, window
+    # (b, s, h, hk, d, dtype, causal, window, layout): layout "fused" makes
+    # q, k, v strided views of one tensor with 16-byte aligned rows,
+    # "unaligned" with rows that are not (the bf16 kernels' plain loads)
+    (8, 256, 8, 8, 32, torch.bfloat16, True, None, "dense"),  # main path
+    (8, 256, 8, 2, 32, torch.bfloat16, True, None, "dense"),  # GQA
+    (8, 256, 8, 2, 32, torch.bfloat16, True, None, "fused"),
+    (8, 256, 8, 2, 32, torch.bfloat16, True, None, "unaligned"),
+    (8, 256, 8, 8, 32, torch.bfloat16, True, 100, "dense"),   # window
+    (8, 256, 8, 8, 32, torch.bfloat16, False, None, "dense"),
+    (8, 256, 8, 8, 32, torch.float32, True, None, "dense"),
+    (2, 48, 4, 1, 8, torch.float32, True, 7, "dense"),   # ragged tiles, MQA
+    (1, 80, 2, 2, 8, torch.bfloat16, False, None, "dense"),
+    (2, 128, 4, 2, 8, torch.bfloat16, True, None, "dense"),  # small preset
+    (2, 128, 4, 2, 8, torch.bfloat16, True, None, "unaligned"),
+    (2, 48, 4, 1, 8, torch.bfloat16, True, 7, "dense"),   # ragged, bf16
+    (2, 48, 4, 2, 32, torch.bfloat16, True, None, "dense"),
+    (1, 80, 2, 2, 32, torch.bfloat16, False, None, "dense"),
+    (1, 200, 4, 4, 32, torch.bfloat16, True, 70, "dense"),  # ragged, window
+    (1, 200, 4, 2, 32, torch.bfloat16, True, 70, "unaligned"),
 ]
 
 
-@pytest.mark.parametrize("b,s,h,hk,d,dtype,causal,window", FLASH_SHAPES)
+@pytest.mark.parametrize("b,s,h,hk,d,dtype,causal,window,layout",
+                         FLASH_SHAPES)
 def test_flash_kernels_match_plain_on_card(cuda, b, s, h, hk, d, dtype,
-                                           causal, window):
-    q, k, v = _qkv(cuda, b, s, h, hk, d, dtype)
+                                           causal, window, layout):
+    """Each pass against its plain version. dO is random fp32, not exact
+    in bf16, so the bf16 kernels' split of dO into hi and lo parts is
+    exercised (on the main path dO is the gradient of a bf16 cast)."""
+    if layout == "dense":
+        q, k, v = _qkv(cuda, b, s, h, hk, d, dtype)
+    else:
+        q, k, v = _fused_qkv(cuda, b, s, h, hk, d, dtype,
+                             pad=int(layout == "unaligned"))
+        assert not q.is_contiguous()
     dout = torch.randn(b, s, h, d, device=cuda)
+    assert not torch.equal(dout, dout.to(torch.bfloat16).float())
     scale = 1.0 / np.sqrt(d)
     before = dict(tfl.launches)
     o, lse = tfl.flash_fwd(q, k, v, causal, window, scale)
@@ -209,18 +225,6 @@ def test_flash_kernels_match_plain_on_card(cuda, b, s, h, hk, d, dtype,
         _assert_kernel_close(got, want)
     assert {n: tfl.launches[n] - before[n] for n in before} == \
         {"fwd": 1, "dq": 1, "dkv": 1}
-
-
-@pytest.mark.parametrize("pad", [0, 1], ids=["aligned", "unaligned"])
-def test_flash_fwd_on_strided_views_on_card(cuda, pad):
-    """The bf16 forward on q/k/v views of one fused tensor: rows 16-byte
-    aligned (cp.async copies) and not (the same kernel's plain loads)."""
-    q, k, v = _fused_qkv(cuda, 2, 256, 8, 2, 32, torch.bfloat16, pad)
-    assert not q.is_contiguous()
-    o, lse = tfl.flash_fwd(q, k, v, True, None, 32 ** -0.5)
-    ro, rlse = tfl.flash_fwd_reference(q, k, v, True, None, 32 ** -0.5)
-    _assert_kernel_close(o, ro)
-    _assert_kernel_close(lse, rlse)
 
 
 def test_flash_fwd_long_sequence_on_card(cuda):
@@ -262,6 +266,27 @@ def test_flash_bf16_autograd_on_card_matches_plain(cuda):
     _assert_kernel_close(o.detach(), ro)
     for got, want in zip(views(f.grad), (rdq, rdk, rdv)):
         _assert_kernel_close(got, want)
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                      "flash_dkv_mma_kernel")),
+    (torch.float32, ("flash_fwd_kernel", "flash_dq_kernel",
+                     "flash_dkv_kernel"))], ids=["bf16", "fp32"])
+def test_flash_picks_its_kernels_by_dtype_on_card(cuda, dtype, kernels):
+    """bf16 inputs run only the tensor-core kernels, fp32 inputs only the
+    CUDA-core ones, read from the profiler's kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(cuda, 2, 128, 4, 2, 32, dtype))
+    tfl.flash_attention(q, k, v).sum().backward()   # built and warm
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tfl.flash_attention(q, k, v).sum().backward()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "flash_" in e.key}
+    ran = {n.split("<")[0].split("::")[-1] for n in names}
+    assert ran == set(kernels), names
 
 
 def test_flash_autograd_on_card_matches_cpu(cuda):

@@ -31,10 +31,29 @@ failing the run (non-zero exit, no result line) when it fails:
       vocab 4096, dim 256, 8 heads, 4 layers, bf16) with flash attention,
       alone, then as a fused loop;
    d. transformer co-located — as b, with ``"attention": "flash"``;
+   e. the gate pairs — the reference's isolation model: unmodified tenant
+      *processes* share the card by time slices. A ``LauncherDaemon``
+      spawns the per-device proxy (serving its token scheduler, window
+      1 s) and one pod manager per entry of the device's client file; each
+      tenant is this script's ``--tenant`` mode, attached only through the
+      port's ``sitecustomize`` shim with a pod's env. It trains the
+      full-width transformer with flash attention. In turn: one tenant
+      alone ungated (``KUBESHARE_TPU_ATTACH=off``), alone gated at request
+      1.0, two side by side at request 0.5, alone gated, two at requests
+      0.25 and 0.75, alone gated, alone ungated. Each pair's first tenant
+      must hold its requested share of the token over its life (and of
+      the steps, in the even pair), the pair's steps must come in runs of
+      one tenant, and the two tenants' charges must not sum past the
+      time they were held in;
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --tenant out.json [--seconds S] [--seed N]
+
+is the tenant of phase 5e: it holds no isolation code, trains, and writes
+its per-step end times, losses and kernel launch counts to ``out.json``.
 """
 
 from __future__ import annotations
@@ -45,7 +64,10 @@ import math
 import os
 import re
 import subprocess
+import shutil
+import socket
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -96,6 +118,29 @@ LM_SPEC = {"program": "train_step", "model": "transformer",
            "attention": "flash",
            "optimizer": {"name": "fused_adam", "lr": 1e-3, "b1": 0.9,
                          "b2": 0.999, "eps": 1e-8}}
+# the gate pair (phase 5e): a tenant's untimed first steps, and how long
+# each run trains after them — alone (ungated, then gated) and as a pair
+TENANT_WARMUP_STEPS = 5
+GATE_SOLO_S = 10.0
+GATE_PAIR_S = 20.0
+# the common window of the pair must be at least this long to be read
+GATE_MIN_WINDOW_S = 8.0
+# the two pairs, (pod name, seed, request) each: even, and uneven, where
+# only a gate that serialises the tenants by request gives the first one
+# less than half (identical tenants split a card evenly with no gate)
+GATE_PAIRS = {"even": (("smoke/tenant-a", 10, 0.5),
+                       ("smoke/tenant-b", 20, 0.5)),
+              "uneven": (("smoke/tenant-c", 30, 0.25),
+                         ("smoke/tenant-d", 40, 0.75))}
+# a pair's first tenant gets its requested share of the token within this
+# fraction of it: [0.3, 0.7] for 0.5, [0.15, 0.35] for 0.25
+GATE_SHARE_SLACK = 0.4
+# one token's slice (a 300 ms quota) holds many steps of one tenant, so
+# the pair's step ends come in runs of one tenant at least this long on
+# average; two tenants running at once alternate, runs of about 1
+GATE_MIN_MEAN_RUN = 3.0
+# the gate's totals a tenant records after each step (ExecutionGate.stats)
+GATE_TOTALS = ("charged_ms", "renews", "drain_ms", "waited_ms")
 
 
 def log(msg: str) -> None:
@@ -891,10 +936,476 @@ def _reset_counts() -> None:
     fl.reset_launches()
 
 
+# --- phase 5e: the gate pair ---------------------------------------------------
+
+def tenant(out_path: str, seconds: float, seed: int) -> int:
+    """The tenant process of the gate pair: an unmodified training loop,
+    metered only if the shim attached it. The full-width transformer with
+    flash attention, the loss read every step; after
+    TENANT_WARMUP_STEPS steps it trains ``seconds`` more. After each step
+    it also reads the gate's totals (``attach.gate_stats``), if gated."""
+    import torch
+
+    from kubeshare_tpu_torch import attach
+    from kubeshare_tpu_torch.models import common, transformer
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+
+    dev = torch.device("cuda")
+    params = common.to_device(transformer.init(seed), dev)
+    batch = common.to_device(transformer.batch_fn(seed + 1), dev)
+    opt = fused_adam(1e-3)
+    state = opt.init(params)
+    step = common.make_train_step(transformer.flash_loss_fn, opt)
+    _reset_counts()
+    ends, losses, gate = [], [], []
+    stop_at = None
+    while stop_at is None or ends[-1] < stop_at:
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))          # host read: the step is done
+        ends.append(time.monotonic())
+        totals = attach.gate_stats()
+        gate.append([totals[k] for k in GATE_TOTALS] if totals else None)
+        if len(ends) == TENANT_WARMUP_STEPS:
+            stop_at = ends[-1] + seconds
+    with open(out_path, "w") as f:
+        json.dump({"attach": attach.active_mode(), "ends": ends,
+                   "losses": losses, "gate": gate, "launches": _counts(),
+                   "device": torch.cuda.get_device_name(0),
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES", "")}, f)
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_ready(log_path: str, what: str, timeout: float = 120.0) -> str:
+    """The first ``READY`` line a spawned process wrote to its log."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                for line in f:
+                    if line.startswith("READY"):
+                        return line.strip()
+        time.sleep(0.1)
+    fail(f"{what} never printed READY: {_tail(log_path)}")
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError:
+        return "(no log)"
+
+
+class _Node:
+    """One device's node path, as a node runs it: the launcher, its proxy
+    and pod managers, and the tenant processes, every process logging to
+    a file of its own under a temporary scheduler dir."""
+
+    def __init__(self, root: str):
+        from kubeshare_tpu_torch.nodeagent import launcherd
+        from kubeshare_tpu_torch.topology.discovery import discover_chips
+
+        self.root = root
+        self.chip = discover_chips("cuda")[0]
+        self.base = tempfile.mkdtemp(prefix="kubeshare-gate-")
+        self.token_port = _free_port()
+        self.managers: dict = {}          # pod name -> manager command
+        node = self
+
+        def proxy_cmd(chip_id, index, _exec_port, _token_port):
+            cmd, env = launcherd.default_proxy_cmd(
+                chip_id, index, _free_port(), node.token_port)
+            env["PYTHONPATH"] = root
+            # the shortened accounting window of the co-located phases
+            return cmd + ["-w", str(WINDOW_MS)], env
+
+        def pmgr_cmd(name, port, request, limit, _token_port):
+            cmd, env = launcherd.default_pmgr_cmd(name, port, request, limit,
+                                                  node.token_port)
+            env["PYTHONPATH"] = root
+            node.managers[name] = os.path.basename(cmd[-1])
+            return cmd, env
+
+        class Launcher(launcherd.LauncherDaemon):
+            def _spawn(self, cmd, env):
+                label = env.get("KUBESHARE_TPU_POD_NAME", "") or "proxy"
+                with open(node.log(label), "a") as out:
+                    return subprocess.Popen(cmd, env=env, cwd=root,
+                                            stdout=out,
+                                            stderr=subprocess.STDOUT,
+                                            start_new_session=True)
+
+        self.launcher = Launcher([self.chip.chip_id], base_dir=self.base,
+                                 poll_s=0.1, proxy_cmd=proxy_cmd,
+                                 pmgr_cmd=pmgr_cmd)
+
+    def log(self, label: str) -> str:
+        return os.path.join(self.base, label.replace("/", "_") + ".log")
+
+    def start(self) -> str:
+        self.launcher.start()
+        return _wait_ready(self.log("proxy"), "the proxy")
+
+    def clients(self, entries) -> dict:
+        """Write the device's client file (``(name, request)`` each, limit
+        1.0) and wait until each entry's manager serves; returns the
+        managers' ports."""
+        from kubeshare_tpu_torch.nodeagent.files import (ClientEntry,
+                                                         write_chip_clients)
+
+        ports = {name: _free_port() for name, _ in entries}
+        for name, _ in entries:           # a manager of an earlier file
+            if os.path.exists(self.log(name)):
+                os.remove(self.log(name))
+        write_chip_clients(self.chip.chip_id, [
+            ClientEntry(name, request, 1.0, 0, ports[name])
+            for name, request in entries], self.base)
+        for name, _ in entries:
+            _wait_ready(self.log(name), f"the pod manager of {name}")
+        return ports
+
+    def run(self, tenants, seconds: float, gated: bool) -> dict:
+        """Run the tenants ``(name, seed, manager port, request)`` side by
+        side, each a process with only a pod's env; while they run, sample
+        each gated one's charged ms from the token scheduler's ``usage``
+        op. Returns each tenant's record and its samples."""
+        from kubeshare_tpu_torch import constants as C
+        from kubeshare_tpu_torch.isolation import protocol
+
+        shim = os.path.join(self.root, "kubeshare_tpu_torch", "_shim")
+        procs, outs, usage = {}, {}, {}
+        try:
+            for name, seed, port, request in tenants:
+                env = {k: v for k, v in os.environ.items()
+                       if not k.startswith("KUBESHARE_TPU_")
+                       and k != C.ENV_VISIBLE_CHIPS}
+                env.update({"PYTHONPATH": os.pathsep.join([shim, self.root]),
+                            C.ENV_POD_MANAGER_PORT: str(port),
+                            C.ENV_POD_NAME: name,
+                            C.ENV_TPU_REQUEST: str(request),
+                            C.ENV_TPU_LIMIT: "1.0",
+                            C.ENV_VISIBLE_CHIPS: self.chip.chip_id})
+                if not gated:
+                    env[C.ENV_ATTACH_MODE] = "off"
+                outs[name] = os.path.join(
+                    self.base, name.replace("/", "_") + ".json")
+                with open(self.log(name + "-tenant"), "w") as log_file:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--tenant", outs[name], "--seconds", str(seconds),
+                         "--seed", str(seed)],
+                        env=env, cwd=self.root, stdout=log_file,
+                        stderr=subprocess.STDOUT)
+            conns = {}
+            if gated:
+                for name, *_ in tenants:
+                    conns[name] = protocol.Connection("127.0.0.1",
+                                                      self.token_port)
+                    conns[name].call({"op": "attach", "name": name})
+                    usage[name] = []
+            deadline = time.monotonic() + seconds + 300
+            while (any(p.poll() is None for p in procs.values())
+                   and time.monotonic() < deadline):
+                for name, conn in conns.items():
+                    reply, _ = conn.call({"op": "usage"})
+                    usage[name].append((time.monotonic(), reply["used_ms"]))
+                time.sleep(0.25)
+            for conn in conns.values():
+                conn.close()
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        records = {}
+        for name, p in procs.items():
+            check(p.returncode == 0,
+                  f"tenant {name} exited {p.returncode}: "
+                  f"{_tail(self.log(name + '-tenant'))}")
+            with open(outs[name]) as f:
+                records[name] = json.load(f)
+            records[name]["usage"] = usage.get(name, [])
+        return records
+
+    def stop(self) -> None:
+        self.launcher.stop()
+        shutil.rmtree(self.base, ignore_errors=True)
+
+
+def _check_tenant(name: str, rec: dict, gated: bool, adam_per_step: int,
+                  layers: int) -> int:
+    """A tenant's own record: attached as asked, finite falling loss,
+    every step through the four kernels. Returns its step count."""
+    steps = len(rec["ends"])
+    check(rec["attach"] == ("gate" if gated else ""),
+          f"tenant {name}: attach mode {rec['attach']!r}")
+    losses = rec["losses"]
+    check(all(math.isfinite(x) for x in losses),
+          f"tenant {name}: loss not finite")
+    check(losses[-1] < losses[0],
+          f"tenant {name}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = {"fused_adam": adam_per_step * steps,
+            **{f"flash_{k}": layers * steps for k in ("fwd", "dq", "dkv")}}
+    check(rec["launches"] == want,
+          f"tenant {name}: launches {rec['launches']}, expected {want}")
+    return steps
+
+
+def _charged_ms(rec: dict, start: float, end: float) -> float:
+    """The scheduler's own charge of a tenant: each ``usage`` sample is
+    its used ms in the last window (WINDOW_MS); their mean over the
+    samples taken a full window after ``start`` and before ``end``."""
+    import numpy as np
+
+    samples = [u for t, u in rec["usage"]
+               if start + WINDOW_MS / 1000.0 <= t <= end]
+    return float(np.mean(samples)) if samples else float("nan")
+
+
+def _solo_rate(rec: dict) -> float:
+    ends = rec["ends"][TENANT_WARMUP_STEPS - 1:]
+    return (len(ends) - 1) / (ends[-1] - ends[0])
+
+
+def _gate_per_step(rec: dict, i0: int, i1: int) -> dict:
+    """The gate's totals per step from step ``i0``'s end to step ``i1``'s
+    (the ms charged is the held time: wall time between gate calls)."""
+    return {k: (rec["gate"][i1][j] - rec["gate"][i0][j]) / (i1 - i0)
+            for j, k in enumerate(GATE_TOTALS)}
+
+
+def _solo_gate_per_step(rec: dict) -> dict:
+    return _gate_per_step(rec, TENANT_WARMUP_STEPS - 1, len(rec["ends"]) - 1)
+
+
+def _mean_run(pair: dict, start: float, end: float) -> float:
+    """The mean number of consecutive steps of one tenant among the pair's
+    step ends in (start, end]."""
+    ends = sorted((t, n) for n, r in pair.items() for t in r["ends"]
+                  if start < t <= end)
+    runs = 1 + sum(1 for (_, x), (_, y) in zip(ends, ends[1:]) if x != y)
+    return len(ends) / runs
+
+
+def pair_reading(pair: dict, entries) -> dict:
+    """One pair's numbers over its common window: both past warm-up,
+    until the first one stops (checked by :func:`check_pair`)."""
+    start = max(r["ends"][TENANT_WARMUP_STEPS - 1] for r in pair.values())
+    end = min(r["ends"][-1] for r in pair.values())
+    window_s = end - start
+    check(window_s >= GATE_MIN_WINDOW_S,
+          f"the gate pair overlapped only {window_s:.2f} s")
+    steps = {n: sum(1 for t in r["ends"] if start < t <= end)
+             for n, r in pair.items()}
+    rates = {n: k / window_s for n, k in steps.items()}
+    (a, _, req_a), (b, _, req_b) = entries
+    # both tenants run the same step, so the device time each got in the
+    # window is in proportion to its steps
+    share_a = steps[a] / (steps[a] + steps[b])
+    wanted = req_a / (req_a + req_b)
+    charged = {n: _charged_ms(r, start, end) for n, r in pair.items()}
+    # each tenant's gate totals from its last step end at or before
+    # ``start`` to its last at or before ``end``
+    span = {n: (sum(1 for t in r["ends"] if t <= start) - 1,
+                sum(1 for t in r["ends"] if t <= end) - 1)
+            for n, r in pair.items()}
+    per_step = {n: _gate_per_step(pair[n], i0, i1)
+                for n, (i0, i1) in span.items()}
+    held = {n: per_step[n]["charged_ms"] * (i1 - i0)
+            for n, (i0, i1) in span.items()}
+    union_ms = 1000.0 * (
+        max(pair[n]["ends"][i1] for n, (_, i1) in span.items())
+        - min(pair[n]["ends"][i0] for n, (i0, _) in span.items()))
+    # the token each tenant held over its life up to the window's end:
+    # the stride scheduler evens the ms held over request out from
+    # registration on, start-up included (a tenant's first step holds the
+    # token through its CUDA start-up, seconds, which the lower request
+    # then pays back by waiting inside the common window)
+    life = {n: pair[n]["gate"][i1][GATE_TOTALS.index("charged_ms")]
+            for n, (_, i1) in span.items()}
+    return {
+        "requests": {a: req_a, b: req_b},
+        "window_s": window_s,
+        "steps_in_window": steps,
+        "steps_per_sec": rates,
+        "aggregate_steps_per_sec": sum(rates.values()),
+        "share_a": share_a,
+        "share_wanted": wanted,
+        "share_error_pct": abs(share_a - wanted) / wanted * 100.0,
+        "charged_ms_per_window": charged,
+        "charged_share_a": charged[a] / (charged[a] + charged[b]),
+        "mean_run_steps": _mean_run(pair, start, end),
+        "gate_per_step": per_step,
+        "gate_held_share_a": held[a] / (held[a] + held[b]),
+        "lifetime_held_share_a": life[a] / (life[a] + life[b]),
+        "first_step_held_ms": {n: r["gate"][0][GATE_TOTALS.index(
+            "charged_ms")] for n, r in pair.items()},
+        "gate_held_over_span": sum(held.values()) / union_ms,
+    }
+
+
+def check_pair(kind: str, reading: dict) -> None:
+    """What one token allows: the first tenant's share of the token held
+    over its life, and in an even pair also its share of the common
+    window's steps, within GATE_SHARE_SLACK of its requested share; the
+    step ends in runs of one tenant (GATE_MIN_MEAN_RUN); the tenants'
+    held time, by their gates and by the scheduler's ``usage`` op, no
+    more than the time it was held in."""
+    a = next(iter(reading["requests"]))
+    wanted = reading["share_wanted"]
+    share = reading["lifetime_held_share_a"]
+    check(abs(share - wanted) <= GATE_SHARE_SLACK * wanted,
+          f"gate pair {kind}: {a} held {share} of the token, not within "
+          f"{GATE_SHARE_SLACK:.0%} of its request's {wanted}")
+    if wanted == 0.5:
+        # identical start-ups cancel: the window's steps split as the
+        # token does (an uneven pair's lower request is still paying its
+        # start-up back in the window, see pair_reading)
+        share = reading["share_a"]
+        check(abs(share - wanted) <= GATE_SHARE_SLACK * wanted,
+              f"gate pair {kind}: device-time share of {a} {share} not "
+              f"within {GATE_SHARE_SLACK:.0%} of its request's {wanted}")
+    charged = reading["charged_ms_per_window"]
+    check(math.isfinite(reading["charged_share_a"]),
+          f"gate pair {kind}: no charge sampled in the common window")
+    check(sum(charged.values()) <= WINDOW_MS,
+          f"gate pair {kind}: charged {charged} ms per {WINDOW_MS} ms "
+          f"window: the tenants held the token at once")
+    check(reading["mean_run_steps"] >= GATE_MIN_MEAN_RUN,
+          f"gate pair {kind}: the tenants' steps alternate (mean run "
+          f"{reading['mean_run_steps']:.2f} steps): they ran at once")
+    check(reading["gate_held_over_span"] <= 1.0,
+          f"gate pair {kind}: the gates held "
+          f"{reading['gate_held_over_span']:.4f} of the time: the tenants "
+          f"held the token at once")
+
+
+def gate_phase(root: str, adam_per_step: int, layers: int) -> dict:
+    """Phase 5e (see the module docstring): returns the solo rates, each
+    pair's reading and the records' launch counts."""
+    import numpy as np
+    import torch
+
+    torch.cuda.empty_cache()
+    node = _Node(root)
+    records, pairs = {}, {}
+    # the gated runs in order, (pair kind, None) or ("gated", steps/s), to
+    # set each pair beside the gated exclusive runs around it
+    gated_order = []
+    try:
+        ready = node.start()
+        log(f"gate: proxy {ready}; device {node.chip.chip_id}")
+        solo = {"ungated": [], "gated": []}
+
+        def run_solo(label: str) -> None:
+            gated = label == "gated"
+            ports = ({} if not gated
+                     else node.clients([("smoke/solo", 1.0)]))
+            rec = node.run([("smoke/solo", 0, ports.get("smoke/solo", 0),
+                             1.0)], GATE_SOLO_S, gated)["smoke/solo"]
+            _check_tenant(f"solo ({label})", rec, gated, adam_per_step,
+                          layers)
+            solo[label].append(_solo_rate(rec))
+            records[f"solo-{label}-{len(solo[label])}"] = rec
+            if gated:
+                gated_order.append((label, solo[label][-1]))
+
+        def run_pair(kind: str) -> None:
+            entries = GATE_PAIRS[kind]
+            ports = node.clients([(n, req) for n, _, req in entries])
+            pair = node.run([(n, seed, ports[n], req)
+                             for n, seed, req in entries], GATE_PAIR_S, True)
+            for name, rec in pair.items():
+                _check_tenant(name, rec, True, adam_per_step, layers)
+                records[name] = rec
+            pairs[kind] = pair_reading(pair, entries)
+            log(f"gate pair {kind}: {json.dumps(pairs[kind])}")
+            check_pair(kind, pairs[kind])
+            gated_order.append((kind, None))
+
+        # the pairs between gated exclusive runs, the whole bracketed by
+        # ungated ones: the host's drift shows in each pair of them
+        for step in ("ungated", "gated", "even", "gated", "uneven", "gated",
+                     "ungated"):
+            (run_solo if step in solo else run_pair)(step)
+        managers = dict(node.managers)
+    finally:
+        node.stop()
+    ungated = float(np.mean(solo["ungated"]))
+    for i, (kind, _) in enumerate(gated_order):
+        if kind in pairs:
+            # the gated exclusive runs just before and after the pair
+            beside = (gated_order[i - 1][1] + gated_order[i + 1][1]) / 2
+            reading = pairs[kind]
+            reading["aggregate_over_ungated"] = (
+                reading["aggregate_steps_per_sec"] / ungated)
+            reading["aggregate_over_gated_beside"] = (
+                reading["aggregate_steps_per_sec"] / beside)
+    solo_gated = [r for n, r in records.items() if n.startswith("solo-gated")]
+    return {
+        "managers": managers,
+        "solo_steps_per_sec": solo,
+        "gated_over_ungated": float(np.mean(solo["gated"])) / ungated,
+        # the gated exclusive runs' own charge per window, and their
+        # gates' totals per step
+        "solo_charged_ms_per_window": [
+            _charged_ms(r, r["ends"][TENANT_WARMUP_STEPS - 1], r["ends"][-1])
+            for r in solo_gated],
+        "solo_gate_per_step": [_solo_gate_per_step(r) for r in solo_gated],
+        "pairs": pairs,
+        "window_ms": WINDOW_MS,
+        "visible_devices": {n: r["visible"] for n, r in records.items()},
+        "launches": {k: sum(r["launches"][k] for r in records.values())
+                     for k in _counts()},
+        "steps": {n: len(r["ends"]) for n, r in records.items()},
+    }
+
+
+def log_pair(kind: str, reading: dict) -> None:
+    (a, req_a), (b, req_b) = reading["requests"].items()
+    log(f"gate pair {kind} ({a} {req_a}, {b} {req_b}): steps/s over the "
+        f"common window ({reading['window_s']:.2f} s): " + ", ".join(
+            f"{n} {r:.3f}" for n, r in reading["steps_per_sec"].items()))
+    log(f"gate pair {kind}: aggregate / ungated exclusive ratio "
+        f"{reading['aggregate_over_ungated']:.4f} (/ the gated exclusive "
+        f"runs beside it {reading['aggregate_over_gated_beside']:.4f})")
+    log(f"gate pair {kind}: device-time share of {a} "
+        f"{reading['share_a']:.4f} (wanted {reading['share_wanted']:.2f}, "
+        f"steps {reading['steps_in_window']}); charged ms per "
+        f"{WINDOW_MS:.0f} ms window by the scheduler's usage op "
+        + ", ".join(f"{n} {c:.1f}" for n, c in
+                    reading["charged_ms_per_window"].items())
+        + f" (share {reading['charged_share_a']:.4f})")
+    log(f"gate pair {kind}: share error {reading['share_error_pct']:.2f}%; "
+        f"mean run {reading['mean_run_steps']:.2f} steps; the gates held "
+        f"{reading['gate_held_over_span']:.4f} of the time, "
+        f"{reading['gate_held_share_a']:.4f} of it for {a}; {a} held "
+        f"{reading['lifetime_held_share_a']:.4f} of the token over its life; "
+        f"first step held ms " + ", ".join(
+            f"{n} {v:.1f}" for n, v in reading["first_step_held_ms"].items())
+        + "; per step " + "; ".join(f"{n} {_fmt_gate(g)}" for n, g in
+                    reading["gate_per_step"].items()))
+
+
+def _fmt_gate(per_step: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument("--out", default="",
                         help="also write every phase's numbers here (JSON)")
+    parser.add_argument("--tenant", default="",
+                        help="run as a tenant of the gate pair, writing its "
+                             "record here (JSON)")
+    parser.add_argument("--seconds", type=float, default=GATE_SOLO_S)
+    parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -904,7 +1415,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
     try:
         from kubeshare_tpu_torch.models import mnist, transformer
         from kubeshare_tpu_torch.ops import flash_attention as fl
@@ -913,6 +1425,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the kubeshare_tpu_torch package is missing "
               f"({e}); run from the root of a checkout", file=sys.stderr)
         return 2
+    if args.tenant:
+        return tenant(args.tenant, args.seconds, args.seed)
     import numpy as np
 
     # full fp32 on the card wherever numbers are compared: cuDNN convs
@@ -1056,6 +1570,26 @@ def main(argv=None) -> int:
     launches = {k: sum(p[m]["launches"][k] for p in phases.values()
                        for m in ("exclusive", "colocated"))
                 for k in _counts()}
+
+    # the gate pair: tenant processes, each counting its own launches
+    gate = gate_phase(root, adam_launches["transformer"], transformer.LAYERS)
+    log(f"gate: pod managers {gate['managers']}, tenants' visible devices "
+        f"{gate['visible_devices']}, steps {gate['steps']}")
+    log("gate: exclusive steps/s in order: ungated "
+        + ", ".join(f"{r:.3f}" for r in gate["solo_steps_per_sec"]["ungated"])
+        + "; gated " + ", ".join(
+            f"{r:.3f}" for r in gate["solo_steps_per_sec"]["gated"])
+        + f"; gated/ungated exclusive ratio {gate['gated_over_ungated']:.4f}")
+    log("gate: the gated exclusive runs were charged " + ", ".join(
+        f"{c:.1f}" for c in gate["solo_charged_ms_per_window"])
+        + f" ms per {WINDOW_MS:.0f} ms window; per step " + "; ".join(
+            _fmt_gate(g) for g in gate["solo_gate_per_step"]))
+    for kind, reading in gate["pairs"].items():
+        log_pair(kind, reading)
+    log(f"gate launches: {gate['launches']}")
+    phases["gate"] = gate
+    for k in launches:
+        launches[k] += gate["launches"][k]
     out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:

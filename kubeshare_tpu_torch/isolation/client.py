@@ -1,25 +1,36 @@
 """Client side of the isolation runtime.
 
-Counterpart of ``kubeshare_tpu/isolation/client.py``'s
-:class:`ProxyClient`: the stand-in for the card in a client that never
-owns it. The client stages its state on the host with numpy, ``put``s it,
-and runs registered programs (:mod:`.programs`) on the proxy; tensors live
-there as handles (:class:`RemoteBuffer`), so a training loop transfers
-its parameters once.
+Counterpart of ``kubeshare_tpu/isolation/client.py``:
 
-Lockstep connection only; the pipelined transport, reconnect-and-resume,
-``ExecutionGate`` and ``HbmCap`` are not ported yet.
+- :class:`ProxyClient` is the stand-in for the card in a client that
+  never owns it. The client stages its state on the host with numpy,
+  ``put``s it, and runs registered programs (:mod:`.programs`) on the
+  proxy; tensors live there as handles (:class:`RemoteBuffer`), so a
+  training loop transfers its parameters once.
+- :class:`ExecutionGate` and :class:`HbmCap` are for a process that owns
+  the card itself (gate-mode attach, :mod:`kubeshare_tpu_torch.attach`):
+  the gate passes a token round trip with the pod manager before work,
+  the cap holds the process to its memory grant.
+
+Lockstep connection only; the pipelined transport and
+reconnect-and-resume are not ported yet.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..utils.logger import get_logger
 from ..utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import protocol
 from .protocol import load_array
+
+log = get_logger("client")
 
 
 @dataclass(frozen=True)
@@ -169,3 +180,249 @@ class ProxyClient:
 
     def __exit__(self, *exc):
         self.close()
+
+
+# --------------------------------------------------------------------------
+# gate mode: a process that owns the card
+# --------------------------------------------------------------------------
+
+def device_barrier() -> None:
+    """Wait until every kernel this process queued on its current CUDA
+    device has finished (all its streams: the caching allocator's, the
+    autograd engine's and the hand-written kernels' launches alike). A
+    process that has not initialized CUDA has queued nothing, and returns
+    at once."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _completion_event(out):
+    """An event recorded behind ``out``'s producing work, on the current
+    stream of the first CUDA tensor in ``out`` (a tensor or a tree of
+    them); None when ``out`` holds none."""
+    from torch.utils._pytree import tree_leaves as leaves
+
+    for leaf in leaves(out):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(leaf.device))
+            return event
+    return None
+
+
+class HbmCap:
+    """The memory grant (``tpu_mem``) of a process that owns its card.
+
+    The reference's hook caps ``gpu_mem`` at allocation time inside every
+    shared pod (``pkg/scheduler/pod.go:419-424``); the JAX package polls
+    ``device.memory_stats()``'s ``bytes_in_use``. The port reads
+    ``torch.cuda.memory_reserved``, summed over the visible devices: the
+    bytes the caching allocator holds, which a co-tenant cannot use,
+    whether or not a live tensor sits in them. A breach kills the
+    workload with an attributable error; its death releases its token
+    through the pod manager's crash-release path, so co-tenants are
+    unharmed.
+
+    Where there are no allocator stats (no CUDA device: the CPU) the cap
+    **fails closed**: a granted cap that cannot be enforced stops the
+    process instead of letting it run unenforced.
+    """
+
+    def __init__(self, cap_bytes: int, stats_fn=None,
+                 min_poll_interval_s: float = 0.25):
+        self.cap_bytes = int(cap_bytes)
+        self._stats = stats_fn or self._device_stats
+        self._min_poll_s = min_poll_interval_s
+        self._last_poll = 0.0
+        #: stats have been read successfully at least once — separates
+        #: "no allocator stats" (fail closed) from "one poll failed"
+        self._supported = False
+
+    @staticmethod
+    def _device_stats():
+        """``{"bytes_reserved": n}`` over every visible CUDA device, or
+        None when there is none. Before CUDA is initialized the allocator
+        holds nothing and each device reads 0."""
+        if not torch.cuda.is_available():
+            return None
+        return {"bytes_reserved": sum(torch.cuda.memory_reserved(i)
+                                      for i in range(torch.cuda.device_count()))}
+
+    def check(self, extra_bytes: int = 0) -> None:
+        """Enforce the cap now. ``extra_bytes`` pre-charges a host→device
+        copy about to happen, so a single oversized copy is refused before
+        its bytes land."""
+        if not self.cap_bytes:
+            return
+        try:
+            stats = self._stats()
+        except Exception as exc:
+            if self._supported:
+                # the device HAS stats and this one poll failed: skip it
+                # (killing a healthy pod over one failed poll is failing
+                # closed in the wrong place), once per poll interval
+                self._last_poll = time.monotonic()
+                log.warning("memory stats poll failed (%s); skipping this "
+                            "check", exc)
+                return
+            raise SystemExit(
+                f"kubeshare-tpu: memory grant {self.cap_bytes} bytes, but "
+                f"the allocator stats query fails ({exc}) — the cap cannot "
+                f"be enforced in gate mode. Refusing to run unenforced.")
+        if stats is None:
+            raise SystemExit(
+                f"kubeshare-tpu: memory grant {self.cap_bytes} bytes, but "
+                f"this process has no CUDA allocator stats (no CUDA "
+                f"device) — the cap cannot be enforced in gate mode. "
+                f"Refusing to run unenforced; drop the memory grant.")
+        self._supported = True
+        self._last_poll = time.monotonic()
+        used = int(stats["bytes_reserved"]) + int(extra_bytes)
+        if used > self.cap_bytes:
+            raise SystemExit(
+                f"kubeshare-tpu: device memory cap exceeded: {used} bytes "
+                f"{'(incl. pending transfer) ' if extra_bytes else ''}"
+                f"reserved > grant of {self.cap_bytes} (KUBESHARE_TPU_MEM); "
+                f"reduce model/batch or raise the request")
+
+    def maybe_check(self) -> None:
+        """Throttled :meth:`check` for the per-op meter: bound the poll
+        rate, not the op rate."""
+        if self.cap_bytes and (time.monotonic() - self._last_poll
+                               >= self._min_poll_s):
+            self.check()
+
+
+class ExecutionGate:
+    """Token gate for a process that owns its card (hook parity).
+
+    Call the gate before work; the wall time between the previous call and
+    this one is charged as device usage. It acquires a quota on first use
+    and renews — atomically release + re-request — when the charged usage
+    exhausts it, blocking the whole process (an RLock: every thread waits
+    through a renew) until the token comes back.
+
+    Completion barrier. PyTorch launches asynchronously, so wall time at
+    launch under-counts the card's time. A result handed to
+    :meth:`note_dispatch` (a gated compiled call's) gets an event behind
+    it, and the next gate call waits for that event before it reads the
+    clock, as the JAX gate host-reads its pending result. Eager PyTorch
+    has no per-call result, so before every ``renew`` and ``release`` the
+    gate also waits for the device's queue (``barrier``, by default
+    :func:`device_barrier`) and charges the wait: the tenant's queued
+    kernels finish, and are paid for, before the token passes to a
+    co-tenant. The JAX gate has no such drain (XLA's one program per call
+    is its unit); the port adds it on purpose.
+
+    :meth:`stats` reads the gate's running totals: grants, ms charged,
+    ms spent draining and ms spent waiting for the token.
+    """
+
+    def __init__(self, conn: protocol.Connection, name: str,
+                 barrier=device_barrier):
+        self._conn = conn
+        self.name = name
+        self._barrier = barrier
+        self._quota_ms = 0.0
+        self._used_ms = 0.0
+        self._last: float | None = None
+        self._pending = None
+        self._mu = threading.RLock()
+        # totals over the gate's life: reported charges (of finished
+        # grants), drains, token waits (acquire and renew round trips)
+        self._acquires = 0
+        self._renews = 0
+        self._reported_ms = 0.0
+        self._drain_ms = 0.0
+        self._waited_ms = 0.0
+
+    def note_dispatch(self, out) -> None:
+        """Record the (possibly still running) result of a gated call; the
+        next gate call charges through its completion."""
+        event = _completion_event(out)
+        with self._mu:
+            self._pending = event
+
+    def _complete_pending(self) -> None:
+        # caller holds self._mu
+        if self._pending is not None:
+            event, self._pending = self._pending, None
+            event.synchronize()
+
+    def _charge(self) -> None:
+        # caller holds self._mu: wall time since the last call
+        now = time.monotonic() * 1000.0
+        if self._last is not None:
+            self._used_ms += now - self._last
+        self._last = now
+
+    def _drain(self) -> None:
+        # caller holds self._mu: the device's queue, charged
+        t0 = time.monotonic() * 1000.0
+        self._barrier()
+        self._charge()
+        self._drain_ms += self._last - t0
+
+    def _call(self, msg: dict) -> dict:
+        # caller holds self._mu: a token round trip, timed
+        t0 = time.monotonic()
+        reply, _ = self._conn.call(msg)
+        self._waited_ms += (time.monotonic() - t0) * 1000.0
+        return reply
+
+    def __call__(self) -> None:
+        with self._mu:
+            self._complete_pending()
+            self._charge()
+            if self._quota_ms <= 0.0:
+                reply = self._call({"op": "acquire", "name": self.name})
+                self._acquires += 1
+                self._quota_ms = reply["quota_ms"]
+                self._used_ms = 0.0
+            elif self._used_ms >= self._quota_ms:
+                self._drain()
+                reply = self._call({"op": "renew", "name": self.name,
+                                    "used_ms": self._used_ms})
+                self._renews += 1
+                self._reported_ms += self._used_ms
+                self._quota_ms = reply["quota_ms"]
+                self._used_ms = 0.0
+            self._last = time.monotonic() * 1000.0
+
+    def close(self) -> None:
+        """Release the token (if held), charging through the device's
+        queue. The connection stays open (as the JAX gate's does): over a
+        direct scheduler connection it owns the registration, which lives
+        until the process exits or the caller closes ``conn``."""
+        with self._mu:
+            if self._quota_ms > 0.0:
+                self._complete_pending()
+                self._charge()
+                self._drain()
+                try:
+                    self._conn.call({"op": "release", "name": self.name,
+                                     "used_ms": self._used_ms})
+                except (OSError, RuntimeError):
+                    pass
+                self._reported_ms += self._used_ms
+                self._used_ms = 0.0
+                self._quota_ms = 0.0
+
+    def stats(self) -> dict:
+        """Totals so far: ``acquires``, ``renews``, ``charged_ms`` (ms
+        reported to the scheduler plus the current grant's charge up to
+        the last gate call), ``drain_ms`` and ``waited_ms``."""
+        with self._mu:
+            return {"acquires": self._acquires, "renews": self._renews,
+                    "charged_ms": self._reported_ms + self._used_ms,
+                    "drain_ms": self._drain_ms,
+                    "waited_ms": self._waited_ms}
+
+    @classmethod
+    def connect(cls, host: str, port: int, name: str, request: float,
+                limit: float, barrier=device_barrier) -> "ExecutionGate":
+        """Dial a pod manager (or a token scheduler) and register."""
+        conn = protocol.Connection(host, port)
+        conn.call({"op": "register", "name": name, "request": request,
+                   "limit": limit})
+        return cls(conn, name, barrier)

@@ -8,8 +8,8 @@ as raw bytes after the JSON, announced by ``_blob`` (its byte length). One
 request, one reply, strictly alternating.
 
 The frame bytes are frozen: ``json.dumps`` with its default separators, so
-replies read ``"ok": true`` with the space that the native pod-manager
-relay string-matches.
+replies read ``"ok": true`` with the space that the JAX package's native
+pod-manager relay string-matches.
 """
 
 from __future__ import annotations

@@ -21,8 +21,10 @@ Enforcement lives where the JAX proxy's lives:
 Ported: register (lockstep; no transport features granted), put, get,
 free, compile, execute with ``repeat`` and ``chain_steps``, usage,
 unregister; the burst cost model and its clamp; carry donation; server-side
-chaining. Not yet: journaling, resume, migration, admin ops, chunked
-transfers, fault injection and preemption slicing.
+chaining; :func:`main`, the per-device process the node launcher spawns
+(``-P``/``-S``/``-q``/``-m``/``-w``). Not yet: journaling, resume,
+migration, admin ops, chunked transfers, fault injection, preemption
+slicing and remote write.
 """
 
 from __future__ import annotations
@@ -693,3 +695,50 @@ class ChipProxy:
         name = state.get("name")
         if name:
             self._drop_session(name)
+
+
+def main(argv=None) -> None:
+    """``python -m kubeshare_tpu_torch.isolation.proxy -P 49901 -S 50901``
+    — the gem-schd launch shape (``launcher.py:22-32``), owning the card
+    too. ``-S`` also serves the proxy's token scheduler over TCP for pod
+    managers (:func:`.tokensched.serve`). Prints ``READY <port>[ TOKENS
+    <port>]`` once it serves."""
+    import argparse
+
+    from ..constants import BASE_QUOTA_MS, MIN_QUOTA_MS, WINDOW_MS
+    from ..utils import ready_until_signal
+    from .tokensched import serve as serve_tokens
+
+    parser = argparse.ArgumentParser(prog="kubeshare_tpu_torch.isolation.proxy")
+    parser.add_argument("-P", "--port", type=int, default=0)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("-q", "--base-quota", type=float, default=BASE_QUOTA_MS)
+    parser.add_argument("-m", "--min-quota", type=float, default=MIN_QUOTA_MS)
+    parser.add_argument("-w", "--window", type=float, default=WINDOW_MS)
+    parser.add_argument("-S", "--token-port", type=int, default=-1,
+                        help="also serve the token scheduler over TCP for "
+                             "pod managers (gem-schd parity); -1 = off, "
+                             "0 = ephemeral")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+
+    sched = TokenScheduler(window_ms=args.window,
+                           base_quota_ms=args.base_quota,
+                           min_quota_ms=args.min_quota)
+    proxy = ChipProxy(device=args.device, scheduler=sched)
+    server = proxy.serve(args.host, args.port)
+    token_server = None
+    tokens = ""
+    if args.token_port >= 0:
+        token_server = serve_tokens(sched, args.host, args.token_port)
+        tokens = f" TOKENS {token_server.server_address[1]}"
+    ready_until_signal(f"READY {server.server_address[1]}{tokens}")
+    if token_server is not None:
+        token_server.shutdown()
+        token_server.server_close()
+    proxy.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -6,9 +6,10 @@ carries a quota (ms of device time) and the holder reports actual usage
 on release. Scheduling is stride scheduling weighted by ``request`` with a
 sliding-window ``limit`` cap.
 
-:class:`PyTokenCore` is the JAX package's Python core, copied. The native
-C++ twin, the TCP server for pod managers and the ledger, blame,
-preemption, SLO and profiler hooks of the JAX façade are not ported yet.
+:class:`PyTokenCore` is the JAX package's Python core, copied, and
+:func:`serve` its TCP server for pod managers. The native C++ twin, the
+gang and preemption wire extensions and the ledger, blame, SLO and
+profiler hooks of the JAX façade are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from collections import deque
 from dataclasses import dataclass, field
 
 from ..constants import BASE_QUOTA_MS, MIN_QUOTA_MS, WINDOW_MS
+from . import protocol
 
 _INF = float("inf")
 
@@ -288,3 +290,78 @@ class TokenScheduler:
             if not q:
                 self._waiting.pop(name, None)
             self._cond.notify_all()
+
+
+def serve(scheduler: TokenScheduler, host: str = "127.0.0.1", port: int = 0
+          ) -> protocol.FramedServer:
+    """Expose a :class:`TokenScheduler` over framed-JSON TCP — the wire of
+    ``kubeshare_tpu.isolation.tokensched.serve``, which pod managers and
+    gates of either package speak.
+
+    Requests: ``{"op": "register", "name", "request", "limit"}`` (creates
+    the client; this connection owns it), ``{"op": "attach", "name"}``
+    (binds an extra connection to an existing client — a pod manager's
+    per-gate relay channels), ``{"op": "acquire"}`` (blocks; reply carries
+    ``quota_ms``), ``{"op": "renew", "used_ms"}`` (atomic
+    release+reacquire — the steady-state call), ``{"op": "release",
+    "used_ms"}``, ``{"op": "usage"}``, ``{"op": "unregister"}``. Token ops
+    act on the *connection-bound* identity (set by register/attach) — a
+    connection can never name another pod's client. Replies: ``{"ok":
+    true, ...}`` or ``{"ok": false, "error": msg}``. The owning
+    connection's disconnect removes the client (≙ gem-schd dropping a dead
+    pod manager); attached connections' disconnects don't.
+
+    The gang (``gang_*``) and preemption (``preempt_*``) extensions answer
+    the standard unknown-op error, as a JAX server started without a
+    coordinator or a policy does. A register's ``"class"`` is accepted and
+    ignored (the port keeps no per-class metrics yet).
+    """
+    def handle(req: dict, state: dict) -> dict:
+        op = req.get("op")
+        if op not in ("register", "attach", "acquire", "renew", "release",
+                      "usage", "unregister"):
+            return {"ok": False, "error": f"unknown op {op!r}"}
+        if op in ("register", "attach"):
+            if state.get("name"):
+                raise ValueError(
+                    f"connection already bound to {state['name']!r}")
+            name = req["name"]
+            if op == "register":
+                scheduler.add_client(name, float(req["request"]),
+                                     float(req["limit"]))
+            else:
+                scheduler.window_usage(name)  # KeyError if no such client
+            state["name"] = name
+            state["owner"] = op == "register"
+            return {"ok": True}
+        name = state.get("name")
+        if not name:
+            raise PermissionError("connection not bound (register/attach first)")
+        if op == "acquire":
+            return {"ok": True,
+                    "quota_ms": scheduler.acquire(name,
+                                                  timeout=req.get("timeout"))}
+        if op == "renew":
+            return {"ok": True,
+                    "quota_ms": scheduler.renew(name, float(req["used_ms"]),
+                                                timeout=req.get("timeout"))}
+        if op == "release":
+            scheduler.release(name, float(req["used_ms"]))
+            return {"ok": True}
+        if op == "usage":
+            return {"ok": True,
+                    "used_ms": scheduler.window_usage(name),
+                    "window_ms": scheduler.window_ms}
+        scheduler.remove_client(name)         # unregister
+        state.pop("name", None)
+        state.pop("owner", None)
+        return {"ok": True}
+
+    def cleanup(state: dict) -> None:
+        if state.get("owner") and state.get("name"):
+            try:
+                scheduler.remove_client(state["name"])
+            except RuntimeError:
+                pass  # scheduler already closed — nothing left to free
+
+    return protocol.serve_framed(host, port, handle, cleanup)

@@ -23,7 +23,10 @@ under ``torch.profiler`` the device time per step (the sum of kernel
 times), the device's idle share of the wall time (unprofiled and
 profiled), each hand-written kernel's time, launches, share of device
 time and the names of the functions that ran, and the top kernels by
-device time. Prints one JSON object as its last line.
+device time. Then it counts the aten ops one step dispatches — what the
+gate-mode attach's meter hooks, once each — and times the per-step loop
+under a dispatch mode that only counts them. Prints one JSON object as its
+last line.
 """
 
 from __future__ import annotations
@@ -162,6 +165,31 @@ def main(argv=None) -> int:
         if name == "burst" and args.trace:
             prof.export_chrome_trace(args.trace)
         print(f"{name}: {json.dumps(result[name])}", flush=True)
+
+    # what gate-mode attach hooks: the aten ops one step dispatches (the
+    # attach's meter runs once per op, backward's included), and the wall
+    # time of a step under a dispatch mode that only counts them
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    with CountOps() as counter:
+        per_step()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        per_step()
+        torch.cuda.synchronize(dev)
+        counted_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    result["dispatch_mode"] = {
+        "aten_ops_per_step": counter.ops / (2 * args.steps),
+        "per_step_wall_ms": counted_ms}
+    print(f"dispatch_mode: {json.dumps(result['dispatch_mode'])}",
+          flush=True)
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -6,6 +6,12 @@ This file imports no JAX: it runs where the port runs. On the card::
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -319,3 +325,183 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 32, 2, 2, 32, torch.float16)
     with pytest.raises(TypeError):
         tfl.flash_attention(q, k, v)
+
+
+# --- gate-mode attach on the card --------------------------------------------
+
+REPO = Path(__file__).resolve().parent.parent
+SHIM = REPO / "kubeshare_tpu_torch" / "_shim"
+
+
+@pytest.fixture
+def token_server(cuda):
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler, serve
+
+    sched = TokenScheduler(window_ms=120000, base_quota_ms=30000,
+                           min_quota_ms=10)
+    server = serve(sched)
+    yield sched, server.server_address[1]
+    from kubeshare_tpu_torch import attach
+    attach.detach()
+    server.shutdown()
+    server.server_close()
+    sched.close()
+
+
+def _device_ms(fn) -> float:
+    """Device time of ``fn()``'s launches, by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+@pytest.mark.parametrize("work", ["sleep", "flash"])
+def test_gate_charges_real_device_time_on_card(token_server, work):
+    """Kernels the meter cannot see — ``torch.cuda._sleep`` and the flash
+    kernels, launched through ctypes, queue asynchronously — are charged
+    their device time through the gate's drain of the device queue (the
+    JAX package's test_gate_charges_real_device_duration bar: at least
+    0.6x the measured duration)."""
+    from kubeshare_tpu_torch import attach
+
+    sched, port = token_server
+    if work == "sleep":
+        fn = lambda: [torch.cuda._sleep(50_000_000) for _ in range(6)]
+    else:
+        q, k, v = _qkv(torch.device("cuda"), 1, 8192, 8, 8, 32,
+                       torch.bfloat16)
+        fn = lambda: [tfl.flash_fwd(q, k, v, True, None, 32 ** -0.5)
+                      for _ in range(600)]
+    fn()
+    ref_ms = _device_ms(fn)
+    assert ref_ms > 100, f"too short to discriminate: {ref_ms} ms"
+    before = dict(tfl.launches)
+    attach.attach_gate("127.0.0.1", port, "devicepod", 0.5, 1.0)
+    torch.ones(1, device="cuda")   # the first op acquires
+    fn()                           # queued; the launches return at once
+    attach.detach()                # the release drains and charges
+    used = sched.window_usage("devicepod")
+    assert used >= 0.6 * ref_ms, (used, ref_ms)
+    if work == "flash":
+        assert tfl.launches["fwd"] - before["fwd"] == 600
+
+
+def test_gate_meters_backward_on_the_autograd_device_thread(token_server,
+                                                            monkeypatch):
+    """On the card, backward runs on the autograd engine's device thread;
+    its ops pass the meter all the same (the engine carries the dispatch
+    mode in its thread-local state)."""
+    import threading
+
+    from kubeshare_tpu_torch import attach
+    from kubeshare_tpu_torch.isolation.client import ExecutionGate
+
+    threads = []
+    real = ExecutionGate.__call__
+    monkeypatch.setattr(
+        ExecutionGate, "__call__",
+        lambda self: (threads.append(threading.current_thread().name),
+                      real(self)))
+    _, port = token_server
+    attach.attach_gate("127.0.0.1", port, "bwd", 0.5, 1.0)
+    x = torch.ones(64, 64, device="cuda", requires_grad=True)
+    y = (x @ x).sum()
+    n = len(threads)
+    y.backward()
+    torch.cuda.synchronize()
+    attach.detach()
+    assert len(threads) > n
+    assert any(t != "MainThread" for t in threads[n:]), threads[n:]
+
+
+def _pod_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_") and k not in (
+               "TPU_VISIBLE_CHIPS", "CUDA_VISIBLE_DEVICES")}
+    env["PYTHONPATH"] = os.pathsep.join([str(SHIM), str(REPO)])
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def test_memory_cap_kills_tenant_cotenant_keeps_acquiring(token_server,
+                                                          tmp_path):
+    """A gated tenant whose ``memory_reserved`` passes its grant dies with
+    an attributable error; its co-tenant keeps acquiring the token."""
+    from kubeshare_tpu_torch.isolation import protocol
+    from kubeshare_tpu_torch.isolation.podmgr import PodManager
+
+    sched, port = token_server
+    mgrs = [PodManager("127.0.0.1", port, name, 0.5, 1.0)
+            for name in ("ns/hog", "ns/cotenant")]
+    for m in mgrs:
+        m.serve()
+    script = tmp_path / "hog.py"
+    script.write_text("""
+import time, torch
+held = []
+for _ in range(64):
+    held.append(torch.empty(64 << 20, dtype=torch.uint8, device="cuda"))
+    time.sleep(0.05)
+print("UNREACHABLE: cap never fired")
+""")
+    try:
+        hog = subprocess.Popen(
+            [sys.executable, str(script)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env=_pod_env(KUBESHARE_TPU_POD_MANAGER_PORT=mgrs[0].port,
+                         KUBESHARE_TPU_POD_NAME="ns/hog",
+                         KUBESHARE_TPU_REQUEST="0.5",
+                         KUBESHARE_TPU_MEM=256 << 20))
+        conn = protocol.Connection("127.0.0.1", mgrs[1].port)
+        grants = 0
+        while hog.poll() is None:
+            conn.call({"op": "acquire"})
+            time.sleep(0.01)
+            conn.call({"op": "release", "used_ms": 10.0})
+            grants += 1
+        out, err = hog.communicate(timeout=120)
+        assert hog.returncode != 0, out
+        assert "device memory cap exceeded" in err, err[-2000:]
+        assert "UNREACHABLE" not in out
+        for _ in range(3):             # the co-tenant goes on acquiring
+            conn.call({"op": "acquire"})
+            conn.call({"op": "release", "used_ms": 1.0})
+        assert grants > 0
+        conn.close()
+    finally:
+        for m in mgrs:
+            m.close()
+
+
+def test_shim_pins_the_grant_as_cuda_visible_devices(token_server):
+    """A tenant attached through the shim sees only the device of its
+    chip grant: the pin sets CUDA_VISIBLE_DEVICES before CUDA
+    initializes."""
+    from kubeshare_tpu_torch.isolation.podmgr import PodManager
+    from kubeshare_tpu_torch.topology.discovery import discover_chips
+
+    sched, port = token_server
+    chip = discover_chips("cuda", host="node")[-1]
+    mgr = PodManager("127.0.0.1", port, "ns/pinned", 0.5, 1.0)
+    mgr.serve()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import os, torch; from kubeshare_tpu_torch import attach; "
+             "print(attach.active_mode(), os.environ['CUDA_VISIBLE_DEVICES'],"
+             " torch.cuda.device_count(), float(torch.ones(2, "
+             "device='cuda').sum()))"],
+            capture_output=True, text=True, timeout=120, cwd=str(REPO),
+            env=_pod_env(KUBESHARE_TPU_POD_MANAGER_PORT=mgr.port,
+                         KUBESHARE_TPU_POD_NAME="ns/pinned",
+                         KUBESHARE_TPU_REQUEST="0.5",
+                         TPU_VISIBLE_CHIPS=chip.chip_id))
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert proc.stdout.split() == ["gate", str(chip.index), "1", "2.0"]
+        assert sched.window_usage("ns/pinned") > 0.0
+    finally:
+        mgr.close()

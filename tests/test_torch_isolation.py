@@ -487,3 +487,43 @@ def test_spec_cannot_size_the_model(monkeypatch):
     with pytest.raises(ValueError, match="unknown spec fields"):
         programs.resolve(spec, [((4,), "float32")], 1)
     assert not built
+
+
+def test_gate_failure_mid_chain_raises_and_frees_the_carry(proxy):
+    """A token-gate failure after one or more bursts of a chain raises and
+    frees the consumed carry, as the reference's ``_execute_chain`` does
+    (``kubeshare_tpu/isolation/proxy.py:1634-1643``). The port keeps that
+    behavior on purpose, with the reference's known defect: the valid
+    partial chain is lost, where the memory-cap path of the same loop
+    (``proxy.py:1609-1612`` there, ``_execute_chain``'s ``HBMError``
+    branch here) returns it instead. The client re-puts its carry, and
+    nothing stays charged."""
+    with ProxyClient("127.0.0.1", proxy.port, "chainfail", 0.5, 1.0,
+                     timeout=30) as c:
+        carry, batch, loop = _client_setup(c, 5)
+        real_gated = proxy._gated
+        calls = []
+
+        def failing_gate(sess, fn, timing):
+            calls.append(1)
+            if len(calls) == 2:          # the second burst's token wait
+                raise RuntimeError("token gate down")
+            return real_gated(sess, fn, timing)
+
+        proxy._gated = failing_gate
+        with pytest.raises(RuntimeError,
+                           match="interrupted after 1 steps.*carry was "
+                                 "consumed"):
+            loop.chain(8, carry, *batch)
+        del proxy._gated
+        assert len(calls) == 2
+        for buf in tree_leaves(carry):   # the consumed carry is gone
+            with pytest.raises(RuntimeError, match="KeyError"):
+                c.get(buf)
+        acc = proxy.hbm_accounting()["chainfail"]
+        assert acc["balanced"]
+        assert acc["hbm_used"] == sum(b.nbytes for b in tree_leaves(batch))
+        # the consts survive; a re-put carry trains on
+        carry = c.put_tree(programs.initial_carry(TINY, 5))
+        carry, loss = loop.chain(4, carry, *batch)
+        assert np.isfinite(float(c.get(loss)))

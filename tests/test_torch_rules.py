@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "kubeshare_tpu")
 
 def _port_files():
     files = sorted((ROOT / "kubeshare_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_roots(path):
@@ -32,10 +33,35 @@ def test_port_sources_exist():
     for want in ("kubeshare_tpu_torch/ops/fused_adam.py",
                  "kubeshare_tpu_torch/ops/flash_attention.py",
                  "kubeshare_tpu_torch/models/transformer.py",
-                 "kubeshare_tpu_torch/isolation/proxy.py", "chip_smoke.py"):
+                 "kubeshare_tpu_torch/isolation/proxy.py",
+                 "kubeshare_tpu_torch/isolation/podmgr.py",
+                 "kubeshare_tpu_torch/attach.py",
+                 "kubeshare_tpu_torch/_shim/sitecustomize.py",
+                 "kubeshare_tpu_torch/resilience/reconnect.py",
+                 "kubeshare_tpu_torch/nodeagent/files.py",
+                 "kubeshare_tpu_torch/nodeagent/launcherd.py",
+                 "kubeshare_tpu_torch/topology/chip.py",
+                 "kubeshare_tpu_torch/topology/discovery.py",
+                 "chip_smoke.py", "scripts/torch_step_profile.py",
+                 "scripts/torch_gate_pairs.py"):
         assert want in names
     for kernel in ("fused_adam", "flash_attention"):
         assert (ROOT / f"kubeshare_tpu_torch/csrc/{kernel}.cu").exists()
+
+
+def test_shim_imports_only_the_ports_attach():
+    """The shim runs in every process of the node: it may import the
+    standard library and ``kubeshare_tpu_torch.attach``, nothing else."""
+    path = ROOT / "kubeshare_tpu_torch/_shim/sitecustomize.py"
+    tree = ast.parse(path.read_text())
+    modules = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            modules.add(node.module)
+    assert modules == {"os", "sys", "traceback",
+                       "kubeshare_tpu_torch.attach"}
 
 
 @pytest.mark.parametrize("path", _port_files(),

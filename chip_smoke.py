@@ -45,15 +45,30 @@ failing the run (non-zero exit, no result line) when it fails:
       the steps, in the even pair), the pair's steps must come in runs of
       one tenant, and the two tenants' charges must not sum past the
       time they were held in;
+   f. the proxy-mode pair — the reference's default attach: a
+      ``ChipProxy`` on the card in this process (token scheduler window
+      1 s), and tenant processes (``--tenant --compiled``) attached only
+      by the shim from a pod's env with the proxy's port. Each has no
+      CUDA device of its own; it wraps the full-width LM train step in
+      ``torch.compile``, which the attach exports and runs on the proxy,
+      and reads the loss every step. One tenant alone at request 1.0,
+      then two at 0.5 / 0.5, then two at 0.25 / 0.75. Every step must
+      run on the proxy with exactly 4 launches of each flash pass and 1
+      of fused Adam, the lone tenant's first losses must match the eager
+      step in this process, and each pair's first tenant must be charged
+      its requested share of the token over its life (and of the common
+      window, in the even pair);
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --tenant out.json [--seconds S] [--seed N]
+    python3 chip_smoke.py --tenant out.json [--compiled] [--seconds S]
+        [--seed N]
 
-is the tenant of phase 5e: it holds no isolation code, trains, and writes
-its per-step end times, losses and kernel launch counts to ``out.json``.
+is the tenant of phases 5e and 5f (``--compiled``: its train step wrapped
+in ``torch.compile``): it holds no isolation code, trains, and writes its
+per-step end times, losses and kernel launch counts to ``out.json``.
 """
 
 from __future__ import annotations
@@ -141,6 +156,18 @@ GATE_SHARE_SLACK = 0.4
 GATE_MIN_MEAN_RUN = 3.0
 # the gate's totals a tenant records after each step (ExecutionGate.stats)
 GATE_TOTALS = ("charged_ms", "renews", "drain_ms", "waited_ms")
+# the proxy-mode pairs (phase 5f): how long the lone tenant and each pair
+# train after their warm-up steps, the pairs' (pod name, seed, request)
+# each — even, and uneven, as in 5e — and the lone tenant's first losses
+# held against the eager step
+PROXY_SOLO_S = 10.0
+PROXY_PAIR_S = 20.0
+PROXY_PAIRS = {"even": (("smoke/proxy-a", 10, 0.5),
+                        ("smoke/proxy-b", 20, 0.5)),
+               "uneven": (("smoke/proxy-c", 30, 0.25),
+                          ("smoke/proxy-d", 40, 0.75))}
+PROXY_SOLO = ("smoke/proxy-solo", 0, 1.0)
+PROXY_FIRST_LOSSES = 3
 
 
 def log(msg: str) -> None:
@@ -938,39 +965,53 @@ def _reset_counts() -> None:
 
 # --- phase 5e: the gate pair ---------------------------------------------------
 
-def tenant(out_path: str, seconds: float, seed: int) -> int:
-    """The tenant process of the gate pair: an unmodified training loop,
-    metered only if the shim attached it. The full-width transformer with
-    flash attention, the loss read every step; after
+def tenant(out_path: str, seconds: float, seed: int, compiled: bool) -> int:
+    """The tenant process of the gate and proxy pairs: an unmodified
+    training loop, metered only if the shim attached it. The full-width
+    transformer with flash attention on ``cuda`` if this process has a
+    card (under proxy attach it has none: on ``cpu``, its compiled step
+    running on the proxy), the loss read every step; after
     TENANT_WARMUP_STEPS steps it trains ``seconds`` more. After each step
-    it also reads the gate's totals (``attach.gate_stats``), if gated."""
+    it also reads the gate's totals (``attach.gate_stats``), if gated.
+    ``compiled`` wraps the step in ``torch.compile``."""
     import torch
 
     from kubeshare_tpu_torch import attach
     from kubeshare_tpu_torch.models import common, transformer
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     params = common.to_device(transformer.init(seed), dev)
     batch = common.to_device(transformer.batch_fn(seed + 1), dev)
     opt = fused_adam(1e-3)
     state = opt.init(params)
     step = common.make_train_step(transformer.flash_loss_fn, opt)
+    if compiled:
+        step = torch.compile(step)
     _reset_counts()
     ends, losses, gate = [], [], []
+    started = time.monotonic()
     stop_at = None
+    first_proxy = None
     while stop_at is None or ends[-1] < stop_at:
         params, state, loss = step(params, state, batch)
         losses.append(float(loss))          # host read: the step is done
         ends.append(time.monotonic())
+        if first_proxy is None:
+            first_proxy = attach.proxy_usage()
         totals = attach.gate_stats()
         gate.append([totals[k] for k in GATE_TOTALS] if totals else None)
         if len(ends) == TENANT_WARMUP_STEPS:
             stop_at = ends[-1] + seconds
     with open(out_path, "w") as f:
         json.dump({"attach": attach.active_mode(), "ends": ends,
+                   "started": started,
                    "losses": losses, "gate": gate, "launches": _counts(),
-                   "device": torch.cuda.get_device_name(0),
+                   "device": (torch.cuda.get_device_name(0)
+                              if dev.type == "cuda" else "cpu"),
+                   "cuda_initialized": torch.cuda.is_initialized(),
+                   "proxy": attach.proxy_usage(),
+                   "first_proxy": first_proxy,
                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES", "")}, f)
     return 0
 
@@ -1138,6 +1179,18 @@ class _Node:
         shutil.rmtree(self.base, ignore_errors=True)
 
 
+def _check_losses(name: str, losses: list) -> None:
+    check(all(math.isfinite(x) for x in losses),
+          f"tenant {name}: loss not finite")
+    check(losses[-1] < losses[0],
+          f"tenant {name}: loss did not fall: {losses[0]} -> {losses[-1]}")
+
+
+def _launches_per_step(adam_per_step: int, layers: int) -> dict:
+    return {"fused_adam": adam_per_step,
+            **{f"flash_{k}": layers for k in ("fwd", "dq", "dkv")}}
+
+
 def _check_tenant(name: str, rec: dict, gated: bool, adam_per_step: int,
                   layers: int) -> int:
     """A tenant's own record: attached as asked, finite falling loss,
@@ -1145,13 +1198,9 @@ def _check_tenant(name: str, rec: dict, gated: bool, adam_per_step: int,
     steps = len(rec["ends"])
     check(rec["attach"] == ("gate" if gated else ""),
           f"tenant {name}: attach mode {rec['attach']!r}")
-    losses = rec["losses"]
-    check(all(math.isfinite(x) for x in losses),
-          f"tenant {name}: loss not finite")
-    check(losses[-1] < losses[0],
-          f"tenant {name}: loss did not fall: {losses[0]} -> {losses[-1]}")
-    want = {"fused_adam": adam_per_step * steps,
-            **{f"flash_{k}": layers * steps for k in ("fwd", "dq", "dkv")}}
+    _check_losses(name, rec["losses"])
+    want = {k: n * steps for k, n in
+            _launches_per_step(adam_per_step, layers).items()}
     check(rec["launches"] == want,
           f"tenant {name}: launches {rec['launches']}, expected {want}")
     return steps
@@ -1397,6 +1446,243 @@ def _fmt_gate(per_step: dict) -> str:
     return ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
 
 
+# --- phase 5f: the proxy-mode pair ---------------------------------------------
+
+def _run_proxy_tenants(root: str, proxy, tenants, seconds: float,
+                       base: str) -> dict:
+    """Run the tenants ``(name, seed, request)`` side by side, each a
+    process attached by the shim from a pod's env with the port of
+    ``proxy`` (in this process); while they run, sample each one's
+    charged ms in the last window from the token scheduler (``usage``)
+    and the ms it has been charged since it registered: its session's
+    execution ms, the ``used_ms`` the proxy hands the scheduler
+    (``held``). Returns each tenant's record and its samples."""
+    from kubeshare_tpu_torch import constants as C
+
+    shim = os.path.join(root, "kubeshare_tpu_torch", "_shim")
+    procs, outs, logs, usage, held = {}, {}, {}, {}, {}
+    try:
+        for name, seed, request in tenants:
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("KUBESHARE_TPU_")
+                   and k not in (C.ENV_VISIBLE_CHIPS, "CUDA_VISIBLE_DEVICES")}
+            env.update({"PYTHONPATH": os.pathsep.join([shim, root]),
+                        C.ENV_CHIP_PROXY_PORT: str(proxy.port),
+                        C.ENV_POD_NAME: name,
+                        C.ENV_TPU_REQUEST: str(request),
+                        C.ENV_TPU_LIMIT: "1.0"})
+            stem = os.path.join(base, name.replace("/", "_"))
+            outs[name], logs[name] = stem + ".json", stem + ".log"
+            usage[name], held[name] = [], []
+            with open(logs[name], "w") as log_file:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--tenant",
+                     outs[name], "--compiled", "--seconds", str(seconds),
+                     "--seed", str(seed)],
+                    env=env, cwd=root, stdout=log_file,
+                    stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + seconds + 300
+        while (any(p.poll() is None for p in procs.values())
+               and time.monotonic() < deadline):
+            for name in procs:
+                now = time.monotonic()
+                try:
+                    usage[name].append(
+                        (now, proxy.scheduler.window_usage(name)))
+                    held[name].append(
+                        (now, proxy._sessions[name].exec_ms_total))
+                except KeyError:
+                    pass              # not registered yet, or gone
+            time.sleep(0.25)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    records = {}
+    for name, p in procs.items():
+        check(p.returncode == 0,
+              f"proxy tenant {name} exited {p.returncode}: "
+              f"{_tail(logs[name])}")
+        with open(outs[name]) as f:
+            records[name] = json.load(f)
+        records[name]["usage"] = usage[name]
+        records[name]["held"] = held[name]
+    return records
+
+
+def _check_proxy_tenant(name: str, rec: dict) -> int:
+    """A proxy tenant's own record: attached in proxy mode with no CUDA
+    of its own, every step run on the proxy, finite falling loss."""
+    steps = len(rec["ends"])
+    check(rec["attach"] == "proxy",
+          f"proxy tenant {name}: attach mode {rec['attach']!r}")
+    check(rec["visible"] == "" and not rec["cuda_initialized"]
+          and rec["device"] == "cpu",
+          f"proxy tenant {name} had a CUDA device: visible "
+          f"{rec['visible']!r}, initialized {rec['cuda_initialized']}")
+    check(rec["proxy"]["exec_count"] >= steps,
+          f"proxy tenant {name}: {rec['proxy']['exec_count']} executions "
+          f"on the proxy for {steps} steps")
+    _check_losses(name, rec["losses"])
+    return steps
+
+
+def proxy_pair_reading(pair: dict, entries, lone_rate: float) -> dict:
+    """One proxy pair's numbers over its common window (both past
+    warm-up, until the first one stops), and the ms each was charged over
+    its life up to the window's end (checked by
+    :func:`check_proxy_pair`)."""
+    (a, _, req_a), (b, _, req_b) = entries
+    start = max(r["ends"][TENANT_WARMUP_STEPS - 1] for r in pair.values())
+    end = min(r["ends"][-1] for r in pair.values())
+    window_s = end - start
+    check(window_s >= GATE_MIN_WINDOW_S,
+          f"the proxy pair overlapped only {window_s:.2f} s")
+    in_window = {n: sum(1 for t in r["ends"] if start < t <= end)
+                 for n, r in pair.items()}
+    rates = {n: k / window_s for n, k in in_window.items()}
+    charged = {n: _charged_ms(r, start, end) for n, r in pair.items()}
+    # the stride scheduler evens the ms charged over request out from
+    # registration on, so a tenant that ran alone first is paid back by
+    # the other inside the window: over their lives the token splits by
+    # request (as 5e's gate pairs)
+    life = {n: max((h for t, h in r["held"] if t <= end), default=0.0)
+            for n, r in pair.items()}
+    wanted = req_a / (req_a + req_b)
+    share_a = in_window[a] / (in_window[a] + in_window[b])
+    return {"requests": {a: req_a, b: req_b}, "window_s": window_s,
+            "steps_in_window": in_window, "steps_per_sec": rates,
+            "aggregate_steps_per_sec": sum(rates.values()),
+            "aggregate_over_lone": sum(rates.values()) / lone_rate,
+            "share_a": share_a, "share_wanted": wanted,
+            "share_error_pct": abs(share_a - wanted) / wanted * 100.0,
+            "charged_ms_per_window": charged,
+            "charged_share_a": charged[a] / (charged[a] + charged[b]),
+            "lifetime_charged_ms": life,
+            "lifetime_charged_share_a": life[a] / (life[a] + life[b])}
+
+
+def check_proxy_pair(kind: str, reading: dict) -> None:
+    """The first tenant's share of the token charged over its life, and
+    in an even pair also of the window's charge, within GATE_SHARE_SLACK
+    of its requested share."""
+    a = next(iter(reading["requests"]))
+    wanted = reading["share_wanted"]
+    shares = {"over its life": reading["lifetime_charged_share_a"]}
+    if wanted == 0.5:
+        shares["in the common window"] = reading["charged_share_a"]
+    for where, share in shares.items():
+        check(abs(share - wanted) <= GATE_SHARE_SLACK * wanted,
+              f"proxy pair {kind}: {a} was charged {share} of the token "
+              f"{where}, not within {GATE_SHARE_SLACK:.0%} of its "
+              f"request's {wanted}")
+
+
+def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
+    """Phase 5f (see the module docstring): the lone tenant's rate, each
+    pair's reading, the first losses against the eager step, the launch
+    counts of the whole phase and the compile's record."""
+    import torch
+
+    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+    from kubeshare_tpu_torch.models import common, transformer
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+
+    from kubeshare_tpu_torch.isolation import exported
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    # the eager step in this process, from the lone tenant's seed
+    seed = PROXY_SOLO[1]
+    params = common.to_device(transformer.init(seed), dev)
+    batch = common.to_device(transformer.batch_fn(seed + 1), dev)
+    opt = fused_adam(1e-3)
+    state = opt.init(params)
+    step = common.make_train_step(transformer.flash_loss_fn, opt)
+    eager = [float(step(params, state, batch)[2])
+             for _ in range(PROXY_FIRST_LOSSES)]
+    # the exported step itself against the eager one, in this process:
+    # per-step wall ms (host read of the loss each step), in turns
+    program = exported.load_program(exported.export_program(
+        step, (params, state, batch), dev)[0], dev)
+    leaves = tree_leaves((params, state, batch))
+    runs = {"eager": lambda: float(step(params, state, batch)[2]),
+            "exported": lambda: float(program(*leaves)[-1])}
+    step_ms = {k: [] for k in runs}
+    for _ in range(2):
+        for name, fn in runs.items():
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            step_ms[name].append((time.perf_counter() - t0) * 50.0)
+    del params, state, batch, leaves, program
+    torch.cuda.empty_cache()
+
+    sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS)
+    proxy = ChipProxy(device=dev, scheduler=sched)
+    proxy.serve()
+    base = tempfile.mkdtemp(prefix="kubeshare-proxy-")
+    _reset_counts()
+    try:
+        solo = _run_proxy_tenants(root, proxy, [PROXY_SOLO], PROXY_SOLO_S,
+                                  base)
+        pairs = {kind: _run_proxy_tenants(root, proxy, entries,
+                                          PROXY_PAIR_S, base)
+                 for kind, entries in PROXY_PAIRS.items()}
+        launches = _counts()
+        sessions_left = list(proxy._sessions)
+    finally:
+        proxy.close()
+        shutil.rmtree(base, ignore_errors=True)
+    check(not sessions_left, f"proxy sessions left behind: {sessions_left}")
+    records = {**solo, **{n: r for pair in pairs.values()
+                          for n, r in pair.items()}}
+    steps = {n: _check_proxy_tenant(n, r) for n, r in records.items()}
+    want = {k: n * sum(steps.values()) for k, n in
+            _launches_per_step(adam_per_step, layers).items()}
+    check(launches == want,
+          f"proxy phase: launches {launches}, expected {want} for "
+          f"{sum(steps.values())} steps")
+    lone = solo[PROXY_SOLO[0]]
+    first = lone["losses"][:PROXY_FIRST_LOSSES]
+    for got, ref in zip(first, eager):
+        check(abs(got - ref) <= 1e-5 * max(1.0, abs(ref)),
+              f"proxy tenant's loss {got} vs the eager step's {ref}")
+    lone_rate = _solo_rate(lone)
+    readings = {}
+    for kind, pair in pairs.items():
+        readings[kind] = proxy_pair_reading(pair, PROXY_PAIRS[kind],
+                                            lone_rate)
+        log(f"proxy pair {kind}: {json.dumps(readings[kind])}")
+        check_proxy_pair(kind, readings[kind])
+    per_step = {n: {"wall_ms": 1000.0 * (r["ends"][-1] - r["ends"][0])
+                               / (len(r["ends"]) - 1),
+                    "proxy_exec_ms": (r["proxy"]["exec_ms_total"]
+                                      - r["first_proxy"]["exec_ms_total"])
+                    / (r["proxy"]["exec_count"]
+                       - r["first_proxy"]["exec_count"]),
+                    "first_exec_ms": r["first_proxy"]["exec_ms_total"]}
+                for n, r in records.items()}
+    return {
+        "in_process_step_ms": step_ms,
+        "per_step": per_step,
+        "eager_first_losses": eager,
+        "lone_first_losses": first,
+        "lone_steps_per_sec": lone_rate,
+        "pairs": readings,
+        "compile": {n: r["proxy"]["last_compile"]
+                    for n, r in records.items()},
+        "first_step_s": {n: r["ends"][0] - r["started"]
+                         for n, r in records.items()},
+        "steps": steps,
+        "launches": launches,
+        "window_ms": WINDOW_MS,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument("--out", default="",
@@ -1404,6 +1690,9 @@ def main(argv=None) -> int:
     parser.add_argument("--tenant", default="",
                         help="run as a tenant of the gate pair, writing its "
                              "record here (JSON)")
+    parser.add_argument("--compiled", action="store_true",
+                        help="as a tenant, wrap the train step in "
+                             "torch.compile (the proxy pair's tenants)")
     parser.add_argument("--seconds", type=float, default=GATE_SOLO_S)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -1411,6 +1700,10 @@ def main(argv=None) -> int:
 
     import torch
 
+    if args.tenant and args.compiled:
+        # a proxy-mode tenant has no CUDA device of its own: the attach
+        # hid them all, and its compiled step runs on the proxy
+        return tenant(args.tenant, args.seconds, args.seed, True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1426,7 +1719,7 @@ def main(argv=None) -> int:
               f"({e}); run from the root of a checkout", file=sys.stderr)
         return 2
     if args.tenant:
-        return tenant(args.tenant, args.seconds, args.seed)
+        return tenant(args.tenant, args.seconds, args.seed, False)
     import numpy as np
 
     # full fp32 on the card wherever numbers are compared: cuDNN convs
@@ -1590,6 +1883,50 @@ def main(argv=None) -> int:
     phases["gate"] = gate
     for k in launches:
         launches[k] += gate["launches"][k]
+
+    # the proxy-mode pair: tenant processes with no CUDA device, their
+    # compiled steps run on a proxy in this process, counted here
+    prox = proxy_phase(root, dev, adam_launches["transformer"],
+                       transformer.LAYERS)
+    excl_rate = phases["transformer"]["exclusive"]["plain_steps_per_sec"]
+    prox["lone_over_exclusive"] = prox["lone_steps_per_sec"] / excl_rate
+    log(f"proxy: lone tenant {prox['lone_steps_per_sec']:.3f} steps/s, "
+        f"/ 5c exclusive eager {excl_rate:.3f} = "
+        f"{prox['lone_over_exclusive']:.4f}")
+    for kind, pr in prox["pairs"].items():
+        (a, req_a), (b, req_b) = pr["requests"].items()
+        log(f"proxy pair {kind} ({a} {req_a}, {b} {req_b}): steps/s over "
+            f"the common window ({pr['window_s']:.2f} s): " + ", ".join(
+                f"{n} {r:.3f}" for n, r in pr["steps_per_sec"].items())
+            + f"; aggregate / lone {pr['aggregate_over_lone']:.4f}; "
+            f"share a {pr['share_a']:.4f} (wanted {pr['share_wanted']:.2f}, "
+            f"error {pr['share_error_pct']:.2f}%); charged ms per "
+            f"{WINDOW_MS:.0f} ms window " + ", ".join(
+                f"{n} {c:.1f}" for n, c in
+                pr["charged_ms_per_window"].items())
+            + f" (share {pr['charged_share_a']:.4f}); {a} charged "
+            f"{pr['lifetime_charged_share_a']:.4f} of the token over its "
+            f"life")
+    log("proxy compile (blob bytes, trace+export s, compile round trip "
+        "incl. the proxy's load s): " + "; ".join(
+            f"{n} {c['blob_nbytes']} B, {c['export_s']:.2f} s, "
+            f"{c['compile_s']:.2f} s" for n, c in prox["compile"].items())
+        + "; first step s (process start to its end): " + ", ".join(
+            f"{n} {v:.2f}" for n, v in prox["first_step_s"].items()))
+    log("proxy: in this process, wall ms a step (loss read each step), "
+        "eager vs the exported step: " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+            for k, vs in prox["in_process_step_ms"].items())
+        + "; tenants' wall ms a step / the proxy's execution ms a step "
+        "(device lock to barrier) / first execution ms: " + "; ".join(
+            f"{n} {v['wall_ms']:.3f} / {v['proxy_exec_ms']:.3f} / "
+            f"{v['first_exec_ms']:.1f}" for n, v in prox["per_step"].items()))
+    log(f"proxy first losses {prox['lone_first_losses']} vs eager "
+        f"{prox['eager_first_losses']}; steps {prox['steps']}; launches "
+        f"{prox['launches']}")
+    phases["proxy"] = prox
+    for k in launches:
+        launches[k] += prox["launches"][k]
     out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:

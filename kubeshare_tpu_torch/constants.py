@@ -17,8 +17,8 @@ ENV_POD_NAME = "KUBESHARE_TPU_POD_NAME"
 
 # Transparent-attach contract (≙ the LD_PRELOAD zero-touch contract,
 # pod.go:445-457): the sitecustomize shim reads these (kubeshare_tpu_torch/
-# attach.py). ENV_CHIP_PROXY_PORT asks for proxy attach, which the port
-# refuses until it has one.
+# attach.py). ENV_CHIP_PROXY_PORT asks for proxy attach (the default mode
+# when it is set).
 ENV_CHIP_PROXY_PORT = "KUBESHARE_TPU_CHIP_PROXY_PORT"
 ENV_TPU_REQUEST = "KUBESHARE_TPU_REQUEST"
 ENV_TPU_LIMIT = "KUBESHARE_TPU_LIMIT"

@@ -4,16 +4,21 @@ Counterpart of ``kubeshare_tpu/isolation/client.py``:
 
 - :class:`ProxyClient` is the stand-in for the card in a client that
   never owns it. The client stages its state on the host with numpy,
-  ``put``s it, and runs registered programs (:mod:`.programs`) on the
-  proxy; tensors live there as handles (:class:`RemoteBuffer`), so a
-  training loop transfers its parameters once.
+  ``put``s it, and runs programs on the proxy: registered loop specs
+  (:mod:`.programs`, :meth:`~ProxyClient.compile_loop`) or its own
+  functions, traced abstractly and saved by :mod:`.exported`
+  (:meth:`~ProxyClient.compile`, what the proxy-mode attach forwards).
+  Tensors live there as handles (:class:`RemoteBuffer`), so a training
+  loop transfers its parameters once.
 - :class:`ExecutionGate` and :class:`HbmCap` are for a process that owns
   the card itself (gate-mode attach, :mod:`kubeshare_tpu_torch.attach`):
   the gate passes a token round trip with the pod manager before work,
   the cap holds the process to its memory grant.
 
 Lockstep connection only; the pipelined transport and
-reconnect-and-resume are not ported yet.
+reconnect-and-resume are not ported yet, so :meth:`ProxyClient.
+execute_async` returns a future that is already resolved, as the JAX
+client's does on a lockstep connection.
 """
 
 from __future__ import annotations
@@ -45,6 +50,106 @@ class RemoteBuffer:
     def nbytes(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64)) * np.dtype(
             self.dtype).itemsize
+
+
+class RemoteFuture:
+    """The result of a dispatch (:meth:`ProxyClient.execute_async`,
+    :meth:`RemoteExecutable.call_async`). ``result()`` maps the reply once
+    and returns (or raises) the same outcome on every later call. On this
+    lockstep connection the dispatch has completed when the future is
+    made; the pipelined transport would resolve it later, with callers
+    unchanged."""
+
+    __slots__ = ("_resolve", "_mu", "_done", "_value", "_exc")
+
+    def __init__(self, resolve):
+        self._resolve = resolve        # () -> value; may raise
+        self._mu = threading.Lock()
+        self._done = False
+        self._value = None
+        self._exc: Exception | None = None
+
+    def done(self) -> bool:
+        return True
+
+    def result(self):
+        with self._mu:
+            if not self._done:
+                try:
+                    self._value = self._resolve()
+                except Exception as e:
+                    self._exc = e
+                self._done = True
+                self._resolve = None   # drop captured state
+            if self._exc is not None:
+                raise self._exc
+            return self._value
+
+
+def _host_array(x) -> np.ndarray:
+    """A host tensor or array as numpy, to cross the wire."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError(f"a tensor on {x.device} is not a host tensor")
+        return x.detach().numpy()
+    return np.asarray(x)
+
+
+class RemoteExecutable:
+    """A saved program compiled on the proxy (:meth:`ProxyClient.compile`);
+    call it with the tree of its example arguments, each leaf a
+    :class:`RemoteBuffer` or a host tensor or array. Host leaves are
+    uploaded for the call and freed after it, whether it succeeds or
+    fails. Returns the output tree of :class:`RemoteBuffer`\\ s."""
+
+    def __init__(self, client: "ProxyClient", exec_id: int, in_def, out_def,
+                 out_meta: list):
+        self._client = client
+        self._exec_id = exec_id
+        self._in_def = in_def
+        self._out_def = out_def
+        self.out_meta = out_meta
+
+    def __call__(self, *args):
+        return self.call_async(*args).result()
+
+    def call_async(self, *args) -> RemoteFuture:
+        leaves, in_def = tree_flatten(args)
+        if in_def != self._in_def:
+            raise ValueError("arguments differ in structure from the "
+                             "example the program was traced with")
+        client = self._client
+        bufs, uploaded = [], []
+        # a failure from the first upload on frees what was uploaded (a
+        # retried step must not leak its uploads against the memory cap);
+        # that free is best effort, so the original error wins
+        try:
+            for leaf in leaves:
+                if isinstance(leaf, RemoteBuffer):
+                    bufs.append(leaf)
+                else:
+                    buf = client.put(leaf)
+                    bufs.append(buf)
+                    uploaded.append(buf)
+            fut = client.execute_async(self._exec_id,
+                                       [b.handle for b in bufs])
+        except Exception:
+            if uploaded:
+                try:
+                    client.free(*uploaded)
+                except Exception:
+                    pass
+            raise
+
+        def resolve():
+            handles = fut.result()
+            if uploaded:
+                client.free(*uploaded)
+            out = [RemoteBuffer(h, tuple(shape), dtype)
+                   for h, (shape, dtype) in zip(handles, self.out_meta)]
+            return tree_unflatten(self._out_def, out)
+
+        return RemoteFuture(resolve)
 
 
 class RemoteLoop:
@@ -114,14 +219,15 @@ class ProxyClient:
                                     "memory": memory})
         self.platforms: list[str] = reply["platforms"]
         self.device: str = reply.get("device", "")
+        self.last_compile: dict = {}
 
     # -- buffers -------------------------------------------------------------
 
     def put(self, array) -> RemoteBuffer:
-        """Upload a host (numpy) array."""
+        """Upload a host array (numpy, or a tensor on the CPU)."""
         reply, _ = self._conn.call(
             {"op": "put", "name": self.name},
-            blob=protocol.dump_array_parts(np.asarray(array)))
+            blob=protocol.dump_array_parts(_host_array(array)))
         return RemoteBuffer(reply["handle"], tuple(reply["shape"]),
                             reply["dtype"])
 
@@ -146,6 +252,41 @@ class ProxyClient:
             lambda b: self.get(b) if isinstance(b, RemoteBuffer) else b, tree)
 
     # -- programs ------------------------------------------------------------
+
+    def compile(self, fn, *example_args) -> RemoteExecutable:
+        """Trace ``fn(*example_args)`` here, abstractly (nothing runs),
+        save it (:func:`.exported.export_program`) and compile it on the
+        proxy. Only the shapes and dtypes of ``example_args``' leaves
+        (tensors, arrays, :class:`RemoteBuffer`\\ s) are read."""
+        from .exported import export_program
+
+        t0 = time.perf_counter()
+        blob, in_def, out_def, out_meta = export_program(
+            fn, example_args, self.device)
+        t1 = time.perf_counter()
+        reply, _ = self._conn.call({"op": "compile", "name": self.name},
+                                   blob=[blob])
+        if [list(m) for m in reply["out_meta"]] != [list(m) for m in
+                                                    out_meta]:
+            raise RuntimeError(f"the proxy's outputs {reply['out_meta']} "
+                               f"differ from the trace's {out_meta}")
+        #: the last compile, for the record: the saved program's bytes,
+        #: the seconds to trace and save it here, and the seconds of the
+        #: compile round trip (sending it, the proxy's load)
+        self.last_compile = {"blob_nbytes": len(blob), "export_s": t1 - t0,
+                             "compile_s": time.perf_counter() - t1}
+        return RemoteExecutable(self, reply["exec_id"], in_def, out_def,
+                                reply["out_meta"])
+
+    def execute_async(self, exec_id: int, handles: list[int]
+                      ) -> RemoteFuture:
+        """Run a compiled saved program on the handles; the future
+        resolves to the output handles. Lockstep: the reply is in when
+        this returns, and a failed run raises here."""
+        reply, _ = self._conn.call({"op": "execute", "name": self.name,
+                                    "exec_id": exec_id,
+                                    "args": list(handles)})  # raises here
+        return RemoteFuture(lambda: list(reply["handles"]))
 
     def compile_loop(self, spec: dict, carry, *consts) -> RemoteLoop:
         """Compile the registered program ``spec`` as a loop program over
@@ -265,10 +406,21 @@ class HbmCap:
                 log.warning("memory stats poll failed (%s); skipping this "
                             "check", exc)
                 return
-            raise SystemExit(
-                f"kubeshare-tpu: memory grant {self.cap_bytes} bytes, but "
-                f"the allocator stats query fails ({exc}) — the cap cannot "
-                f"be enforced in gate mode. Refusing to run unenforced.")
+            # the first poll: a transient failure is not "no stats" —
+            # retry briefly before deciding, as the JAX gate does
+            for _ in range(3):
+                time.sleep(0.1)
+                try:
+                    stats = self._stats()
+                    break
+                except Exception as retry_exc:
+                    exc = retry_exc
+            else:
+                raise SystemExit(
+                    f"kubeshare-tpu: memory grant {self.cap_bytes} bytes, "
+                    f"but the allocator stats query keeps failing ({exc}) "
+                    f"— the cap cannot be enforced in gate mode. Refusing "
+                    f"to run unenforced.")
         if stats is None:
             raise SystemExit(
                 f"kubeshare-tpu: memory grant {self.cap_bytes} bytes, but "

@@ -16,8 +16,9 @@ transformer; what a JAX client says by closing ``flash_attention`` into
 its program); any other field is refused. A resolved
 :class:`Program` is a loop program: ``program(carry, consts) -> (carry,
 aux)`` over flat lists of tensors, the first ``ncarry`` of its arguments
-threading from one step to the next. Arbitrary user programs (through
-``torch.export`` or the attach path) are later work.
+threading from one step to the next. A tenant's own functions travel as
+saved ``torch.export`` programs instead (:mod:`.exported`, the proxy-mode
+attach), run once a call.
 
 ``train_step``'s carry is ``(params, opt_state)`` flattened in tree order
 (dict keys sorted), its consts the model's batch (``(x, y)`` images and

@@ -3,8 +3,12 @@
 Counterpart of ``kubeshare_tpu/isolation/proxy.py`` on one CUDA device.
 The :class:`ChipProxy` is the one process that touches the card; client
 threads or pods stage their state on the host with numpy, ``put`` it, and
-then run registered programs (:mod:`.programs`) on device-resident
-buffers addressed by handle, so a training loop ships its parameters once.
+then run programs on device-resident buffers addressed by handle, so a
+training loop ships its parameters once. A program is either a registered
+loop spec (:mod:`.programs`, run ``repeat`` times a burst) or a tenant's
+own function, traced and saved by :mod:`.exported` on the client (the
+proxy-mode attach ships every ``torch.compile``'d call so) and run once a
+call.
 
 Enforcement lives where the JAX proxy's lives:
 
@@ -17,9 +21,14 @@ Enforcement lives where the JAX proxy's lives:
   asynchronously, and without the barrier the charge would be launch time;
 - **memory** — device bytes are charged per client before they are
   allocated (``put`` and execution outputs), against the client's cap.
+  Buffers are charged by storage: an output that is one of its inputs
+  (an in-place update returned) or another output holds one charge
+  however many handles name it, and freeing one handle leaves the others
+  valid.
 
 Ported: register (lockstep; no transport features granted), put, get,
-free, compile, execute with ``repeat`` and ``chain_steps``, usage,
+free, compile (a loop spec, or a saved program as the payload), execute
+(a loop with ``repeat`` and ``chain_steps``; a saved program once), usage,
 unregister; the burst cost model and its clamp; carry donation; server-side
 chaining; :func:`main`, the per-device process the node launcher spawns
 (``-P``/``-S``/``-q``/``-m``/``-w``). Not yet: journaling, resume,
@@ -39,13 +48,21 @@ import torch
 
 from ..utils.device import resolve_device, synchronize
 from ..utils.logger import get_logger
-from . import programs, protocol
+from . import exported, programs, protocol
 from .protocol import load_array
 from .tokensched import TokenScheduler
 
 log = get_logger("proxy")
 
-IDLE_RELEASE_MS = 10.0
+#: a session that holds the token and has not executed for this long has
+#: stopped: the watchdog returns its token. Above the reference's 10 ms: a
+#: proxy-attached tenant calls over the lockstep wire and spends 5–12 ms
+#: between its steps (its uploads, the loss fetch, its own Python), so at
+#: 10 ms the token went back whenever a gap ran long and was granted to
+#: whichever tenant waited then, out of stride order (on an H100 host a
+#: 0.25 tenant beside a 0.75 one was charged up to 0.33 of the token at
+#: 10 ms, 0.25–0.26 at 50 ms; ``scripts/torch_proxy_pairs.py``)
+IDLE_RELEASE_MS = 50.0
 
 
 def _now_ms() -> float:
@@ -54,6 +71,13 @@ def _now_ms() -> float:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _storage(t: torch.Tensor) -> tuple[int, int]:
+    """``(key, bytes)`` of the memory under ``t``: tensors that share a
+    storage (views, an output that is its input) share the key."""
+    st = t.untyped_storage()
+    return st.data_ptr(), st.nbytes()
 
 
 @dataclass
@@ -69,10 +93,11 @@ class _Cost:
 @dataclass
 class _Executable:
     exec_id: int
-    program: programs.Program
+    #: a loop program, or a saved one (:class:`.exported.Program`)
+    program: "programs.Program | exported.Program"
     in_meta: list                 # (shape tuple, torch dtype) per argument
     out_nbytes: int
-    ncarry: int
+    ncarry: int | None            # None: a saved program, run once a call
     cost: _Cost
     warmed: bool = False          # its first (warm-up) burst has run
 
@@ -84,6 +109,8 @@ class _Session:
     limit: float
     memory_cap: int               # bytes; 0 = uncapped
     buffers: dict = field(default_factory=dict)
+    #: storage key -> [bytes, handles on it]: the charge of each storage
+    storages: dict = field(default_factory=dict)
     executables: dict = field(default_factory=dict)
     hbm_used: int = 0
     next_id: int = 0
@@ -249,14 +276,14 @@ class ChipProxy:
         log.info("client %s dropped (freed %d bytes)", name, sess.hbm_used)
 
     def hbm_accounting(self) -> dict[str, dict]:
-        """Per session: bytes charged against bytes of live buffers.
-        Sample at quiesce — an execution in flight carries a transient
-        output charge with no buffer yet."""
+        """Per session: bytes charged against bytes of live buffers, each
+        storage counted once. Sample at quiesce — an execution in flight
+        carries a transient output charge with no buffer yet."""
         out = {}
         with self._slock:
             sessions = list(self._sessions.values())
         for sess in sessions:
-            live = sum(_nbytes(b) for b in sess.buffers.values())
+            live = sum(dict(map(_storage, sess.buffers.values())).values())
             out[sess.name] = {"hbm_used": sess.hbm_used,
                               "buffer_bytes": live,
                               "memory_cap": sess.memory_cap,
@@ -272,11 +299,38 @@ class ChipProxy:
                            f"{sess.memory_cap})")
         sess.hbm_used += nbytes
 
+    def _store(self, sess: _Session, outs: list, precharged: int
+               ) -> list[int]:
+        """A handle for each tensor of ``outs``. The ``precharged`` bytes,
+        charged before the tensors existed, become the charge of the
+        storages they hold: once per storage, however many handles share
+        it (an output that is an input, or another output)."""
+        sess.hbm_used -= precharged
+        handles = []
+        for t in outs:
+            key, nbytes = _storage(t)
+            refs = sess.storages.get(key)
+            if refs is None:
+                sess.storages[key] = [nbytes, 1]
+                sess.hbm_used += nbytes
+            else:
+                refs[1] += 1
+            handle = sess.fresh_id()
+            sess.buffers[handle] = t
+            handles.append(handle)
+        return handles
+
     def _forget_buffer(self, sess: _Session, handle: int):
-        """Drop one buffer (freed or donated) and its charge."""
+        """Drop one handle (freed or donated); its storage's charge goes
+        with the last handle on it."""
         buf = sess.buffers.pop(int(handle), None)
         if buf is not None:
-            sess.hbm_used -= _nbytes(buf)
+            key, _ = _storage(buf)
+            refs = sess.storages[key]
+            refs[1] -= 1
+            if refs[1] == 0:
+                del sess.storages[key]
+                sess.hbm_used -= refs[0]
         return buf
 
     # -- token gate ----------------------------------------------------------
@@ -398,6 +452,9 @@ class ChipProxy:
             return {"ok": True}
 
         if op == "compile":
+            blob = state.get("blob")
+            if blob is not None:
+                return self._compile_program(sess, req, blob)
             return self._compile(sess, req)
 
         if op == "execute":
@@ -431,21 +488,43 @@ class ChipProxy:
         except Exception:
             sess.hbm_used -= int(arr.nbytes)
             raise
-        handle = sess.fresh_id()
-        sess.buffers[handle] = buf
+        handle, = self._store(sess, [buf], int(arr.nbytes))
         return {"ok": True, "handle": handle, "shape": list(buf.shape),
                 "dtype": programs.dtype_name(buf.dtype)}
 
-    def _compile(self, sess: _Session, req: dict) -> dict:
-        if "ncarry" not in req:
-            raise ValueError("compile takes loop programs only (ncarry)")
-        prog = programs.resolve(req["spec"], req["in_meta"],
-                                int(req["ncarry"]))
+    def _shared_cost(self, key: str) -> _Cost:
+        """The cost model of the program ``key``, shared by every session
+        that compiles it."""
         with self._slock:
-            cost = self._costs.pop(prog.key, None) or _Cost()
-            self._costs[prog.key] = cost            # most recently used
+            cost = self._costs.pop(key, None) or _Cost()
+            self._costs[key] = cost                 # most recently used
             while len(self._costs) > self.PROGRAMS_CAP:
                 self._costs.pop(next(iter(self._costs)))
+        return cost
+
+    def _compile_program(self, sess: _Session, req: dict, blob) -> dict:
+        """A saved program (:mod:`.exported`), loaded here, outside the
+        token: loading is host work, and its key shares the cost model
+        between identical tenants."""
+        if "ncarry" in req or "spec" in req:
+            raise ValueError("a saved program runs once a call; loop "
+                             "programs are registered specs")
+        prog = exported.load_program(blob, self.device)
+        exec_id = sess.fresh_id()
+        sess.executables[exec_id] = _Executable(
+            exec_id, prog, list(prog.in_meta), prog.out_nbytes, None,
+            self._shared_cost(prog.key))
+        return {"ok": True, "exec_id": exec_id,
+                "out_meta": [[list(s), d] for s, d in prog.out_meta],
+                "out_nbytes": prog.out_nbytes}
+
+    def _compile(self, sess: _Session, req: dict) -> dict:
+        if "ncarry" not in req:
+            raise ValueError("compile takes a saved program (the payload) "
+                             "or a loop spec with ncarry")
+        prog = programs.resolve(req["spec"], req["in_meta"],
+                                int(req["ncarry"]))
+        cost = self._shared_cost(prog.key)
         exec_id = sess.fresh_id()
         sess.executables[exec_id] = _Executable(
             exec_id, prog,
@@ -522,13 +601,14 @@ class ChipProxy:
         if len(handles) != len(exe.in_meta):
             raise ValueError(f"expected {len(exe.in_meta)} args, "
                              f"got {len(handles)}")
-        carry = handles[:exe.ncarry]
-        # the carry is updated in place: one buffer may not stand for two
-        # carry leaves, nor be read as a const while it is written
-        if len(set(carry)) != len(carry) or set(carry) & set(
-                handles[exe.ncarry:]):
-            raise ValueError("carry handles must be distinct and not "
-                             "passed again as consts")
+        if exe.ncarry is not None:
+            carry = handles[:exe.ncarry]
+            # the carry is updated in place: one buffer may not stand for
+            # two carry leaves, nor be read as a const while it is written
+            if len(set(carry)) != len(carry) or set(carry) & set(
+                    handles[exe.ncarry:]):
+                raise ValueError("carry handles must be distinct and not "
+                                 "passed again as consts")
         args = [sess.buffers[h] for h in handles]
         for i, (buf, (shape, dtype)) in enumerate(zip(args, exe.in_meta)):
             if tuple(buf.shape) != shape or buf.dtype != dtype:
@@ -547,6 +627,8 @@ class ChipProxy:
 
     def _execute(self, sess: _Session, req: dict) -> dict:
         exe = sess.executables[int(req["exec_id"])]
+        if exe.ncarry is None:
+            return self._execute_program(sess, exe, req)
         args = self._args(sess, exe, req)
         consumed = self._consumed(exe, req)
         chain_steps = int(req.get("chain_steps", 0))
@@ -585,18 +667,47 @@ class ChipProxy:
             raise
         self._update_cost_model(exe, repeat,
                                 sess.exec_ms_total - exec_ms_before)
+        handles = self._store(sess, outs, exe.out_nbytes)
         for handle in consumed:
             self._forget_buffer(sess, handle)
-        return {"ok": True, "handles": self._store(sess, outs),
-                "repeat": repeat}
+        return {"ok": True, "handles": handles, "repeat": repeat}
 
-    def _store(self, sess: _Session, outs: list) -> list[int]:
-        handles = []
-        for out in outs:
-            handle = sess.fresh_id()
-            sess.buffers[handle] = out
-            handles.append(handle)
-        return handles
+    def _execute_program(self, sess: _Session, exe: _Executable,
+                         req: dict) -> dict:
+        """One run of a saved program, one token-gated burst. Its outputs
+        are charged before the run; one that is an input (an in-place
+        update returned) keeps that input's storage and charge. The
+        argument handles stay valid, and a failed run refunds the
+        charge."""
+        if (int(req.get("repeat", 1)) != 1 or req.get("chain_steps")
+                or req.get("donate")):
+            raise ValueError("a saved program runs once a call and keeps "
+                             "its arguments; repeat, chain_steps and "
+                             "donate are for loop programs")
+        args = self._args(sess, exe, req)
+        self._charge(sess, exe.out_nbytes)
+        exec_ms_before = sess.exec_ms_total
+        timing: dict = {}
+
+        def run_tagged():
+            try:
+                return self._run_fn(exe.program, args, timing)
+            except Exception as e:
+                raise _ExecutionError(e) from e
+
+        try:
+            outs = self._gated(sess, run_tagged, timing)
+        except _ExecutionError as tagged:
+            sess.hbm_used -= exe.out_nbytes
+            raise RuntimeError(
+                f"execution failed (its arguments kept): "
+                f"{tagged.cause}") from tagged.cause
+        except Exception:
+            sess.hbm_used -= exe.out_nbytes     # nothing dispatched
+            raise
+        self._update_cost_model(exe, 1, sess.exec_ms_total - exec_ms_before)
+        handles = self._store(sess, outs, exe.out_nbytes)
+        return {"ok": True, "handles": handles, "repeat": 1}
 
     def _execute_chain(self, sess: _Session, exe: _Executable, args: list,
                        consumed: list[int], total: int) -> dict:
@@ -667,7 +778,8 @@ class ChipProxy:
             # the steady-state clamp is the LARGEST burst of the chain
             last_burst = max(last_burst, repeat)
             bursts += 1
-        return {"ok": True, "handles": self._store(sess, outs),
+        return {"ok": True, "handles": self._store(sess, outs,
+                                                   exe.out_nbytes),
                 "repeat": steps, "burst": last_burst}
 
     def _chain_abort(self, sess: _Session, exe: _Executable,

@@ -9,9 +9,14 @@ an H100 (bytes) and what the designs do about it. Two
 ``torch.autograd.Function``s stand in for the ``custom_vjp``s ``_flash`` and
 ``_flash_lse``.
 
-Each pass picks by where its tensors lie: CPU tensors take the plain
-version (``*_reference``), CUDA tensors launch the kernel or raise. There
-is no fallback from one to the other. Each pass picks its kernel by
+Each pass is a ``torch.library`` custom op of the port's namespace
+(``kubeshare_tpu_torch::flash_fwd``, ``flash_dq``, ``flash_dkv``), whose
+implementation the dispatcher picks by where its tensors lie: CPU tensors
+take the plain version (``*_reference``), CUDA tensors launch the kernel
+or raise. There is no fallback from one to the other. A fake
+implementation of each gives shapes and dtypes only, so a fake-tensor
+trace of a train step (``make_fx``, ``torch.export``) records the three
+ops, forward and backward, and runs none. Each pass picks its kernel by
 dtype: bf16 inputs (the transformer's main path) run on the tensor cores,
 fp32 inputs on the CUDA cores; all are hand-written. The plain backward
 recomputes P from the saved lse, as the kernels do.
@@ -41,6 +46,7 @@ import torch
 
 from ..utils.device import launch_on
 from .attention import MASK_VALUE, kv_groups
+from .fused_adam import OP_LIBRARY, OP_NAMESPACE
 
 BLOCK_Q = 128
 BLOCK_K = 128
@@ -240,13 +246,14 @@ def _device_kind(q) -> str:
     return kind
 
 
-def flash_fwd(q, k, v, causal, window, scale):
-    """Forward pass: ``(O fp32 (b, s_q, h, d), lse fp32 (b, h, s_q))``.
-    On the card bf16 q/k/v launch the tensor-core kernel, fp32 the
-    CUDA-core one (``csrc`` picks by the dtype flag ``_launch`` passes; so
-    do the two backward passes)."""
-    if _device_kind(q) == "cpu":
-        return flash_fwd_reference(q, k, v, causal, window, scale)
+def _refuse_meta(*xs) -> None:
+    """A fake implementation's guard: a fake tensor reports the device it
+    stands for, so a real meta tensor here is an input nothing runs."""
+    for x in xs:
+        _device_kind(x)
+
+
+def _flash_fwd_cuda(q, k, v, causal, window, scale):
     _check_cuda(q, k, v)
     q, k, v = (_dense_head_dim(x) for x in (q, k, v))
     b, s_q, h, d = q.shape
@@ -259,15 +266,15 @@ def flash_fwd(q, k, v, causal, window, scale):
     return o, lse
 
 
-def flash_dq(q, k, v, dout, lse, dcap, causal, window, scale):
-    """dQ pass, in q's dtype."""
-    if _device_kind(q) == "cpu":
-        return flash_dq_reference(q, k, v, dout, lse, dcap, causal, window,
-                                  scale)
-    _check_cuda(q, k, v)
+def _backward_inputs(q, k, v, dout, lse, dcap):
     q, k, v = (_dense_head_dim(x) for x in (q, k, v))
     dout = _dense_head_dim(dout.float())
-    lse, dcap = lse.float().contiguous(), dcap.float().contiguous()
+    return q, k, v, dout, lse.float().contiguous(), dcap.float().contiguous()
+
+
+def _flash_dq_cuda(q, k, v, dout, lse, dcap, causal, window, scale):
+    _check_cuda(q, k, v)
+    q, k, v, dout, lse, dcap = _backward_inputs(q, k, v, dout, lse, dcap)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
         _launch("dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -277,15 +284,9 @@ def flash_dq(q, k, v, dout, lse, dcap, causal, window, scale):
     return dq
 
 
-def flash_dkv(q, k, v, dout, lse, dcap, causal, window, scale):
-    """dK/dV pass, kv-sized, in k's and v's dtypes."""
-    if _device_kind(q) == "cpu":
-        return flash_dkv_reference(q, k, v, dout, lse, dcap, causal, window,
-                                   scale)
+def _flash_dkv_cuda(q, k, v, dout, lse, dcap, causal, window, scale):
     _check_cuda(q, k, v)
-    q, k, v = (_dense_head_dim(x) for x in (q, k, v))
-    dout = _dense_head_dim(dout.float())
-    lse, dcap = lse.float().contiguous(), dcap.float().contiguous()
+    q, k, v, dout, lse, dcap = _backward_inputs(q, k, v, dout, lse, dcap)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel():
@@ -296,9 +297,78 @@ def flash_dkv(q, k, v, dout, lse, dcap, causal, window, scale):
     return dk, dv
 
 
+# --- the custom ops ------------------------------------------------------------
+
+
+OP_LIBRARY.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+                  "SymInt? window, float scale) -> (Tensor, Tensor)")
+OP_LIBRARY.define("flash_dq(Tensor q, Tensor k, Tensor v, Tensor dout, "
+                  "Tensor lse, Tensor dcap, bool causal, SymInt? window, "
+                  "float scale) -> Tensor")
+OP_LIBRARY.define("flash_dkv(Tensor q, Tensor k, Tensor v, Tensor dout, "
+                  "Tensor lse, Tensor dcap, bool causal, SymInt? window, "
+                  "float scale) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_cpu(q, k, v, causal, window, scale):
+    """Forward pass: ``(O fp32 (b, s_q, h, d), lse fp32 (b, h, s_q))``.
+    On the card bf16 q/k/v launch the tensor-core kernel, fp32 the
+    CUDA-core one (``csrc`` picks by the dtype flag ``_launch`` passes; so
+    do the two backward passes). The CPU implementation returns its
+    outputs dense, as the kernels and the fake implementation make
+    them."""
+    o, lse = flash_fwd_reference(q, k, v, causal, window, scale)
+    return o.contiguous(), lse.contiguous()
+
+
+def _flash_dq_cpu(q, k, v, dout, lse, dcap, causal, window, scale):
+    """dQ pass, in q's dtype."""
+    return flash_dq_reference(q, k, v, dout, lse, dcap, causal, window,
+                              scale).contiguous()
+
+
+def _flash_dkv_cpu(q, k, v, dout, lse, dcap, causal, window, scale):
+    """dK/dV pass, kv-sized, in k's and v's dtypes."""
+    dk, dv = flash_dkv_reference(q, k, v, dout, lse, dcap, causal, window,
+                                 scale)
+    return dk.contiguous(), dv.contiguous()
+
+
+def _flash_fwd_fake(q, k, v, causal, window, scale):
+    _refuse_meta(q, k, v)
+    b, s_q, h, _ = q.shape
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+def _flash_dq_fake(q, k, v, dout, lse, dcap, causal, window, scale):
+    _refuse_meta(q, k, v, dout, lse, dcap)
+    return q.new_empty(q.shape)
+
+
+def _flash_dkv_fake(q, k, v, dout, lse, dcap, causal, window, scale):
+    _refuse_meta(q, k, v, dout, lse, dcap)
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+for _name, _cpu, _cuda, _fake in (
+        ("flash_fwd", _flash_fwd_cpu, _flash_fwd_cuda, _flash_fwd_fake),
+        ("flash_dq", _flash_dq_cpu, _flash_dq_cuda, _flash_dq_fake),
+        ("flash_dkv", _flash_dkv_cpu, _flash_dkv_cuda, _flash_dkv_fake)):
+    OP_LIBRARY.impl(_name, _cpu, "CPU")
+    OP_LIBRARY.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"{OP_NAMESPACE}::{_name}", _fake,
+                                lib=OP_LIBRARY)
+
+flash_fwd = torch.ops.kubeshare_tpu_torch.flash_fwd.default
+flash_dq = torch.ops.kubeshare_tpu_torch.flash_dq.default
+flash_dkv = torch.ops.kubeshare_tpu_torch.flash_dkv.default
+
+
 def _check(q, k, v, causal, block_q, block_k, window):
     """The JAX entry's checks, in its order: blocks, then GQA heads.
     Returns the score scale."""
+    _device_kind(q)
     _blocks(q.shape[1], k.shape[1], block_q, block_k, causal, window)
     kv_groups(q.shape[2], k.shape[2])
     return 1.0 / math.sqrt(q.shape[-1])

@@ -8,12 +8,16 @@ the step on an H100 (bytes: 28 per parameter) and what the kernel does
 about it. Where the TPU launches once per leaf, the kernel updates a
 whole tree in one multi-tensor launch.
 
-The wrappers :func:`adam_update` and :func:`adam_update_tree` pick by
-where the tensors lie: CPU tensors take the plain version
-(:func:`adam_update_reference`, leaf by leaf), CUDA tensors launch the
-kernel or raise. There is no fallback from one to the other. Both update
-``p``, ``m`` and ``v`` in place — the TPU kernel's
-``input_output_aliases`` — so a step allocates nothing.
+The step is one ``torch.library`` custom op,
+``kubeshare_tpu_torch::fused_adam``, that mutates its p, m and v lists in
+place — the TPU kernel's ``input_output_aliases`` — so a step allocates
+nothing. The dispatcher picks its implementation by where the tensors
+lie: CUDA tensors launch the kernel or raise, CPU tensors take the plain
+version (:func:`adam_update_reference`, leaf by leaf). There is no
+fallback from one to the other. A fake implementation gives the op to a
+fake-tensor trace (``make_fx``, ``torch.export``) without running it, so
+an exported train step carries the op and its in-place updates. The
+wrappers :func:`adam_update` and :func:`adam_update_tree` call the op.
 """
 
 from __future__ import annotations
@@ -241,6 +245,54 @@ def _device_kind(p) -> str:
     return kind
 
 
+# --- the custom op -------------------------------------------------------------
+
+#: the port's own custom-op namespace (the proxy runs no other custom op)
+OP_NAMESPACE = "kubeshare_tpu_torch"
+
+#: the port's ops, defined on a library fragment of their namespace, each
+#: backend's implementation registered to its dispatch key. Not with
+#: ``torch.library.custom_op``: its Python wrapper (autograd, in-place and
+#: aliasing bookkeeping around every call) took the Adam op's host time
+#: over the LM's 184 tensors from 0.11 to 0.36 ms a call on an H100 host
+#: (``scripts/torch_dispatch_ab.py``)
+OP_LIBRARY = torch.library.Library(OP_NAMESPACE, "FRAGMENT")
+OP_LIBRARY.define(
+    "fused_adam(Tensor(a0!)[] ps, Tensor[] gs, Tensor(a2!)[] ms, "
+    "Tensor(a3!)[] vs, Tensor step, float lr, float b1, float b2, "
+    "float eps) -> ()")
+
+
+def _adam_op_cpu(ps, gs, ms, vs, step, lr, b1, b2, eps) -> None:
+    """One Adam step over the leaves, in place on ``ps``, ``ms``, ``vs``.
+    CPU: the plain version, leaf by leaf — the plain counterpart of the
+    kernel's one launch, and the TPU's one launch per leaf."""
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        adam_update_reference(p, g, m, v, step, lr, b1, b2, eps)
+    torch.autograd.graph.increment_version([*ps, *ms, *vs])
+
+
+def _adam_op_cuda(ps, gs, ms, vs, step, lr, b1, b2, eps) -> None:
+    _multi_step(ps, gs, ms, vs, step, lr, b1, b2, eps)
+    # the kernel writes through pointers: count the write, as an in-place
+    # op does
+    torch.autograd.graph.increment_version([*ps, *ms, *vs])
+
+
+def _adam_op_fake(ps, gs, ms, vs, step, lr, b1, b2, eps) -> None:
+    # a fake tensor reports the device it stands for; a real meta tensor
+    # here means a tree that mixes meta leaves in, which nothing runs
+    for x in (*ps, *gs, *ms, *vs, step):
+        _device_kind(x)
+
+
+OP_LIBRARY.impl("fused_adam", _adam_op_cpu, "CPU")
+OP_LIBRARY.impl("fused_adam", _adam_op_cuda, "CUDA")
+torch.library.register_fake(f"{OP_NAMESPACE}::fused_adam", _adam_op_fake,
+                            lib=OP_LIBRARY)
+_adam_op = torch.ops.kubeshare_tpu_torch.fused_adam.default
+
+
 def adam_update(p, g, m, v, step, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
     """Adam step over one tensor, in place on ``p``, ``m``, ``v``.
 
@@ -248,17 +300,17 @@ def adam_update(p, g, m, v, step, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8):
     then be a one-element float32 tensor on the card, e.g. the optimizer's
     ``count``, so no host sync is needed); CPU tensors run the plain
     version. Any other device raises."""
-    if _device_kind(p) == "cpu":
-        return adam_update_reference(p, g, m, v, step, lr, b1, b2, eps)
-    _multi_step([p], [g], [m], [v], step, lr, b1, b2, eps)
+    _device_kind(p)
+    _adam_op([p], [g], [m], [v], _step_tensor(step, p), float(lr),
+             float(b1), float(b2), float(eps))
     return p, m, v
 
 
-def adam_update_tree(params, grads, mu, nu, step, **hyper):
-    """Tree version, in place. CUDA leaves: one kernel launch updates the
-    whole tree (one per :data:`TABLE_LEAVES` leaves, :func:`tree_launches`);
-    CPU leaves: the plain version, leaf by leaf — the plain counterpart of
-    that launch, and the TPU's one launch per leaf."""
+def adam_update_tree(params, grads, mu, nu, step, lr=1e-3, b1=0.9,
+                     b2=0.999, eps=1e-8):
+    """Tree version, in place: one call of the op. CUDA leaves: one kernel
+    launch updates the whole tree (one per :data:`TABLE_LEAVES` leaves,
+    :func:`tree_launches`); CPU leaves: the plain version, leaf by leaf."""
     flat_p, treedef = tree_flatten(params)
     flat_g, g_def = tree_flatten(grads)
     flat_m, m_def = tree_flatten(mu)
@@ -267,14 +319,13 @@ def adam_update_tree(params, grads, mu, nu, step, **hyper):
         raise ValueError("params, grads, mu and nu differ in structure")
     if not flat_p:
         return params, mu, nu
-    if _device_kind(flat_p[0]) == "cuda":
-        _multi_step(flat_p, flat_g, flat_m, flat_v, step, **hyper)
-        return params, mu, nu
-    for x in chain(flat_p, flat_g, flat_m, flat_v):
-        if x.device.type != "cpu":
-            raise ValueError(f"a tree on the cpu has a leaf on {x.device}")
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        adam_update_reference(p, g, m, v, step, **hyper)
+    if _device_kind(flat_p[0]) == "cpu":
+        for x in chain(flat_p, flat_g, flat_m, flat_v):
+            if x.device.type != "cpu":
+                raise ValueError(f"a tree on the cpu has a leaf on "
+                                 f"{x.device}")
+    _adam_op(flat_p, flat_g, flat_m, flat_v, _step_tensor(step, flat_p[0]),
+             float(lr), float(b1), float(b2), float(eps))
     return params, mu, nu
 
 

@@ -426,6 +426,32 @@ def test_hbm_cap_breach_and_transient_poll():
     HbmCap(0, stats_fn=lambda: pytest.fail("polled")).check()
 
 
+@pytest.mark.parametrize("failures,stops", [(2, False), (4, True)])
+def test_hbm_cap_retries_a_failing_first_poll(failures, stops):
+    """A first stats query that fails is retried three times, 0.1 s apart,
+    as the JAX gate does: a transient failure is not "no stats". Only a
+    query that keeps failing stops the process."""
+    calls = []
+
+    def stats():
+        calls.append(time.monotonic())
+        if len(calls) <= failures:
+            raise RuntimeError("transport hiccup")
+        return {"bytes_reserved": 10}
+
+    cap = HbmCap(100, stats_fn=stats, min_poll_interval_s=0.0)
+    if stops:
+        with pytest.raises(SystemExit, match="keeps failing"):
+            cap.check()
+    else:
+        cap.check()
+    assert len(calls) == min(failures + 1, 4)
+    assert calls[-1] - calls[0] >= 0.1 * (len(calls) - 1) - 0.01
+    if not stops:
+        cap.check()                       # supported now: polls as usual
+        assert len(calls) == failures + 2
+
+
 def test_host_to_device_copy_is_precharged(token_server, monkeypatch):
     """A host→device copy is charged against the cap before its bytes
     land: the meter refuses the op before it runs."""
@@ -527,22 +553,47 @@ def test_gate_mode_also_pins_visible_devices(monkeypatch, token_server):
     assert os.environ["CUDA_VISIBLE_DEVICES"] == "3"
 
 
+@pytest.fixture
+def chip_proxy():
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+
+    p = ChipProxy(device="cpu", scheduler=TokenScheduler(
+        window_ms=500, base_quota_ms=30, min_quota_ms=5))
+    p.serve()
+    yield p
+    p.close()
+
+
 @pytest.mark.parametrize("env,what", [
-    ({C.ENV_CHIP_PROXY_PORT: "49901"}, "proxy attach"),
-    ({C.ENV_CHIP_PROXY_PORT: "49901", C.ENV_ATTACH_MODE: "proxy"},
+    ({C.ENV_CHIP_PROXY_PORT: "<proxy>"}, "proxy attach"),
+    ({C.ENV_CHIP_PROXY_PORT: "1", C.ENV_ATTACH_MODE: "proxy"},
      "proxy attach"),
     ({C.ENV_ATTACH_MODE: "proxy"}, "proxy attach"),
     ({C.ENV_POD_MANAGER_PORT: "1", C.ENV_COORDINATOR: "10.0.0.1:1234",
       C.ENV_NUM_PROCESSES: "2", C.ENV_PROCESS_ID: "0"}, "gang join"),
 ])
-def test_unported_modes_are_refused(monkeypatch, env, what):
-    """Proxy attach and gang join are not ported: an env that asks for
-    either stops the process before anything attaches — it never runs
+def test_unported_modes_are_refused(monkeypatch, chip_proxy, env, what):
+    """The env's modes in the JAX package's order. A proxy port attaches
+    in proxy mode (the default) and a proxy that is not there fails the
+    attach (the shim then stops the process, below); mode ``proxy``
+    without a port warns and attaches nothing. A gang join, not ported,
+    stops the process before anything attaches: it never runs
     unmetered."""
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match=what):
-        attach.attach_if_env()
+        monkeypatch.setenv(k, str(chip_proxy.port) if v == "<proxy>" else v)
+    if what == "gang join":
+        with pytest.raises(SystemExit, match=what):
+            attach.attach_if_env()
+    elif env.get(C.ENV_CHIP_PROXY_PORT) == "1":
+        with pytest.raises(OSError):          # nothing listens on port 1
+            attach.attach_if_env()
+    elif C.ENV_CHIP_PROXY_PORT in env:
+        assert attach.attach_if_env() == "proxy"
+        assert attach.active_mode() == "proxy"
+        assert os.environ["CUDA_VISIBLE_DEVICES"] == ""
+        attach.detach()
+    else:
+        assert attach.attach_if_env() == ""
     assert attach.active_mode() == ""
 
 
@@ -560,15 +611,15 @@ def test_attach_off_attaches_nothing(monkeypatch, token_server):
     ({C.ENV_ATTACH_MODE: "gate", C.ENV_POD_MANAGER_PORT: "1",
       C.ENV_POD_NAME: "doomed", C.ENV_TPU_REQUEST: "1",
       C.ENV_TPU_LIMIT: "1"}, "refusing to run unmetered"),
-    ({C.ENV_CHIP_PROXY_PORT: "49901"}, "proxy attach"),
+    ({C.ENV_CHIP_PROXY_PORT: "1"}, "refusing to run unmetered"),
     ({C.ENV_POD_MANAGER_PORT: "1", C.ENV_COORDINATOR: "h:1",
       C.ENV_NUM_PROCESSES: "2", C.ENV_PROCESS_ID: "1"}, "gang join"),
     ({C.ENV_VISIBLE_CHIPS: "no-index-"}, "refusing to start"),
 ], ids=["no-manager", "proxy-mode", "gang", "bad-grant"])
 def test_shim_fails_closed(env, message):
     """A pod whose env requests an attach that cannot be made DIES — no
-    manager, a proxy-mode or gang env, a bad grant — instead of running
-    unmetered."""
+    manager, no proxy where the proxy port points, a gang env, a bad
+    grant — instead of running unmetered."""
     proc = _run(["-c", "print('RAN UNMETERED')"], _pod_env(**env))
     assert proc.returncode != 0
     assert "RAN UNMETERED" not in proc.stdout

@@ -327,6 +327,103 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda):
         tfl.flash_attention(q, k, v)
 
 
+# --- the kernels as custom ops, and an exported train step ------------------
+
+def test_custom_ops_on_card_equal_their_plain_versions(cuda):
+    """Each op through the dispatcher, at the main path's shapes: the CUDA
+    implementation is the kernel (it counts its launch), held to its plain
+    version at chip_smoke.py's tolerances."""
+    ops = torch.ops.kubeshare_tpu_torch
+    q, k, v = _qkv(cuda, 8, 256, 8, 8, 32, torch.bfloat16)
+    scale = 32 ** -0.5
+    before = dict(tfl.launches)
+    o, lse = ops.flash_fwd(q, k, v, True, None, scale)
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, True, None, scale)
+    _assert_kernel_close(o, ro)
+    _assert_kernel_close(lse, rlse)
+    dout = torch.randn(o.shape, device=cuda)
+    dcap = (dout * ro).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, dout, rlse, dcap, True, None, scale)
+    _assert_kernel_close(ops.flash_dq(*bwd), tfl.flash_dq_reference(*bwd))
+    for got, want in zip(ops.flash_dkv(*bwd), tfl.flash_dkv_reference(*bwd)):
+        _assert_kernel_close(got, want)
+    assert {n: tfl.launches[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    rng = np.random.default_rng(5)
+    shapes = [(3136, 256), (256,), (8, 128)]
+    host = [[rng.normal(size=s).astype(np.float32) for s in shapes]
+            for _ in range(4)]
+    host[3] = [np.abs(a) for a in host[3]]
+    kern = [[torch.from_numpy(a).to(cuda) for a in xs] for xs in host]
+    plain = [[t.clone() for t in xs] for xs in kern]
+    step = torch.tensor(3.0, device=cuda)
+    launched = tfa.launches
+    ops.fused_adam(*kern, step, 1e-2, 0.9, 0.999, 1e-8)
+    for p, g, m, v in zip(*plain):
+        tfa.adam_update_reference(p, g, m, v, step, 1e-2)
+    torch.cuda.synchronize()
+    assert tfa.launches == launched + 1
+    for got, want in zip(kern[0] + kern[2] + kern[3],
+                         plain[0] + plain[2] + plain[3]):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+def _lm_step_inputs(cuda, seed=3):
+    params = common.to_device(transformer.init(seed), cuda)
+    opt = tfa.fused_adam(1e-3)
+    return (params, opt.init(params),
+            common.to_device(transformer.batch_fn(seed + 1), cuda)), opt
+
+
+def test_a_fake_trace_of_the_lm_step_records_the_ops_and_runs_nothing(
+        cuda, monkeypatch):
+    """The full-width LM step traced on fake CUDA tensors: the graph holds
+    4 of each flash op (4 layers) and 1 fused Adam op, and no kernel is
+    built or launched — the ctypes entry points are not reached."""
+    from kubeshare_tpu_torch.isolation import exported
+
+    def refuse():
+        raise AssertionError("a ctypes kernel was reached while tracing")
+
+    monkeypatch.setattr(tfa, "_kernel_fn", refuse)
+    monkeypatch.setattr(tfl, "_kernel_fns", refuse)
+    args, opt = _lm_step_inputs(cuda)
+    step = common.make_train_step(transformer.flash_loss_fn, opt)
+    before = (tfa.launches, dict(tfl.launches))
+    blob, _, _, out_meta = exported.export_program(step, args, cuda)
+    assert (tfa.launches, dict(tfl.launches)) == before
+    prog = exported.load_program(blob, cuda)
+    ops = [str(n.target) for n in prog._module.graph.nodes]
+    assert [ops.count(f"kubeshare_tpu_torch.{k}.default") for k in
+            ("flash_fwd", "flash_dq", "flash_dkv", "fused_adam")] == \
+        [transformer.LAYERS] * 3 + [1]
+    assert list(out_meta[-1]) == [[], "float32"]
+
+
+def test_the_exported_lm_step_on_card_gives_the_eager_step(cuda):
+    """The full-width LM step exported, loaded on the card and run against
+    the eager step on copies of the same inputs: the same aten ops and
+    kernels in the same order, so the loss and every parameter are equal
+    bit for bit. The kernels launch from the loaded graph."""
+    from kubeshare_tpu_torch.isolation import exported
+
+    args, opt = _lm_step_inputs(cuda)
+    step = common.make_train_step(transformer.flash_loss_fn, opt)
+    blob, _, out_def, _ = exported.export_program(step, args, cuda)
+    prog = exported.load_program(blob, cuda)
+    leaves = [t.clone() for t in tree_leaves(args)]
+    before = (tfa.launches, tfl.launches["fwd"])
+    outs = prog(*leaves)
+    torch.cuda.synchronize()
+    assert (tfa.launches - before[0], tfl.launches["fwd"] - before[1]) == \
+        (1, transformer.LAYERS)
+    params, state, loss = step(*args)
+    assert outs[0] is leaves[0]              # Adam updated in place
+    assert float(outs[-1]) == float(loss)
+    for got, want in zip(outs[:-1], tree_leaves((params, state))):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 # --- gate-mode attach on the card --------------------------------------------
 
 REPO = Path(__file__).resolve().parent.parent

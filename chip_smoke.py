@@ -57,18 +57,34 @@ failing the run (non-zero exit, no result line) when it fails:
       of fused Adam, the lone tenant's first losses must match the eager
       step in this process, and each pair's first tenant must be charged
       its requested share of the token over its life (and of the common
-      window, in the even pair);
+      window, in the even pair). The tenants ride the pipelined,
+      resumable wire; each one's forwarding ms a step and its gaps
+      between executions (median, 90th percentile) are printed;
+   g. the proxy survives and streams — 5g-loop: ``compile_loop(fn,
+      carry, *consts)`` over the full-width LM step in this process, run
+      one call at a time, in bursts and in chains of bursts: every
+      call's loss must equal the one-call run's at that step, bit for
+      bit. 5g-crash and 5g-migrate: one proxy-mode tenant process
+      trains on a proxy with a session journal; the proxy crashes and a
+      new one starts from the journal on the same port, later the
+      session moves live to a second proxy; the tenant is told of
+      neither, and its losses must equal the undisturbed one-call run's
+      bit for bit. Prints the looped rate and bursts, the journal's
+      bytes, journaled and unjournaled steps/s, the seconds from the
+      crash to the first step after resume, the requests replayed, and
+      the migration's seconds and bytes;
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --tenant out.json [--compiled] [--seconds S]
-        [--seed N]
+        [--steps N] [--seed N]
 
-is the tenant of phases 5e and 5f (``--compiled``: its train step wrapped
-in ``torch.compile``): it holds no isolation code, trains, and writes its
-per-step end times, losses and kernel launch counts to ``out.json``.
+is the tenant of phases 5e, 5f and 5g (``--compiled``: its train step
+wrapped in ``torch.compile``; ``--steps``: exactly N steps): it holds no
+isolation code, trains, and writes its per-step end times, losses and
+kernel launch counts to ``out.json``.
 """
 
 from __future__ import annotations
@@ -168,6 +184,15 @@ PROXY_PAIRS = {"even": (("smoke/proxy-a", 10, 0.5),
                           ("smoke/proxy-d", 40, 0.75))}
 PROXY_SOLO = ("smoke/proxy-solo", 0, 1.0)
 PROXY_FIRST_LOSSES = 3
+# phase 5g: the tenant that rides out a proxy crash and a live migration
+# (pod name, seed), its steps in all, the steps it runs on the journaled
+# proxy before the crash and on the restarted one before the move, and
+# the looped steps of 5g-loop
+RESUME_TENANT = ("smoke/resume", 0)
+RESUME_STEPS = 72
+CRASH_AT = 24
+MIGRATE_AT = 24
+LOOP_STEPS = 64
 
 
 def log(msg: str) -> None:
@@ -965,14 +990,16 @@ def _reset_counts() -> None:
 
 # --- phase 5e: the gate pair ---------------------------------------------------
 
-def tenant(out_path: str, seconds: float, seed: int, compiled: bool) -> int:
+def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
+           steps: int = 0) -> int:
     """The tenant process of the gate and proxy pairs: an unmodified
     training loop, metered only if the shim attached it. The full-width
     transformer with flash attention on ``cuda`` if this process has a
     card (under proxy attach it has none: on ``cpu``, its compiled step
     running on the proxy), the loss read every step; after
-    TENANT_WARMUP_STEPS steps it trains ``seconds`` more. After each step
-    it also reads the gate's totals (``attach.gate_stats``), if gated.
+    TENANT_WARMUP_STEPS steps it trains ``seconds`` more (or, with
+    ``steps``, exactly that many steps in all). After each step it also
+    reads the gate's totals (``attach.gate_stats``), if gated.
     ``compiled`` wraps the step in ``torch.compile``."""
     import torch
 
@@ -993,7 +1020,8 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool) -> int:
     started = time.monotonic()
     stop_at = None
     first_proxy = None
-    while stop_at is None or ends[-1] < stop_at:
+    while (len(ends) < steps if steps
+           else stop_at is None or ends[-1] < stop_at):
         params, state, loss = step(params, state, batch)
         losses.append(float(loss))          # host read: the step is done
         ends.append(time.monotonic())
@@ -1579,6 +1607,34 @@ def check_proxy_pair(kind: str, reading: dict) -> None:
               f"request's {wanted}")
 
 
+def _gap_proxy(dev, sched, **kw):
+    """A ``ChipProxy`` that notes each session's gaps between executions:
+    from one's end to the next one's arrival at the token gate — the
+    tenant's own time between steps (forwarding and its Python), which
+    the idle release must outlast."""
+    from kubeshare_tpu_torch.isolation import proxy as proxy_mod
+
+    class GapProxy(proxy_mod.ChipProxy):
+        def _gated(self, sess, fn, timing):
+            if sess.last_end_ms > 0.0:
+                self.gaps_ms.setdefault(sess.name, []).append(
+                    proxy_mod._now_ms() - sess.last_end_ms)
+            return super()._gated(sess, fn, timing)
+
+    proxy = GapProxy(device=dev, scheduler=sched, **kw)
+    proxy.gaps_ms = {}
+    return proxy
+
+
+def _gaps(gaps: list) -> dict:
+    import numpy as np
+
+    if not gaps:
+        return {"gaps": 0}
+    return {"gaps": len(gaps), "gap_p50_ms": float(np.median(gaps)),
+            "gap_p90_ms": float(np.percentile(gaps, 90))}
+
+
 def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
     """Phase 5f (see the module docstring): the lone tenant's rate, each
     pair's reading, the first losses against the eager step, the launch
@@ -1586,7 +1642,6 @@ def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
     import torch
 
     from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
-    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
     from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
     from kubeshare_tpu_torch.models import common, transformer
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
@@ -1622,7 +1677,7 @@ def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
     torch.cuda.empty_cache()
 
     sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS)
-    proxy = ChipProxy(device=dev, scheduler=sched)
+    proxy = _gap_proxy(dev, sched)
     proxy.serve()
     base = tempfile.mkdtemp(prefix="kubeshare-proxy-")
     _reset_counts()
@@ -1664,8 +1719,14 @@ def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
                                       - r["first_proxy"]["exec_ms_total"])
                     / (r["proxy"]["exec_count"]
                        - r["first_proxy"]["exec_count"]),
-                    "first_exec_ms": r["first_proxy"]["exec_ms_total"]}
+                    "first_exec_ms": r["first_proxy"]["exec_ms_total"],
+                    "features": r["proxy"]["transport"]["features"],
+                    **_gaps(proxy.gaps_ms.get(n, [])[TENANT_WARMUP_STEPS:])}
                 for n, r in records.items()}
+    for v in per_step.values():
+        v["forwarding_ms"] = v["wall_ms"] - v["proxy_exec_ms"]
+        check(v["features"] == ["resume", "seq"],
+              f"proxy tenant negotiated {v['features']}, not resume + seq")
     return {
         "in_process_step_ms": step_ms,
         "per_step": per_step,
@@ -1683,6 +1744,223 @@ def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
     }
 
 
+# --- phase 5g: the proxy survives and streams ---------------------------------
+
+def _loop_phase(dev, per_step: dict) -> dict:
+    """5g-loop: ``compile_loop(fn, carry, *consts)`` over the full-width
+    LM step, in this process, on a proxy of its own. The same start run
+    one call at a time (RESUME_STEPS steps: also the reference of the
+    tenant's run) and in bursts, then chains of bursts (LOOP_STEPS); each
+    call's last loss must equal the one-call run's at that step, bit for
+    bit, and the kernels launch exactly per_step a step."""
+    import torch
+
+    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
+    from kubeshare_tpu_torch.isolation.client import ProxyClient
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+    from kubeshare_tpu_torch.models import common, transformer
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+
+    opt = fused_adam(1e-3)
+    step = common.make_train_step(transformer.flash_loss_fn, opt)
+
+    def lm_loop(carry, tokens, targets):
+        params, state, loss = step(*carry, (tokens, targets))
+        return (params, state), loss
+
+    seed = RESUME_TENANT[1]
+    params = transformer.init(seed)
+    state = opt.init(common.to_device(params, "cpu"))
+    batch = tuple(transformer.batch_fn(seed + 1))
+    proxy = ChipProxy(device=dev, scheduler=TokenScheduler(
+        WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS))
+    proxy.serve()
+    c = ProxyClient("127.0.0.1", proxy.port, "smoke/loop", 1.0, 1.0)
+    try:
+        consts = c.put_tree(batch)
+        carry = c.put_tree((params, state))
+        t0 = time.perf_counter()
+        loop = c.compile_loop(lm_loop, carry, *consts)
+        compile_s = time.perf_counter() - t0
+        _reset_counts()
+        one = []
+        for _ in range(RESUME_STEPS):
+            carry, loss = loop(1, carry, *consts)
+            one.append(float(c.get(loss)))
+        c.free(carry)
+        carry = c.put_tree((params, state))
+        sess = proxy._sessions["smoke/loop"]
+        ms0, steps, bursts, chained = sess.exec_ms_total, 0, [], []
+        t0 = time.perf_counter()
+        while steps < LOOP_STEPS:
+            # single bursts for the first half (a loss at each burst's
+            # end), then server-side chains of bursts
+            run = loop if steps < LOOP_STEPS // 2 else loop.chain
+            carry, loss = run(LOOP_STEPS - steps, carry, *consts)
+            steps += loop.last_n
+            bursts.append(loop.last_burst)
+            chained.append((steps, float(c.get(loss))))
+        loop_s = time.perf_counter() - t0
+        launches = _counts()
+        exec_ms = sess.exec_ms_total - ms0
+    finally:
+        c.close()
+        proxy.close()
+    want = {k: n * (RESUME_STEPS + steps) for k, n in per_step.items()}
+    check(launches == want, f"5g-loop: launches {launches}, expected {want}")
+    for n, got in chained:
+        check(got == one[n - 1],
+              f"5g-loop: the looped step's loss after {n} steps {got} is "
+              f"not the one-call step's {one[n - 1]}")
+    check(all(math.isfinite(x) for x in one) and one[-1] < one[0],
+          f"5g-loop: losses {one[0]} -> {one[-1]}")
+    return {"one_call_losses": one, "chained": chained, "bursts": bursts,
+            "steps": steps, "steps_per_sec": steps / loop_s,
+            "proxy_exec_ms_per_step": exec_ms / steps,
+            "compile_s": compile_s, "launches": launches}
+
+
+def _wait_for(cond, what: str, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"5g: timed out waiting for "
+                                           f"{what}")
+        time.sleep(0.005)
+
+
+def _steps_per_sec(ends: list) -> float:
+    return (len(ends) - 1) / (ends[-1] - ends[0])
+
+
+def resume_phase(root: str, dev, per_step: dict, reference: list) -> dict:
+    """5g-crash and 5g-migrate, one proxy-mode tenant process (5f's, with
+    RESUME_STEPS steps): it trains on proxy 1 with a journal until
+    CRASH_AT steps ran, the proxy crashes and a new one starts from the
+    journal on the same port; after MIGRATE_AT more steps the session
+    moves live to proxy 2 (no journal). The tenant is told of neither.
+    Its losses must equal ``reference`` (the one-call run of 5g-loop,
+    same seed) bit for bit, and the kernels launch exactly per_step an
+    execution."""
+    from kubeshare_tpu_torch import constants as C
+    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+    from kubeshare_tpu_torch.resilience.migrate import migrate_session
+
+    name, seed = RESUME_TENANT
+    base = tempfile.mkdtemp(prefix="kubeshare-resume-")
+    jdir = os.path.join(base, "journal")
+
+    def new_proxy(port=0, journal=True):
+        p = ChipProxy(device=dev, scheduler=TokenScheduler(
+            WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS),
+            journal_dir=jdir if journal else None)
+        p.serve(port=port)
+        return p
+
+    out_path, log_path = (os.path.join(base, "tenant." + x)
+                          for x in ("json", "log"))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_")
+           and k not in (C.ENV_VISIBLE_CHIPS, "CUDA_VISIBLE_DEVICES")}
+    proxies: list = []
+    proc = None
+    res: dict = {}
+    try:
+        p1 = new_proxy()
+        proxies.append(p1)
+        env.update({"PYTHONPATH": os.pathsep.join(
+            [os.path.join(root, "kubeshare_tpu_torch", "_shim"), root]),
+                    C.ENV_CHIP_PROXY_PORT: str(p1.port),
+                    C.ENV_POD_NAME: name, C.ENV_TPU_REQUEST: "1.0",
+                    C.ENV_TPU_LIMIT: "1.0"})
+        _reset_counts()
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tenant",
+                 out_path, "--compiled", "--steps", str(RESUME_STEPS),
+                 "--seed", str(seed)],
+                env=env, cwd=root, stdout=log_file, stderr=subprocess.STDOUT)
+
+        def executed(p, n):
+            def cond():
+                check(proc.poll() is None,
+                      f"5g tenant exited early: {_tail(log_path)}")
+                sess = p._sessions.get(name)
+                return sess is not None and sess.exec_count >= n
+            return cond
+
+        _wait_for(executed(p1, CRASH_AT), "the journaled steps")
+        sessions = [p1._sessions[name]]
+        res["journal_bytes_on_disk"] = p1.journal.size()
+        res["journal_bytes_written"] = p1.journal.bytes_written
+        res["journaled_steps"] = p1._sessions[name].exec_count
+        port = p1.port
+        t_crash = time.monotonic()
+        p1.crash(wait=True)
+        p1b = new_proxy(port=port)
+        proxies.append(p1b)
+        res["restore_s"] = time.monotonic() - t_crash
+        check(p1b.restored == [name], f"5g: restored {p1b.restored}")
+        _wait_for(executed(p1b, MIGRATE_AT), "the steps after the crash")
+        sessions.append(p1b._sessions[name])
+        p2 = new_proxy(journal=False)
+        proxies.append(p2)
+        t_move = time.monotonic()
+        moved = migrate_session(("127.0.0.1", p1b.port),
+                                ("127.0.0.1", p2.port),
+                                sessions[-1].resume_token)
+        sessions.append(p2._sessions[name])
+        res.update(migrate_s=moved["duration_s"], migrate_bytes=moved["bytes"])
+        rc = proc.wait(timeout=600)
+        check(rc == 0, f"5g tenant exited {rc}: {_tail(log_path)}")
+        launches = _counts()
+        # each proxy's executions of the session: the crashed one's as the
+        # crash left it, the others' until the move and the tenant's exit
+        execs = [sess.exec_count for sess in sessions]
+        res["replays_served"] = sum(p.replays_served for p in proxies)
+        with open(out_path) as f:
+            rec = json.load(f)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for p in proxies:
+            p.close()
+        shutil.rmtree(base, ignore_errors=True)
+    n_exec = sum(execs)
+    check(rec["attach"] == "proxy" and rec["visible"] == ""
+          and not rec["cuda_initialized"],
+          f"5g tenant: attach {rec['attach']!r}, visible {rec['visible']!r}")
+    losses = rec["losses"]
+    check(len(losses) == RESUME_STEPS, f"5g: {len(losses)} steps")
+    for i, (got, want) in enumerate(zip(losses, reference)):
+        check(got == want, f"5g: the tenant's loss at step {i + 1}, "
+                           f"{got}, is not the uncrashed, unmoved run's "
+                           f"{want}")
+    check(n_exec - 2 <= RESUME_STEPS <= n_exec,
+          f"5g: {n_exec} executions for {RESUME_STEPS} steps")
+    want = {k: n * n_exec for k, n in per_step.items()}
+    check(launches == want, f"5g: launches {launches}, expected {want} "
+                            f"for {n_exec} executions")
+    ends = rec["ends"]
+    after_crash = [t for t in ends if t > t_crash]
+    after_move = [t for t in ends if t > t_move]
+    journaled = [t for t in ends if t <= t_crash][TENANT_WARMUP_STEPS:]
+    res.update({
+        "executions": execs, "launches": launches,
+        "transport": rec["proxy"]["transport"],
+        "resume_s": after_crash[0] - t_crash,
+        "move_to_first_step_s": after_move[0] - t_move,
+        "journaled_steps_per_sec": _steps_per_sec(journaled),
+        "unjournaled_steps_per_sec": _steps_per_sec(after_move[2:]),
+        "journal_bytes_per_step": res["journal_bytes_written"]
+        / res["journaled_steps"],
+        "first_losses": losses[:3]})
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument("--out", default="",
@@ -1694,6 +1972,8 @@ def main(argv=None) -> int:
                         help="as a tenant, wrap the train step in "
                              "torch.compile (the proxy pair's tenants)")
     parser.add_argument("--seconds", type=float, default=GATE_SOLO_S)
+    parser.add_argument("--steps", type=int, default=0,
+                        help="as a tenant, train exactly this many steps")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
@@ -1703,7 +1983,8 @@ def main(argv=None) -> int:
     if args.tenant and args.compiled:
         # a proxy-mode tenant has no CUDA device of its own: the attach
         # hid them all, and its compiled step runs on the proxy
-        return tenant(args.tenant, args.seconds, args.seed, True)
+        return tenant(args.tenant, args.seconds, args.seed, True,
+                      args.steps)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1917,16 +2198,55 @@ def main(argv=None) -> int:
         "eager vs the exported step: " + "; ".join(
             f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
             for k, vs in prox["in_process_step_ms"].items())
-        + "; tenants' wall ms a step / the proxy's execution ms a step "
-        "(device lock to barrier) / first execution ms: " + "; ".join(
+        + "; tenants on the pipelined wire, wall ms a step / the proxy's "
+        "execution ms a step (device lock to barrier) / forwarding ms / "
+        "first execution ms / gaps between steps p50, p90 ms (the "
+        "lockstep wire: 5.7-12.2 ms of forwarding on one H100): "
+        + "; ".join(
             f"{n} {v['wall_ms']:.3f} / {v['proxy_exec_ms']:.3f} / "
-            f"{v['first_exec_ms']:.1f}" for n, v in prox["per_step"].items()))
+            f"{v['forwarding_ms']:.3f} / {v['first_exec_ms']:.1f} / "
+            f"{v.get('gap_p50_ms', float('nan')):.3f}, "
+            f"{v.get('gap_p90_ms', float('nan')):.3f}"
+            for n, v in prox["per_step"].items()))
     log(f"proxy first losses {prox['lone_first_losses']} vs eager "
         f"{prox['eager_first_losses']}; steps {prox['steps']}; launches "
         f"{prox['launches']}")
     phases["proxy"] = prox
     for k in launches:
         launches[k] += prox["launches"][k]
+
+    # the proxy survives and streams: the looped step, then a tenant
+    # through a proxy crash and a live migration, counted here
+    per_step = _launches_per_step(adam_launches["transformer"],
+                                  transformer.LAYERS)
+    g_loop = _loop_phase(dev, per_step)
+    log(f"5g-loop: compile_loop over the exported LM step: "
+        f"{g_loop['steps']} chained steps in bursts {g_loop['bursts']}, "
+        f"{g_loop['steps_per_sec']:.3f} steps/s, the proxy's execution "
+        f"{g_loop['proxy_exec_ms_per_step']:.3f} ms a step; every burst's "
+        f"loss equals the one-call step's ({len(g_loop['chained'])} "
+        f"checked, {RESUME_STEPS} one-call steps); compile "
+        f"{g_loop['compile_s']:.2f} s; launches {g_loop['launches']}")
+    g_res = resume_phase(root, dev, per_step, g_loop["one_call_losses"])
+    log(f"5g-crash: {g_res['journaled_steps']} journaled steps at "
+        f"{g_res['journaled_steps_per_sec']:.3f} steps/s "
+        f"({g_res['journal_bytes_per_step']:.0f} journal bytes a step, "
+        f"{g_res['journal_bytes_on_disk']} on disk), crash to the first "
+        f"step after resume {g_res['resume_s']:.3f} s (restore "
+        f"{g_res['restore_s']:.3f} s); tenant resumes "
+        f"{g_res['transport']['resumes']}, requests replayed "
+        f"{g_res['transport']['replayed']}, answered from the reply cache "
+        f"{g_res['replays_served']}")
+    log(f"5g-migrate: {g_res['migrate_bytes']} bytes moved in "
+        f"{g_res['migrate_s']:.3f} s, move to the first step after it "
+        f"{g_res['move_to_first_step_s']:.3f} s; unjournaled "
+        f"{g_res['unjournaled_steps_per_sec']:.3f} steps/s; executions "
+        f"per proxy {g_res['executions']} for {RESUME_STEPS} steps; "
+        f"{RESUME_STEPS} losses equal the uncrashed, unmoved run's; "
+        f"launches {g_res['launches']}")
+    phases["resilience"] = {"loop": g_loop, "resume": g_res}
+    for k in launches:
+        launches[k] += g_loop["launches"][k] + g_res["launches"][k]
     out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -175,7 +175,10 @@ class RemoteTensor:
 
 class _ProxyShim:
     """Owns the connection to the proxy and stands in for
-    ``torch.compile``."""
+    ``torch.compile``. The client is built with its defaults, as the JAX
+    package builds it: a pipelined, resumable session, so a tenant rides
+    out a dropped connection, a proxy restarted from its journal and a
+    move to another proxy by itself."""
 
     def __init__(self, host: str, port: int, name: str, request: float,
                  limit: float, memory: int):
@@ -191,11 +194,12 @@ class _ProxyShim:
             self._pending_free.append(buf)
 
     def flush_frees(self) -> None:
+        """Send the queued frees without waiting for their reply."""
         with self._lock:
             bufs, self._pending_free = self._pending_free, []
         if bufs:
             try:
-                self.client.free(*bufs)
+                self.client.free(*bufs, wait=False)
             except Exception:
                 pass
 
@@ -651,14 +655,17 @@ def gate_stats() -> dict:
 
 def proxy_usage() -> dict:
     """The proxy session's ``usage`` reply (``exec_count``,
-    ``exec_ms_total``, ``used_ms``…) and, as ``last_compile``, the
-    client's record of its last compile (blob bytes, export and compile
-    seconds); an empty dict when this process is not proxy-attached."""
+    ``exec_ms_total``, ``used_ms``…); as ``last_compile``, the client's
+    record of its last compile (blob bytes, export and compile seconds);
+    and as ``transport``, its connection's (features, reconnects that
+    resumed the session, requests replayed). An empty dict when this
+    process is not proxy-attached."""
     state = _active
     if state is None or state.shim is None:
         return {}
     client = state.shim.client
-    return dict(client.usage(), last_compile=client.last_compile)
+    return dict(client.usage(), last_compile=client.last_compile,
+                transport=client.transport())
 
 
 def real_compile():

@@ -25,6 +25,11 @@ ENV_TPU_LIMIT = "KUBESHARE_TPU_LIMIT"
 ENV_TPU_MEMORY = "KUBESHARE_TPU_MEM"
 ENV_ATTACH_MODE = "KUBESHARE_TPU_ATTACH"  # proxy | gate | off (default auto)
 
+# The chip proxy's durable session journal (proxy.py ``--journal-dir``):
+# a directory where every resumable session is mirrored, so a restarted
+# proxy brings its tenants' sessions back. Unset: no journal.
+ENV_JOURNAL_DIR = "KUBESHARE_JOURNAL_DIR"
+
 # Gang/distributed contract: the port has no gang runtime yet, so a pod
 # that carries all three of these is refused rather than trained solo.
 ENV_GROUP_NAME = "KUBESHARE_TPU_GROUP"

@@ -4,27 +4,29 @@ Counterpart of ``kubeshare_tpu/isolation/client.py``:
 
 - :class:`ProxyClient` is the stand-in for the card in a client that
   never owns it. The client stages its state on the host with numpy,
-  ``put``s it, and runs programs on the proxy: registered loop specs
-  (:mod:`.programs`, :meth:`~ProxyClient.compile_loop`) or its own
-  functions, traced abstractly and saved by :mod:`.exported`
-  (:meth:`~ProxyClient.compile`, what the proxy-mode attach forwards).
-  Tensors live there as handles (:class:`RemoteBuffer`), so a training
-  loop transfers its parameters once.
+  ``put``s it, and runs programs on the proxy: its own functions, traced
+  abstractly and saved by :mod:`.exported` (:meth:`~ProxyClient.compile`,
+  what the proxy-mode attach forwards; :meth:`~ProxyClient.compile_loop`
+  for a step looped N times a burst), or registered loop specs
+  (:mod:`.programs`). Tensors live there as handles
+  (:class:`RemoteBuffer`), so a training loop transfers its parameters
+  once. It negotiates the pipelined transport (``"seq"``: many requests
+  in flight, replies resolved to futures) and, by default, a resumable
+  session (``"resume"``): a dropped connection, a proxy restarted from
+  its journal or a session moved to another proxy is reconnected and
+  replayed underneath the caller (:mod:`..resilience.reconnect`). Arrays
+  larger than ``chunk_bytes`` cross in windowed chunks.
 - :class:`ExecutionGate` and :class:`HbmCap` are for a process that owns
   the card itself (gate-mode attach, :mod:`kubeshare_tpu_torch.attach`):
   the gate passes a token round trip with the pod manager before work,
   the cap holds the process to its memory grant.
-
-Lockstep connection only; the pipelined transport and
-reconnect-and-resume are not ported yet, so :meth:`ProxyClient.
-execute_async` returns a future that is already resolved, as the JAX
-client's does on a lockstep connection.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,23 +56,26 @@ class RemoteBuffer:
 
 class RemoteFuture:
     """The result of a dispatch (:meth:`ProxyClient.execute_async`,
-    :meth:`RemoteExecutable.call_async`). ``result()`` maps the reply once
-    and returns (or raises) the same outcome on every later call. On this
-    lockstep connection the dispatch has completed when the future is
-    made; the pipelined transport would resolve it later, with callers
-    unchanged."""
+    :meth:`RemoteExecutable.call_async`, :meth:`RemoteLoop.call_async`).
+    ``result()`` blocks until the reply is in, maps it once and returns
+    (or raises) the same outcome on every later call. On a lockstep
+    connection the dispatch completed when the future was made."""
 
-    __slots__ = ("_resolve", "_mu", "_done", "_value", "_exc")
+    __slots__ = ("_resolve", "_pending", "_mu", "_done", "_value", "_exc")
 
-    def __init__(self, resolve):
-        self._resolve = resolve        # () -> value; may raise
+    def __init__(self, resolve, pending=None):
+        self._resolve = resolve        # () -> value; blocks, may raise
+        self._pending = pending
         self._mu = threading.Lock()
         self._done = False
         self._value = None
         self._exc: Exception | None = None
 
     def done(self) -> bool:
-        return True
+        with self._mu:
+            if self._done:
+                return True
+        return self._pending is None or self._pending.done()
 
     def result(self):
         with self._mu:
@@ -95,6 +100,11 @@ def _host_array(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _remote(handles, out_meta) -> list:
+    return [RemoteBuffer(h, tuple(shape), dtype)
+            for h, (shape, dtype) in zip(handles, out_meta)]
+
+
 class RemoteExecutable:
     """A saved program compiled on the proxy (:meth:`ProxyClient.compile`);
     call it with the tree of its example arguments, each leaf a
@@ -114,6 +124,9 @@ class RemoteExecutable:
         return self.call_async(*args).result()
 
     def call_async(self, *args) -> RemoteFuture:
+        """Dispatch without waiting: the uploads happen now, the execute
+        rides the pipelined connection, and the future resolves to the
+        output tree; the uploads are freed when it resolves."""
         leaves, in_def = tree_flatten(args)
         if in_def != self._in_def:
             raise ValueError("arguments differ in structure from the "
@@ -134,22 +147,18 @@ class RemoteExecutable:
             fut = client.execute_async(self._exec_id,
                                        [b.handle for b in bufs])
         except Exception:
-            if uploaded:
-                try:
-                    client.free(*uploaded)
-                except Exception:
-                    pass
+            client._free_quietly(uploaded)
             raise
 
         def resolve():
-            handles = fut.result()
-            if uploaded:
-                client.free(*uploaded)
-            out = [RemoteBuffer(h, tuple(shape), dtype)
-                   for h, (shape, dtype) in zip(handles, self.out_meta)]
-            return tree_unflatten(self._out_def, out)
+            try:
+                handles = fut.result()
+            finally:
+                client._free_quietly(uploaded)
+            return tree_unflatten(self._out_def,
+                                  _remote(handles, self.out_meta))
 
-        return RemoteFuture(resolve)
+        return RemoteFuture(resolve, fut._pending)
 
 
 class RemoteLoop:
@@ -161,14 +170,14 @@ class RemoteLoop:
     consumed (the proxy updates the carry in place); consts persist.
     """
 
-    def __init__(self, client: "ProxyClient", exec_id: int, carry_def,
-                 out_meta: list, ncarry: int, naux: int):
+    def __init__(self, client: "ProxyClient", exec_id: int, out_def,
+                 out_meta: list, ncarry: int):
         self._client = client
         self._exec_id = exec_id
-        self._carry_def = carry_def
+        #: the structure of ``(new_carry, aux)``
+        self._out_def = out_def
         self.out_meta = out_meta
         self._ncarry = ncarry
-        self._naux = naux
         #: steps the proxy actually ran on the last call — it may clamp a
         #: long burst to keep one dispatch near the scheduling quantum
         self.last_n = 0
@@ -177,14 +186,21 @@ class RemoteLoop:
         self.last_burst = 0
 
     def __call__(self, n: int, carry, *consts):
-        return self._dispatch(int(n), carry, consts, chain=False)
+        return self.call_async(n, carry, *consts).result()
+
+    def call_async(self, n: int, carry, *consts) -> RemoteFuture:
+        """Dispatch one burst without waiting; ``last_n``/``last_burst``
+        update when the future resolves."""
+        return self._dispatch_async(int(n), carry, consts, chain=False)
 
     def chain(self, n: int, carry, *consts):
         """Run toward ``n`` steps with server-side burst chaining. May stop
         early; ``last_n`` reports the steps run."""
-        return self._dispatch(int(n), carry, consts, chain=True)
+        return self._dispatch_async(int(n), carry, consts,
+                                    chain=True).result()
 
-    def _dispatch(self, n: int, carry, consts, chain: bool):
+    def _dispatch_async(self, n: int, carry, consts, chain: bool
+                        ) -> RemoteFuture:
         if n < 1:
             raise ValueError(f"loop count must be >= 1, got {n}")
         leaves = tree_leaves((carry, *consts))
@@ -196,52 +212,236 @@ class RemoteLoop:
                "args": [b.handle for b in leaves],
                "donate": [b.handle for b in leaves[:self._ncarry]]}
         msg["chain_steps" if chain else "repeat"] = n
-        reply, _ = self._client._conn.call(msg)
-        self.last_n = int(reply["repeat"])
-        self.last_burst = int(reply.get("burst", self.last_n))
-        out = [RemoteBuffer(h, tuple(shape), dtype)
-               for h, (shape, dtype) in zip(reply["handles"], self.out_meta)]
-        new_carry = tree_unflatten(self._carry_def, out[:self._ncarry])
-        aux = out[self._ncarry:]
-        return new_carry, (aux[0] if self._naux == 1 else tuple(aux))
+        fut = self._client._dispatch(msg, lambda reply: reply)
+
+        def resolve():
+            reply = fut.result()
+            self.last_n = int(reply["repeat"])
+            self.last_burst = int(reply.get("burst", self.last_n))
+            return tree_unflatten(self._out_def,
+                                  _remote(reply["handles"], self.out_meta))
+
+        return RemoteFuture(resolve, fut._pending)
 
 
 class ProxyClient:
-    """Connection to a :class:`~.proxy.ChipProxy` for one named client."""
+    """Connection to a :class:`~.proxy.ChipProxy` for one named client.
+
+    ``reconnect="auto"`` (the default) or a
+    :class:`~..resilience.reconnect.ReconnectPolicy` makes the session
+    resumable: a dead connection is re-dialed and replayed underneath the
+    caller, a ``"moved"`` session followed, and only a spent budget
+    surfaces, as ``SessionLost``. ``reconnect=None`` keeps the lockstep
+    client of earlier releases: it negotiates nothing (the reference's
+    legacy transport still asks for ``"seq"``), failures surface at once
+    and a dropped connection frees the session. ``fault_tag`` names the
+    connection for the fault injector."""
+
+    #: frees sent without waiting that may be outstanding before the
+    #: oldest one is waited for
+    MAX_UNREAPED = 64
 
     def __init__(self, host: str, port: int, name: str, request: float,
                  limit: float, memory: int = 0,
-                 timeout: float | None = None):
+                 timeout: float | None = None, chunk_bytes: int = 64 << 20,
+                 reconnect="auto", fault_tag: str = ""):
         self.name = name
-        self._conn = protocol.Connection(host, port, timeout=timeout)
-        reply, _ = self._conn.call({"op": "register", "name": name,
-                                    "request": request, "limit": limit,
-                                    "memory": memory})
+        #: transfer slab of put/get: larger arrays cross in windowed
+        #: slices, so a buffer may exceed the wire's frame cap
+        self.chunk_bytes = chunk_bytes
+        register = {"op": "register", "name": name, "request": request,
+                    "limit": limit, "memory": memory}
+        if reconnect is None:
+            # the lockstep client: no features asked, so the proxy grants
+            # none and answers as it always has
+            self._conn = protocol.Connection(host, port, timeout=timeout,
+                                             fault_tag=fault_tag)
+            reply, _ = self._conn.call(register)
+        else:
+            from ..resilience.reconnect import (ReconnectPolicy,
+                                                ResilientConnection)
+            policy = (reconnect if isinstance(reconnect, ReconnectPolicy)
+                      else None)
+            self._conn = ResilientConnection(host, port, timeout=timeout,
+                                             policy=policy,
+                                             fault_tag=fault_tag)
+            reply = self._conn.open(dict(register,
+                                         features=list(protocol.FEATURES)))
         self.platforms: list[str] = reply["platforms"]
         self.device: str = reply.get("device", "")
+        #: transport features both ends agreed on at register
+        self.features: frozenset[str] = frozenset(reply.get("features", ()))
         self.last_compile: dict = {}
+        self._unreaped: deque = deque()
+        self._reap_mu = threading.Lock()
 
     # -- buffers -------------------------------------------------------------
 
+    def _chunk(self) -> int:
+        # read MAX_FRAME at call time: the slab must fit the wire's cap
+        return max(1, min(self.chunk_bytes, protocol.MAX_FRAME - 4096))
+
+    @staticmethod
+    def _window(chunk: int) -> int:
+        """Chunks in flight for a windowed put or get: enough to keep the
+        wire busy across a reply's round trip, never more than ~256 MiB."""
+        return max(2, min(16, (256 << 20) // max(chunk, 1)))
+
     def put(self, array) -> RemoteBuffer:
         """Upload a host array (numpy, or a tensor on the CPU)."""
-        reply, _ = self._conn.call(
-            {"op": "put", "name": self.name},
-            blob=protocol.dump_array_parts(_host_array(array)))
+        parts = protocol.dump_array_parts(_host_array(array))
+        nbytes = protocol.buffers_nbytes(parts)
+        chunk = self._chunk()
+        if nbytes <= chunk:
+            reply, _ = self._conn.call({"op": "put", "name": self.name},
+                                       blob=parts)
+        else:
+            try:
+                reply = self._put_chunked(parts, nbytes, chunk)
+            except RuntimeError as exc:
+                if "invalidated by disconnect" not in str(exc):
+                    raise
+                # the connection died mid-window and the proxy dropped the
+                # half-landed staging; the session survived: once more
+                reply = self._put_chunked(parts, nbytes, chunk)
         return RemoteBuffer(reply["handle"], tuple(reply["shape"]),
                             reply["dtype"])
 
-    def get(self, buf: RemoteBuffer) -> np.ndarray:
-        _, blob = self._conn.call({"op": "get", "name": self.name,
-                                   "handle": buf.handle})
-        return load_array(blob)
+    def _put_chunked(self, parts: list, nbytes: int, chunk: int) -> dict:
+        """A staged upload: a window of chunks in flight on a pipelined
+        connection (each landing in the proxy's staging buffer), one a
+        round trip on a lockstep one. The device bytes were reserved at
+        put_begin, so a refusal comes before the stream moves."""
+        conn = self._conn
+        reply0, _ = conn.call({"op": "put_begin", "name": self.name,
+                               "nbytes": nbytes})
+        sid = reply0["staging"]
+        pending: deque = deque()
+        try:
+            for off in range(0, nbytes, chunk):
+                msg = {"op": "put_chunk", "name": self.name,
+                       "staging": sid, "offset": off}
+                blob = protocol.slice_buffers(parts, off, chunk)
+                if not conn.pipelined:
+                    conn.call(msg, blob=blob)
+                    continue
+                if len(pending) >= self._window(chunk):
+                    pending.popleft().result()
+                pending.append(conn.submit(msg, blob=blob))
+            while pending:
+                pending.popleft().result()
+            reply, _ = conn.call({"op": "put_commit", "name": self.name,
+                                  "staging": sid})
+            return reply
+        except RuntimeError:
+            # the proxy refused (cap, bad chunk): drain the window, then
+            # drop the staged bytes; the connection is still in sync
+            while pending:
+                try:
+                    pending.popleft().result()
+                except Exception:
+                    pass
+            try:
+                conn.call({"op": "put_abort", "name": self.name,
+                           "staging": sid})
+            except Exception:
+                pass
+            raise
 
-    def free(self, *bufs) -> None:
+    def get(self, buf: RemoteBuffer) -> np.ndarray:
+        """Download a buffer. One larger than a slab crosses in slices,
+        a window of them in flight on a pipelined connection; its stream
+        is the buffer's bytes and a header under 4 KiB, so the
+        destination is made before the first reply and every slice lands
+        in place."""
+        chunk = self._chunk()
+        conn = self._conn
+        if buf.nbytes + 4096 <= chunk:
+            _, blob = conn.call({"op": "get", "name": self.name,
+                                 "handle": buf.handle})
+            return load_array(blob)
+        raw = bytearray(buf.nbytes + 4096)
+        mv = memoryview(raw)
+
+        def ask(off: int, length: int):
+            return ({"op": "get", "name": self.name, "handle": buf.handle,
+                     "offset": off, "length": length},
+                    mv[off:off + length])
+
+        def landed(off: int, length: int, part) -> None:
+            if memoryview(part).nbytes != length:
+                raise protocol.ProtocolError(
+                    f"slice at {off}: {memoryview(part).nbytes} bytes, "
+                    f"asked {length}")
+            if not (isinstance(part, memoryview) and part.obj is raw):
+                mv[off:off + length] = part
+
+        msg, view = ask(0, chunk)
+        reply, part = conn.call(msg, sink=view)
+        total = int(reply["total"])
+        if total > len(raw):       # a header past its allowance: never
+            raise protocol.ProtocolError(f"a {buf.nbytes}-byte buffer "
+                                         f"streams {total} bytes")
+        landed(0, min(chunk, total), part)
+        pending: deque = deque()
+        off = min(chunk, total)
+        while off < total or pending:
+            while off < total and (not pending or len(pending)
+                                   < self._window(chunk)):
+                length = min(chunk, total - off)
+                msg, view = ask(off, length)
+                if conn.pipelined:
+                    pending.append((off, length,
+                                    conn.submit(msg, sink=view)))
+                else:
+                    landed(off, length, conn.call(msg, sink=view)[1])
+                off += length
+            if pending:
+                doff, dlen, rep = pending.popleft()
+                landed(doff, dlen, rep.result()[1])
+        return load_array(mv[:total])
+
+    def free(self, *bufs, wait: bool = True) -> None:
+        """Free the buffers in ``bufs`` (any tree). ``wait=False`` sends
+        the free on a pipelined connection without waiting for its reply,
+        which a later call collects."""
         handles = [b.handle for b in tree_leaves(bufs)
                    if isinstance(b, RemoteBuffer)]
-        if handles:
-            self._conn.call({"op": "free", "name": self.name,
-                             "handles": handles})
+        self._reap()
+        if not handles:
+            return
+        msg = {"op": "free", "name": self.name, "handles": handles}
+        if wait or not self._conn.pipelined:
+            self._conn.call(msg)
+            return
+        rep = self._conn.submit(msg)
+        with self._reap_mu:
+            self._unreaped.append(rep)
+
+    def _reap(self, block: bool = False) -> None:
+        """Collect the replies of frees sent without waiting: those in,
+        and the oldest ones while too many are out (all with ``block``)."""
+        while True:
+            with self._reap_mu:
+                if not self._unreaped:
+                    return
+                rep = self._unreaped[0]
+                if not (block or rep.done()
+                        or len(self._unreaped) > self.MAX_UNREAPED):
+                    return
+                self._unreaped.popleft()
+            try:
+                rep.result()
+            except Exception as exc:
+                log.warning("a free sent without waiting failed: %s", exc)
+
+    def _free_quietly(self, bufs) -> None:
+        """Free a call's uploads; best effort, the call's outcome wins."""
+        if bufs:
+            try:
+                self.free(*bufs)
+            except Exception:
+                pass
 
     def put_tree(self, tree):
         """Upload a tree of host arrays → same-shaped tree of buffers."""
@@ -253,19 +453,20 @@ class ProxyClient:
 
     # -- programs ------------------------------------------------------------
 
-    def compile(self, fn, *example_args) -> RemoteExecutable:
+    def _export_and_compile(self, fn, example_args, ncarry: int | None):
         """Trace ``fn(*example_args)`` here, abstractly (nothing runs),
         save it (:func:`.exported.export_program`) and compile it on the
-        proxy. Only the shapes and dtypes of ``example_args``' leaves
-        (tensors, arrays, :class:`RemoteBuffer`\\ s) are read."""
+        proxy. Returns ``(exec_id, in_def, out_def, out_meta)``."""
         from .exported import export_program
 
         t0 = time.perf_counter()
         blob, in_def, out_def, out_meta = export_program(
             fn, example_args, self.device)
         t1 = time.perf_counter()
-        reply, _ = self._conn.call({"op": "compile", "name": self.name},
-                                   blob=[blob])
+        msg = {"op": "compile", "name": self.name}
+        if ncarry is not None:
+            msg["ncarry"] = ncarry
+        reply, _ = self._conn.call(msg, blob=[blob])
         if [list(m) for m in reply["out_meta"]] != [list(m) for m in
                                                     out_meta]:
             raise RuntimeError(f"the proxy's outputs {reply['out_meta']} "
@@ -275,45 +476,111 @@ class ProxyClient:
         #: compile round trip (sending it, the proxy's load)
         self.last_compile = {"blob_nbytes": len(blob), "export_s": t1 - t0,
                              "compile_s": time.perf_counter() - t1}
-        return RemoteExecutable(self, reply["exec_id"], in_def, out_def,
-                                reply["out_meta"])
+        return reply["exec_id"], in_def, out_def, reply["out_meta"]
 
-    def execute_async(self, exec_id: int, handles: list[int]
-                      ) -> RemoteFuture:
-        """Run a compiled saved program on the handles; the future
-        resolves to the output handles. Lockstep: the reply is in when
-        this returns, and a failed run raises here."""
-        reply, _ = self._conn.call({"op": "execute", "name": self.name,
-                                    "exec_id": exec_id,
-                                    "args": list(handles)})  # raises here
-        return RemoteFuture(lambda: list(reply["handles"]))
+    def compile(self, fn, *example_args) -> RemoteExecutable:
+        """Trace ``fn(*example_args)`` here, abstractly (nothing runs),
+        save it (:func:`.exported.export_program`) and compile it on the
+        proxy. Only the shapes and dtypes of ``example_args``' leaves
+        (tensors, arrays, :class:`RemoteBuffer`\\ s) are read."""
+        exec_id, in_def, out_def, out_meta = self._export_and_compile(
+            fn, example_args, None)
+        return RemoteExecutable(self, exec_id, in_def, out_def, out_meta)
 
-    def compile_loop(self, spec: dict, carry, *consts) -> RemoteLoop:
-        """Compile the registered program ``spec`` as a loop program over
-        ``carry`` (a tree of :class:`RemoteBuffer`) and ``consts``; only
-        their shapes and dtypes are sent."""
+    def compile_loop(self, fn, carry, *consts) -> RemoteLoop:
+        """Compile ``fn(carry, *consts) -> (carry, aux)`` as a loop
+        program: :class:`RemoteLoop` runs N steps a dispatch on the proxy,
+        one token-gated burst, the carry threaded through (and updated in
+        place). ``fn`` is traced once, as :meth:`compile` traces, and must
+        give back a carry of the structure it was given. ``carry`` and
+        ``consts`` are trees of :class:`RemoteBuffer`.
+
+        ``fn`` may instead be a registered program spec (a dict,
+        :mod:`.programs`), which the proxy builds itself; then only the
+        arguments' shapes and dtypes are sent."""
         carry_leaves, carry_def = tree_flatten(carry)
         leaves = carry_leaves + tree_leaves(consts)
         if not all(isinstance(x, RemoteBuffer) for x in leaves):
             raise TypeError("compile_loop args must be device-resident "
                             "(put them first)")
-        reply, _ = self._conn.call({
-            "op": "compile", "name": self.name, "spec": spec,
-            "ncarry": len(carry_leaves),
-            "in_meta": [[list(b.shape), b.dtype] for b in leaves]})
-        return RemoteLoop(self, reply["exec_id"], carry_def,
-                          reply["out_meta"], len(carry_leaves),
-                          int(reply["naux"]))
+        ncarry = len(carry_leaves)
+        if isinstance(fn, dict):
+            reply, _ = self._conn.call({
+                "op": "compile", "name": self.name, "spec": fn,
+                "ncarry": ncarry,
+                "in_meta": [[list(b.shape), b.dtype] for b in leaves]})
+            naux = int(reply["naux"])
+            aux_def = None if naux == 1 else ("tuple", naux, (None,) * naux)
+            return RemoteLoop(self, reply["exec_id"],
+                              ("tuple", 2, (carry_def, aux_def)),
+                              reply["out_meta"], ncarry)
+
+        def checked_fn(c, *cs):
+            new_carry, aux = fn(c, *cs)
+            new_def = tree_flatten(new_carry)[1]
+            if new_def != tree_flatten(c)[1]:
+                raise TypeError(
+                    f"loop fn must preserve carry structure: {new_def} "
+                    f"!= {tree_flatten(c)[1]}")
+            return new_carry, aux
+
+        exec_id, _, out_def, out_meta = self._export_and_compile(
+            checked_fn, (carry, *consts), ncarry)
+        return RemoteLoop(self, exec_id, out_def, out_meta, ncarry)
+
+    def _dispatch(self, msg: dict, unwrap) -> RemoteFuture:
+        """Send an execute; the future resolves to ``unwrap(reply)``. On a
+        lockstep connection it is resolved (or raises) here."""
+        if self._conn.pipelined:
+            rep = self._conn.submit(msg)
+            return RemoteFuture(lambda: unwrap(rep.result()[0]), rep)
+        reply, _ = self._conn.call(msg)
+        return RemoteFuture(lambda: unwrap(reply))
+
+    def execute_async(self, exec_id: int, handles: list[int]
+                      ) -> RemoteFuture:
+        """Run a compiled saved program on the handles without waiting;
+        the future resolves to the output handles. On a pipelined
+        connection many dispatches ride the wire at once; the proxy runs a
+        session's requests in submission order."""
+        return self._dispatch({"op": "execute", "name": self.name,
+                               "exec_id": exec_id, "args": list(handles)},
+                              lambda reply: list(reply["handles"]))
+
+    def flush(self) -> None:
+        """Send any corked requests now."""
+        if self._conn.pipelined:
+            self._conn.flush()
 
     def usage(self) -> dict:
         reply, _ = self._conn.call({"op": "usage", "name": self.name})
         return reply
 
+    def transport(self) -> dict:
+        """The connection's record: features, and the reconnects that
+        resumed the session and the requests they replayed."""
+        return {"features": sorted(self.features),
+                "resumes": getattr(self._conn, "resumes", 0),
+                "replayed": getattr(self._conn, "replayed", 0)}
+
+    def set_endpoint(self, host: str, port: int) -> None:
+        """Point later reconnects at another proxy (the migration flip).
+        Needs a resumable session."""
+        fn = getattr(self._conn, "set_endpoint", None)
+        if fn is None:
+            raise RuntimeError("set_endpoint requires reconnect support "
+                               "(ProxyClient(..., reconnect='auto'))")
+        fn(host, port)
+
     def close(self) -> None:
-        try:
-            self._conn.call({"op": "unregister", "name": self.name})
-        except (OSError, RuntimeError):
-            pass  # connection already gone: the proxy drops the session
+        if getattr(self._conn, "healthy", True):
+            # over a live channel only: unregistering a lost session would
+            # spend the whole reconnect budget here
+            try:
+                self._reap(block=True)
+                self._conn.call({"op": "unregister", "name": self.name})
+            except Exception:
+                pass  # the connection is gone: the proxy drops the session
         self._conn.close()
 
     def __enter__(self):

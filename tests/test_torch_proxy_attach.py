@@ -250,6 +250,9 @@ def test_remote_tensor_reads_and_frees(proxy):
     assert len(sess.buffers) == 2
     del total, doubled
     attach._active.shim.flush_frees()       # what the next call does first
+    # the frees go out without waiting for their replies; the proxy runs a
+    # session's requests in order, so the next request finds them done
+    assert attach.proxy_usage()["hbm_used"] == 0
     assert sess.buffers == {} and sess.hbm_used == 0
 
 

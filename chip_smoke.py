@@ -193,6 +193,29 @@ RESUME_STEPS = 72
 CRASH_AT = 24
 MIGRATE_AT = 24
 LOOP_STEPS = 64
+# phase 5h: latency-class serving beside a best-effort trainer. Four
+# sender threads (two tenants of each class) submit one row each at a
+# fixed aggregate rate, as the JAX serving bench's steady phase; each run
+# lasts SERVE_RUN_S. The trainer chains SERVE_CHAIN steps a call (several
+# bursts of up to window/4 each) from 5g's start, so every chain's loss is
+# 5g-loop's one-call loss at that step.
+SERVE_RATE = 200.0
+SERVE_RUN_S = 4.0
+SERVE_TENANTS = (("smoke/lat-0", "latency"), ("smoke/lat-1", "latency"),
+                 ("smoke/be-0", "best-effort"), ("smoke/be-1", "best-effort"))
+SERVE_SESSION = ("smoke/serve", 0.5)      # the ProxyServable's client
+TRAIN_SESSION = ("smoke/train", 0.5)
+SERVE_MAX_BATCH = 8
+SERVE_MAX_WAIT_S = 0.004                  # the JAX serving bench's
+SERVE_SEED = 7
+SERVE_CHAIN = 64
+# the JAX proxy's idle release: the serving session's token goes back
+# between its batches (the port's 50 ms default is for a proxy-attached
+# trainer's gaps between steps, phase 5f)
+SERVE_IDLE_RELEASE_MS = 10.0
+PREEMPT_GRACE_MS = 5.0
+PREEMPT_MIN_HOLD_MS = 2.0
+SERVE_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1725,8 +1748,9 @@ def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
                 for n, r in records.items()}
     for v in per_step.values():
         v["forwarding_ms"] = v["wall_ms"] - v["proxy_exec_ms"]
-        check(v["features"] == ["resume", "seq"],
-              f"proxy tenant negotiated {v['features']}, not resume + seq")
+        check(v["features"] == ["preempt", "resume", "seq"],
+              f"proxy tenant negotiated {v['features']}, not preempt + "
+              f"resume + seq")
     return {
         "in_process_step_ms": step_ms,
         "per_step": per_step,
@@ -1746,19 +1770,10 @@ def proxy_phase(root: str, dev, adam_per_step: int, layers: int) -> dict:
 
 # --- phase 5g: the proxy survives and streams ---------------------------------
 
-def _loop_phase(dev, per_step: dict) -> dict:
-    """5g-loop: ``compile_loop(fn, carry, *consts)`` over the full-width
-    LM step, in this process, on a proxy of its own. The same start run
-    one call at a time (RESUME_STEPS steps: also the reference of the
-    tenant's run) and in bursts, then chains of bursts (LOOP_STEPS); each
-    call's last loss must equal the one-call run's at that step, bit for
-    bit, and the kernels launch exactly per_step a step."""
-    import torch
-
-    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
-    from kubeshare_tpu_torch.isolation.client import ProxyClient
-    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
-    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+def _lm_loop():
+    """The full-width LM train step as a loop function, and its start:
+    ``(lm_loop, params, state, batch)`` made from RESUME_TENANT's seed —
+    5g-loop's one-call run is the reference of 5g and of 5h."""
     from kubeshare_tpu_torch.models import common, transformer
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
 
@@ -1772,7 +1787,22 @@ def _loop_phase(dev, per_step: dict) -> dict:
     seed = RESUME_TENANT[1]
     params = transformer.init(seed)
     state = opt.init(common.to_device(params, "cpu"))
-    batch = tuple(transformer.batch_fn(seed + 1))
+    return lm_loop, params, state, tuple(transformer.batch_fn(seed + 1))
+
+
+def _loop_phase(dev, per_step: dict) -> dict:
+    """5g-loop: ``compile_loop(fn, carry, *consts)`` over the full-width
+    LM step, in this process, on a proxy of its own. The same start run
+    one call at a time (RESUME_STEPS steps: also the reference of the
+    tenant's run) and in bursts, then chains of bursts (LOOP_STEPS); each
+    call's last loss must equal the one-call run's at that step, bit for
+    bit, and the kernels launch exactly per_step a step."""
+    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
+    from kubeshare_tpu_torch.isolation.client import ProxyClient
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+
+    lm_loop, params, state, batch = _lm_loop()
     proxy = ChipProxy(device=dev, scheduler=TokenScheduler(
         WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS))
     proxy.serve()
@@ -1959,6 +1989,294 @@ def resume_phase(root: str, dev, per_step: dict, reference: list) -> dict:
         / res["journaled_steps"],
         "first_losses": losses[:3]})
     return res
+
+
+# --- phase 5h: latency-class serving preempts a best-effort trainer ------------
+
+def _pct(values: list, q: float) -> float:
+    """Nearest-rank percentile, as the JAX package's preemption bench."""
+    if not values:
+        return float("nan")
+    s = sorted(values)
+    return s[min(len(s) - 1, max(0, math.ceil(q * len(s)) - 1))]
+
+
+def _serve_run(mode: str, ctx: dict) -> dict:
+    """One 5h run: the four senders against the front door for
+    SERVE_RUN_S, the trainer chaining beside them unless ``mode`` is
+    ``exclusive``, the preemption policy attached only in
+    ``preempt_on``. Kernel counts are set to 0 just before and read just
+    after."""
+    from kubeshare_tpu_torch.models import tinymlp
+    from kubeshare_tpu_torch.obs.metrics import MetricsRegistry
+    from kubeshare_tpu_torch.preempt import PreemptionPolicy
+    from kubeshare_tpu_torch.serving import (ContinuousBatcher, FrontDoor,
+                                             Overloaded, ServingAccounting)
+
+    import numpy as np
+
+    sched, proxy, servable = ctx["sched"], ctx["proxy"], ctx["servable"]
+    trainer, loop, consts = ctx["trainer"], ctx["loop"], ctx["consts"]
+    policy = (PreemptionPolicy(PREEMPT_GRACE_MS, PREEMPT_MIN_HOLD_MS)
+              if mode == "preempt_on" else None)
+    sched.preempt = policy
+    fd = FrontDoor(max_queue=256,
+                   accounting=ServingAccounting(MetricsRegistry()))
+    for tenant, cls in SERVE_TENANTS:
+        fd.register_tenant(tenant, tpu_class=cls)
+    batcher = ContinuousBatcher(fd, servable, max_batch=SERVE_MAX_BATCH,
+                                max_wait_s=SERVE_MAX_WAIT_S)
+    train_sess = proxy._sessions[TRAIN_SESSION[0]]
+    slicer0, yields0 = proxy.slicer.stats(), train_sess.preempt_yields
+    ctx["grant_waits"].clear()
+    errors: list = []
+    served: dict = {cls: [] for _, cls in SERVE_TENANTS}   # (ms, x, y)
+    shed = [0]
+    train = {"losses": [], "bursts": [], "steps": 0, "sliced_chains": 0}
+    stop_train = threading.Event()
+    stop_pump = threading.Event()
+
+    def guarded(fn, *args):
+        try:
+            fn(*args)
+        except Exception as e:          # reported from the main thread
+            errors.append(f"{fn.__name__}: {type(e).__name__}: {e}\n"
+                          + traceback.format_exc())
+
+    def send(tenant, cls, seed, end):
+        rng = np.random.default_rng(seed)
+        period = len(SERVE_TENANTS) / SERVE_RATE
+        deadline = time.monotonic()
+        while deadline < end:
+            now = time.monotonic()
+            if now < deadline:
+                time.sleep(deadline - now)
+            deadline += period
+            x = rng.standard_normal((1, tinymlp.FEATURES)).astype(np.float32)
+            t0 = time.perf_counter()
+            try:
+                req = fd.submit(tenant, x, tpu_class=cls)
+            except Overloaded:
+                shed[0] += 1
+                continue
+            y = req.result(timeout=120.0)
+            served[cls].append(((time.perf_counter() - t0) * 1e3, x, y))
+
+    def chain_trainer():
+        while not stop_train.is_set():
+            carry = trainer.put_tree(ctx["start"])
+            steps = 0
+            while steps < SERVE_CHAIN and not stop_train.is_set():
+                sliced0 = train_sess.preempt_yields
+                carry, loss = loop.chain(SERVE_CHAIN - steps, carry, *consts)
+                steps += loop.last_n
+                train["steps"] += loop.last_n
+                train["bursts"].append(loop.last_burst)
+                train["sliced_chains"] += train_sess.preempt_yields > sliced0
+                train["losses"].append((steps, float(trainer.get(loss))))
+                trainer.free(loss)
+            trainer.free(carry)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    pump = threading.Thread(target=guarded, args=(batcher.serve_loop,
+                                                  stop_pump))
+    pump.start()
+    trainer_t = None
+    if mode != "exclusive":
+        trainer_t = threading.Thread(target=guarded, args=(chain_trainer,))
+        trainer_t.start()
+    end = time.monotonic() + SERVE_RUN_S
+    senders = [threading.Thread(target=guarded,
+                                args=(send, tenant, cls, SERVE_SEED + i,
+                                      end))
+               for i, (tenant, cls) in enumerate(SERVE_TENANTS)]
+    for t in senders:
+        t.start()
+    for t in senders:
+        t.join(timeout=300.0)
+    drive_s = time.perf_counter() - t0
+    stop_train.set()
+    if trainer_t is not None:
+        trainer_t.join(timeout=300.0)
+    train_s = time.perf_counter() - t0
+    stop_pump.set()
+    pump.join(timeout=60.0)
+    launches = _counts()
+    sched.preempt = None
+    alive = [t for t in senders + [pump, trainer_t]
+             if t is not None and t.is_alive()]
+    check(not alive, f"5h {mode}: {len(alive)} threads did not finish")
+    check(not errors, f"5h {mode}: " + "\n".join(errors))
+    slicer = {k: v - slicer0[k] for k, v in proxy.slicer.stats().items()}
+    rows = [r for recs in served.values() for r in recs]
+    state = fd.state()["totals"]
+    check(state["admitted"] == state["completed"] == len(rows)
+          and state["failed"] == 0,
+          f"5h {mode}: admitted {state['admitted']}, completed "
+          f"{state['completed']}, failed {state['failed']}, answered "
+          f"{len(rows)}")
+    waits = [w * 1e3 for w in ctx["grant_waits"]]
+    out = {
+        "mode": mode, "seconds": drive_s, "shed": shed[0],
+        "completed": len(rows), "rate": len(rows) / drive_s,
+        "latency_ms": {cls: {"p50": _pct([r[0] for r in recs], 0.50),
+                             "p99": _pct([r[0] for r in recs], 0.99),
+                             "n": len(recs)}
+                       for cls, recs in served.items()},
+        "grant_wait_ms": {"p50": _pct(waits, 0.50),
+                          "p99": _pct(waits, 0.99), "n": len(waits)},
+        "batches": batcher.executions,
+        "mean_batch_rows": batcher.rows_served / max(1, batcher.executions),
+        "trainer": {"steps": train["steps"],
+                    "steps_per_sec": train["steps"] / train_s
+                    if train["steps"] else 0.0,
+                    "bursts": train["bursts"],
+                    "chains": len(train["losses"]),
+                    "sliced_chains": train["sliced_chains"],
+                    "yields": train_sess.preempt_yields - yields0},
+        "slicer": slicer, "launches": launches,
+        "policy": policy.snapshot()["stats"] if policy else None,
+        "core": sched.accounting()["core"],
+    }
+    return out, rows, train["losses"]
+
+
+def serve_phase(dev, per_step: dict, reference: list) -> dict:
+    """5h: a ``FrontDoor`` and a ``ContinuousBatcher`` over a
+    ``ProxyServable`` (tinymlp at 8 x 32, its client registered
+    ``latency``) serve four tenants on a ``ChipProxy`` whose native-core
+    scheduler also holds a best-effort trainer — the full-width LM
+    looped (5g-loop's program, chains of SERVE_CHAIN steps). Runs in
+    turn: the server alone, the trainer beside it with no policy, then
+    with a ``PreemptionPolicy``. Every run: every admitted request
+    answered with the plain ``tinymlp.apply``'s rows, no yield in the
+    middle of an execute, launches exactly the trainer's steps' (the
+    served program launches no kernel), the trainer's losses 5g-loop's
+    one-call losses bit for bit; preempt_on preempts and yields,
+    preempt_off does neither; the core is native."""
+    import numpy as np
+    import torch
+
+    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
+    from kubeshare_tpu_torch.isolation.client import ProxyClient
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+    from kubeshare_tpu_torch.models import common, tinymlp
+    from kubeshare_tpu_torch.serving import ProxyServable
+
+    sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS)
+    waits: list = []
+    acquire, renew = sched.acquire, sched.renew
+
+    def timed(fn):
+        # the serving session's grant waits, read per run
+        def call(name, *args, **kw):
+            t0 = time.perf_counter()
+            quota = fn(name, *args, **kw)
+            if name == SERVE_SESSION[0]:
+                waits.append(time.perf_counter() - t0)
+            return quota
+        return call
+
+    sched.acquire, sched.renew = timed(acquire), timed(renew)
+    proxy = ChipProxy(device=dev, scheduler=sched,
+                      idle_release_ms=SERVE_IDLE_RELEASE_MS)
+    proxy.serve()
+    server = ProxyClient("127.0.0.1", proxy.port, SERVE_SESSION[0],
+                         SERVE_SESSION[1], 1.0, tpu_class="latency")
+    trainer = ProxyClient("127.0.0.1", proxy.port, TRAIN_SESSION[0],
+                          TRAIN_SESSION[1], 1.0)
+    runs: dict = {}
+    try:
+        t0 = time.perf_counter()
+        servable = ProxyServable(server, seed=SERVE_SEED)
+        lm_loop, params, state, batch = _lm_loop()
+        consts = trainer.put_tree(batch)
+        carry = trainer.put_tree((params, state))
+        loop = trainer.compile_loop(lm_loop, carry, *consts)
+        trainer.free(carry)
+        setup_s = time.perf_counter() - t0
+        ctx = {"sched": sched, "proxy": proxy, "servable": servable,
+               "trainer": trainer, "loop": loop, "consts": consts,
+               "start": (params, state), "grant_waits": waits}
+        plain = common.to_device(servable.params, dev)
+        for mode in ("exclusive", "preempt_off", "preempt_on"):
+            out, rows, losses = _serve_run(mode, ctx)
+            x = torch.from_numpy(np.concatenate([r[1] for r in rows]))
+            y = np.concatenate([r[2] for r in rows])
+            want = tinymlp.apply(plain, x.to(dev)).cpu().numpy()
+            out["max_abs_err"] = float(np.max(np.abs(y - want)))
+            check(y.shape == want.shape and np.isfinite(y).all()
+                  and out["max_abs_err"] <= SERVE_ATOL,
+                  f"5h {mode}: served rows differ from the plain "
+                  f"tinymlp.apply by {out['max_abs_err']} (atol "
+                  f"{SERVE_ATOL})")
+            check(out["slicer"]["mid_execute_yields"] == 0,
+                  f"5h {mode}: yields in the middle of an execute: "
+                  f"{out['slicer']}")
+            steps = out["trainer"]["steps"]
+            want_launches = {k: n * steps for k, n in per_step.items()}
+            check(out["launches"] == want_launches,
+                  f"5h {mode}: launches {out['launches']}, expected "
+                  f"{want_launches} for {steps} trainer steps")
+            for n, got in losses:
+                check(got == reference[n - 1],
+                      f"5h {mode}: the trainer's loss after {n} steps {got} "
+                      f"is not the undisturbed loop's {reference[n - 1]}")
+            check(out["core"] == "native", f"5h {mode}: core {out['core']}")
+            if mode == "exclusive":
+                check(steps == 0, f"5h exclusive: the trainer ran {steps}")
+            else:
+                check(steps > 0 and losses,
+                      f"5h {mode}: the trainer made no step")
+            if mode == "preempt_on":
+                # a marked hold yields at a boundary the slicer finds, at
+                # a spent quota's renew or by the idle release: the
+                # policy counts each; the slicer only the first kind
+                pol = out["policy"]
+                check(pol["preemptions"] >= 1 and pol["yields"] >= 1,
+                      f"5h preempt_on: preemptions {pol['preemptions']}, "
+                      f"yields {pol['yields']}, slicer {out['slicer']}")
+            else:
+                check(out["slicer"]["yields"] == 0
+                      and out["trainer"]["yields"] == 0,
+                      f"5h {mode}: yields without a policy: "
+                      f"{out['slicer']}")
+            out["checked_losses"] = len(losses)
+            runs[mode] = out
+    finally:
+        trainer.close()
+        server.close()
+        proxy.close()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in per_step}
+    return {"runs": runs, "setup_s": setup_s, "launches": launches,
+            "compile": trainer.last_compile}
+
+
+def _fmt_serve_run(r: dict) -> str:
+    lat = "; ".join(f"{cls} p50 {v['p50']:.3f} p99 {v['p99']:.3f} ms "
+                    f"({v['n']})" for cls, v in r["latency_ms"].items())
+    tr = r["trainer"]
+    line = (f"5h {r['mode']}: {r['rate']:.1f} requests/s achieved "
+            f"({r['completed']} in {r['seconds']:.2f} s, shed {r['shed']}, "
+            f"{r['batches']} batches of {r['mean_batch_rows']:.2f} rows); "
+            f"latency {lat}; the serving session's grant wait p50 "
+            f"{r['grant_wait_ms']['p50']:.3f} p99 "
+            f"{r['grant_wait_ms']['p99']:.3f} ms "
+            f"({r['grant_wait_ms']['n']}); trainer {tr['steps']} steps, "
+            f"{tr['steps_per_sec']:.3f} steps/s, {tr['chains']} chains "
+            f"({tr['sliced_chains']} sliced), bursts {tr['bursts']}; slicer "
+            f"{r['slicer']}; core {r['core']}; max abs err "
+            f"{r['max_abs_err']:.3g}; launches {r['launches']}")
+    if r["policy"] is not None:
+        p = r["policy"]
+        line += (f"; policy: preemptions {p['preemptions']}, yields "
+                 f"{p['yields']}, reclaimed {p['reclaimed_ms']} ms, boost "
+                 f"grants {p['boost_grants']}, credits repaid "
+                 f"{p['credits_repaid']}")
+    return line
 
 
 def main(argv=None) -> int:
@@ -2247,6 +2565,22 @@ def main(argv=None) -> int:
     phases["resilience"] = {"loop": g_loop, "resume": g_res}
     for k in launches:
         launches[k] += g_loop["launches"][k] + g_res["launches"][k]
+
+    # latency-class serving beside a best-effort trainer, counted here
+    h = serve_phase(dev, per_step, g_loop["one_call_losses"])
+    log(f"5h: serving {SERVE_RATE:.0f} requests/s offered by "
+        f"{len(SERVE_TENANTS)} senders (2 latency, 2 best-effort), "
+        f"ContinuousBatcher(max_batch={SERVE_MAX_BATCH}, max_wait "
+        f"{SERVE_MAX_WAIT_S * 1e3:.0f} ms) over a ProxyServable (tinymlp "
+        f"8 x 32, latency); trainer: the full-width LM in chains of "
+        f"{SERVE_CHAIN} steps (best-effort); policy grace "
+        f"{PREEMPT_GRACE_MS} ms, min hold {PREEMPT_MIN_HOLD_MS} ms; set-up "
+        f"{h['setup_s']:.2f} s")
+    for r in h["runs"].values():
+        log(_fmt_serve_run(r))
+    phases["serving"] = h
+    for k in launches:
+        launches[k] += h["launches"][k]
     out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -12,7 +12,9 @@ card through the device-owning :class:`~.isolation.proxy.ChipProxy` and the
 per-device :class:`~.isolation.tokensched.TokenScheduler`. The optimizer
 step of every train step is a hand-written CUDA kernel
 (``csrc/fused_adam.cu``), the counterpart of the Pallas kernel in
-``kubeshare_tpu/ops/fused_adam.py``.
+``kubeshare_tpu/ops/fused_adam.py``. Beside them, the serving plane
+(:mod:`.serving`) answers latency-class tenants, whose waits preempt a
+best-effort trainer at its next program boundary (:mod:`.preempt`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card they raise rather than fall back to the CPU.

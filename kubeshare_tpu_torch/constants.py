@@ -7,6 +7,14 @@ unchanged; they keep their ``TPU`` spelling until the port has a control
 plane of its own.
 """
 
+DOMAIN = "sharedtpu/"
+
+# Workload class for priority isolation: a "latency" request waiting
+# behind a "best-effort" holder preempts it (preempt/). Absent =
+# best-effort.
+POD_CLASS = DOMAIN + "class"
+TPU_CLASSES = ("latency", "best-effort")
+
 # --- environment contract into the workload container -----------------------
 # (≙ NVIDIA_VISIBLE_DEVICES / POD_MANAGER_PORT / POD_NAME injection,
 # pod.go:435-457). The chip grant: global chip ids whose trailing field is

@@ -244,13 +244,18 @@ class ProxyClient:
     def __init__(self, host: str, port: int, name: str, request: float,
                  limit: float, memory: int = 0,
                  timeout: float | None = None, chunk_bytes: int = 64 << 20,
-                 reconnect="auto", fault_tag: str = ""):
+                 reconnect="auto", fault_tag: str = "",
+                 tpu_class: str = "best-effort"):
         self.name = name
         #: transfer slab of put/get: larger arrays cross in windowed
         #: slices, so a buffer may exceed the wire's frame cap
         self.chunk_bytes = chunk_bytes
         register = {"op": "register", "name": name, "request": request,
                     "limit": limit, "memory": memory}
+        if tpu_class != "best-effort":
+            # sent only when not the default, so the wire to a proxy that
+            # keeps no classes is unchanged
+            register["class"] = tpu_class
         if reconnect is None:
             # the lockstep client: no features asked, so the proxy grants
             # none and answers as it always has

@@ -35,8 +35,16 @@ run twice — a port step updates its parameters in place. With a journal
 directory every such session is mirrored on disk
 (:mod:`..resilience.journal`) and a restarted proxy brings it back; the
 admin ops move it to another proxy (:mod:`..resilience.migrate`).
-``"seq"`` pipelines the connection. Not ported: preemption slicing (the
-``"preempt"`` feature is not granted), remote write, the obs hooks.
+``"seq"`` pipelines the connection.
+
+Each session has a workload class (``"class"`` at register, kept by the
+journal and a migration). With a preemption policy on the scheduler, a
+latency session waiting behind a best-effort holder marks it preempted,
+and the holder yields the token at its next program boundary — between
+two bursts of a chain, never in the middle of one (:class:`~kubeshare_
+tpu_torch.preempt.BoundarySlicer`); a chain's reply counts its slices
+(``"sliced"``) for a peer that negotiated ``"preempt"``. Not ported:
+remote write, the obs hooks.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..preempt.slicer import BoundarySlicer
 from ..resilience import faults as _faults
 from ..resilience.journal import SessionJournal, valid_token
 from ..utils.device import resolve_device, synchronize
@@ -76,9 +85,8 @@ IDLE_RELEASE_MS = 50.0
 #: reclaims it; a client's reconnect budget must fit inside
 DETACH_GRACE_MS = 30_000.0
 
-#: the transport features this proxy serves ("preempt" needs the token
-#: server's preemption ops, not ported)
-SERVED_FEATURES = ("resume", "seq")
+#: the transport features this proxy serves
+SERVED_FEATURES = ("preempt", "resume", "seq")
 
 #: how long a resume waits for a migration of its session to end before
 #: it is refused (retryable): under the client's 2 s dial timeout, so a
@@ -184,6 +192,7 @@ class _Session:
     request: float
     limit: float
     memory_cap: int               # bytes; 0 = uncapped
+    tpu_class: str = "best-effort"
     buffers: dict = field(default_factory=dict)
     #: storage key -> [bytes, handles on it]: the charge of each storage
     storages: dict = field(default_factory=dict)
@@ -199,6 +208,8 @@ class _Session:
     last_end_ms: float = 0.0
     exec_count: int = 0
     exec_ms_total: float = 0.0
+    #: yields of a hold marked preempted, at a program boundary
+    preempt_yields: int = 0
     # chunked transfers: one serialized buffer served in slices, as
     # (handle, parts, total bytes); staged uploads as sid -> (total,
     # bytearray, bytes reserved at begin)
@@ -309,6 +320,10 @@ class ChipProxy:
         self.device = resolve_device(device)
         self.platform = self.device.type
         self.scheduler = scheduler if scheduler is not None else TokenScheduler()
+        # program-boundary slicing: between gated bursts the proxy asks
+        # whether the hold was preempted and yields by renew, never in
+        # the middle of an execute (the slicer refuses then, and counts)
+        self.slicer = BoundarySlicer(self.scheduler)
         self.idle_release_ms = idle_release_ms
         self.detach_grace_ms = detach_grace_ms
         self.journal = SessionJournal(journal_dir)
@@ -419,12 +434,13 @@ class ChipProxy:
     # -- sessions ------------------------------------------------------------
 
     def _register(self, name: str, request: float, limit: float,
-                  memory: int) -> _Session:
+                  memory: int, tpu_class: str) -> _Session:
         with self._slock:
             if name in self._sessions:
                 raise ValueError(f"duplicate client {name}")
-            self.scheduler.add_client(name, request, limit)
-            sess = _Session(name, request, limit, memory)
+            self.scheduler.add_client(name, request, limit,
+                                      tpu_class=tpu_class)
+            sess = _Session(name, request, limit, memory, tpu_class)
             self._sessions[name] = sess
             return sess
 
@@ -583,7 +599,7 @@ class ChipProxy:
             progs.append(entry)
         return {"token": sess.resume_token, "name": sess.name,
                 "request": sess.request, "limit": sess.limit,
-                "memory": sess.memory_cap,
+                "memory": sess.memory_cap, "class": sess.tpu_class,
                 "features": sorted(sess.features),
                 "next_id": sess.next_id, "last_rid": sess.last_rid,
                 "buffers": buffers, "programs": progs,
@@ -686,7 +702,8 @@ class ChipProxy:
         """A parked session from a manifest (journal or migration), not
         yet known to the scheduler."""
         sess = _Session(str(m["name"]), float(m["request"]),
-                        float(m["limit"]), int(m.get("memory", 0)))
+                        float(m["limit"]), int(m.get("memory", 0)),
+                        str(m.get("class", "best-effort")))
         sess.features = frozenset(protocol.negotiate_features(
             m.get("features", ()), SERVED_FEATURES))
         sess.resume_token = str(m["token"])
@@ -709,7 +726,8 @@ class ChipProxy:
                 raise ValueError(f"session {sess.name!r} already exists")
             if sess.resume_token in self._by_token:
                 raise ValueError("resume token already present")
-            self.scheduler.add_client(sess.name, sess.request, sess.limit)
+            self.scheduler.add_client(sess.name, sess.request, sess.limit,
+                                      tpu_class=sess.tpu_class)
             self._sessions[sess.name] = sess
             self._by_token[sess.resume_token] = sess
 
@@ -726,16 +744,28 @@ class ChipProxy:
         A spent quota is *renewed* — an atomic release + re-request —
         rather than released and re-acquired, which would collapse
         request-weighted shares to round-robin. Idle clients return the
-        token through the watchdog."""
+        token through the watchdog.
+
+        A hold marked preempted (``TokenScheduler.preempted``) renews here
+        too: this gate sits at a program boundary, so the yield forfeits
+        the rest of the quantum without interrupting an execute, and the
+        scheduler's directed grants hand the token to the higher-class
+        waiter and then straight back."""
         with sess.lock:
             sess.busy = True
             holding = sess.holding
             exhausted = holding and sess.used_ms >= sess.quota_ms
             used = sess.used_ms
+        preempted = (holding and not exhausted
+                     and self.slicer.should_yield(sess.name))
         try:
             if not holding:
                 quota = self.scheduler.acquire(sess.name)
-            elif exhausted:
+            elif exhausted or preempted:
+                if preempted:
+                    self.slicer.note_yield(sess.name)
+                    with sess.lock:
+                        sess.preempt_yields += 1
                 quota = self.scheduler.renew(sess.name, used)
             else:
                 quota = None
@@ -745,10 +775,12 @@ class ChipProxy:
                     sess.quota_ms = quota
                     sess.used_ms = 0.0
             start = _now_ms()
+            self.slicer.execute_begin(sess.name)
             try:
                 return fn()
             finally:
                 end = _now_ms()
+                self.slicer.execute_end(sess.name)
                 elapsed = timing.get("exec_ms", end - start)
                 with sess.lock:
                     sess.used_ms += elapsed
@@ -888,7 +920,8 @@ class ChipProxy:
             raise RuntimeError("proxy is draining; new sessions refused")
         name = req["name"]
         sess = self._register(name, float(req["request"]), float(req["limit"]),
-                              int(req.get("memory", 0)))
+                              int(req.get("memory", 0)),
+                              str(req.get("class", "best-effort")))
         sess.disconnect = state.get("_disconnect")
         state["name"] = name
         reply = {"ok": True, "platforms": [self.platform],
@@ -1517,6 +1550,7 @@ class ChipProxy:
         consts = args[ncarry:]
         carry = list(args[:ncarry])
         versions = self._versions(sess, args)
+        yields_before = sess.preempt_yields
         steps = bursts = last_burst = 0
         outs: list = []
         while steps < total and bursts < self.MAX_CHAIN_BURSTS:
@@ -1575,8 +1609,14 @@ class ChipProxy:
             bursts += 1
         handles = self._store(sess, outs, exe.out_nbytes)
         self._journal_run(sess, args, versions, outs)
-        return {"ok": True, "handles": handles, "repeat": steps,
-                "burst": last_burst}
+        reply = {"ok": True, "handles": handles, "repeat": steps,
+                 "burst": last_burst}
+        sliced = sess.preempt_yields - yields_before
+        if sliced > 0 and "preempt" in sess.features:
+            # a key for the negotiated only: another peer's reply stays
+            # as it always was, sliced or not
+            reply["sliced"] = sliced
+        return reply
 
     def _chain_abort(self, sess: _Session, exe: _Executable,
                      consumed: list[int], bursts: int) -> None:

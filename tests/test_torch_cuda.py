@@ -690,3 +690,109 @@ def test_the_pipelined_execute_works_on_card(cuda):
     finally:
         c.close()
         p.close()
+
+
+# --- index guards, factory ops, the native core and serving on the card ------
+
+def test_an_out_of_range_index_leaves_the_proxy_running_on_card(cuda):
+    """A tenant's loaded program reads and updates with indices out of
+    range on the card: no device-side assert (which would end the proxy's
+    CUDA context for every tenant) — reads clamp or fill, updates drop —
+    and a second tenant's next step still runs, right."""
+    from kubeshare_tpu_torch.isolation.client import ProxyClient
+
+    def bad(t, i, logp, lab):
+        t = t.detach().requires_grad_(True)
+        rows = t[i]
+        nll = -torch.gather(logp, -1, lab.unsqueeze(-1)).squeeze(-1)
+        (grad,) = torch.autograd.grad(rows.sum(), t)
+        return rows, nll, grad, t.new_zeros(3, 2).index_add(0, i, rows)
+
+    p = _card_proxy(cuda)
+    a = ProxyClient("127.0.0.1", p.port, "reckless", 0.5, 1.0)
+    b = ProxyClient("127.0.0.1", p.port, "bystander", 0.5, 1.0)
+    try:
+        table = np.arange(6, dtype=np.float32).reshape(3, 2)
+        ids = np.array([1, 7, -1, -9, 300000], dtype=np.int64)
+        logp = np.log(np.full((2, 4), 0.25, dtype=np.float32))
+        labels = np.array([3, 40], dtype=np.int64)
+        exe = a.compile(bad, table, ids, logp, labels)
+        rows, nll, grad, added = a.get_tree(exe(table, ids, logp, labels))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(rows, table[[1, 2, 2, 0, 2]])
+        assert nll[0] == pytest.approx(np.log(4.0)) and np.isnan(nll[1])
+        np.testing.assert_array_equal(grad, [[0, 0], [1, 1], [1, 1]])
+        np.testing.assert_array_equal(added, [[0, 0], [2, 3], [4, 5]])
+        x = b.put(np.arange(1024, dtype=np.float32))
+        twice = b.compile(lambda t: t * 2.0, x)
+        np.testing.assert_array_equal(b.get(twice(x)),
+                                      2.0 * np.arange(1024))
+        torch.cuda.synchronize()
+        assert p._sessions["bystander"].exec_count == 1
+    finally:
+        a.close()
+        b.close()
+        p.close()
+
+
+def test_a_factory_ops_tensor_is_made_on_the_card_and_charged(cuda):
+    from kubeshare_tpu_torch.isolation.client import ProxyClient
+
+    p = _card_proxy(cuda)
+    c = ProxyClient("127.0.0.1", p.port, "factory", 0.5, 1.0)
+    try:
+        x = c.put(np.ones(4, dtype=np.float32))
+        # traced on the card: a factory with no device makes a host
+        # tensor in the trace, which the proxy's rewrite puts on its card
+        exe = c.compile(lambda t: (t * 2.0,
+                                   torch.ops.aten.full.default([256], 3.0)),
+                        x)
+        _, filled = exe(x)
+        sess = p._sessions["factory"]
+        assert sess.buffers[filled.handle].device.type == "cuda"
+        np.testing.assert_array_equal(c.get(filled), np.full(256, 3.0))
+        acct = p.hbm_accounting()["factory"]
+        assert acct["balanced"] and acct["hbm_used"] == 16 + 16 + 1024
+    finally:
+        c.close()
+        p.close()
+
+
+def test_the_native_token_core_builds_beside_the_card(cuda):
+    from kubeshare_tpu_torch.isolation.tokensched import (NativeTokenCore,
+                                                          TokenScheduler)
+
+    sched = TokenScheduler(1000.0, 100.0, 10.0)
+    assert isinstance(sched.core, NativeTokenCore)
+    assert sched.accounting()["core"] == "native"
+    sched.add_client("a", 0.5, 1.0)
+    assert sched.acquire("a") == 100.0
+    sched.release("a", 5.0)
+    sched.close()
+
+
+def test_proxy_servable_on_card_equals_the_plain_apply(cuda):
+    """Each batch is one execute of the exported tinymlp on the card; its
+    rows equal the plain ``tinymlp.apply`` on the card (fp32, atol 1e-5),
+    and it launches none of the four kernels."""
+    from kubeshare_tpu_torch.isolation.client import ProxyClient
+    from kubeshare_tpu_torch.models import tinymlp
+    from kubeshare_tpu_torch.serving import ProxyServable
+
+    p = _card_proxy(cuda)
+    c = ProxyClient("127.0.0.1", p.port, "serve", 0.5, 1.0,
+                    tpu_class="latency")
+    try:
+        servable = ProxyServable(c, seed=2)
+        params = common.to_device(servable.params, cuda)
+        x = np.random.default_rng(5).standard_normal((8, 32)).astype(
+            np.float32)
+        before = (tfa.launches, dict(tfl.launches))
+        y = servable.execute(x)
+        want = tinymlp.apply(params, torch.from_numpy(x).to(cuda))
+        np.testing.assert_allclose(y, want.cpu().numpy(), atol=1e-5, rtol=0)
+        assert (tfa.launches, dict(tfl.launches)) == before
+        assert p._sessions["serve"].tpu_class == "latency"
+    finally:
+        c.close()
+        p.close()

@@ -726,19 +726,21 @@ def test_outputs_that_alias_inputs_are_charged_once(proxy):
 
 
 def test_a_failed_run_frees_its_uploads_and_keeps_its_arguments(proxy):
-    """A program that fails on the proxy (an index out of range, which no
-    trace can see) refunds its output charge; the host tensors uploaded
-    for the call are freed, the handles passed in stay valid."""
+    """A program that fails on the proxy (a matrix that is not positive
+    definite, which no trace can see; an index out of range no longer
+    fails, it is guarded) refunds its output charge; the host tensors
+    uploaded for the call are freed, the handles passed in stay valid."""
     c = ProxyClient("127.0.0.1", proxy.port, "fails", 0.5, 1.0)
     try:
         table = c.put(np.arange(8, dtype=np.float32))
-        exe = c.compile(lambda t, i: t[i] * 2.0, table,
-                        torch.zeros(3, dtype=torch.int64))
-        ok = exe(table, torch.tensor([1, 2, 3]))
+        exe = c.compile(
+            lambda t, m: t[1:4] * 2.0 + torch.linalg.cholesky(m)[0, 1],
+            table, torch.eye(2))
+        ok = exe(table, torch.eye(2))
         np.testing.assert_array_equal(c.get(ok), [2.0, 4.0, 6.0])
         c.free(ok)
         with pytest.raises(RuntimeError, match="execution failed"):
-            exe(table, torch.tensor([1, 2, 99]))
+            exe(table, -torch.eye(2))
         sess = proxy._sessions["fails"]
         assert list(sess.buffers) == [table.handle]
         acct = proxy.hbm_accounting()["fails"]

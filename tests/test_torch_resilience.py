@@ -136,7 +136,7 @@ def _assert_params(c, params, want):
 
 def test_register_grants_resume_and_seq(proxy):
     with connect(proxy, "nego") as c:
-        assert c.features == {"resume", "seq"}      # no "preempt" yet
+        assert c.features == {"preempt", "resume", "seq"}
         assert c._conn.token and c._conn.pipelined
         x = np.arange(16, dtype=np.float32)
         np.testing.assert_array_equal(c.get(c.put(x)), x)

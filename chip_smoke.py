@@ -203,8 +203,10 @@ SERVE_RATE = 200.0
 SERVE_RUN_S = 4.0
 SERVE_TENANTS = (("smoke/lat-0", "latency"), ("smoke/lat-1", "latency"),
                  ("smoke/be-0", "best-effort"), ("smoke/be-1", "best-effort"))
-SERVE_SESSION = ("smoke/serve", 0.5)      # the ProxyServable's client
-TRAIN_SESSION = ("smoke/train", 0.5)
+# the scheduler's clients, in namespaces of their own: the ledger and the
+# blame graph name a client by its namespace ("serve", "train")
+SERVE_SESSION = ("serve/smoke", 0.5)      # the ProxyServable's client
+TRAIN_SESSION = ("train/smoke", 0.5)
 SERVE_MAX_BATCH = 8
 SERVE_MAX_WAIT_S = 0.004                  # the JAX serving bench's
 SERVE_SEED = 7
@@ -216,6 +218,28 @@ SERVE_IDLE_RELEASE_MS = 10.0
 PREEMPT_GRACE_MS = 5.0
 PREEMPT_MIN_HOLD_MS = 2.0
 SERVE_ATOL = 1e-5
+# 5h's observability: each serving tenant's SLOs, and the serving
+# session's token grant wait (recorded by the scheduler under its
+# namespace), on burn-rate windows cut to a run's 4 s, evaluated every
+# SLO_EVERY_S; a session's ledger granted-active seconds must cover this
+# share of its execution ms (the interval closes after the barrier)
+SERVE_SLO = {"latency": "serve-p99<=20ms,serve-availability>=99",
+             "best-effort": "serve-p99<=500ms,serve-availability>=99"}
+GRANT_SLO = "grant-wait-p99<=20ms"
+SLO_WINDOWS = {"fast_window_s": 2.0, "slow_window_s": 4.0,
+               "burn_threshold": 2.0, "min_samples": 3}
+SLO_EVERY_S = 0.25
+LEDGER_COVERS_EXEC = 0.95
+# acquire / execute / release cycles of a lone client timed with each of
+# the scheduler's obs hooks on alone: the hooks' host cost a grant
+HOOK_CYCLES = 2000
+#: the obs hooks a 5h run can leave off (``serve_phase(off=...)``, used
+#: by scripts/torch_serve_runs.py to time them apart; the smoke leaves
+#: none off): the scheduler's TrackedCondition (a plain Condition in its
+#: place), its ledger and blame graph, the tracer (the null tracer in its
+#: place, whose spans still reach the process flight recorder), and the
+#: SLO records (no evaluator on the front door or for the grant waits)
+SERVE_HOOKS = ("cond", "ledger", "tracer", "slo")
 
 
 def log(msg: str) -> None:
@@ -1876,7 +1900,12 @@ def resume_phase(root: str, dev, per_step: dict, reference: list) -> dict:
     from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
     from kubeshare_tpu_torch.isolation.proxy import ChipProxy
     from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+    from kubeshare_tpu_torch.obs.flight import default_recorder
+    from kubeshare_tpu_torch.obs.metrics import default_registry
     from kubeshare_tpu_torch.resilience.migrate import migrate_session
+
+    resumes = default_registry().get("kubeshare_proxy_session_resumes_total")
+    resumes0, wall0 = resumes.value(), time.time()
 
     name, seed = RESUME_TENANT
     base = tempfile.mkdtemp(prefix="kubeshare-resume-")
@@ -1988,6 +2017,27 @@ def resume_phase(root: str, dev, per_step: dict, reference: list) -> dict:
         "journal_bytes_per_step": res["journal_bytes_written"]
         / res["journaled_steps"],
         "first_losses": losses[:3]})
+    # the proxies' resume counter and the flight ring saw what the tenant
+    # saw: a resume after the crash and one after the move, and a detach
+    # when the move took the session from its connection. A proxy also
+    # counts a resume whose reply the tenant never read: a dial that
+    # waited in the backlog through the journal's recovery past the
+    # tenant's dial timeout is handled after the tenant dialed again
+    seen = rec["proxy"]["transport"]["resumes"]
+    counted = resumes.value() - resumes0
+    notes: dict = {}
+    for e in default_recorder().ring():
+        if (e["kind"] == "note" and e["t"] >= wall0
+                and e["attrs"].get("client") == name):
+            notes[e["event"]] = notes.get(e["event"], 0) + 1
+    check(seen >= 1 and counted >= seen,
+          f"5g: the resume counter rose by {counted}, the tenant resumed "
+          f"{seen} times")
+    check(notes.get("session-resumed", 0) == counted
+          and notes.get("session-detached", 0) >= 1,
+          f"5g: flight notes {notes} for {counted} resumes counted")
+    res["obs"] = {"resumes_counted": counted, "resumes_seen": seen,
+                  "notes": notes}
     return res
 
 
@@ -2006,9 +2056,17 @@ def _serve_run(mode: str, ctx: dict) -> dict:
     SERVE_RUN_S, the trainer chaining beside them unless ``mode`` is
     ``exclusive``, the preemption policy attached only in
     ``preempt_on``. Kernel counts are set to 0 just before and read just
-    after."""
+    after. The front door judges every row against its tenant's SLOs and
+    the scheduler the serving session's grant waits (a fresh evaluator
+    and flight recorder a run); each sender stamps a trace id on its
+    requests; the ledger and the blame graph, which live across the
+    runs, are read over this run's own span."""
     from kubeshare_tpu_torch.models import tinymlp
+    from kubeshare_tpu_torch.obs import slo as obs_slo
+    from kubeshare_tpu_torch.obs.flight import FlightRecorder
     from kubeshare_tpu_torch.obs.metrics import MetricsRegistry
+    from kubeshare_tpu_torch.obs.trace import (add_span_sink, new_trace_id,
+                                               remove_span_sink)
     from kubeshare_tpu_torch.preempt import PreemptionPolicy
     from kubeshare_tpu_torch.serving import (ContinuousBatcher, FrontDoor,
                                              Overloaded, ServingAccounting)
@@ -2017,17 +2075,39 @@ def _serve_run(mode: str, ctx: dict) -> dict:
 
     sched, proxy, servable = ctx["sched"], ctx["proxy"], ctx["servable"]
     trainer, loop, consts = ctx["trainer"], ctx["loop"], ctx["consts"]
+    tracer = ctx["tracer"]
     policy = (PreemptionPolicy(PREEMPT_GRACE_MS, PREEMPT_MIN_HOLD_MS)
               if mode == "preempt_on" else None)
     sched.preempt = policy
+    slo = obs_slo.SloEvaluator(**SLO_WINDOWS)
+    if "slo" not in ctx["off"]:
+        slo.declare(SERVE_SESSION[0].partition("/")[0], GRANT_SLO)
+    rec = FlightRecorder(dump_dir=os.path.join(ctx["tmp"], mode))
+
+    def on_alert(event):
+        rec.alert(event.to_dict())
+        if event.state == "firing":
+            rec.trigger("slo-alert", tenant=event.tenant,
+                        objective=event.objective)
+
+    slo.add_listener(on_alert)
+    slo_on = "slo" not in ctx["off"]
     fd = FrontDoor(max_queue=256,
-                   accounting=ServingAccounting(MetricsRegistry()))
+                   accounting=ServingAccounting(MetricsRegistry()),
+                   slo=slo if slo_on else None, recorder=rec)
     for tenant, cls in SERVE_TENANTS:
-        fd.register_tenant(tenant, tpu_class=cls)
+        fd.register_tenant(tenant, tpu_class=cls, slo_spec=SERVE_SLO[cls])
     batcher = ContinuousBatcher(fd, servable, max_batch=SERVE_MAX_BATCH,
-                                max_wait_s=SERVE_MAX_WAIT_S)
+                                max_wait_s=SERVE_MAX_WAIT_S, recorder=rec)
     train_sess = proxy._sessions[TRAIN_SESSION[0]]
     slicer0, yields0 = proxy.slicer.stats(), train_sess.preempt_yields
+    exec0 = {n: proxy._sessions[n].exec_ms_total
+             for n in (SERVE_SESSION[0], TRAIN_SESSION[0])}
+    blame = ctx["blame"]
+    edges0 = ({(e["victim"], e["blamed"], e["chip"]): e
+               for e in blame.edges()} if blame else {})
+    victims0 = blame.victims() if blame else {}
+    tracer.clear()
     ctx["grant_waits"].clear()
     errors: list = []
     served: dict = {cls: [] for _, cls in SERVE_TENANTS}   # (ms, x, y)
@@ -2035,6 +2115,7 @@ def _serve_run(mode: str, ctx: dict) -> dict:
     train = {"losses": [], "bursts": [], "steps": 0, "sliced_chains": 0}
     stop_train = threading.Event()
     stop_pump = threading.Event()
+    stop_slo = threading.Event()
 
     def guarded(fn, *args):
         try:
@@ -2053,14 +2134,22 @@ def _serve_run(mode: str, ctx: dict) -> dict:
                 time.sleep(deadline - now)
             deadline += period
             x = rng.standard_normal((1, tinymlp.FEATURES)).astype(np.float32)
-            t0 = time.perf_counter()
+            tid = new_trace_id()
+            t0, s0 = time.perf_counter(), tracer.now_ms()
             try:
-                req = fd.submit(tenant, x, tpu_class=cls)
+                req = fd.submit(tenant, x, trace_id=tid, tpu_class=cls)
             except Overloaded:
                 shed[0] += 1
                 continue
             y = req.result(timeout=120.0)
-            served[cls].append(((time.perf_counter() - t0) * 1e3, x, y))
+            tracer.record("request", tid, s0, tracer.now_ms(),
+                          tenant=tenant)
+            served[cls].append(((time.perf_counter() - t0) * 1e3, x, y,
+                                tid))
+
+    def evaluate_slo():
+        while not stop_slo.wait(SLO_EVERY_S):
+            slo.evaluate()
 
     def chain_trainer():
         while not stop_train.is_set():
@@ -2077,6 +2166,12 @@ def _serve_run(mode: str, ctx: dict) -> dict:
                 trainer.free(loss)
             trainer.free(carry)
 
+    default_slo = obs_slo.default_evaluator()
+    obs_slo.set_default_evaluator(slo)      # the scheduler's grant waits
+    add_span_sink(rec.on_span)
+    evaluator = threading.Thread(target=guarded, args=(evaluate_slo,))
+    evaluator.start()
+    span0 = time.monotonic()                # the ledger's clock
     _reset_counts()
     t0 = time.perf_counter()
     pump = threading.Thread(target=guarded, args=(batcher.serve_loop,
@@ -2103,8 +2198,13 @@ def _serve_run(mode: str, ctx: dict) -> dict:
     stop_pump.set()
     pump.join(timeout=60.0)
     launches = _counts()
+    span1 = time.monotonic()
+    stop_slo.set()
+    evaluator.join(timeout=60.0)
+    remove_span_sink(rec.on_span)
+    obs_slo.set_default_evaluator(default_slo)
     sched.preempt = None
-    alive = [t for t in senders + [pump, trainer_t]
+    alive = [t for t in senders + [pump, trainer_t, evaluator]
              if t is not None and t.is_alive()]
     check(not alive, f"5h {mode}: {len(alive)} threads did not finish")
     check(not errors, f"5h {mode}: " + "\n".join(errors))
@@ -2138,11 +2238,134 @@ def _serve_run(mode: str, ctx: dict) -> dict:
         "slicer": slicer, "launches": launches,
         "policy": policy.snapshot()["stats"] if policy else None,
         "core": sched.accounting()["core"],
+        "cost_ms": dict(vars(ctx["loop_cost"])),
     }
+    out["obs"] = None
+    if not ctx["off"]:
+        slo.evaluate()
+        rec.trigger("run-end", mode=mode)
+        out["obs"] = _serve_obs(mode, ctx, (span0, span1), exec0, edges0,
+                                victims0, slo, rec,
+                                [r[3] for r in served["latency"]])
     return out, rows, train["losses"]
 
 
-def serve_phase(dev, per_step: dict, reference: list) -> dict:
+def _blame_delta(edges0: dict, edges1: list) -> list:
+    """The blame edges a run added: each edge less its value before."""
+    out = []
+    for e in edges1:
+        b = edges0.get((e["victim"], e["blamed"], e["chip"]))
+        d = {k: e[k] - (b[k] if b else 0) for k in ("wait_s", "preempted_s",
+                                                   "count")}
+        if d["count"] <= 0:
+            continue
+        kind = ("migration" if e["kind"] == "migration" else "preempted"
+                if d["preempted_s"] > 0.0 else "hold")
+        out.append(dict(d, victim=e["victim"], blamed=e["blamed"],
+                        kind=kind))
+    return sorted(out, key=lambda d: -d["wait_s"])
+
+
+def _serve_obs(mode: str, ctx: dict, span: tuple, exec0: dict,
+               edges0: dict, victims0: dict, slo, rec,
+               latency_tids: list) -> dict:
+    """5h's observability reading of one run, checked: the chip-time
+    ledger over the run's span (sound, and covering each session's
+    execution ms), the blame edges the run added, the SLO alerts, the
+    flight dumps and critpath's split of the latency-class row at p99."""
+    from kubeshare_tpu_torch.obs import critpath
+    from kubeshare_tpu_torch.obs.flight import parse_dump_jsonl
+
+    ledger, blame, proxy = ctx["ledger"], ctx["blame"], ctx["proxy"]
+    chip = ctx["sched"].chip
+    problems = ledger.check()
+    check(not problems, f"5h {mode}: the ledger is not sound: {problems}")
+    by_state: dict = {}
+    preempted: dict = {}
+    for row in ledger.account(chip, *span):
+        key = f"{row['tenant'] or '-'}:{row['state']}"
+        by_state[key] = by_state.get(key, 0.0) + row["overlap_s"]
+        if row["preempted"]:
+            preempted[row["tenant"]] = (preempted.get(row["tenant"], 0.0)
+                                        + row["overlap_s"])
+    active_vs_exec = {}
+    for name in (SERVE_SESSION[0], TRAIN_SESSION[0]):
+        tenant = name.partition("/")[0]
+        active = by_state.get(f"{tenant}:granted-active", 0.0)
+        exec_s = (proxy._sessions[name].exec_ms_total - exec0[name]) / 1e3
+        active_vs_exec[name] = [active, exec_s]
+        check(active >= LEDGER_COVERS_EXEC * exec_s,
+              f"5h {mode}: {name}'s ledger granted-active {active:.4f} s "
+              f"is under {LEDGER_COVERS_EXEC} x its execution "
+              f"{exec_s:.4f} s: the interval closes before the barrier")
+    server = SERVE_SESSION[0].partition("/")[0]
+    trainer = TRAIN_SESSION[0].partition("/")[0]
+    edges = [e for e in _blame_delta(edges0, blame.edges())
+             if e["victim"] == server]
+    blamed = sum(e["wait_s"] for e in edges)
+    waits = sum(ctx["grant_waits"])
+    vic0 = victims0.get(server, {})
+    vic1 = blame.victims().get(server, {})
+    waited = vic1.get("waited_s", 0.0) - vic0.get("waited_s", 0.0)
+    check(blamed <= waits + 1e-6,
+          f"5h {mode}: blame names {blamed:.6f} s of the server's waits, "
+          f"more than the {waits:.6f} s it waited")
+    on_trainer = [e for e in edges if e["blamed"] == trainer]
+    if mode == "exclusive":
+        check(not on_trainer,
+              f"5h exclusive: the server's waits blame the trainer: "
+              f"{on_trainer}")
+    if mode == "preempt_on":
+        check(any(e["kind"] == "preempted" for e in on_trainer),
+              f"5h preempt_on: no preempted edge names the trainer: "
+              f"{edges}")
+    dumps = rec.dumps()
+    last = dumps[-1]
+    with open(last["path"]) as f:
+        back = parse_dump_jsonl(f.read())
+    check(back["reason"] == last["reason"] and back["seq"] == last["seq"]
+          and back["entries"] == json.loads(json.dumps(last["entries"])),
+          f"5h {mode}: the last flight dump does not read back")
+    path = os.path.join(ctx["tmp"], f"spans-{mode}.jsonl")
+    ctx["tracer"].export_jsonl(path)
+    rows = [r for r in critpath.load_spans([path])
+            if r["name"] != "serve-batch"]
+    # a batch's put, execute and get carry its head request's trace: the
+    # head rows have the proxy's spans (serve-batch envelops them all)
+    heads = {r["trace_id"] for r in rows if r["name"] == "execute"}
+    wanted = heads & set(latency_tids)
+    traces = [t for t in critpath.assemble(rows)
+              if t["trace_id"] in wanted]
+    crit = {"rows": len(traces)}
+    if traces:
+        by_wall = sorted(traces, key=lambda t: t["wall_ms"])
+        p99 = by_wall[min(len(by_wall) - 1,
+                          max(0, math.ceil(0.99 * len(by_wall)) - 1))]
+        rep = critpath.report(traces)
+        crit.update(p99={k: p99[k] for k in ("wall_ms", "segments",
+                                             "coverage", "residual_ms")},
+                    coverage_mean=rep["coverage_mean"],
+                    segments_p50={k: v["p50_ms"]
+                                  for k, v in rep["segments"].items()},
+                    wall_p50_ms=rep["wall_p50_ms"])
+        check(sum(p99["segments"].values()) <= p99["wall_ms"] * 1.01,
+              f"5h {mode}: critpath counts past the row's wall: {p99}")
+    return {
+        "ledger_s": by_state, "preempted_s": preempted,
+        "ledger_check": problems, "active_vs_exec_s": active_vs_exec,
+        "blame": edges, "blame_total_s": blamed, "grant_waits_s": waits,
+        "blame_waited_s": waited,
+        "slo_alerts": [e.to_dict() for e in slo.events()],
+        "slo_firing": ["%s:%s" % f for f in slo.firing()],
+        "flight_dumps": len(dumps),
+        "last_dump": {"reason": back["reason"],
+                      "entries": len(back["entries"])},
+        "critpath": crit,
+    }
+
+
+def serve_phase(dev, per_step: dict, reference: list,
+                off: tuple = ()) -> dict:
     """5h: a ``FrontDoor`` and a ``ContinuousBatcher`` over a
     ``ProxyServable`` (tinymlp at 8 x 32, its client registered
     ``latency``) serve four tenants on a ``ChipProxy`` whose native-core
@@ -2154,7 +2377,8 @@ def serve_phase(dev, per_step: dict, reference: list) -> dict:
     middle of an execute, launches exactly the trainer's steps' (the
     served program launches no kernel), the trainer's losses 5g-loop's
     one-call losses bit for bit; preempt_on preempts and yields,
-    preempt_off does neither; the core is native."""
+    preempt_off does neither; the core is native. ``off`` names hooks of
+    SERVE_HOOKS to leave off; a run with any off skips the obs reading."""
     import numpy as np
     import torch
 
@@ -2163,9 +2387,26 @@ def serve_phase(dev, per_step: dict, reference: list) -> dict:
     from kubeshare_tpu_torch.isolation.proxy import ChipProxy
     from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
     from kubeshare_tpu_torch.models import common, tinymlp
+    from kubeshare_tpu_torch.obs.blame import BlameGraph
+    from kubeshare_tpu_torch.obs.ledger import ChipTimeLedger
+    from kubeshare_tpu_torch.obs.trace import (Tracer, get_tracer,
+                                               install_tracer,
+                                               uninstall_tracer)
     from kubeshare_tpu_torch.serving import ProxyServable
+    from kubeshare_tpu_torch.topology.discovery import device_chip_id
 
-    sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS)
+    check(set(off) <= set(SERVE_HOOKS), f"5h: unknown hooks {off}")
+    hook_us = _hook_cost_us()
+    ledger = None if "ledger" in off else ChipTimeLedger()
+    blame = None if "ledger" in off else BlameGraph(ledger)
+    sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS,
+                           chip=device_chip_id(dev), ledger=ledger,
+                           blame=blame)
+    if "cond" in off:
+        sched._cond = threading.Condition()
+    tracer = (get_tracer() if "tracer" in off
+              else install_tracer(Tracer(capacity=500_000)))
+    tmp = tempfile.mkdtemp(prefix="kubeshare-serve-")
     waits: list = []
     acquire, renew = sched.acquire, sched.renew
 
@@ -2197,9 +2438,15 @@ def serve_phase(dev, per_step: dict, reference: list) -> dict:
         loop = trainer.compile_loop(lm_loop, carry, *consts)
         trainer.free(carry)
         setup_s = time.perf_counter() - t0
+        # the trainer's burst cost model, read after each run: its
+        # per-step ms sets the burst (window / 4 over it, bucketed)
+        loop_cost = proxy._sessions[TRAIN_SESSION[0]].executables[
+            loop._exec_id].cost
         ctx = {"sched": sched, "proxy": proxy, "servable": servable,
                "trainer": trainer, "loop": loop, "consts": consts,
-               "start": (params, state), "grant_waits": waits}
+               "start": (params, state), "grant_waits": waits,
+               "ledger": ledger, "blame": blame, "tracer": tracer,
+               "tmp": tmp, "off": tuple(off), "loop_cost": loop_cost}
         plain = common.to_device(servable.params, dev)
         for mode in ("exclusive", "preempt_off", "preempt_on"):
             out, rows, losses = _serve_run(mode, ctx)
@@ -2249,10 +2496,71 @@ def serve_phase(dev, per_step: dict, reference: list) -> dict:
         trainer.close()
         server.close()
         proxy.close()
+        uninstall_tracer()
+        shutil.rmtree(tmp, ignore_errors=True)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in per_step}
     return {"runs": runs, "setup_s": setup_s, "launches": launches,
-            "compile": trainer.last_compile}
+            "compile": trainer.last_compile, "hook_us": hook_us}
+
+
+def _hook_cost_us() -> dict:
+    """Microseconds of host time an acquire / execute begin, end /
+    release cycle of a lone client takes: ``plain`` with a plain
+    Condition in place of the scheduler's TrackedCondition and no other
+    hook, ``cond`` with the TrackedCondition, then that with each of the
+    ledger and blame graph, a tracer (and a trace id on the acquire) and
+    a declared grant-wait SLO, and ``all`` with every one. The
+    grant-wait, hold and utilisation families and the flight deltas run
+    in every kind. The least of two turns."""
+    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+    from kubeshare_tpu_torch.obs import slo as obs_slo
+    from kubeshare_tpu_torch.obs.blame import BlameGraph
+    from kubeshare_tpu_torch.obs.ledger import ChipTimeLedger
+    from kubeshare_tpu_torch.obs.trace import (Tracer, install_tracer,
+                                               uninstall_tracer)
+
+    kinds = {"plain": (), "cond": ("cond",),
+             "ledger": ("cond", "ledger"), "tracer": ("cond", "tracer"),
+             "slo": ("cond", "slo"), "all": ("cond",) + SERVE_HOOKS[1:]}
+    out = {}
+    default_slo = obs_slo.default_evaluator()
+    try:
+        for kind in list(kinds) * 2:
+            on = kinds[kind]
+            ledger = ChipTimeLedger() if "ledger" in on else None
+            sched = TokenScheduler(
+                WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS, chip="hook-cost",
+                ledger=ledger, blame=BlameGraph(ledger) if ledger else None)
+            if "cond" not in on:
+                sched._cond = threading.Condition()
+            tid = "hook-cost" if "tracer" in on else ""
+            if tid:
+                install_tracer(Tracer())
+            slo = obs_slo.SloEvaluator(**SLO_WINDOWS)
+            if "slo" in on:
+                slo.declare("hook", GRANT_SLO)
+            obs_slo.set_default_evaluator(slo)
+            sched.add_client("hook/cost", 0.5, 1.0)
+            t0 = time.perf_counter()
+            for _ in range(HOOK_CYCLES):
+                sched.acquire("hook/cost", trace_id=tid)
+                sched.execute_begin()
+                sched.execute_end()
+                sched.release("hook/cost", 0.001)
+            us = (time.perf_counter() - t0) / HOOK_CYCLES * 1e6
+            out[kind] = min(out.get(kind, us), us)
+            sched.close()
+            uninstall_tracer()
+    finally:
+        obs_slo.set_default_evaluator(default_slo)
+    return out
+
+
+def _fmt_serve_obs(r: dict) -> str:
+    """5h's observability line of one run: one JSON object."""
+    return f"5h {r['mode']} obs: " + json.dumps(r["obs"], sort_keys=True)
 
 
 def _fmt_serve_run(r: dict) -> str:
@@ -2269,7 +2577,10 @@ def _fmt_serve_run(r: dict) -> str:
             f"{tr['steps_per_sec']:.3f} steps/s, {tr['chains']} chains "
             f"({tr['sliced_chains']} sliced), bursts {tr['bursts']}; slicer "
             f"{r['slicer']}; core {r['core']}; max abs err "
-            f"{r['max_abs_err']:.3g}; launches {r['launches']}")
+            f"{r['max_abs_err']:.3g}; launches {r['launches']}; the "
+            f"trainer's cost model after the run: step "
+            f"{r['cost_ms']['step_ms']:.3f} ms, in-burst step "
+            f"{r['cost_ms']['loop_step_ms']:.3f} ms")
     if r["policy"] is not None:
         p = r["policy"]
         line += (f"; policy: preemptions {p['preemptions']}, yields "
@@ -2554,7 +2865,9 @@ def main(argv=None) -> int:
         f"{g_res['restore_s']:.3f} s); tenant resumes "
         f"{g_res['transport']['resumes']}, requests replayed "
         f"{g_res['transport']['replayed']}, answered from the reply cache "
-        f"{g_res['replays_served']}")
+        f"{g_res['replays_served']}; the proxies' resume counter rose by "
+        f"{g_res['obs']['resumes_counted']}, flight notes "
+        f"{g_res['obs']['notes']}")
     log(f"5g-migrate: {g_res['migrate_bytes']} bytes moved in "
         f"{g_res['migrate_s']:.3f} s, move to the first step after it "
         f"{g_res['move_to_first_step_s']:.3f} s; unjournaled "
@@ -2578,6 +2891,10 @@ def main(argv=None) -> int:
         f"{h['setup_s']:.2f} s")
     for r in h["runs"].values():
         log(_fmt_serve_run(r))
+        log(_fmt_serve_obs(r))
+    log("5h: the scheduler's hooks, host us an acquire / execute / "
+        "release cycle of a lone client: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in h["hook_us"].items()))
     phases["serving"] = h
     for k in launches:
         launches[k] += h["launches"][k]

@@ -14,7 +14,10 @@ step of every train step is a hand-written CUDA kernel
 (``csrc/fused_adam.cu``), the counterpart of the Pallas kernel in
 ``kubeshare_tpu/ops/fused_adam.py``. Beside them, the serving plane
 (:mod:`.serving`) answers latency-class tenants, whose waits preempt a
-best-effort trainer at its next program boundary (:mod:`.preempt`).
+best-effort trainer at its next program boundary (:mod:`.preempt`), and
+the observability plane (:mod:`.obs`) accounts the device's time to its
+tenants, names who held it while a grant waited, judges SLOs and carries
+trace ids across the wire.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card they raise rather than fall back to the CPU.

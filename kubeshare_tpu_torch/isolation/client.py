@@ -20,6 +20,12 @@ Counterpart of ``kubeshare_tpu/isolation/client.py``:
   the card itself (gate-mode attach, :mod:`kubeshare_tpu_torch.attach`):
   the gate passes a token round trip with the pod manager before work,
   the cap holds the process to its memory grant.
+
+A ``trace_id`` given to either rides every request (the wire's
+``_trace``), so the server's ``token-grant`` and ``execute`` spans join
+the caller's trace; a traced client records each execute's round trip as
+a ``transport`` span. A windowed put or get that blocks on its oldest
+chunk counts a window stall.
 """
 
 from __future__ import annotations
@@ -32,12 +38,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..utils.logger import get_logger
 from ..utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import protocol
 from .protocol import load_array
 
 log = get_logger("client")
+
+_WINDOW_STALLS = obs_metrics.default_registry().counter(
+    "kubeshare_client_window_stalls_total",
+    "Times a windowed put/get stream had to block on its oldest in-flight "
+    "chunk before submitting the next (transfer credit exhausted — the "
+    "wire or the peer is the bottleneck, not this client).", labels=("op",))
 
 
 @dataclass(frozen=True)
@@ -235,7 +249,8 @@ class ProxyClient:
     client of earlier releases: it negotiates nothing (the reference's
     legacy transport still asks for ``"seq"``), failures surface at once
     and a dropped connection frees the session. ``fault_tag`` names the
-    connection for the fault injector."""
+    connection for the fault injector; ``trace_id`` rides every request
+    of the session, across reconnects."""
 
     #: frees sent without waiting that may be outstanding before the
     #: oldest one is waited for
@@ -245,7 +260,7 @@ class ProxyClient:
                  limit: float, memory: int = 0,
                  timeout: float | None = None, chunk_bytes: int = 64 << 20,
                  reconnect="auto", fault_tag: str = "",
-                 tpu_class: str = "best-effort"):
+                 tpu_class: str = "best-effort", trace_id: str = ""):
         self.name = name
         #: transfer slab of put/get: larger arrays cross in windowed
         #: slices, so a buffer may exceed the wire's frame cap
@@ -260,6 +275,7 @@ class ProxyClient:
             # the lockstep client: no features asked, so the proxy grants
             # none and answers as it always has
             self._conn = protocol.Connection(host, port, timeout=timeout,
+                                             trace_id=trace_id,
                                              fault_tag=fault_tag)
             reply, _ = self._conn.call(register)
         else:
@@ -269,7 +285,8 @@ class ProxyClient:
                       else None)
             self._conn = ResilientConnection(host, port, timeout=timeout,
                                              policy=policy,
-                                             fault_tag=fault_tag)
+                                             fault_tag=fault_tag,
+                                             trace_id=trace_id)
             reply = self._conn.open(dict(register,
                                          features=list(protocol.FEATURES)))
         self.platforms: list[str] = reply["platforms"]
@@ -331,7 +348,10 @@ class ProxyClient:
                     conn.call(msg, blob=blob)
                     continue
                 if len(pending) >= self._window(chunk):
-                    pending.popleft().result()
+                    head = pending.popleft()
+                    if not head.done():
+                        _WINDOW_STALLS.inc("put")
+                    head.result()
                 pending.append(conn.submit(msg, blob=blob))
             while pending:
                 pending.popleft().result()
@@ -403,6 +423,8 @@ class ProxyClient:
                 off += length
             if pending:
                 doff, dlen, rep = pending.popleft()
+                if not rep.done():
+                    _WINDOW_STALLS.inc("get")
                 landed(doff, dlen, rep.result()[1])
         return load_array(mv[:total])
 
@@ -535,11 +557,29 @@ class ProxyClient:
 
     def _dispatch(self, msg: dict, unwrap) -> RemoteFuture:
         """Send an execute; the future resolves to ``unwrap(reply)``. On a
-        lockstep connection it is resolved (or raises) here."""
+        lockstep connection it is resolved (or raises) here. A traced
+        session records the round trip as a ``transport`` span (critpath
+        subtracts the proxy's own ``execute`` span from it)."""
+        tid = getattr(self._conn, "trace_id", "")
+        tracer = obs_trace.get_tracer() if tid else None
+        t0 = tracer.now_ms() if tracer is not None else 0.0
+
+        def transport_span():
+            if tracer is not None:
+                tracer.record("transport", tid, t0, tracer.now_ms(),
+                              proc="client", op="execute")
+
         if self._conn.pipelined:
             rep = self._conn.submit(msg)
-            return RemoteFuture(lambda: unwrap(rep.result()[0]), rep)
+
+            def resolve():
+                reply = rep.result()[0]
+                transport_span()
+                return unwrap(reply)
+
+            return RemoteFuture(resolve, rep)
         reply, _ = self._conn.call(msg)
+        transport_span()
         return RemoteFuture(lambda: unwrap(reply))
 
     def execute_async(self, exec_id: int, handles: list[int]
@@ -567,6 +607,16 @@ class ProxyClient:
         return {"features": sorted(self.features),
                 "resumes": getattr(self._conn, "resumes", 0),
                 "replayed": getattr(self._conn, "replayed", 0)}
+
+    @property
+    def trace_id(self) -> str:
+        """The trace id every request of this session carries (``""``:
+        none); settable, the next request carries the new one."""
+        return self._conn.trace_id
+
+    @trace_id.setter
+    def trace_id(self, trace_id: str) -> None:
+        self._conn.trace_id = trace_id
 
     def set_endpoint(self, host: str, port: int) -> None:
         """Point later reconnects at another proxy (the migration flip).
@@ -844,9 +894,12 @@ class ExecutionGate:
 
     @classmethod
     def connect(cls, host: str, port: int, name: str, request: float,
-                limit: float, barrier=device_barrier) -> "ExecutionGate":
-        """Dial a pod manager (or a token scheduler) and register."""
-        conn = protocol.Connection(host, port)
+                limit: float, barrier=device_barrier,
+                trace_id: str = "") -> "ExecutionGate":
+        """Dial a pod manager (or a token scheduler) and register.
+        ``trace_id`` rides every message, so the server's ``token-grant``
+        spans join the caller's trace."""
+        conn = protocol.Connection(host, port, trace_id=trace_id)
         conn.call({"op": "register", "name": name, "request": request,
                    "limit": limit})
         return cls(conn, name, barrier)

@@ -1,7 +1,6 @@
 """Framed-JSON socket protocol of the isolation runtime.
 
-A copy of ``kubeshare_tpu/isolation/protocol.py``'s wire without its
-metrics: every message is a 4-byte big-endian length followed by a UTF-8
+A copy of ``kubeshare_tpu/isolation/protocol.py``'s wire: every message is a 4-byte big-endian length followed by a UTF-8
 JSON object, and a binary payload (an array crossing the proxy boundary)
 rides as raw bytes after the JSON, announced by ``_blob`` (its byte
 length).
@@ -15,6 +14,12 @@ Two transport modes, as in the JAX package:
   at once, and a reader thread resolves each reply to its
   :class:`PendingReply`. A server speaks both: a request with ``_seq``
   gets a ``_seq``-tagged reply, one without gets the untagged reply.
+
+A connection made with a ``trace_id`` stamps it on every request under
+``_trace``; the server strips it into ``state["trace_id"]`` before the
+handler runs, on both modes, so server-side spans join the client's trace.
+The servers record the JAX wire's three families: requests in flight,
+dispatch-queue wait and handler busy time per op.
 
 The frame bytes are frozen: ``json.dumps`` with its default separators, so
 replies read ``"ok": true`` with the space that the JAX package's native
@@ -34,11 +39,17 @@ import time
 
 import numpy as np
 
+from ..obs import metrics as _obs_metrics
 from ..resilience import faults as _faults
 
 _HDR = struct.Struct(">I")
 MAX_FRAME = 1 << 30
 
+#: reserved key carrying the sender's trace id (``obs/trace.py``): stamped
+#: by a :class:`Connection` made with ``trace_id``, stripped server-side
+#: into ``state["trace_id"]`` before dispatch, so a handler's spans join
+#: the sender's trace
+TRACE_KEY = "_trace"
 #: reserved key tagging a request/reply pair on a pipelined connection:
 #: assigned by the client, echoed by the server, never part of an op
 SEQ_KEY = "_seq"
@@ -57,6 +68,21 @@ FEATURES = ("resume", "seq", "preempt")
 #: yet replied to. A client that streams faster than the handler drains
 #: meets TCP backpressure instead of growing the server's memory.
 SERVER_CREDIT = 8
+
+_OBS = _obs_metrics.default_registry()
+_INFLIGHT = _OBS.gauge(
+    "kubeshare_transport_inflight_requests",
+    "Requests accepted by framed-JSON servers but not yet replied to "
+    "(dispatch queue + in-handler), summed over live connections.")
+_DISPATCH_WAIT = _OBS.histogram(
+    "kubeshare_transport_dispatch_wait_seconds",
+    "Time a request sat in a connection's dispatch queue between the "
+    "reader accepting it and the worker starting it.", labels=("op",))
+_HANDLER_BUSY = _OBS.counter(
+    "kubeshare_transport_handler_busy_seconds_total",
+    "Cumulative wall time spent inside request handlers, per op — the "
+    "pipeline-occupancy numerator (rate() against wall time gives the "
+    "per-op duty cycle of the server worker).", labels=("op",))
 
 
 def negotiate_features(requested, served=FEATURES) -> list:
@@ -344,15 +370,16 @@ class Connection:
     granted ``"seq"``): from then on :meth:`submit` tags each request with
     a fresh ``_seq`` and returns its :class:`PendingReply`, and a reader
     thread resolves replies as they arrive. One dead connection fails
-    every pending reply."""
+    every pending reply. ``trace_id`` rides every request (``_trace``)."""
 
     #: deferred submits go out by themselves once this many are corked
     CORK_FRAMES = 16
 
     def __init__(self, host: str, port: int, timeout: float | None = None,
-                 fault_tag: str = ""):
+                 trace_id: str = "", fault_tag: str = ""):
         self.sock = socket.create_connection((host, port), timeout=timeout)
         self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.trace_id = trace_id
         #: what the fault injector's connection kill matches
         #: (:mod:`..resilience.faults`); inert without an injector
         self.fault_tag = fault_tag
@@ -398,8 +425,11 @@ class Connection:
             self._next_seq += 1
             seq = self._next_seq
             self._pending[seq] = rep
+        wire = {**msg, SEQ_KEY: seq}
+        if self.trace_id and TRACE_KEY not in msg:
+            wire[TRACE_KEY] = self.trace_id
         try:
-            parts = _frame({**msg, SEQ_KEY: seq}, blob)
+            parts = _frame(wire, blob)
             with self._lock:
                 # every frame passes the outbox, so corked requests keep
                 # their submission order on the wire
@@ -454,6 +484,8 @@ class Connection:
         with the peer's message when it replies ``ok: false``."""
         if self._reader is not None:
             return self.submit(msg, blob, sink=sink).result()
+        if self.trace_id and TRACE_KEY not in msg:
+            msg = dict(msg, **{TRACE_KEY: self.trace_id})
         with self._lock:
             try:
                 send_msg(self.sock, msg, blob)
@@ -547,7 +579,8 @@ def serve_framed(host: str, port: int, handle, cleanup=None, sink=None,
     per connection, with the request's payload under ``state["blob"]``
     (and ``state["blob_sunk"]`` true when it landed through ``sink``), a
     reply payload taken from ``state["reply_blob"]``, and
-    ``state["_disconnect"]``, which severs the connection. An exception
+    ``state["_disconnect"]``, which severs the connection; a request's
+    ``_trace`` is moved into ``state["trace_id"]``. An exception
     becomes an ``{"ok": false, "error": ...}`` reply. ``cleanup(state)``
     runs on disconnect, after the last handler.
 
@@ -623,15 +656,21 @@ def serve_framed(host: str, port: int, handle, cleanup=None, sink=None,
                             replies.put(out)
                         replies.put(None)
                         return
-                    seq, msg, blob, sunk = item
+                    seq, msg, blob, sunk, t_enq = item
+                    op = str(msg.get("op", ""))
+                    t0 = time.perf_counter()
+                    _DISPATCH_WAIT.observe(op, value=t0 - t_enq)
                     state["blob"] = blob
                     state["blob_sunk"] = sunk
                     state.pop("reply_blob", None)
+                    if TRACE_KEY in msg:
+                        state["trace_id"] = str(msg.pop(TRACE_KEY))
                     try:
                         reply = handle(msg, state)
                     except Exception as e:  # surfaced to the caller
                         reply = {"ok": False,
                                  "error": f"{type(e).__name__}: {e}"}
+                    _HANDLER_BUSY.inc(op, amount=time.perf_counter() - t0)
                     if seq is not None:
                         reply = {**reply, SEQ_KEY: seq}
                     out.append((reply, state.get("reply_blob")))
@@ -656,6 +695,7 @@ def serve_framed(host: str, port: int, handle, cleanup=None, sink=None,
                             break
                     if not batch:
                         continue
+                    _INFLIGHT.inc(amount=-float(len(batch)))
                     inj = _faults.active()
                     if inj is not None:
                         delay = inj.writer_delay_s()
@@ -699,7 +739,8 @@ def serve_framed(host: str, port: int, handle, cleanup=None, sink=None,
                         item = _recv_request(stream, state)
                     except (ProtocolError, OSError, ValueError):
                         break
-                    requests.put(item)
+                    _INFLIGHT.inc()
+                    requests.put((*item, time.perf_counter()))
             finally:
                 # the worker finishes every accepted request, the writer
                 # flushes, then cleanup: strictly after the last handler

@@ -43,8 +43,17 @@ latency session waiting behind a best-effort holder marks it preempted,
 and the holder yields the token at its next program boundary — between
 two bursts of a chain, never in the middle of one (:class:`~kubeshare_
 tpu_torch.preempt.BoundarySlicer`); a chain's reply counts its slices
-(``"sliced"``) for a peer that negotiated ``"preempt"``. Not ported:
-remote write, the obs hooks.
+(``"sliced"``) for a peer that negotiated ``"preempt"``.
+
+The proxy feeds the observability plane where the JAX proxy feeds its own:
+a proxy built without a scheduler gets one that feeds the process's
+chip-time ledger and blame graph (``obs.ledger.default_ledger``,
+``obs.blame.default_blame``); the token gate brackets every execute with
+the scheduler's ``execute_begin`` / ``execute_end``, so the ledger's
+``granted-active`` interval closes after the completion barrier; a traced
+session's grants and executes carry its trace id; the RPC latency,
+resume, detach and replay families, and the flight recorder's notes on
+detach and resume. Not ported: remote write.
 """
 
 from __future__ import annotations
@@ -60,9 +69,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..obs.blame import default_blame
+from ..obs.flight import default_recorder as flight_default_recorder
+from ..obs.ledger import default_ledger
 from ..preempt.slicer import BoundarySlicer
 from ..resilience import faults as _faults
 from ..resilience.journal import SessionJournal, valid_token
+from ..topology.discovery import device_chip_id
 from ..utils.device import resolve_device, synchronize
 from ..utils.logger import get_logger
 from . import exported, programs, protocol
@@ -96,6 +111,14 @@ SERVED_FEATURES = ("preempt", "resume", "seq")
 #: left a default client one attempt to spare)
 MIGRATION_WAIT_S = 1.0
 
+#: the ops the RPC latency family labels by name (any other is "other")
+_KNOWN_OPS = frozenset((
+    "register", "put", "put_begin", "put_chunk", "put_commit", "put_abort",
+    "get", "free", "compile", "execute", "usage", "unregister",
+    "drain", "migrate_begin", "migrate_abort", "migrate_finish",
+    "export_session", "export_buffer", "export_program", "import_session",
+    "import_buffer_begin", "import_buffer_chunk", "import_buffer_commit",
+    "import_program"))
 #: control-plane ops addressed by resume token, not connection identity:
 #: the mover is no registered client, holding the token is the capability
 _ADMIN_OPS = frozenset((
@@ -113,6 +136,27 @@ _JOURNALED_OPS = frozenset(("put", "put_begin", "put_commit", "put_abort",
                             "compile", "execute", "free"))
 #: largest staged transfer (put_begin, import_buffer_begin)
 _MAX_STAGED = 64 << 30
+
+_OBS = obs_metrics.default_registry()
+_RPC_LAT = _OBS.histogram(
+    "kubeshare_proxy_rpc_latency_seconds",
+    "Chip-proxy RPC handling wall time per op (token waits and device "
+    "time included).", labels=("op",))
+_RESUMES = _OBS.counter(
+    "kubeshare_proxy_session_resumes_total",
+    "Sessions re-attached via a resume token after their connection "
+    "died.")
+_DETACHES = _OBS.counter(
+    "kubeshare_proxy_session_detaches_total",
+    "Resumable sessions whose connection died (state parked, awaiting "
+    "resume or grace expiry).")
+_DETACHED = _OBS.gauge(
+    "kubeshare_proxy_sessions_detached",
+    "Resumable sessions currently parked without a connection.")
+_REPLAY_SERVED = _OBS.counter(
+    "kubeshare_proxy_replay_served_total",
+    "Replayed requests answered from the per-session reply cache (or "
+    "re-executed idempotently) instead of being executed twice.")
 
 
 def _now_ms() -> float:
@@ -210,6 +254,9 @@ class _Session:
     exec_ms_total: float = 0.0
     #: yields of a hold marked preempted, at a program boundary
     preempt_yields: int = 0
+    #: the trace id its latest request carried (its connection's, from
+    #: register on): the grants it waits for are spans of that trace
+    trace_id: str = ""
     # chunked transfers: one serialized buffer served in slices, as
     # (handle, parts, total bytes); staged uploads as sid -> (total,
     # bytearray, bytes reserved at begin)
@@ -304,7 +351,9 @@ class ChipProxy:
     ``device`` defaults to the CUDA card; tests pass ``"cpu"``, which runs
     the same code with the kernels' plain versions. ``journal_dir`` mirrors
     every resumable session on disk, and :meth:`serve` restores the
-    sessions journaled there before it accepts a connection."""
+    sessions journaled there before it accepts a connection. Without a
+    ``scheduler`` it builds one keyed by the device's discovery id that
+    feeds the process's chip-time ledger and blame graph."""
 
     #: bursts per chained call: bounds one reply's latency
     MAX_CHAIN_BURSTS = 32
@@ -319,7 +368,11 @@ class ChipProxy:
                  detach_grace_ms: float = DETACH_GRACE_MS):
         self.device = resolve_device(device)
         self.platform = self.device.type
-        self.scheduler = scheduler if scheduler is not None else TokenScheduler()
+        self.scheduler = (scheduler if scheduler is not None
+                          else TokenScheduler(
+                              chip=device_chip_id(self.device),
+                              ledger=default_ledger(),
+                              blame=default_blame()))
         # program-boundary slicing: between gated bursts the proxy asks
         # whether the hold was preempted and yields by renew, never in
         # the middle of an execute (the slicer refuses then, and counts)
@@ -360,7 +413,7 @@ class ChipProxy:
             # in the backlog, and never meets a half-restored proxy
             self._recovered = True
             recover = self._recover_sessions
-        self._server = protocol.serve_framed(host, port, self._handle,
+        self._server = protocol.serve_framed(host, port, self._handle_timed,
                                              self._cleanup,
                                              sink=self._blob_sink,
                                              prepare=recover)
@@ -458,6 +511,8 @@ class ChipProxy:
                 self._by_token.pop(sess.resume_token, None)
         if sess is None:
             return
+        if sess.resume_token and not sess.attached:
+            _DETACHED.inc(amount=-1.0)
         with sess.lock:
             holding, used = sess.holding, sess.used_ms
             sess.holding = False
@@ -500,6 +555,12 @@ class ChipProxy:
             sess.detached_at = _now_ms()
             sess.disconnect = None
         sess.detach_ev.set()
+        _DETACHES.inc()
+        _DETACHED.inc()
+        flight_default_recorder().note("proxy", "session-detached",
+                                       client=sess.name,
+                                       trace_id=sess.trace_id,
+                                       hbm_parked=sess.hbm_used)
         self._journal_checkpoint(sess)
         log.info("client %s detached (%d bytes parked)", sess.name,
                  sess.hbm_used)
@@ -600,6 +661,7 @@ class ChipProxy:
         return {"token": sess.resume_token, "name": sess.name,
                 "request": sess.request, "limit": sess.limit,
                 "memory": sess.memory_cap, "class": sess.tpu_class,
+                "trace_id": sess.trace_id,
                 "features": sorted(sess.features),
                 "next_id": sess.next_id, "last_rid": sess.last_rid,
                 "buffers": buffers, "programs": progs,
@@ -707,6 +769,7 @@ class ChipProxy:
         sess.features = frozenset(protocol.negotiate_features(
             m.get("features", ()), SERVED_FEATURES))
         sess.resume_token = str(m["token"])
+        sess.trace_id = str(m.get("trace_id", ""))
         sess.next_id = int(m.get("next_id", 0))
         sess.last_rid = int(m.get("last_rid", 0))
         sess.replies = OrderedDict(
@@ -730,6 +793,7 @@ class ChipProxy:
                                       tpu_class=sess.tpu_class)
             self._sessions[sess.name] = sess
             self._by_token[sess.resume_token] = sess
+        _DETACHED.inc()
 
     # -- token gate ----------------------------------------------------------
 
@@ -750,7 +814,12 @@ class ChipProxy:
         too: this gate sits at a program boundary, so the yield forfeits
         the rest of the quantum without interrupting an execute, and the
         scheduler's directed grants hand the token to the higher-class
-        waiter and then straight back."""
+        waiter and then straight back.
+
+        The scheduler's ``execute_begin`` / ``execute_end`` bracket
+        ``fn()``: the chip-time ledger's ``granted-active`` interval holds
+        the device-lock wait and the execute up to its completion barrier,
+        never the launch alone."""
         with sess.lock:
             sess.busy = True
             holding = sess.holding
@@ -760,13 +829,15 @@ class ChipProxy:
                      and self.slicer.should_yield(sess.name))
         try:
             if not holding:
-                quota = self.scheduler.acquire(sess.name)
+                quota = self.scheduler.acquire(sess.name,
+                                               trace_id=sess.trace_id)
             elif exhausted or preempted:
                 if preempted:
                     self.slicer.note_yield(sess.name)
                     with sess.lock:
                         sess.preempt_yields += 1
-                quota = self.scheduler.renew(sess.name, used)
+                quota = self.scheduler.renew(sess.name, used,
+                                             trace_id=sess.trace_id)
             else:
                 quota = None
             if quota is not None:
@@ -775,12 +846,14 @@ class ChipProxy:
                     sess.quota_ms = quota
                     sess.used_ms = 0.0
             start = _now_ms()
+            self.scheduler.execute_begin()
             self.slicer.execute_begin(sess.name)
             try:
                 return fn()
             finally:
                 end = _now_ms()
                 self.slicer.execute_end(sess.name)
+                self.scheduler.execute_end()
                 elapsed = timing.get("exec_ms", end - start)
                 with sess.lock:
                     sess.used_ms += elapsed
@@ -803,6 +876,14 @@ class ChipProxy:
             now = _now_ms()
             with self._slock:
                 sessions = list(self._sessions.values())
+            # black-box cadence: the proxy's population and traffic
+            # counters, so a dump shows its recent shape (rate-limited)
+            flight_default_recorder().sample_deltas("proxy", {
+                "sessions": float(len(sessions)),
+                "detached": _DETACHED.value(),
+                "resumes_total": _RESUMES.value(),
+                "detaches_total": _DETACHES.value(),
+            })
             for sess in sessions:
                 with sess.lock:
                     idle = (sess.holding and not sess.busy
@@ -850,6 +931,29 @@ class ChipProxy:
             return None
         return memoryview(entry[1])[off:off + nbytes]
 
+    def _handle_timed(self, req: dict, state: dict) -> dict:
+        op = str(req.get("op"))
+        t0 = time.perf_counter()
+        try:
+            return self._handle(req, state)
+        finally:
+            # unknown ops share one label: a misbehaving client must not
+            # mint unbounded series
+            _RPC_LAT.observe(op if op in _KNOWN_OPS else "other",
+                             value=time.perf_counter() - t0)
+            if op == "execute":
+                # critpath's "execute" segment: the server-side service
+                # time under the session's trace, which splits a client's
+                # round trip into transport and device work
+                tid = state.get("trace_id", "")
+                if tid:
+                    tracer = obs_trace.get_tracer()
+                    end_ms = tracer.now_ms()
+                    tracer.record(
+                        "execute", tid,
+                        end_ms - (time.perf_counter() - t0) * 1000.0,
+                        end_ms, proc="chipproxy")
+
     def _handle(self, req: dict, state: dict) -> dict:
         op = req.get("op")
         if op == "register":
@@ -862,6 +966,8 @@ class ChipProxy:
         if not name:
             raise PermissionError("not registered on this connection")
         sess = self._session(name)
+        # the trace of the request in hand: its grants are spans of it
+        sess.trace_id = state.get("trace_id", sess.trace_id)
         rid = req.pop(protocol.RID_KEY, None)
         ack = req.pop(protocol.ACK_KEY, None)
         if ack is not None:
@@ -881,9 +987,11 @@ class ChipProxy:
             cached = sess.replies.get(rid)
             if cached is not None:
                 self.replays_served += 1
+                _REPLAY_SERVED.inc()
                 return dict(cached)
             if op in _REPLAY_REEXEC:
                 self.replays_served += 1
+                _REPLAY_SERVED.inc()
                 return self._dispatch(op, req, sess, state)
             return {"ok": False,
                     "error": f"ReplayError: request {rid} is outside the "
@@ -922,6 +1030,7 @@ class ChipProxy:
         sess = self._register(name, float(req["request"]), float(req["limit"]),
                               int(req.get("memory", 0)),
                               str(req.get("class", "best-effort")))
+        sess.trace_id = state.get("trace_id", "")
         sess.disconnect = state.get("_disconnect")
         state["name"] = name
         reply = {"ok": True, "platforms": [self.platform],
@@ -982,7 +1091,14 @@ class ChipProxy:
             sess.attached = True
             sess.detach_ev.clear()
             sess.disconnect = state.get("_disconnect")
+            sess.trace_id = state.get("trace_id", sess.trace_id)
         state["name"] = sess.name
+        _RESUMES.inc()
+        _DETACHED.inc(amount=-1.0)
+        flight_default_recorder().note("proxy", "session-resumed",
+                                       client=sess.name,
+                                       trace_id=sess.trace_id,
+                                       last_rid=sess.last_rid)
         log.info("session %s resumed (last_rid=%d)", sess.name,
                  sess.last_rid)
         return {"ok": True, "platforms": [self.platform],
@@ -1693,10 +1809,15 @@ def main(argv=None) -> None:
     inj = _faults.from_env()
     if inj is not None:
         _faults.install(inj)
+    device = resolve_device(args.device)
+    # the CLI's scheduler feeds the process's chip-time ledger and blame
+    # graph, as a proxy built without one does
     sched = TokenScheduler(window_ms=args.window,
                            base_quota_ms=args.base_quota,
-                           min_quota_ms=args.min_quota)
-    proxy = ChipProxy(device=args.device, scheduler=sched,
+                           min_quota_ms=args.min_quota,
+                           chip=device_chip_id(device),
+                           ledger=default_ledger(), blame=default_blame())
+    proxy = ChipProxy(device=device, scheduler=sched,
                       journal_dir=args.journal_dir or None)
     server = proxy.serve(args.host, args.port)
     token_server = None

@@ -14,8 +14,15 @@ raises; it never falls back to Python. The blocking façade
 :class:`TokenScheduler` gives each client a workload class and, with a
 :class:`~kubeshare_tpu_torch.preempt.PreemptionPolicy`, lets a latency
 waiter preempt a best-effort holder; :func:`serve` is its TCP server for
-pod managers. The gang wire extension and the ledger, blame, SLO and
-profiler hooks of the JAX façade are not ported yet.
+pod managers. The gang wire extension is not ported.
+
+The façade feeds the observability plane where the JAX façade feeds its
+own, whichever core runs under it: the grant-wait, hold and utilisation
+families, the SLO evaluator's ``grant-wait`` indicator, a ``token-grant``
+span for a traced waiter, the flight recorder's rate-limited deltas, and
+with ``ledger=`` (a :class:`~kubeshare_tpu_torch.obs.ledger.
+ChipTimeLedger`) and ``blame=`` the chip-time ledger and the blame graph.
+Its condition is a tracked one (``"tokensched"``, :mod:`..obs.prof`).
 """
 
 from __future__ import annotations
@@ -27,10 +34,31 @@ from collections import deque
 from dataclasses import dataclass, field
 
 from ..constants import BASE_QUOTA_MS, MIN_QUOTA_MS, WINDOW_MS
+from ..obs import metrics as obs_metrics
+from ..obs import prof as obs_prof
+from ..obs import slo as obs_slo
+from ..obs.flight import default_recorder as flight_default_recorder
+from ..obs.trace import get_tracer
 from . import protocol
 from .native import load_library
 
 _INF = float("inf")
+
+_OBS = obs_metrics.default_registry()
+_GRANT_WAIT = _OBS.histogram(
+    "kubeshare_token_grant_wait_seconds",
+    "Time a client blocked between requesting the chip token and the "
+    "grant, by tenant namespace and workload class.",
+    labels=("chip", "namespace", "tpu_class"))
+_HOLD = _OBS.histogram(
+    "kubeshare_token_hold_seconds",
+    "Wall time a client held the chip token before releasing it.",
+    labels=("chip",))
+_UTIL = _OBS.gauge(
+    "kubeshare_token_utilization_ratio",
+    "Per-client share of the sliding window actually consumed "
+    "(window_usage / window_ms), updated at each release.",
+    labels=("chip", "client"))
 
 
 @dataclass
@@ -295,14 +323,25 @@ class TokenScheduler:
     waited past the policy's grace marks the holder preempted
     (:meth:`preempted`, which the proxy's boundary slicer reads) and is
     granted next, the holder right after it. With no policy and no
-    directed grant queued, the grant path is exactly the core's poll."""
+    directed grant queued, the grant path is exactly the core's poll.
+
+    ``clock`` (milliseconds) is the core's timebase; ``chip`` names this
+    token in every family, the ledger and the blame graph (the port's
+    device id, as ``topology/discovery.py`` names it). ``ledger`` and
+    ``blame`` take the grant, release, execute and preemption transitions
+    and each grant's wait; ``ledger_clock`` returns SECONDS and is
+    deliberately separate from ``clock``."""
 
     def __init__(self, window_ms: float = WINDOW_MS,
                  base_quota_ms: float = BASE_QUOTA_MS,
                  min_quota_ms: float = MIN_QUOTA_MS, native: bool = True,
-                 chip: str = "", preempt=None):
+                 clock=None, chip: str = "", ledger=None, blame=None,
+                 ledger_clock=None, preempt=None):
         self._core = make_core(window_ms, base_quota_ms, min_quota_ms, native)
-        self._cond = threading.Condition()
+        # tracked (obs/prof.py): the façade's grant and release lock; a
+        # re-entrant condition as threading.Condition() makes, so the
+        # grant order of either core is unchanged
+        self._cond = obs_prof.TrackedCondition("tokensched")
         self._grants: dict[str, float] = {}    # name -> granted quota_ms
         # name -> FIFO of waiter tickets: several threads may wait on one
         # client's single token stream; they are served in arrival order
@@ -310,9 +349,13 @@ class TokenScheduler:
         self._held_since: dict[str, float] = {}   # name -> grant time (s)
         self._shares: dict[str, tuple[float, float]] = {}
         self._classes: dict[str, str] = {}
+        self._clock = clock or _now_ms
         self.window_ms = window_ms
-        #: the label of this token in the preemption counters
+        #: the label of this token in the families, ledger and blame
         self.chip = chip or "chip"
+        self._ledger = ledger
+        self._blame = blame
+        self._ledger_clock = ledger_clock or time.monotonic
         self.preempt = preempt
         self._preempt_flags: set[str] = set()     # holders marked
         self._preempt_marked_at: dict[str, float] = {}
@@ -325,6 +368,16 @@ class TokenScheduler:
     def core(self):
         return self._core
 
+    @property
+    def ledger(self):
+        """The chip-time ledger this scheduler feeds, or None."""
+        return self._ledger
+
+    @property
+    def blame(self):
+        """The blame graph this scheduler feeds, or None."""
+        return self._blame
+
     def add_client(self, name: str, request: float, limit: float,
                    tpu_class: str = "best-effort") -> None:
         with self._cond:
@@ -336,7 +389,11 @@ class TokenScheduler:
         with self._cond:
             self._core.remove_client(name)
             self._grants.pop(name, None)
-            self._held_since.pop(name, None)
+            was_holding = self._held_since.pop(name, None) is not None
+            if was_holding and self._ledger is not None:
+                # a removed holder never calls release: close its hold in
+                # the ledger here, or the interval stays open
+                self._ledger.release(self.chip, now=self._ledger_clock())
             self._shares.pop(name, None)
             self._classes.pop(name, None)
             self._preempt_flags.discard(name)
@@ -366,15 +423,21 @@ class TokenScheduler:
                     "waiting": [n for n, q in self._waiting.items() if q],
                     "preempted": sorted(self._preempt_flags)}
 
-    def acquire(self, name: str, timeout: float | None = None) -> float:
-        """Block until ``name`` is granted the token; returns quota_ms."""
+    def now_ms(self) -> float:
+        """This scheduler's clock, the timebase of window usage."""
+        return self._clock()
+
+    def acquire(self, name: str, timeout: float | None = None,
+                trace_id: str = "") -> float:
+        """Block until ``name`` is granted the token; returns quota_ms.
+        ``trace_id`` tags the grant's span and its blame exemplar."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             self._core.request_token(name)
-            return self._wait_for_grant(name, deadline)
+            return self._wait_noted(name, deadline, trace_id)
 
     def renew(self, name: str, used_ms: float,
-              timeout: float | None = None) -> float:
+              timeout: float | None = None, trace_id: str = "") -> float:
         """Atomically release + re-request + wait for the next grant.
 
         The steady-state call: release and re-request happen under one
@@ -384,21 +447,33 @@ class TokenScheduler:
         shares to round-robin."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
-            self._core.release_token(name, used_ms, _now_ms())
+            self._core.release_token(name, used_ms, self._clock())
             self._note_release(name, used_ms)
             self._core.request_token(name)
             self._cond.notify_all()
-            return self._wait_for_grant(name, deadline)
+            return self._wait_noted(name, deadline, trace_id)
 
     def release(self, name: str, used_ms: float) -> None:
         with self._cond:
-            self._core.release_token(name, used_ms, _now_ms())
+            self._core.release_token(name, used_ms, self._clock())
             self._note_release(name, used_ms)
             self._cond.notify_all()
 
+    def execute_begin(self) -> None:
+        """An execute started under the current hold (the proxy's token
+        gate): the ledger's interval turns granted-active."""
+        if self._ledger is not None:
+            self._ledger.execute_begin(self.chip, now=self._ledger_clock())
+
+    def execute_end(self) -> None:
+        """The execute ended (on the card: after its completion
+        barrier): the interval turns granted-idle again."""
+        if self._ledger is not None:
+            self._ledger.execute_end(self.chip, now=self._ledger_clock())
+
     def window_usage(self, name: str) -> float:
         with self._cond:
-            return self._core.window_usage(name, _now_ms())
+            return self._core.window_usage(name, self._clock())
 
     def close(self) -> None:
         with self._cond:
@@ -425,6 +500,9 @@ class TokenScheduler:
                 return
             self._preempt_flags.add(name)
             self._preempt_marked_at[name] = time.monotonic()
+            if self._ledger is not None:
+                self._ledger.mark_preempted(self.chip,
+                                            now=self._ledger_clock())
             self._cond.notify_all()
 
     def add_boost(self, name: str, credit: bool = False) -> None:
@@ -445,7 +523,7 @@ class TokenScheduler:
         is untouched. A target that is window-capped drops its boost and
         the poll is redone in stride order: a directed grant may jump the
         queue but never idles the device."""
-        now = _now_ms()
+        now = self._clock()
         if not self._boost or self._core.holder() is not None:
             # nothing directed, or the token is still held (a preempted
             # holder draining to its program boundary): keep the boost
@@ -488,10 +566,11 @@ class TokenScheduler:
 
     def _maybe_preempt(self, name: str, waited_s: float) -> float | None:
         """Evaluate the policy for waiter ``name`` (caller holds the
-        lock). Fires at most once a hold: the holder is marked, and the
-        waiter then the holder are queued for directed grants — the
-        holder's entry is its anti-starvation credit. Returns the seconds
-        until the decision could flip (the waiter's next wake), or None."""
+        lock). Fires at most once a hold: the holder is marked (the
+        ledger tags its tail from this instant), and the waiter then the
+        holder are queued for directed grants — the holder's entry is its
+        anti-starvation credit. Returns the seconds until the decision
+        could flip (the waiter's next wake), or None."""
         policy = self.preempt
         if policy is None or not policy.enabled:
             return None
@@ -507,6 +586,9 @@ class TokenScheduler:
             self._preempt_marked_at[holder] = time.monotonic()
             self._boost.append((name, "beneficiary"))
             self._boost.append((holder, "credit"))
+            if self._ledger is not None:
+                self._ledger.mark_preempted(self.chip,
+                                            now=self._ledger_clock())
             policy.note_preemption(self.chip, holder, waiter_class,
                                    holder_class)
             return None
@@ -518,21 +600,72 @@ class TokenScheduler:
 
     # -- internals -----------------------------------------------------------
 
+    def _wait_noted(self, name: str, deadline: float | None,
+                    trace_id: str) -> float:
+        # caller holds self._cond and has requested the token: the wait,
+        # then its grant or its timeout reported to the obs plane
+        t0 = time.monotonic()
+        try:
+            quota = self._wait_for_grant(name, deadline)
+        except TimeoutError:
+            self._note_timeout(name, time.monotonic() - t0, trace_id)
+            raise
+        self._note_grant(name, time.monotonic() - t0, trace_id)
+        return quota
+
     def _take_grant(self, name: str, q: deque) -> float:
         # caller holds self._cond; a grant for `name` exists and this
         # thread's ticket heads the queue. With more same-name waiters,
         # re-arm the core's request so the next release can grant again.
         quota = self._grants.pop(name)
         self._hold_quota[name] = quota
-        self._held_since[name] = time.monotonic()
         if len(q) > 1:
             self._core.request_token(name)
             self._cond.notify_all()
         return quota
 
-    def _note_release(self, name: str, used_ms: float) -> None:
-        # caller holds self._cond, right after the core's release
-        self._held_since.pop(name, None)
+    def _note_grant(self, name: str, wait_s: float, trace_id: str) -> None:
+        # caller holds self._cond; a timed-out wait raised before this.
+        # Tenant attribution: a client name "namespace/pod" is its
+        # namespace's; a bare name is its own tenant.
+        namespace = name.partition("/")[0]
+        tpu_class = self._classes.get(name, "best-effort")
+        _GRANT_WAIT.observe(self.chip, namespace, tpu_class,
+                            value=wait_s, exemplar=trace_id or None)
+        obs_slo.default_evaluator().record(
+            namespace, "grant-wait", value_s=wait_s, trace_id=trace_id)
+        self._held_since[name] = time.monotonic()
+        if self._ledger is not None:
+            now = self._ledger_clock()
+            if self._blame is not None and wait_s > 0.0:
+                # attribute BEFORE recording the grant: the wait window
+                # must see the previous occupants, not this grant
+                self._blame.account_wait(self.chip, namespace, tpu_class,
+                                         wait_s, now=now, trace_id=trace_id)
+            self._ledger.grant(self.chip, namespace, tpu_class, now=now)
+        if trace_id:
+            tracer = get_tracer()
+            end = tracer.now_ms()
+            tracer.record("token-grant", trace_id,
+                          end - wait_s * 1000.0, end,
+                          client=name, chip=self.chip)
+
+    def _note_timeout(self, name: str, wait_s: float, trace_id: str) -> None:
+        # caller holds self._cond; the wait ended in TimeoutError — the
+        # blocked time is as real as a granted wait, so blame still names
+        # whoever occupied the device during it
+        if self._blame is not None and wait_s > 0.0:
+            self._blame.account_wait(
+                self.chip, name.partition("/")[0],
+                self._classes.get(name, "best-effort"), wait_s,
+                now=self._ledger_clock(), trace_id=trace_id, granted=False)
+
+    def _note_release(self, name: str, used_ms: float = 0.0) -> None:
+        # caller holds self._cond, right after the core's release, so the
+        # utilisation gauge includes the usage just reported
+        since = self._held_since.pop(name, None)
+        if since is not None:
+            _HOLD.observe(self.chip, value=time.monotonic() - since)
         quota = self._hold_quota.pop(name, 0.0)
         marked = self._preempt_marked_at.pop(name, None)
         if name in self._preempt_flags:
@@ -543,6 +676,19 @@ class TokenScheduler:
                 yield_s = 0.0 if marked is None else time.monotonic() - marked
                 self.preempt.note_yield(self.chip, yield_s,
                                         max(0.0, quota - used_ms))
+        if self._ledger is not None:
+            self._ledger.release(self.chip, now=self._ledger_clock())
+        # black-box cadence (rate-limited inside): what this token was
+        # doing in the run-up to a trigger
+        flight_default_recorder().sample_deltas("tokensched-" + self.chip, {
+            "clients": float(len(self._shares)),
+            "waiting": float(sum(1 for q in self._waiting.values() if q)),
+        })
+        try:
+            usage = self._core.window_usage(name, self._clock())
+        except (KeyError, RuntimeError):
+            return
+        _UTIL.set(self.chip, name, value=usage / self.window_ms)
 
     def _wait_for_grant(self, name: str, deadline: float | None) -> float:
         # caller holds self._cond and has requested the token
@@ -561,14 +707,14 @@ class TokenScheduler:
                 if name in self._grants and q[0] is ticket:
                     return self._take_grant(name, q)
                 try:
-                    self._core.window_usage(name, _now_ms())
+                    self._core.window_usage(name, self._clock())
                 except KeyError:
                     raise RuntimeError(f"{name}: client removed while "
                                        "waiting for token") from None
                 if isinstance(result, tuple) or result == _INF:
                     wait = None
                 else:
-                    wait = max(0.001, (result - _now_ms()) / 1000.0)
+                    wait = max(0.001, (result - self._clock()) / 1000.0)
                 if due is not None:
                     # wake when the preemption decision could flip
                     wait = due if wait is None else min(wait, due)
@@ -607,7 +753,8 @@ def serve(scheduler: TokenScheduler, host: str = "127.0.0.1", port: int = 0
     can never name another pod's client. Replies: ``{"ok": true, ...}`` or
     ``{"ok": false, "error": msg}``. The owning connection's disconnect
     removes the client (≙ gem-schd dropping a dead pod manager); attached
-    connections' disconnects don't.
+    connections' disconnects don't. A request's ``_trace`` (the wire's
+    trace id) tags the grant it waits for.
 
     A scheduler with a preemption policy also answers ``preempt_poll``
     (is the connection-bound client's hold marked preempted?) and
@@ -648,13 +795,14 @@ def serve(scheduler: TokenScheduler, host: str = "127.0.0.1", port: int = 0
         if not name:
             raise PermissionError("connection not bound (register/attach first)")
         if op == "acquire":
-            return {"ok": True,
-                    "quota_ms": scheduler.acquire(name,
-                                                  timeout=req.get("timeout"))}
+            quota = scheduler.acquire(name, timeout=req.get("timeout"),
+                                      trace_id=state.get("trace_id", ""))
+            return {"ok": True, "quota_ms": quota}
         if op == "renew":
-            return {"ok": True,
-                    "quota_ms": scheduler.renew(name, float(req["used_ms"]),
-                                                timeout=req.get("timeout"))}
+            quota = scheduler.renew(name, float(req["used_ms"]),
+                                    timeout=req.get("timeout"),
+                                    trace_id=state.get("trace_id", ""))
+            return {"ok": True, "quota_ms": quota}
         if op == "release":
             scheduler.release(name, float(req["used_ms"]))
             return {"ok": True}

@@ -1,15 +1,20 @@
-"""Labeled metrics and their Prometheus exposition — the port's copy of
-what the preemption and serving planes record into, from
-``kubeshare_tpu/obs/metrics.py``.
+"""In-process labeled metrics with a strict Prometheus exposition renderer
+— the port's copy of ``kubeshare_tpu/obs/metrics.py``.
 
-Counter, Gauge and cumulative-bucket Histogram families with a fixed
-label schema, held in a :class:`MetricsRegistry`; histogram series keep
-the latest trace-id exemplar per bucket, rendered in OpenMetrics syntax on
-the ``_bucket`` lines. :func:`quantile_from_buckets` is the PromQL-style
-estimate the serving accounting derives p50/p99 from. The JAX module's
-exposition parser, lint and remote-write collection are not ported (no
-reader of the port needs them yet); the text this module renders is the
-JAX module's, line for line.
+Counter, Gauge and cumulative-bucket Histogram families with a fixed label
+schema, held in a :class:`MetricsRegistry`; histogram series keep the
+latest trace-id exemplar per bucket, rendered in OpenMetrics syntax on the
+``_bucket`` lines. One process-wide default registry takes every record of
+the port's data plane (token scheduler, proxy, wire, resilience, serving,
+preemption, the obs modules themselves); :func:`render_default` is its
+exposition and :func:`collect_default` its flat sample list.
+:func:`parse_exposition` / :func:`render_exposition` /
+:func:`lint_exposition` read exposition text back. The text this module
+renders is the JAX module's, byte for byte, for the same operations.
+
+No external deps: the stdlib is enough for counters, gauges and
+histograms, and keeps a record at a dict lookup plus a float add under one
+lock.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import bisect
 import math
 import re
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # -- exposition rendering ----------------------------------------------------
 
@@ -32,8 +37,13 @@ def prom_escape(value) -> str:
 
 def render_sample(name: str, labels: Optional[dict], value,
                   exemplar: Optional[Tuple[str, float]] = None) -> str:
-    """One sample line: ``name{k="v",...} value``, with an optional
-    ``# {trace_id="..."} observed`` exemplar (no trailing newline)."""
+    """One sample line: ``name{k="v",...} value`` (no trailing newline).
+
+    ``exemplar`` is an optional ``(trace_id, observed_value)`` pair
+    rendered in OpenMetrics syntax: ``... 17 # {trace_id="abc"} 0.043``.
+    Only histogram ``_bucket`` lines may carry one (enforced by
+    :func:`lint_exposition`, not here).
+    """
     if labels:
         body = ",".join('%s="%s"' % (k, prom_escape(v))
                         for k, v in sorted(labels.items()))
@@ -73,14 +83,14 @@ def _fmt_le(bound: float) -> str:
 
 # -- metric primitives -------------------------------------------------------
 
-#: latency buckets in seconds: sub-millisecond grants up to multi-second
-#: waits under contention
+# Latency buckets in seconds: sub-millisecond scheduler phases up to
+# multi-second token waits under contention.
 DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, math.inf)
 
 
 class _Metric:
-    """One named family with a fixed label-key schema."""
+    """Base: one named family with a fixed label-key schema."""
 
     mtype = "untyped"
 
@@ -92,24 +102,48 @@ class _Metric:
         self._lock = threading.Lock()
         self._series: Dict[Tuple[str, ...], object] = {}
 
-    def _key(self, label_values: Sequence) -> Tuple[str, ...]:
+    def _key(self, label_values: Sequence[str]) -> Tuple[str, ...]:
         if len(label_values) != len(self.label_keys):
             raise ValueError("%s expects labels %r, got %r"
                              % (self.name, self.label_keys,
                                 tuple(label_values)))
-        return tuple(str(v) for v in label_values)
+        # fast path: transport hot paths record per op, and their label
+        # values are already strings — skip the genexp + str() round-trip
+        for v in label_values:
+            if type(v) is not str:
+                return tuple(str(v) for v in label_values)
+        return tuple(label_values)
+
+    def _labels_dict(self, key: Tuple[str, ...]) -> dict:
+        return dict(zip(self.label_keys, key))
 
     def render(self) -> List[str]:
         lines = render_help_type(self.name, self.mtype, self.help_text)
         with self._lock:
             series = sorted(self._series.items())
         for key, value in series:
-            lines.extend(self._render_series(
-                dict(zip(self.label_keys, key)), value))
+            lines.extend(self._render_series(self._labels_dict(key), value))
         return lines
 
     def _render_series(self, labels: dict, value) -> List[str]:
         return [render_sample(self.name, labels, value)]
+
+    def collect(self) -> List[Tuple[str, dict, float]]:
+        """Flat ``(sample_name, labels, value)`` tuples for this family.
+
+        A reader that wants numbers gets these instead of exposition
+        text: building tuples skips the render→regex-parse round trip.
+        """
+        with self._lock:
+            series = sorted(self._series.items())
+        out: List[Tuple[str, dict, float]] = []
+        for key, value in series:
+            out.extend(self._collect_series(self._labels_dict(key), value))
+        return out
+
+    def _collect_series(self, labels: dict, value) -> List[Tuple[str, dict,
+                                                                 float]]:
+        return [(self.name, labels, float(value))]
 
 
 class Counter(_Metric):
@@ -140,6 +174,11 @@ class Gauge(_Metric):
         with self._lock:
             self._series[key] = float(value)
 
+    def inc(self, *label_values, amount: float = 1.0) -> None:
+        key = self._key(label_values)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0.0) + amount
+
     def value(self, *label_values) -> float:
         key = self._key(label_values)
         with self._lock:
@@ -150,10 +189,11 @@ class _HistSeries:
     __slots__ = ("counts", "total", "count", "exemplars")
 
     def __init__(self, n_buckets: int):
-        self.counts = [0] * n_buckets   # per bucket, not cumulative
+        self.counts = [0] * n_buckets   # per-bucket (non-cumulative)
         self.total = 0.0
         self.count = 0
-        #: bucket index -> (trace_id, observed value); the latest wins
+        # bucket idx -> (trace_id, observed value); latest wins, so the
+        # exposition always links each bucket to a recent concrete trace
         self.exemplars: Dict[int, Tuple[str, float]] = {}
 
 
@@ -174,8 +214,9 @@ class Histogram(_Metric):
     def observe(self, *label_values, value: float,
                 exemplar: Optional[str] = None) -> None:
         value = float(value)
-        if value != value:     # NaN sorts nowhere and would poison _sum
-            raise ValueError("histogram %s cannot observe NaN" % self.name)
+        if value != value:     # NaN sorts nowhere: bisect would pick an
+            raise ValueError(  # arbitrary bucket and poison _sum forever
+                "histogram %s cannot observe NaN" % self.name)
         key = self._key(label_values)
         idx = bisect.bisect_left(self.buckets, value)
         with self._lock:
@@ -201,6 +242,16 @@ class Histogram(_Metric):
                 cumulative.append(running)
             return cumulative, series.total, series.count
 
+    def exemplars(self, *label_values) -> Dict[float, Tuple[str, float]]:
+        """Latest ``{bucket upper bound: (trace_id, value)}`` per series."""
+        key = self._key(label_values)
+        with self._lock:
+            series = self._series.get(key)
+            if series is None:
+                return {}
+            return {self.buckets[i]: ex
+                    for i, ex in series.exemplars.items()}
+
     def _render_series(self, labels: dict, series: _HistSeries) -> List[str]:
         lines, running = [], 0
         for i, (bound, c) in enumerate(zip(self.buckets, series.counts)):
@@ -215,13 +266,28 @@ class Histogram(_Metric):
                                    series.count))
         return lines
 
+    def _collect_series(self, labels: dict, series: _HistSeries
+                        ) -> List[Tuple[str, dict, float]]:
+        out, running = [], 0
+        for bound, c in zip(self.buckets, series.counts):
+            running += c
+            bucket_labels = dict(labels)
+            bucket_labels["le"] = _fmt_le(bound)
+            out.append((self.name + "_bucket", bucket_labels,
+                        float(running)))
+        out.append((self.name + "_sum", labels, float(series.total)))
+        out.append((self.name + "_count", labels, float(series.count)))
+        return out
+
 
 def quantile_from_buckets(buckets: Sequence[float],
                           cumulative: Sequence[int],
                           q: float) -> float:
-    """Estimate quantile ``q`` by linear interpolation within buckets, as
-    PromQL's ``histogram_quantile``: the +Inf bucket clamps to the
-    previous finite bound rather than extrapolating."""
+    """Estimate quantile ``q`` by linear interpolation within buckets.
+
+    Mirrors PromQL's ``histogram_quantile``: the +Inf bucket clamps to
+    the previous finite bound rather than extrapolating.
+    """
     total = cumulative[-1] if cumulative else 0
     if total == 0:
         return float("nan")
@@ -246,9 +312,12 @@ _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
 
 class MetricsRegistry:
-    """Named families with idempotent getters: ``counter()``, ``gauge()``
-    and ``histogram()`` return the family already registered under a
-    name, so instrumentation sites declare theirs without coordination."""
+    """Named families with idempotent getters.
+
+    ``counter()/gauge()/histogram()`` return the existing family when the
+    name is already registered, so instrumentation sites can declare
+    their families at import time without coordination.
+    """
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -282,6 +351,14 @@ class MetricsRegistry:
         return self._get_or_create(Histogram, name, help_text, labels,
                                    buckets=buckets)
 
+    def get(self, name: str) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def families(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
     def render(self) -> str:
         """Full exposition text for this registry (trailing newline)."""
         lines: List[str] = []
@@ -291,10 +368,172 @@ class MetricsRegistry:
             lines.extend(metric.render())
         return "\n".join(lines) + "\n" if lines else ""
 
+    def collect(self) -> dict:
+        """Compact snapshot: ``{"families": {name: type}, "samples":
+        [(name, labels, value), ...]}``.
+
+        The JAX package's remote-write wire shape: histogram sub-samples
+        (``_bucket``/``_sum``/``_count``) appear
+        under their full sample names with the base family typed
+        ``histogram`` in ``families``, mirroring how
+        :func:`parse_exposition` attaches them.
+        """
+        with self._lock:
+            metrics = [self._metrics[n] for n in sorted(self._metrics)]
+        families = {m.name: m.mtype for m in metrics}
+        samples: List[Tuple[str, dict, float]] = []
+        for metric in metrics:
+            samples.extend(metric.collect())
+        return {"families": families, "samples": samples}
+
+    def reset(self) -> None:
+        """Drop all families — test isolation only."""
+        with self._lock:
+            self._metrics.clear()
+
 
 _DEFAULT = MetricsRegistry()
 
 
 def default_registry() -> MetricsRegistry:
-    """The process-wide registry the preemption counters record into."""
+    """The process-wide registry every instrumentation site records into."""
     return _DEFAULT
+
+
+def render_default() -> str:
+    return _DEFAULT.render()
+
+
+def collect_default() -> dict:
+    """Compact snapshot of the process-wide registry."""
+    return _DEFAULT.collect()
+
+
+# -- exposition parsing (readers and lint) -----------------------------------
+
+HELP_RE = re.compile(r"^# HELP ([a-zA-Z_:][a-zA-Z0-9_:]*) (.*)$")
+TYPE_RE = re.compile(
+    r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) "
+    r"(counter|gauge|histogram|summary|untyped)$")
+_NUM = r"NaN|[+-]?Inf|[+-]?[0-9]*\.?[0-9]+(?:[eE][+-]?[0-9]+)?"
+SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{((?:[a-zA-Z_][a-zA-Z0-9_]*=\"(?:[^\"\\\n]|\\[\\\"n])*\",?)*)\})?"
+    r" (" + _NUM + r")"
+    r"(?: [0-9]+)?"
+    # OpenMetrics exemplar: ` # {trace_id="..."} <value>` — anything
+    # else after the value (including a malformed exemplar) fails the
+    # whole line, which is how lint rejects bad exemplar syntax.
+    r"(?: # \{trace_id=\"((?:[^\"\\\n]|\\[\\\"n])*)\" *\} (" + _NUM + r"))?"
+    r"$")
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\\n]|\\[\\"n])*)"')
+
+
+def _unescape(value: str) -> str:
+    return (value.replace(r"\n", "\n").replace(r"\"", '"')
+            .replace(r"\\", "\\"))
+
+
+def parse_exposition(text: str) -> Dict[str, dict]:
+    """Parse exposition text into ``{family: {type, help, samples,
+    exemplars}}``.
+
+    ``samples`` is a list of ``(name, labels_dict, value)``; histogram
+    ``_bucket``/``_sum``/``_count`` samples attach to their base family.
+    ``exemplars`` is a list of ``(name, labels_dict, trace_id, value)``
+    for sample lines that carried an OpenMetrics exemplar.
+    Raises ``ValueError`` on any malformed line — this doubles as the
+    line grammar of :func:`lint_exposition`.
+    """
+    families: Dict[str, dict] = {}
+
+    def family(name: str) -> dict:
+        base = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[:-len(suffix)] in families:
+                base = name[:-len(suffix)]
+                break
+        return families.setdefault(
+            base, {"type": None, "help": None, "samples": [],
+                   "exemplars": []})
+
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        m = HELP_RE.match(line)
+        if m:
+            family(m.group(1))["help"] = m.group(2)
+            continue
+        m = TYPE_RE.match(line)
+        if m:
+            family(m.group(1))["type"] = m.group(2)
+            continue
+        if line.startswith("#"):      # bare comments are legal, skipped
+            continue
+        m = SAMPLE_RE.match(line)
+        if not m:
+            raise ValueError("malformed exposition line %d: %r"
+                             % (lineno, line))
+        name, raw_labels, raw_value = m.group(1), m.group(2), m.group(3)
+        labels = {k: _unescape(v)
+                  for k, v in _LABEL_RE.findall(raw_labels or "")}
+        value = float(raw_value.replace("Inf", "inf"))
+        fam = family(name)
+        fam["samples"].append((name, labels, value))
+        if m.group(4) is not None:
+            fam["exemplars"].append(
+                (name, labels, _unescape(m.group(4)),
+                 float(m.group(5).replace("Inf", "inf"))))
+    return families
+
+
+def render_exposition(families: Dict[str, dict]) -> str:
+    """Inverse of :func:`parse_exposition` — re-render parsed families.
+
+    ``parse(render(parse(text)))`` equals ``parse(text)`` for any text
+    rendered by this module, which is what the exemplar round-trip test
+    pins. HELP text is emitted verbatim (it is stored escaped).
+    """
+    lines: List[str] = []
+    for name in sorted(families):
+        fam = families[name]
+        if fam.get("help") is not None:
+            lines.append("# HELP %s %s" % (name, fam["help"]))
+        if fam.get("type") is not None:
+            lines.append("# TYPE %s %s" % (name, fam["type"]))
+        by_key = {}
+        for ex in fam.get("exemplars", ()):
+            ex_name, ex_labels, trace_id, observed = ex
+            by_key[(ex_name, tuple(sorted(ex_labels.items())))] = \
+                (trace_id, observed)
+        for sname, labels, value in fam.get("samples", ()):
+            ex = by_key.get((sname, tuple(sorted(labels.items()))))
+            lines.append(render_sample(sname, labels, value, exemplar=ex))
+    return "\n".join(lines) + "\n" if lines else ""
+
+
+def lint_exposition(text: str) -> List[str]:
+    """Return lint errors (empty list == clean).
+
+    Beyond line grammar: every family with samples must carry both a
+    ``# HELP`` and a ``# TYPE`` header, and exemplars may only ride
+    histogram ``_bucket`` lines (malformed exemplar syntax already
+    fails the line grammar inside :func:`parse_exposition`).
+    """
+    try:
+        families = parse_exposition(text)
+    except ValueError as exc:
+        return [str(exc)]
+    errors = []
+    for name, fam in sorted(families.items()):
+        if not fam["samples"]:
+            continue
+        if fam["type"] is None:
+            errors.append("family %s has samples but no # TYPE" % name)
+        if fam["help"] is None:
+            errors.append("family %s has samples but no # HELP" % name)
+        for ex_name, _labels, _tid, _obs in fam.get("exemplars", ()):
+            if fam["type"] != "histogram" or not ex_name.endswith("_bucket"):
+                errors.append("exemplar on non-bucket sample %s "
+                              "(family %s)" % (ex_name, name))
+    return errors

@@ -27,7 +27,10 @@ compile checks (:mod:`..isolation.exported`, :mod:`..isolation.programs`).
 
 Every write is best-effort: a failure degrades durability and is logged,
 never raised into the live session. With ``dirpath=None`` every method is
-a no-op.
+a no-op. The journal's size on disk is the ``kubeshare_proxy_journal_
+bytes`` gauge, kept as a running total of the files it writes and deletes
+(a listing per write, as the JAX journal makes, would cost the port's
+per-step sidecars a directory scan each).
 """
 
 from __future__ import annotations
@@ -39,9 +42,15 @@ import threading
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
 from ..utils.logger import get_logger
 
 log = get_logger("journal")
+
+_JOURNAL_BYTES = obs_metrics.default_registry().gauge(
+    "kubeshare_proxy_journal_bytes",
+    "Total on-disk size of the proxy's session journal (manifests + "
+    "buffer/program sidecars).")
 
 _TOKEN = re.compile(r"[0-9a-f]{32}")
 
@@ -60,8 +69,28 @@ class SessionJournal:
         #: bytes written since this journal was opened (manifests and
         #: sidecars), what a run pays for its durability
         self.bytes_written = 0
+        #: bytes of each file in the directory, and their sum
+        self._sizes: dict[str, int] = {}
+        self._total = 0
         if dirpath:
             os.makedirs(dirpath, exist_ok=True)
+            for name in os.listdir(dirpath):
+                try:
+                    self._sized(name, os.path.getsize(self._path(name)))
+                except OSError:
+                    pass
+
+    def _sized(self, name: str, size: int | None) -> None:
+        """``name`` now holds ``size`` bytes (None: deleted); the gauge
+        follows the running total."""
+        with self._mu:
+            old = (self._sizes.pop(name, 0) if size is None
+                   else self._sizes.get(name, 0))
+            if size is not None:
+                self._sizes[name] = size
+            self._total += (size or 0) - old
+            total = self._total
+        _JOURNAL_BYTES.set(value=float(total))
 
     @property
     def enabled(self) -> bool:
@@ -97,6 +126,7 @@ class SessionJournal:
             return False
         with self._mu:
             self.bytes_written += size
+        self._sized(name, size)
         return True
 
     # -- writes ----------------------------------------------------------
@@ -117,10 +147,12 @@ class SessionJournal:
 
     def drop_buffer(self, token: str, gen: int) -> None:
         if self.enabled:
+            name = self.buffer_name(token, gen)
             try:
-                os.unlink(self._path(self.buffer_name(token, gen)))
+                os.unlink(self._path(name))
             except OSError:
                 pass
+            self._sized(name, None)
 
     def save_program(self, token: str, exec_id: int, blob) -> None:
         if self.enabled:
@@ -142,6 +174,7 @@ class SessionJournal:
                     os.unlink(self._path(name))
                 except OSError:
                     pass
+                self._sized(name, None)
 
     # -- reads -----------------------------------------------------------
 
@@ -207,4 +240,5 @@ class SessionJournal:
                     os.unlink(self._path(name))
                 except OSError:
                     pass
+                self._sized(name, None)
         return manifests

@@ -1,8 +1,7 @@
 """Live migration of proxy sessions, driven from outside both proxies.
 
-Counterpart of ``kubeshare_tpu/resilience/migrate.py``, without its
-metrics and trace spans. A migration is three conversations and a
-tombstone:
+Counterpart of ``kubeshare_tpu/resilience/migrate.py``. A migration is
+three conversations and a tombstone:
 
 1. **freeze** — ``migrate_begin`` on the source kicks the session's
    connection and marks it migrating: while its bytes are in flight a
@@ -25,6 +24,11 @@ run last) leaves the source authoritative: the mover unfreezes it with
 ``migrate_abort`` (best effort: a source that is gone needs none), and the
 client resumes there. The mover holds the session's resume token, which
 is the capability; it is a client of neither proxy.
+
+Migrations are counted by outcome (``kubeshare_migrations_total``) and
+timed (``kubeshare_migration_duration_seconds``); with a ``trace_id`` the
+move is a ``migrate`` span with a ``migrate.buffer`` span per tensor, and
+the id rides both admin connections.
 """
 
 from __future__ import annotations
@@ -32,26 +36,43 @@ from __future__ import annotations
 import time
 
 from ..isolation import protocol
+from ..obs import metrics as obs_metrics
+from ..obs.trace import get_tracer
 from ..utils.logger import get_logger
 
 log = get_logger("migrate")
 
+_MIGRATIONS = obs_metrics.default_registry().counter(
+    "kubeshare_migrations_total",
+    "Session migrations by outcome.", labels=("outcome",))
+_MIG_DUR = obs_metrics.default_registry().histogram(
+    "kubeshare_migration_duration_seconds",
+    "End-to-end session migration time (freeze -> copy -> flip).",
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
+
 
 def migrate_session(source_addr: tuple, dest_addr: tuple, token: str, *,
                     drain: bool = False, chunk_bytes: int = 8 << 20,
-                    timeout: float = 30.0) -> dict:
+                    timeout: float = 30.0, trace_id: str = "") -> dict:
     """Move the session ``token`` from ``source_addr`` to ``dest_addr``.
     Returns the migrated manifest with ``moved``, ``duration_s`` and
     ``bytes`` (tensor and program bytes copied). ``drain=True`` first stops
     the source admitting sessions (evacuating the card)."""
     t0 = time.monotonic()
-    src = protocol.Connection(source_addr[0], int(source_addr[1]),
-                              timeout=timeout)
+    tracer = get_tracer() if trace_id else None
+    span = (tracer.begin("migrate", trace_id, src=f"{source_addr[0]}:"
+                         f"{source_addr[1]}", dst=f"{dest_addr[0]}:"
+                         f"{dest_addr[1]}") if tracer else None)
+    src = dst = None
     try:
+        src = protocol.Connection(source_addr[0], int(source_addr[1]),
+                                  timeout=timeout, trace_id=trace_id)
         dst = protocol.Connection(dest_addr[0], int(dest_addr[1]),
-                                  timeout=timeout)
+                                  timeout=timeout, trace_id=trace_id)
     except BaseException:
-        src.close()
+        if src is not None:
+            src.close()
+        _failed(tracer, span)
         raise
     moved = 0
     frozen = False
@@ -65,7 +86,8 @@ def migrate_session(source_addr: tuple, dest_addr: tuple, token: str, *,
         dst.call({"op": "import_session", "manifest": manifest})
         for spec in manifest.get("buffers", ()):
             if spec.get("alias_of") is None:
-                moved += _copy_buffer(src, dst, token, spec, chunk_bytes)
+                moved += _copy_buffer(src, dst, token, spec, chunk_bytes,
+                                      tracer, trace_id, span)
         for spec in manifest.get("programs", ()):
             exec_id = int(spec["exec_id"])
             prep, blob = src.call({"op": "export_program", "token": token,
@@ -88,11 +110,19 @@ def migrate_session(source_addr: tuple, dest_addr: tuple, token: str, *,
                 src.call({"op": "migrate_abort", "token": token})
             except (OSError, RuntimeError):
                 pass
+        _failed(tracer, span)
         raise
     finally:
         src.close()
         dst.close()
     duration = time.monotonic() - t0
+    _MIGRATIONS.inc("moved")
+    _MIG_DUR.observe(value=duration)
+    if span is not None:
+        span.attrs["outcome"] = "moved"
+        span.attrs["buffers"] = len(manifest.get("buffers", ()))
+        span.attrs["programs"] = len(manifest.get("programs", ()))
+        tracer.finish(span)
     log.info("migrated session %r (%d buffers, %d programs, %d bytes) "
              "%s:%d -> %s:%d in %.3fs", manifest.get("name"),
              len(manifest.get("buffers", ())),
@@ -103,12 +133,23 @@ def migrate_session(source_addr: tuple, dest_addr: tuple, token: str, *,
                 duration_s=duration, bytes=moved)
 
 
+def _failed(tracer, span) -> None:
+    _MIGRATIONS.inc("failed")
+    if span is not None:
+        span.attrs["outcome"] = "failed"
+        tracer.finish(span)
+
+
 def _copy_buffer(src: protocol.Connection, dst: protocol.Connection,
-                 token: str, spec: dict, chunk_bytes: int) -> int:
+                 token: str, spec: dict, chunk_bytes: int, tracer,
+                 trace_id: str, parent) -> int:
     """Stream one tensor source → destination, each exported slice sent
     on at once as an import chunk (never whole on the mover). Returns the
     bytes moved."""
     handle = int(spec["handle"])
+    sub = (tracer.begin("migrate.buffer", trace_id,
+                        parent_id=parent.span_id if parent else "",
+                        handle=handle) if tracer else None)
     off, total, sid = 0, None, None
     while total is None or off < total:
         length = chunk_bytes if total is None else min(chunk_bytes,
@@ -127,4 +168,7 @@ def _copy_buffer(src: protocol.Connection, dst: protocol.Connection,
         off += memoryview(blob).nbytes
     dst.call({"op": "import_buffer_commit", "token": token,
               "staging": sid})
+    if sub is not None:
+        sub.attrs["nbytes"] = total
+        tracer.finish(sub)
     return total

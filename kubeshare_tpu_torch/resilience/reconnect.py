@@ -1,7 +1,7 @@
 """Transparent reconnect-and-replay for isolation clients.
 
-Counterpart of ``kubeshare_tpu/resilience/reconnect.py``, without its
-metrics and trace spans. :class:`ResilientConnection` wraps a
+Counterpart of ``kubeshare_tpu/resilience/reconnect.py``.
+:class:`ResilientConnection` wraps a
 :class:`~..isolation.protocol.Connection` and keeps a session alive across
 the peer dying: when the transport breaks (or a reply goes missing past
 ``request_timeout_s``) it re-dials with exponential backoff and jitter,
@@ -21,6 +21,11 @@ the destination.
 
 The pod manager's break-and-reconnect uses the budget and the backoff
 (:class:`ReconnectPolicy`, :func:`backoff_delays`) alone.
+
+Recoveries are counted by outcome (``kubeshare_resilience_reconnects_
+total``), their replay depth is a histogram, and a connection made with a
+``trace_id`` (which rides every request) records a ``reconnect`` span per
+resume.
 """
 
 from __future__ import annotations
@@ -32,9 +37,24 @@ from collections import OrderedDict
 from dataclasses import dataclass
 
 from ..isolation import protocol
+from ..obs import metrics as obs_metrics
+from ..obs.trace import get_tracer
 from ..utils.logger import get_logger
 
 log = get_logger("reconnect")
+
+_REG = obs_metrics.default_registry()
+_RECONNECTS = _REG.counter(
+    "kubeshare_resilience_reconnects_total",
+    "Client reconnect attempts by outcome: 'resumed' (session replayed "
+    "onto a live proxy), 'moved' (migration tombstone redirected the "
+    "endpoint), 'lost' (budget exhausted -> SessionLost).",
+    labels=("outcome",))
+_REPLAY_DEPTH = _REG.histogram(
+    "kubeshare_resilience_replay_depth",
+    "In-flight requests replayed per successful resume (how deep the "
+    "pipeline was when the connection died).",
+    buckets=(0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0))
 
 
 class SessionLost(protocol.ProtocolError):
@@ -156,10 +176,11 @@ class ResilientConnection:
 
     def __init__(self, host: str, port: int, timeout: float | None = None,
                  policy: ReconnectPolicy | None = None,
-                 fault_tag: str = ""):
+                 fault_tag: str = "", trace_id: str = ""):
         self._host = host
         self._port = port
         self._dial_timeout = timeout
+        self._trace_id = trace_id
         self.policy = policy if policy is not None else ReconnectPolicy()
         self.fault_tag = fault_tag
         self._rng = random.Random(self.policy.seed)
@@ -193,6 +214,7 @@ class ResilientConnection:
         msg.setdefault("features", list(protocol.FEATURES))
         conn = protocol.Connection(self._host, self._port,
                                    timeout=self._dial_timeout,
+                                   trace_id=self.trace_id,
                                    fault_tag=self.fault_tag)
         try:
             reply, _ = conn.call(msg)
@@ -205,6 +227,18 @@ class ResilientConnection:
             conn.start_pipeline()
         self._conn = conn
         return reply
+
+    @property
+    def trace_id(self) -> str:
+        """The trace id every request carries, across reconnects."""
+        return self._trace_id
+
+    @trace_id.setter
+    def trace_id(self, trace_id: str) -> None:
+        self._trace_id = trace_id
+        conn = self._conn
+        if conn is not None:
+            conn.trace_id = trace_id
 
     @property
     def pipelined(self) -> bool:
@@ -332,6 +366,7 @@ class ResilientConnection:
                 raise SessionLost("connection closed")
             if self._epoch != failed_epoch:
                 return
+            t0 = time.monotonic()
             delays = backoff_delays(self.policy, self._rng)
             attempts = 0
             last_err: Exception | None = None
@@ -342,7 +377,7 @@ class ResilientConnection:
                 try:
                     conn = protocol.Connection(
                         host, port, timeout=self.policy.dial_timeout_s,
-                        fault_tag=self.fault_tag)
+                        trace_id=self.trace_id, fault_tag=self.fault_tag)
                 except OSError as exc:
                     last_err = exc
                     continue
@@ -358,6 +393,7 @@ class ResilientConnection:
                         continue
                     # a permanent refusal (unknown token: state is gone)
                     self._lost = exc
+                    _RECONNECTS.inc("lost")
                     raise SessionLost(f"resume refused: {exc}") from exc
                 except OSError as exc:
                     conn.close()
@@ -367,19 +403,21 @@ class ResilientConnection:
                     host, port = reply["moved"]
                     self.set_endpoint(str(host), int(port))
                     conn.close()
+                    _RECONNECTS.inc("moved")
                     last_err = protocol.ProtocolError(
                         f"session moved to {host}:{port}")
                     continue
-                self._resume_on(conn, reply, attempts)
+                self._resume_on(conn, reply, t0, attempts)
                 return
             self._lost = last_err or protocol.ProtocolError(
                 "reconnect budget exhausted")
+            _RECONNECTS.inc("lost")
             raise SessionLost(
                 f"session lost after {attempts} reconnect attempts: "
                 f"{last_err}") from last_err
 
     def _resume_on(self, conn: protocol.Connection, reply: dict,
-                   attempts: int) -> None:
+                   t0: float, attempts: int) -> None:
         # caller holds _mu
         conn.sock.settimeout(None)
         self.features = frozenset(reply.get("features", ()))
@@ -387,10 +425,18 @@ class ResilientConnection:
             conn.start_pipeline()
         self._conn = conn
         self._epoch += 1
+        nreplay = len(self._records)
         self.resumes += 1
-        self.replayed += len(self._records)
+        self.replayed += nreplay
+        _REPLAY_DEPTH.observe(value=float(nreplay))
+        _RECONNECTS.inc("resumed")
         for rec in self._records.values():     # rid (submission) order
             rec.inner = self._replay_one(conn, rec)
+        if self.trace_id:
+            get_tracer().record(
+                "reconnect", self.trace_id, t0 * 1000.0,
+                time.monotonic() * 1000.0, attempts=attempts,
+                replayed=nreplay)
         log.info("session resumed on %s:%d after %d attempt(s), "
                  "replaying %d request(s)", *self.endpoint, attempts,
                  len(self._records))

@@ -15,8 +15,16 @@ Two knobs bound the tradeoff:
 ``step(now)`` is explicitly clocked and synchronous — the simulation
 drives it in virtual time, tests with a manual clock, and
 :meth:`ContinuousBatcher.serve_loop` wraps it in a wall-clock pump thread
-for live serving. The JAX batcher's span tracer and flight recorder are
-not ported.
+for live serving. Each shipped batch is a ``serve-batch`` span under its
+head request's trace id; each completion is an SLO ``serve`` latency and
+``serve-availability`` sample when the front door has an evaluator; a
+failed batch is a flight-recorder note.
+
+One divergence from the JAX batcher, so that critpath can split a served
+row: each traced request's wait in the front door is a ``queue-wait``
+span, and a :class:`ProxyServable` runs each batch under the batch's own
+trace id (its head request's, else a new one), so the proxy's grant and
+execute spans of that batch join it and no other.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from ..obs import flight as obs_flight
+from ..obs import trace as obs_trace
 
 from .frontdoor import FrontDoor, ServeRequest
 
@@ -58,7 +69,11 @@ class ProxyServable:
     the exported-program path); every batch is then one ``execute`` at
     ``tinymlp.BATCH_SIZE`` × ``FEATURES`` — so serving rides the whole
     isolation stack (token grants, memory charges, resume tokens). The
-    :class:`ContinuousBatcher` pads a short batch up to ``batch_size``."""
+    :class:`ContinuousBatcher` pads a short batch up to ``batch_size``.
+
+    The servable owns its client's trace id: each :meth:`execute` sets it
+    to the batch's trace id, so the batch's put, execute and get carry it
+    over the wire and the proxy's spans of the batch join that trace."""
 
     def __init__(self, client, seed: int = 0):
         from ..models import tinymlp
@@ -72,7 +87,10 @@ class ProxyServable:
                              dtype=np.float32)
         self._exe = client.compile(tinymlp.apply, self._params, example_x)
 
-    def execute(self, x: np.ndarray) -> np.ndarray:
+    def execute(self, x: np.ndarray, trace_id: str = "") -> np.ndarray:
+        # a trace on every batch: a request without one would leave the
+        # proxy's connection on the previous batch's trace
+        self.client.trace_id = trace_id or obs_trace.new_trace_id()
         out = self._exe(self._params, np.asarray(x, dtype=np.float32))
         y = np.asarray(self.client.get(out))
         self.client.free(out)    # outputs are charged device buffers
@@ -88,13 +106,16 @@ class ContinuousBatcher:
     def __init__(self, frontdoor: FrontDoor, servable,
                  max_batch: Optional[int] = None,
                  max_wait_s: float = 0.005,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None,
+                 recorder=None):
         self.frontdoor = frontdoor
         self.servable = servable
         cap = getattr(servable, "batch_size", max_batch or 8)
         self.max_batch = min(int(max_batch), cap) if max_batch else cap
         self.max_wait_s = float(max_wait_s)
         self.clock = clock or frontdoor.clock
+        self.recorder = (recorder if recorder is not None
+                         else obs_flight.default_recorder())
         self.executions = 0
         self.rows_served = 0
         frontdoor.batcher = self
@@ -152,8 +173,22 @@ class ContinuousBatcher:
         if pad > 0:
             x = np.concatenate(
                 [x, np.zeros((pad,) + x.shape[1:], dtype=x.dtype)], axis=0)
+        trace_id = batch[0].trace_id or obs_trace.new_trace_id()
+        tracer = obs_trace.get_tracer()
+        shipped = tracer.now_ms()
+        for r in batch:
+            if r.trace_id:
+                tracer.record("queue-wait", r.trace_id,
+                              shipped - max(0.0, now - r.submitted_at) * 1e3,
+                              shipped, tenant=r.tenant)
         try:
-            y = self.servable.execute(x)
+            with tracer.span("serve-batch", trace_id, rows=rows,
+                             requests=len(batch),
+                             tenants=len({r.tenant for r in batch})):
+                if isinstance(self.servable, ProxyServable):
+                    y = self.servable.execute(x, trace_id=trace_id)
+                else:
+                    y = self.servable.execute(x)
         except Exception as exc:
             # no admitted request is ever dropped silently: a failed
             # execution fails every rider loudly and is accounted
@@ -161,6 +196,8 @@ class ContinuousBatcher:
                 r._fail(exc)
                 fd.note_delivered(r, failed=True)
                 fd.accounting.note_failed(r.tenant, r.tpu_class)
+            self.recorder.note("serving", "batch-failed",
+                               requests=len(batch), error=repr(exc))
             return len(batch)
         self.executions += 1
         self.rows_served += rows
@@ -175,6 +212,11 @@ class ContinuousBatcher:
             fd.accounting.note_completed(
                 r.tenant, r.tpu_class, latency, r.rows,
                 int(r.x.nbytes), int(out.nbytes), trace_id=r.trace_id)
+            if fd.slo is not None:
+                fd.slo.record(r.tenant, "serve", value_s=latency,
+                              now=now, trace_id=r.trace_id)
+                fd.slo.record(r.tenant, "serve-availability", ok=True,
+                              now=now, trace_id=r.trace_id)
         return len(batch)
 
     # -- live pump -----------------------------------------------------------

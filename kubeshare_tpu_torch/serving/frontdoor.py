@@ -23,8 +23,13 @@ Park/resume treats a tenant as a durable *session*: :meth:`FrontDoor.park`
 freezes the queued payloads and the delivered-sequence watermark into a
 JSON manifest and :meth:`FrontDoor.resume` replays it into any front door.
 The watermark makes delivery exactly-once: a request is in the manifest or
-already counted delivered, never both. The JAX front door's SLO, flight
-recorder and lock-profiler hooks are not ported.
+already counted delivered, never both.
+
+With ``slo=`` (an :class:`~kubeshare_tpu_torch.obs.slo.SloEvaluator`) a
+tenant registered with ``slo_spec`` declares its objectives, and the
+batcher records each completion against them; sheds, parks and resumes
+are flight-recorder notes; the front door's lock is a tracked one
+(``"frontdoor"``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..obs import flight as obs_flight
+from ..obs import prof as obs_prof
 from .accounting import ServingAccounting
 
 CLASSES = ("latency", "best-effort")
@@ -146,13 +153,17 @@ class FrontDoor:
 
     def __init__(self, max_queue: int = 256,
                  clock: Callable[[], float] = time.monotonic,
-                 accounting: Optional[ServingAccounting] = None):
+                 accounting: Optional[ServingAccounting] = None,
+                 slo=None, recorder=None):
         self.max_queue = int(max_queue)
         self.clock = clock
         self.accounting = accounting or ServingAccounting()
-        # admission, batching and accounting serialize under this lock;
-        # the wakeup condition shares it
-        self.lock = threading.Lock()
+        self.slo = slo
+        self.recorder = (recorder if recorder is not None
+                         else obs_flight.default_recorder())
+        # admission, batching and accounting serialize under this tracked
+        # lock; the wakeup condition shares it
+        self.lock = obs_prof.TrackedLock("frontdoor")
         self.wakeup = threading.Condition(self.lock)
         self._tenants: Dict[str, _Tenant] = {}
         self._rr = {cls: 0 for cls in CLASSES}  # round-robin cursors
@@ -166,7 +177,8 @@ class FrontDoor:
 
     def register_tenant(self, tenant: str, tpu_class: str = "best-effort",
                         rate: Optional[float] = None,
-                        burst: Optional[float] = None) -> str:
+                        burst: Optional[float] = None,
+                        slo_spec: str = "") -> str:
         """Declare a tenant; returns its serving resume token."""
         if tpu_class not in CLASSES:
             raise ValueError("unknown tpu_class %r" % (tpu_class,))
@@ -181,6 +193,9 @@ class FrontDoor:
                 self._tenants[tenant] = t
             else:
                 t.tpu_class = tpu_class
+        if slo_spec and self.slo is not None:
+            from ..obs.slo import parse_slo
+            self.slo.declare(tenant, parse_slo(slo_spec))
         return t.token
 
     # -- admission -----------------------------------------------------------
@@ -202,6 +217,8 @@ class FrontDoor:
     def _shed(self, t: _Tenant, reason: str) -> None:
         self.shed_total += 1
         self.accounting.note_shed(t.name, t.tpu_class, reason)
+        self.recorder.note("serving", "shed", tenant=t.name,
+                           reason=reason)
         raise Overloaded("serving: tenant %s shed (%s)"
                          % (t.name, reason), reason)
 
@@ -351,6 +368,9 @@ class FrontDoor:
         for r in pending:
             r._fail(SessionParked(
                 "tenant %s parked; resume with its manifest" % tenant))
+        self.recorder.note("serving", "park", tenant=tenant,
+                           pending=len(pending),
+                           watermark=manifest["delivered"])
         return manifest
 
     def resume(self, manifest: dict,
@@ -380,6 +400,9 @@ class FrontDoor:
                 restored.append(req)
             self.accounting.set_queue_depth(tenant, len(t.queue))
             self.wakeup.notify_all()
+        self.recorder.note("serving", "resume", tenant=tenant,
+                           restored=len(restored),
+                           watermark=int(manifest["delivered"]))
         return restored
 
     # -- state ---------------------------------------------------------------

@@ -8,7 +8,9 @@ virtual time, so capacity is ``max_batch / exec_time_s`` rows/s and
 offered load above it builds queues and sheds — the regime the serving
 plane must be correct in. Same run, same seed, same stats: the event loop
 is a heap of ``(time, seq, kind, payload)`` and the only clock is the loop
-variable. The SLO evaluator (``slo=``) is not ported yet.
+variable. With ``slo=`` (an :class:`~kubeshare_tpu_torch.obs.slo.
+SloEvaluator`) the evaluator judges the run's completions every
+``slo_every_s`` of virtual time and once at its end.
 """
 
 from __future__ import annotations
@@ -35,11 +37,8 @@ def simulate_serving(n_requests: int = 400, tenants: int = 4,
                      rate: Optional[float] = None,
                      slo=None, slo_every_s: float = 1.0,
                      features: int = 8) -> dict:
-    """Run ``n_requests`` aggregate arrivals; return per-tenant stats.
-    ``slo`` and ``slo_every_s`` keep the JAX signature: an evaluator
-    raises ``NotImplementedError`` until the SLO module is ported."""
-    if slo is not None:
-        raise NotImplementedError("the SLO evaluator is not ported yet")
+    """Run ``n_requests`` aggregate arrivals; return per-tenant stats
+    (with ``slo``, also its alert count and what is firing at the end)."""
     rng = random.Random(seed)
     names = ["tenant-%d" % i for i in range(tenants)]
     classes = {n: ("latency" if i < latency_tenants else "best-effort")
@@ -47,7 +46,7 @@ def simulate_serving(n_requests: int = 400, tenants: int = 4,
     acct = ServingAccounting(MetricsRegistry())
     now_box = [0.0]
     fd = FrontDoor(max_queue=max_queue, clock=lambda: now_box[0],
-                   accounting=acct)
+                   accounting=acct, slo=slo)
     for n in names:
         fd.register_tenant(n, tpu_class=classes[n], rate=rate,
                            burst=rate)
@@ -67,6 +66,7 @@ def simulate_serving(n_requests: int = 400, tenants: int = 4,
     arrivals = {n: 0 for n in names}
     total_arrivals = 0
     chip_free_at = 0.0
+    last_eval = 0.0
 
     def maybe_serve(now: float) -> float:
         """Ship the batches the device can take; return chip_free_at."""
@@ -105,12 +105,17 @@ def simulate_serving(n_requests: int = 400, tenants: int = 4,
             wake = max(deadline, chip_free_at)
             heapq.heappush(events, (wake, seq, "svc", None))
             seq += 1
+        if slo is not None and now - last_eval >= slo_every_s:
+            slo.evaluate(now=now)
+            last_eval = now
 
     # drain whatever is still queued, honouring the device's occupancy
     while fd.queued_rows():
         now_box[0] = max(now_box[0], chip_free_at)
         if batcher.step(now_box[0], force=True):
             chip_free_at = now_box[0] + exec_time_s
+    if slo is not None:
+        slo.evaluate(now=now_box[0])
 
     stats: Dict[str, dict] = {}
     snap = acct.snapshot()
@@ -153,5 +158,8 @@ def simulate_serving(n_requests: int = 400, tenants: int = 4,
         "mean_batch_rows": snap["mean_batch_rows"],
         "capacity_qps": round(max_batch / exec_time_s, 3),
     }
+    if slo is not None:
+        out["slo_alerts"] = len(slo.events())
+        out["slo_firing"] = ["%s:%s" % (t, o) for t, o in slo.firing()]
     return out
 

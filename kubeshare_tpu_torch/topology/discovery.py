@@ -72,6 +72,21 @@ def _cuda_chips(host: str | None = None) -> list[ChipInfo]:
     return chips
 
 
+def device_chip_id(device) -> str:
+    """The id discovery gives ``device`` (a ``torch.device``): a CUDA
+    card's ``<model>-<host>-<index>``, any other device its own name. The
+    token scheduler, the chip-time ledger and the blame graph key a
+    device by it."""
+    if device.type != "cuda":
+        return str(device)
+    import torch
+
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    model = normalize_model(torch.cuda.get_device_properties(index).name)
+    return make_chip_id(model, default_node_name(), index)
+
+
 def discover_chips(backend: str = "auto",
                    host: str | None = None) -> list[ChipInfo]:
     """Enumerate local devices. ``backend``: ``"cuda"``, ``"fake"``, or

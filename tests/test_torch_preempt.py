@@ -445,11 +445,15 @@ def test_a_latency_client_slices_a_best_effort_chain():
     """A best-effort chain of bursts holds the token; a latency client's
     execute waits past grace and marks it; the chain yields between two
     bursts, the latency execute runs before the chain ends, and the chain
-    goes on to compute what an unsliced chain computes. The quota (1 s)
-    outlasts the first bursts (window/4 = 250 ms each), so only the
-    preemption can hand the token over early."""
+    goes on to compute what an unsliced chain computes. The window and
+    the quota (100 s) outlast the chain, whose bursts are powers of two
+    that halve what is left of it, so only the preemption hands the
+    token over, at the end of the burst in flight. With a quota a slow
+    host's burst could outlast (the 1 s of a 1 s window), the marked
+    hold would renew at that boundary as a spent quota instead, and no
+    yield would be the slicer's."""
     pol = PreemptionPolicy(grace_ms=5.0, min_hold_ms=1.0)
-    sched = TokenScheduler(1000.0, 1000.0, MIN, preempt=pol)
+    sched = TokenScheduler(100_000.0, 100_000.0, MIN, preempt=pol)
     proxy = ChipProxy(device="cpu", scheduler=sched)
     proxy.serve()
     try:
@@ -461,7 +465,7 @@ def test_a_latency_client_slices_a_best_effort_chain():
         ref_loop, ref_carry, ref_consts = _loop_start(trainer)
         bx = server.put(np.ones(8, dtype=np.float32))
         exe = server.compile(lambda a: a * 2.0, bx)
-        # warm the shared cost model so bursts reach their 250 ms cap
+        # warm the shared cost model
         ref_carry, _ = _chain_to(ref_loop, 256, ref_carry, ref_consts)
         cost = next(iter(proxy._costs.values()))
         steps = 256 + int(1500.0 / max(cost.loop_step_ms, 1e-3))

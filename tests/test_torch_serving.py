@@ -2,8 +2,9 @@
 shedding, batching bounds, class priority, accounting, park/resume, the
 virtual-time simulation, and ``ProxyServable`` on a CPU ``ChipProxy``.
 
-Mirrors ``tests/test_serving.py`` (its chaos, SLO and service-route cases
-wait for those planes of the port). Each deterministic case drives the
+Mirrors ``tests/test_serving.py`` (its chaos and service-route cases wait
+for those planes of the port; the simulation's SLO evaluator is held
+against the JAX one). Each deterministic case drives the
 port's front door and the JAX package's with the same requests on the
 same manual clock and requires the same outcome.
 """
@@ -447,9 +448,33 @@ def test_simulate_serving_sheds_past_saturation_and_keeps_priority():
     assert lat["p99_ms"] < be_p99 / 2 and lat["p99_ms"] <= 50.0
 
 
-def test_simulate_serving_refuses_an_slo_evaluator():
-    with pytest.raises(NotImplementedError, match="SLO"):
-        simulate_serving(n_requests=10, slo=object())
+@pytest.mark.parametrize("seed", [7, 11])
+def test_simulate_serving_with_an_slo_evaluator_matches_jax(seed):
+    """The same flooded run in each package, each judged by its own
+    package's SLO evaluator declared the same way: the same result dict,
+    ``slo_alerts`` and ``slo_firing`` included, and the same alert
+    events — so the port's front door, batcher records and evaluation
+    cadence feed its evaluator what the JAX serving plane feeds its own."""
+    from kubeshare_tpu.obs.slo import SloEvaluator as JaxEvaluator
+    from kubeshare_tpu_torch.obs.slo import SloEvaluator
+
+    kw = dict(n_requests=800, tenants=4, qps=1600.0, seed=seed,
+              latency_tenants=1, exec_time_s=0.01, max_queue=24,
+              slo_every_s=0.25)
+    outs, events = [], []
+    for sim, cls in ((simulate_serving, SloEvaluator),
+                     (jserving.simulate_serving, JaxEvaluator)):
+        ev = cls(fast_window_s=0.5, slow_window_s=2.0, burn_threshold=2.0,
+                 min_samples=5)
+        for i in range(4):
+            ev.declare("tenant-%d" % i,
+                       "serve-p99<=30ms,serve-availability>=99")
+        outs.append(sim(slo=ev, **kw))
+        events.append([e.to_dict() for e in ev.events()])
+    assert outs[0] == outs[1]
+    assert events[0] == events[1]
+    assert outs[0]["slo_alerts"] == len(events[0]) > 0
+    assert outs[0]["slo_firing"]
 
 
 # -- ProxyServable on a CPU proxy ---------------------------------------------

@@ -73,6 +73,23 @@ failing the run (non-zero exit, no result line) when it fails:
       bytes, journaled and unjournaled steps/s, the seconds from the
       crash to the first step after resume, the requests replayed, and
       the migration's seconds and bytes;
+   h. latency-class serving beside a best-effort trainer on one proxy,
+      with and without preemption, each run's ledger, blame, SLO alerts
+      and critpath read;
+   i. a pod from its labels to the card — the port's registry,
+      collector (``--backend cuda``) and configd as processes; the
+      scheduler engine here syncs its fleet from the registry (the card's
+      node beside 63 fake 8-device nodes, 505 devices), runs 2,000 seeded
+      background pods on the fake nodes, then binds two LM pods at 0.5
+      to the card; configd writes the device's client file, 5e's launcher
+      starts their pod managers on the bound ports, and the tenants start
+      with their bindings' env and train side by side, gated. A third
+      0.5 pod and one asking more memory than the card has are
+      unschedulable; deleting one pod stops its manager and lets the
+      third bind; stopping the collector drops the node's capacity and
+      lease. Prints the engine's schedule latencies (host numbers), the
+      seconds from publishing a binding to its manager's READY, and the
+      tenants' rates and share;
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
@@ -81,7 +98,7 @@ The second-to-last line is the kernels' JSON record; the last line is
     python3 chip_smoke.py --tenant out.json [--compiled] [--seconds S]
         [--steps N] [--seed N]
 
-is the tenant of phases 5e, 5f and 5g (``--compiled``: its train step
+is the tenant of phases 5e, 5f, 5g and 5i (``--compiled``: its train step
 wrapped in ``torch.compile``; ``--steps``: exactly N steps): it holds no
 isolation code, trains, and writes its per-step end times, losses and
 kernel launch counts to ``out.json``.
@@ -95,7 +112,9 @@ import math
 import os
 import re
 import subprocess
+import random
 import shutil
+import signal
 import socket
 import sys
 import tempfile
@@ -240,6 +259,25 @@ HOOK_CYCLES = 2000
 #: place, whose spans still reach the process flight recorder), and the
 #: SLO records (no evaluator on the front door or for the grant waits)
 SERVE_HOOKS = ("cond", "ledger", "tracer", "slo")
+# phase 5i: the placement path. The fleet beside the real node: fake
+# 8-device nodes whose collectors would publish PLACE_FAKE_MODEL devices
+# of 80 GiB (63 x 8 + the card = 505 devices), filled by a seeded stream
+# of background pods pinned to that model; none of them is launched.
+PLACE_FAKE_NODES = 63
+PLACE_FAKE_DEVICES = 8
+PLACE_FAKE_MODEL = "H100-fake-80GB"
+PLACE_FAKE_MEMORY = 80 * 1024**3
+PLACE_BACKGROUND_PODS = 2000
+PLACE_SEED = 11
+# the tenant pods, pinned to the card's model: two at 0.5 side by side
+# (name, seed), then a third that fits only once one of them is deleted
+PLACE_TENANTS = (("smoke/place-a", 10), ("smoke/place-b", 11))
+PLACE_THIRD = "smoke/place-c"
+PLACE_REQUEST = 0.5
+PLACE_MEM = 20 * 1024**3
+# each tenant trains this long past warm-up: their common window passes
+# 5e's GATE_MIN_WINDOW_S (8 s) with the start-up offset between them
+PLACE_PAIR_S = 10.0
 
 
 def log(msg: str) -> None:
@@ -1186,11 +1224,13 @@ class _Node:
             _wait_ready(self.log(name), f"the pod manager of {name}")
         return ports
 
-    def run(self, tenants, seconds: float, gated: bool) -> dict:
+    def run(self, tenants, seconds: float, gated: bool,
+            pod_envs: dict | None = None) -> dict:
         """Run the tenants ``(name, seed, manager port, request)`` side by
-        side, each a process with only a pod's env; while they run, sample
-        each gated one's charged ms from the token scheduler's ``usage``
-        op. Returns each tenant's record and its samples."""
+        side, each a process with only a pod's env (``pod_envs[name]``, a
+        binding's env, when given; else one built here); while they run,
+        sample each gated one's charged ms from the token scheduler's
+        ``usage`` op. Returns each tenant's record and its samples."""
         from kubeshare_tpu_torch import constants as C
         from kubeshare_tpu_torch.isolation import protocol
 
@@ -1201,12 +1241,15 @@ class _Node:
                 env = {k: v for k, v in os.environ.items()
                        if not k.startswith("KUBESHARE_TPU_")
                        and k != C.ENV_VISIBLE_CHIPS}
-                env.update({"PYTHONPATH": os.pathsep.join([shim, self.root]),
-                            C.ENV_POD_MANAGER_PORT: str(port),
-                            C.ENV_POD_NAME: name,
-                            C.ENV_TPU_REQUEST: str(request),
-                            C.ENV_TPU_LIMIT: "1.0",
-                            C.ENV_VISIBLE_CHIPS: self.chip.chip_id})
+                env["PYTHONPATH"] = os.pathsep.join([shim, self.root])
+                if pod_envs is not None:
+                    env.update(pod_envs[name])
+                else:
+                    env.update({C.ENV_POD_MANAGER_PORT: str(port),
+                                C.ENV_POD_NAME: name,
+                                C.ENV_TPU_REQUEST: str(request),
+                                C.ENV_TPU_LIMIT: "1.0",
+                                C.ENV_VISIBLE_CHIPS: self.chip.chip_id})
                 if not gated:
                     env[C.ENV_ATTACH_MODE] = "off"
                 outs[name] = os.path.join(
@@ -1875,11 +1918,12 @@ def _loop_phase(dev, per_step: dict) -> dict:
             "compile_s": compile_s, "launches": launches}
 
 
-def _wait_for(cond, what: str, timeout: float = 300.0) -> None:
+def _wait_for(cond, what: str, timeout: float = 300.0,
+              phase: str = "5g") -> None:
     deadline = time.monotonic() + timeout
     while not cond():
-        check(time.monotonic() < deadline, f"5g: timed out waiting for "
-                                           f"{what}")
+        check(time.monotonic() < deadline, f"{phase}: timed out waiting "
+                                           f"for {what}")
         time.sleep(0.005)
 
 
@@ -2590,6 +2634,344 @@ def _fmt_serve_run(r: dict) -> str:
     return line
 
 
+# --- phase 5i: a pod from its labels to the card -------------------------------
+
+def _start_daemon(root: str, base: str, label: str, args: list):
+    """One daemon of the placement path as a process of its own (``python
+    -m``), its output in a log under ``base``; returns (process, log)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_")}
+    env["PYTHONPATH"] = root
+    log_path = os.path.join(base, label + ".log")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", *args], env=env,
+                                cwd=root, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return proc, log_path
+
+
+def _stop_daemon(proc, label: str, log_path: str) -> None:
+    """SIGTERM, then a clean exit within 20 s (each daemon of the path
+    stops on its first signal, READY or not)."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"5i: the {label} did not stop on SIGTERM: {_tail(log_path)}")
+    check(rc == 0, f"5i: the {label} exited {rc}: {_tail(log_path)}")
+
+
+def _fake_capacity(rc) -> int:
+    """The capacity PLACE_FAKE_NODES collectors would publish, each node
+    PLACE_FAKE_DEVICES devices of PLACE_FAKE_MODEL; returns the count."""
+    from kubeshare_tpu_torch.topology.chip import ChipInfo, make_chip_id
+
+    n = 0
+    for i in range(PLACE_FAKE_NODES):
+        host = f"fake-node-{i}"
+        chips = [ChipInfo(chip_id=make_chip_id(PLACE_FAKE_MODEL, host, d),
+                          index=d, host=host, model=PLACE_FAKE_MODEL,
+                          memory=PLACE_FAKE_MEMORY)
+                 for d in range(PLACE_FAKE_DEVICES)]
+        rc.put_capacity(host, [c.to_labels() for c in chips], healthy=True)
+        n += len(chips)
+    return n
+
+
+def _background_labels(rng, i: int) -> list:
+    """Background submission ``i`` in a battery-like mix, pinned to the
+    fake model: a list of label sets, two for a gang pair."""
+    from kubeshare_tpu_torch import constants as C
+
+    pin = {C.POD_TPU_MODEL: PLACE_FAKE_MODEL}
+    kind = rng.randrange(8)
+    if kind == 0:       # half share (pod01)
+        return [dict(pin, **{C.POD_TPU_REQUEST: "0.5",
+                             C.POD_TPU_LIMIT: "1.0"})]
+    if kind == 1:       # small share (pod04)
+        return [dict(pin, **{C.POD_TPU_REQUEST: "0.25",
+                             C.POD_TPU_LIMIT: "0.5"})]
+    if kind == 2:       # memory and priority (pod05)
+        return [dict(pin, **{C.POD_TPU_REQUEST: "0.5",
+                             C.POD_TPU_LIMIT: "1.0",
+                             C.POD_TPU_MEMORY: str(16 * 1024**3),
+                             C.POD_PRIORITY: "50"})]
+    if kind == 3:       # whole device (pod03)
+        return [dict(pin, **{C.POD_TPU_REQUEST: "1", C.POD_TPU_LIMIT: "1"})]
+    if kind == 4:       # two devices (pod06)
+        return [dict(pin, **{C.POD_TPU_REQUEST: "2", C.POD_TPU_LIMIT: "2"})]
+    if kind == 5:       # opportunistic (pod15)
+        return [dict(pin, **{C.POD_TPU_REQUEST: "0.3",
+                             C.POD_TPU_LIMIT: "1.0",
+                             C.POD_PRIORITY: "0"})]
+    if kind == 6:       # guarantee share
+        return [dict(pin, **{C.POD_TPU_REQUEST: "0.2",
+                             C.POD_TPU_LIMIT: "1.0",
+                             C.POD_PRIORITY: "10"})]
+    gang = {C.POD_TPU_REQUEST: "1.0", C.POD_TPU_LIMIT: "1.0",   # pod02
+            C.POD_GROUP_NAME: f"pair-{i}",
+            C.POD_GROUP_HEADCOUNT: "2", C.POD_GROUP_THRESHOLD: "1",
+            C.POD_PRIORITY: "10"}
+    return [dict(pin, **gang), dict(pin, **gang)]
+
+
+def _booking_violations(engine) -> list:
+    """The booking invariants of ``tests/test_engine_fuzz.py`` over the
+    whole fleet, plus each leaf's use equal to the bookings on it."""
+    bad = []
+    used: dict = {}
+    for pod in engine.pod_status.values():
+        if pod.port and not pod.node_name:
+            bad.append(f"{pod.key}: port {pod.port} without a node")
+        for chip_id, compute, memory in pod.bookings:
+            c, m = used.get(chip_id, (0.0, 0))
+            used[chip_id] = (c + compute, m + memory)
+    for chip_id, leaf in engine.leaf_cells.items():
+        if not -1e-9 <= leaf.available <= leaf.leaf_cell_number + 1e-9:
+            bad.append(f"{chip_id}: available {leaf.available}")
+        if not 0 <= leaf.free_memory <= leaf.full_memory:
+            bad.append(f"{chip_id}: free memory {leaf.free_memory}")
+        c, m = used.get(chip_id, (0.0, 0))
+        if (abs(leaf.leaf_cell_number - leaf.available - c) > 1e-9
+                or leaf.full_memory - leaf.free_memory != m):
+            bad.append(f"{chip_id}: use {leaf.available}, "
+                       f"{leaf.free_memory} against bookings {c}, {m}")
+    return bad
+
+
+def _background_stream(engine, rc) -> dict:
+    """PLACE_BACKGROUND_PODS seeded submissions on the fake nodes, each
+    bound pod published as its requirement record, a bound one withdrawn
+    after about one submission in three. Times ``schedule`` alone."""
+    from kubeshare_tpu_torch.scheduler import Unschedulable
+    from kubeshare_tpu_torch.telemetry import aggregator
+
+    rng = random.Random(PLACE_SEED)
+    lat, bound = [], []
+    refused = 0
+    i = 0
+    while i < PLACE_BACKGROUND_PODS:
+        sets = _background_labels(rng, i)[:PLACE_BACKGROUND_PODS - i]
+        # a gang's members carry its rank ordinals, as a StatefulSet's do
+        names = ([f"bg-{i}"] if len(sets) == 1
+                 else [f"bg-{i}-{j}" for j in range(len(sets))])
+        pods = [engine.submit("bg", n, labels)
+                for n, labels in zip(names, sets)]
+        i += len(sets)
+        for pod in pods:
+            t0 = time.perf_counter()
+            try:
+                binding = engine.schedule(pod)
+            except Unschedulable:
+                binding = None
+            lat.append(time.perf_counter() - t0)
+            if binding is None:
+                refused += 1
+                continue
+            aggregator.publish_binding(rc, pod, binding)
+            bound.append(pod.key)
+        for pod in pods:
+            if not pod.node_name:
+                engine.delete_pod(pod.key)
+        if bound and rng.random() < 0.3:
+            key = bound.pop(rng.randrange(len(bound)))
+            engine.delete_pod(key)
+            aggregator.withdraw(rc, key)
+    lat_us = sorted(x * 1e6 for x in lat)
+    return {"submitted": len(lat), "refused": refused,
+            "bound_at_end": len(bound),
+            "schedule_us_p50": _pct(lat_us, 0.5),
+            "schedule_us_p99": _pct(lat_us, 0.99),
+            "schedule_pods_per_sec": len(lat) / sum(lat)}
+
+
+def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
+    """Phase 5i: a pod from its ``sharedtpu/*`` labels to the card. The
+    port's registry, collector (``--backend cuda``) and configd run as
+    processes; the engine runs here over the registry's fleet (the real
+    node and PLACE_FAKE_NODES fake ones), binds two 0.5 LM pods to the
+    card, configd writes the device's client file, 5e's launcher starts
+    the pods' managers, and the tenants start with their bindings' env."""
+    import torch
+
+    from kubeshare_tpu_torch import constants as C
+    from kubeshare_tpu_torch.nodeagent.files import read_chip_clients
+    from kubeshare_tpu_torch.scheduler import SchedulerEngine, Unschedulable
+    from kubeshare_tpu_torch.telemetry import aggregator
+    from kubeshare_tpu_torch.telemetry.registry import RegistryClient
+
+    torch.cuda.empty_cache()
+    node = _Node(root)
+    chip = node.chip
+    daemons: dict = {}
+    out: dict = {"chip_id": chip.chip_id, "model": chip.model}
+    try:
+        daemons["registry"] = _start_daemon(root, node.base, "registry", [
+            "kubeshare_tpu_torch.telemetry.registry", "--host", "127.0.0.1",
+            "--port", "0"])
+        ready = _wait_ready(daemons["registry"][1], "the registry")
+        port = int(ready.split()[1])
+        registry_args = ["--registry-host", "127.0.0.1", "--registry-port",
+                         str(port), "--node", chip.host, "--backend", "cuda"]
+        daemons["collector"] = _start_daemon(root, node.base, "collector", [
+            "kubeshare_tpu_torch.telemetry.collector", *registry_args])
+        daemons["configd"] = _start_daemon(root, node.base, "configd", [
+            "kubeshare_tpu_torch.nodeagent.configd", *registry_args,
+            "--base-dir", node.base, "--period", "0.1"])
+        for label in ("collector", "configd"):
+            _wait_ready(daemons[label][1], f"the {label}")
+        ready = node.start()
+        log(f"5i: registry on {port}, collector and configd READY; "
+            f"launcher proxy {ready}")
+        rc = RegistryClient("127.0.0.1", port)
+        real = rc.capacity().get(chip.host, {})
+        check(real.get("healthy") is True
+              and [c["chip_id"] for c in real.get("chips", [])]
+              == [chip.chip_id],
+              f"5i: the collector published {real}, not {chip.chip_id}")
+        check(chip.host in rc.leases()["leases"],
+              "5i: the collector published no lease")
+        fake = _fake_capacity(rc)
+        engine = SchedulerEngine()
+        nodes = aggregator.sync_engine_from_registry(engine, rc)
+        out["fleet"] = {"nodes": len(nodes), "devices": len(
+            engine.leaf_cells)}
+        check(len(engine.leaf_cells) == fake + 1,
+              f"5i: the engine sees {len(engine.leaf_cells)} devices")
+
+        bg = out["background"] = _background_stream(engine, rc)
+        bad = _booking_violations(engine)
+        check(not bad, f"5i: booking invariants broken: {bad[:5]}")
+        card = engine.leaf_cells[chip.chip_id]
+        check(card.available == 1.0,
+              f"5i: a background pod landed on the card: {card.available}")
+        log(f"5i: engine over {len(nodes)} nodes, "
+            f"{len(engine.leaf_cells)} devices: {bg['submitted']} "
+            f"background schedules ({bg['refused']} unschedulable, "
+            f"{bg['bound_at_end']} bound at the end): schedule "
+            f"p50 {bg['schedule_us_p50']:.1f} us, p99 "
+            f"{bg['schedule_us_p99']:.1f} us, "
+            f"{bg['schedule_pods_per_sec']:.1f} pods/s (host numbers)")
+
+        labels = {C.POD_TPU_REQUEST: str(PLACE_REQUEST),
+                  C.POD_TPU_LIMIT: "1.0", C.POD_TPU_MEMORY: str(PLACE_MEM),
+                  C.POD_TPU_MODEL: chip.model}
+        bindings, pods = {}, {}
+        for name, _ in PLACE_TENANTS:
+            ns, _, pod_name = name.partition("/")
+            pods[name] = engine.submit(ns, pod_name, labels)
+            bindings[name] = engine.schedule(pods[name])
+        ports = {n: b.port for n, b in bindings.items()}
+        check(all(b.chip_ids == [chip.chip_id] and b.node == chip.host
+                  for b in bindings.values()),
+              f"5i: the pods were bound to {bindings}")
+        check(len(set(ports.values())) == 2 and all(ports.values()),
+              f"5i: manager ports {ports}")
+        t_pub = time.monotonic()
+        for name, b in bindings.items():
+            aggregator.publish_binding(rc, pods[name], b)
+        ready_s = {}
+        for name, b in bindings.items():
+            line = _wait_ready(node.log(name), f"the pod manager of {name}")
+            ready_s[name] = time.monotonic() - t_pub
+            check(line == f"READY {b.port}",
+                  f"5i: {name}'s manager says {line!r}, binding port "
+                  f"{b.port}")
+            with socket.create_connection(("127.0.0.1", b.port), 5):
+                pass
+        out["bind_to_ready_s"] = ready_s
+        entries = read_chip_clients(chip.chip_id, node.base)
+        check(sorted((e.name, e.port, e.request) for e in entries)
+              == sorted((n, b.port, PLACE_REQUEST)
+                        for n, b in bindings.items()),
+              f"5i: configd's file lists {entries}")
+        log(f"5i: bound {', '.join(f'{n} port {p}' for n, p in ports.items())}"
+            f" to {chip.chip_id}; publish_binding to the manager's READY "
+            + ", ".join(f"{n} {s:.3f} s" for n, s in ready_s.items()))
+
+        envs = {n: b.env for n, b in bindings.items()}
+        pair = node.run([(n, seed, ports[n], PLACE_REQUEST)
+                         for n, seed in PLACE_TENANTS], PLACE_PAIR_S, True,
+                        pod_envs=envs)
+        for name, rec in pair.items():
+            _check_tenant(name, rec, True, adam_per_step, layers)
+        out["visible_devices"] = {n: r["visible"] for n, r in pair.items()}
+        entries_ = [(n, seed, PLACE_REQUEST) for n, seed in PLACE_TENANTS]
+        reading = out["pair"] = pair_reading(pair, entries_)
+        check_pair("5i", reading)
+        out["launches"] = {k: sum(r["launches"][k] for r in pair.values())
+                           for k in _counts()}
+        log(f"5i: tenants' steps/s over the common window "
+            f"({reading['window_s']:.2f} s): " + ", ".join(
+                f"{n} {r:.3f}" for n, r in
+                reading["steps_per_sec"].items())
+            + f"; {PLACE_TENANTS[0][0]} held "
+            f"{reading['lifetime_held_share_a']:.4f} of the token over its "
+            f"life, {reading['share_a']:.4f} of the window's steps")
+
+        third_name = PLACE_THIRD.partition("/")
+        third = engine.submit(third_name[0], third_name[2], labels)
+        try:
+            engine.schedule(third)
+            fail("5i: a third 0.5 pod was bound beside the two")
+        except Unschedulable as e:
+            out["third_refused"] = str(e)
+        big = engine.submit("smoke", "too-big", dict(
+            labels, **{C.POD_TPU_MEMORY: str(chip.memory + 1)}))
+        try:
+            engine.schedule(big)
+            fail("5i: a pod asking more memory than the card has was bound")
+        except Unschedulable as e:
+            out["too_big_refused"] = str(e)
+        engine.delete_pod(big.key)
+
+        gone, kept = (n for n, _ in PLACE_TENANTS)
+        proc = node.launcher._managers[(chip.chip_id, gone)][1]
+        t0 = time.monotonic()
+        engine.delete_pod(pods[gone].key)
+        aggregator.withdraw(rc, pods[gone].key)
+        _wait_for(lambda: [e.name for e in read_chip_clients(
+            chip.chip_id, node.base)] == [kept], "configd's rewrite", 30, "5i")
+        _wait_for(lambda: (proc.poll() is not None and (
+            chip.chip_id, gone) not in node.launcher._managers),
+            f"the stop of {gone}'s manager", 30, "5i")
+        out["delete_to_stop_s"] = time.monotonic() - t0
+        binding = engine.schedule(third)
+        check(binding.chip_ids == [chip.chip_id],
+              f"5i: the third pod was bound to {binding}")
+        aggregator.publish_binding(rc, third, binding)
+        line = _wait_ready(node.log(PLACE_THIRD),
+                           f"the pod manager of {PLACE_THIRD}")
+        check(line == f"READY {binding.port}",
+              f"5i: {PLACE_THIRD}'s manager says {line!r}")
+        bad = _booking_violations(engine)
+        check(not bad, f"5i: booking invariants broken: {bad[:5]}")
+        log(f"5i: a third 0.5 pod and one of {chip.memory + 1} bytes were "
+            f"unschedulable while two were bound; delete_pod + withdraw to "
+            f"the manager's stop {out['delete_to_stop_s']:.3f} s; the third "
+            f"pod then bound on port {binding.port}")
+
+        for label in ("collector", "configd", "registry"):
+            proc_d, log_d = daemons.pop(label)
+            _stop_daemon(proc_d, label, log_d)
+            if label == "collector":
+                check(chip.host not in rc.capacity()
+                      and chip.host not in rc.leases()["leases"],
+                      "5i: the stopped collector left its capacity or "
+                      "lease")
+    finally:
+        for proc, _ in daemons.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        node.stop()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument("--out", default="",
@@ -2898,6 +3280,17 @@ def main(argv=None) -> int:
     phases["serving"] = h
     for k in launches:
         launches[k] += h["launches"][k]
+
+    # a pod from its labels to the card: the placement path's daemons as
+    # processes, the engine here; the tenants count their own launches
+    place = place_phase(root, adam_launches["transformer"],
+                        transformer.LAYERS)
+    log(f"5i: launches {place['launches']}; visible devices "
+        f"{place['visible_devices']}; refusals: third pod "
+        f"{place['third_refused']!r}; too big {place['too_big_refused']!r}")
+    phases["placement"] = place
+    for k in launches:
+        launches[k] += place["launches"][k]
     out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -17,7 +17,11 @@ step of every train step is a hand-written CUDA kernel
 best-effort trainer at its next program boundary (:mod:`.preempt`), and
 the observability plane (:mod:`.obs`) accounts the device's time to its
 tenants, names who held it while a grant waited, judges SLOs and carries
-trace ids across the wire.
+trace ids across the wire. The placement path takes a pod from its
+``sharedtpu/*`` labels to a device: the telemetry registry
+(:mod:`.telemetry`), the per-node collector and config daemon
+(:mod:`.nodeagent`) and the scheduler engine (:mod:`.scheduler`) over the
+cell model (:mod:`.topology`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card they raise rather than fall back to the CPU.

@@ -1,3 +1,4 @@
-"""Node actuation of the port: per-device client files → process
-lifecycle (:mod:`.files`, :mod:`.launcherd`). The config daemon and the
-scheduler-IP query of the JAX package are not ported yet."""
+"""Node actuation of the port: requirement records → per-device client
+files → process lifecycle (:mod:`.configd`, :mod:`.files`,
+:mod:`.launcherd`), and the control-plane address file
+(:mod:`.queryip`)."""

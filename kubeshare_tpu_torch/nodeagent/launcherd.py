@@ -11,8 +11,10 @@ GPU shape: the per-device process is the port's :mod:`..isolation.proxy`
 pinned to its card by ``CUDA_VISIBLE_DEVICES``; it embeds the token
 scheduler and serves execution on ``SCHD_PORT_START + i`` and token
 traffic for pod managers on a sibling port. Watching is mtime polling (the
-files are written atomically, so a poll never sees a torn file). The
-heartbeat and remote-write options of the JAX daemon are not ported yet.
+files are written atomically, so a poll never sees a torn file). With
+``--registry-host`` the CLI also publishes the node's heartbeat lease to
+the telemetry registry, as the JAX daemon does; its remote-write option is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -210,10 +212,13 @@ class LauncherDaemon:
 
 
 def main(argv=None) -> None:
-    """``python -m kubeshare_tpu_torch.nodeagent.launcherd [--base-dir D]``
-    — supervise one proxy per visible CUDA device (``--backend fake`` for
-    a fake fleet) and the pod managers its client files ask for. Prints
-    ``READY`` once the first reconcile ran."""
+    """``python -m kubeshare_tpu_torch.nodeagent.launcherd [--base-dir D]
+    [--registry-host H --registry-port N]`` — supervise one proxy per
+    visible CUDA device (``--backend fake`` for a fake fleet) and the pod
+    managers its client files ask for; with a registry, beat the node's
+    lease there too (the launcher is the node's liveness: if it dies, the
+    lease stops renewing). Prints ``READY`` once the first reconcile ran
+    and the heartbeat started."""
     import argparse
 
     from ..topology.discovery import discover_chips
@@ -225,14 +230,33 @@ def main(argv=None) -> None:
     parser.add_argument("--base-dir", default=C.SCHEDULER_DIR)
     parser.add_argument("--backend", default="auto")
     parser.add_argument("--poll", type=float, default=DEFAULT_POLL_S)
+    parser.add_argument("--registry-host", default="",
+                        help="publish heartbeat leases to this telemetry "
+                             "registry; empty = no heartbeating "
+                             "(standalone launcher)")
+    parser.add_argument("--registry-port", type=int,
+                        default=C.REGISTRY_PORT)
+    parser.add_argument("--lease-ttl", type=float, default=C.LEASE_TTL_S)
     args = parser.parse_args(argv)
 
     chips = discover_chips(args.backend, host=args.node)
     daemon = LauncherDaemon([c.chip_id for c in chips],
                             base_dir=args.base_dir, poll_s=args.poll)
     daemon.start()
-    ready_until_signal("READY")
-    daemon.stop()
+    heartbeat = None
+    if args.registry_host:
+        from ..telemetry.heartbeat import Heartbeater
+        from ..telemetry.registry import RegistryClient
+
+        heartbeat = Heartbeater(
+            RegistryClient(args.registry_host, args.registry_port),
+            args.node, ttl_s=args.lease_ttl).start()
+    try:
+        ready_until_signal("READY")
+    finally:
+        if heartbeat is not None:
+            heartbeat.stop()
+        daemon.stop()
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ class ChipInfo:
     model: str                   # normalized device name
     memory: int                  # device memory, bytes
     coords: tuple[int, ...] = field(default=())   # mesh coordinates (TPU)
+    core_count: int = 1
     slice_id: str = ""
 
     def to_labels(self) -> dict[str, str]:
@@ -41,6 +42,22 @@ class ChipInfo:
             "coords": ",".join(str(c) for c in self.coords),
             "slice_id": self.slice_id,
         }
+
+    @staticmethod
+    def from_labels(labels: dict[str, str]) -> "ChipInfo":
+        """The inverse of :meth:`to_labels`: the record a registry
+        capacity entry holds."""
+        coords = (tuple(int(c) for c in labels["coords"].split(","))
+                  if labels.get("coords") else ())
+        return ChipInfo(
+            chip_id=labels["chip_id"],
+            index=int(labels["index"]),
+            host=labels["node"],
+            model=labels["model"],
+            memory=int(labels["memory"]),
+            coords=coords,
+            slice_id=labels.get("slice_id", ""),
+        )
 
 
 def make_chip_id(model: str, host: str, index: int) -> str:

@@ -8,8 +8,11 @@ Two backends:
 - ``fake``: a synthetic fleet for tests and simulation, the JAX package's
   spec grammar (``"<hosts>:<d0>x<d1>[@<model>]"``).
 
-The mesh coordinates stay empty for CUDA devices: the NVLink topology is
-not modelled yet.
+The mesh coordinates and the slice id stay empty for CUDA devices. The
+scheduler then sees a GPU node as one flat cell of its devices
+(``scheduler/meshselect.node_mesh_shape`` gives ``None``), which is right
+on an NVSwitch (HGX) H100 board, where every GPU is one hop from every
+other. A multi-host NVLink domain is not modelled yet.
 """
 
 from __future__ import annotations
@@ -90,7 +93,9 @@ def device_chip_id(device) -> str:
 def discover_chips(backend: str = "auto",
                    host: str | None = None) -> list[ChipInfo]:
     """Enumerate local devices. ``backend``: ``"cuda"``, ``"fake"``, or
-    ``"auto"`` (``fake`` iff ``$KUBESHARE_TPU_FAKE_TOPOLOGY`` is set)."""
+    ``"auto"`` (``fake`` iff ``$KUBESHARE_TPU_FAKE_TOPOLOGY`` is set, else
+    ``cuda``: with no card, discovery raises rather than report the CPU
+    as a device)."""
     if backend == "auto":
         backend = ("fake" if os.environ.get("KUBESHARE_TPU_FAKE_TOPOLOGY")
                    else "cuda")

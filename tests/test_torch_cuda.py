@@ -796,3 +796,38 @@ def test_proxy_servable_on_card_equals_the_plain_apply(cuda):
     finally:
         c.close()
         p.close()
+
+
+def test_the_collector_finds_the_card_and_a_pod_binds_to_it(cuda):
+    """The front of the placement path on the card: the collector
+    discovers the card through the ``cuda`` backend into an in-process
+    registry, the engine syncs its fleet from there, and a 0.5 pod pinned
+    to the card's model binds to its chip id."""
+    import math
+
+    from kubeshare_tpu_torch import constants as C
+    from kubeshare_tpu_torch.scheduler import SchedulerEngine
+    from kubeshare_tpu_torch.telemetry import aggregator
+    from kubeshare_tpu_torch.telemetry.collector import CapacityCollector
+    from kubeshare_tpu_torch.telemetry.registry import TelemetryRegistry
+    from kubeshare_tpu_torch.topology.discovery import device_chip_id
+
+    reg = TelemetryRegistry()
+    col = CapacityCollector(reg, backend="cuda", lease_ttl_s=0)
+    assert col.collect_once()
+    card = col.last_chips[0]
+    assert card.chip_id == device_chip_id(torch.device("cuda", 0))
+    assert card.memory == torch.cuda.get_device_properties(0).total_memory
+    assert reg.capacity()[col.node]["healthy"] is True
+    eng = SchedulerEngine()
+    assert aggregator.sync_engine_from_registry(eng, reg) == [col.node]
+    pod = eng.submit("ns", "p", {C.POD_TPU_REQUEST: "0.5",
+                                 C.POD_TPU_LIMIT: "1.0",
+                                 C.POD_TPU_MODEL: card.model})
+    binding = eng.schedule(pod)
+    assert binding.chip_ids == [card.chip_id]
+    assert binding.port == C.POD_MANAGER_PORT_START + 1
+    assert binding.memory == math.floor(0.5 * card.memory)
+    assert binding.env[C.ENV_VISIBLE_CHIPS] == card.chip_id
+    aggregator.publish_binding(reg, pod, binding)
+    assert reg.pods(node=col.node)["ns/p"]["chip_id"] == card.chip_id

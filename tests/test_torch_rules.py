@@ -42,6 +42,14 @@ def test_port_sources_exist():
                  "kubeshare_tpu_torch/nodeagent/launcherd.py",
                  "kubeshare_tpu_torch/topology/chip.py",
                  "kubeshare_tpu_torch/topology/discovery.py",
+                 "kubeshare_tpu_torch/topology/cell.py",
+                 "kubeshare_tpu_torch/topology/cellconfig.py",
+                 "kubeshare_tpu_torch/scheduler/engine.py",
+                 "kubeshare_tpu_torch/telemetry/registry.py",
+                 "kubeshare_tpu_torch/telemetry/collector.py",
+                 "kubeshare_tpu_torch/telemetry/aggregator.py",
+                 "kubeshare_tpu_torch/nodeagent/configd.py",
+                 "kubeshare_tpu_torch/nodeagent/queryip.py",
                  "chip_smoke.py", "scripts/torch_step_profile.py",
                  "scripts/torch_gate_pairs.py"):
         assert want in names
@@ -69,6 +77,31 @@ def test_shim_imports_only_the_ports_attach():
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_yaml_is_imported_only_inside_load_config():
+    """The card's machine has no PyYAML: of the port, only
+    ``cellconfig.load_config`` imports it, inside the function."""
+    for path in _port_files():
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef):
+                continue
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            assert "yaml" not in names or path.name == "cellconfig.py", path
+    tree = ast.parse((ROOT / "kubeshare_tpu_torch/topology/cellconfig.py")
+                     .read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert not any(a.name == "yaml" for n in top
+                   if isinstance(n, ast.Import) for a in n.names)
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "load_config")
+    assert any(isinstance(n, ast.Import) and n.names[0].name == "yaml"
+               for n in ast.walk(fn))
 
 
 @pytest.fixture

@@ -76,20 +76,28 @@ failing the run (non-zero exit, no result line) when it fails:
    h. latency-class serving beside a best-effort trainer on one proxy,
       with and without preemption, each run's ledger, blame, SLO alerts
       and critpath read;
-   i. a pod from its labels to the card — the port's registry,
-      collector (``--backend cuda``) and configd as processes; the
-      scheduler engine here syncs its fleet from the registry (the card's
-      node beside 63 fake 8-device nodes, 505 devices), runs 2,000 seeded
-      background pods on the fake nodes, then binds two LM pods at 0.5
-      to the card; configd writes the device's client file, 5e's launcher
-      starts their pod managers on the bound ports, and the tenants start
-      with their bindings' env and train side by side, gated. A third
-      0.5 pod and one asking more memory than the card has are
-      unschedulable; deleting one pod stops its manager and lets the
-      third bind; stopping the collector drops the node's capacity and
-      lease. Prints the engine's schedule latencies (host numbers), the
-      seconds from publishing a binding to its manager's READY, and the
-      tenants' rates and share;
+   i. a pod from a Kubernetes object to the card — the port's registry,
+      collector (``--backend cuda``), configd, scheduler service (with
+      its health watch), pod-event bridge and admission webhook as
+      processes, and a fake kube-apiserver here. The service syncs its
+      fleet from the registry (the card's node beside 63 fake 8-device
+      nodes, 505 devices) and takes 2,000 seeded background pods for the
+      fake nodes over HTTP; then two labels-only LM pods at 0.5 pass the
+      webhook, are created on the apiserver, and the bridge has them
+      bound to the card and writes back their annotations and Binding;
+      configd writes the device's client file, 5e's launcher starts
+      their pod managers on the annotated ports, and the tenants start
+      with the env a kubelet builds from their pod objects and train
+      side by side, gated. A third 0.5 pod and one asking more memory
+      than the card has stay pending; deleting one pod on the apiserver
+      stops its manager and the third binds without being resubmitted;
+      a SIGKILL of the collector, the node's only lease, has the health
+      watch declare the node dead and evict its pods, whose managers
+      stop. Prints the round trips of ``POST /schedule`` and the
+      engine's phases in the service (host numbers), the seconds from a
+      pod's creation to its manager's READY, from a delete to the stop,
+      from the kill to the node's death and from the death to the
+      managers' stop, and the tenants' rates and share;
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
@@ -2636,6 +2644,176 @@ def _fmt_serve_run(r: dict) -> str:
 
 # --- phase 5i: a pod from its labels to the card -------------------------------
 
+class FakeKubeApi:
+    """Just enough kube-apiserver for the pod-event bridge, in a thread:
+    pod create, list and get, a watch stream that stays open and streams
+    each event as it happens (from the resourceVersion asked for),
+    merge-patch of annotations, the ``Binding`` subresource, and DELETE
+    with a uid precondition (409 on a mismatch, 404 when gone). Every
+    write is logged in ``writes``; each DELETE's body in ``deletes``."""
+
+    #: a watch stream's life, then the bridge relists: kube-apiserver's
+    #: default --min-request-timeout. A relist reconciles the service's
+    #: pods against the listed ones, so it must not fall inside 5i, whose
+    #: background pods reach the service without a pod object.
+    WATCH_S = 1800.0
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.pods: dict = {}                  # "ns/name" -> pod object
+        self.events: list = []                # (rv, type, object)
+        self.writes: list = []                # (kind, key, body)
+        self.deletes: list = []               # (key, body)
+        self.rv = 0
+        self.cond = threading.Condition()
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.0"
+
+            def log_message(self, *args):
+                pass
+
+            def _reply(self, code, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _body(self):
+                n = int(self.headers.get("Content-Length", "0") or 0)
+                return json.loads(self.rfile.read(n) or b"{}") if n else {}
+
+            def _key(self):
+                parts = self.path.split("?")[0].strip("/").split("/")
+                # api v1 namespaces NS pods NAME [binding]
+                return (f"{parts[3]}/{parts[5]}" if len(parts) >= 6
+                        else "", parts)
+
+            def do_GET(self):
+                from urllib.parse import parse_qs, urlparse
+
+                url = urlparse(self.path)
+                q = parse_qs(url.query)
+                if url.path != "/api/v1/pods":
+                    key, _ = self._key()
+                    with api.cond:
+                        pod = api.pods.get(key)
+                    return self._reply(200, pod) if pod else self._reply(
+                        404, {"kind": "Status", "code": 404})
+                sel = q.get("fieldSelector", [""])[0].partition("=")[2]
+                if not q.get("watch"):
+                    with api.cond:
+                        items = [p for p in api.pods.values()
+                                 if p["spec"].get("schedulerName") == sel]
+                        rv = str(api.rv)
+                    return self._reply(200, {"items": items, "metadata": {
+                        "resourceVersion": rv}})
+                self.send_response(200)
+                self.end_headers()
+                seen = int(q.get("resourceVersion", ["0"])[0] or 0)
+                end = time.monotonic() + api.WATCH_S
+                while time.monotonic() < end:
+                    with api.cond:
+                        api.cond.wait_for(
+                            lambda: api.events and api.events[-1][0] > seen,
+                            timeout=max(0.0, end - time.monotonic()))
+                        fresh = [e for e in api.events if e[0] > seen]
+                    for rv, etype, obj in fresh:
+                        seen = rv
+                        if obj["spec"].get("schedulerName") != sel:
+                            continue
+                        line = json.dumps({"type": etype, "object": obj})
+                        try:
+                            self.wfile.write(line.encode() + b"\n")
+                            self.wfile.flush()
+                        except OSError:
+                            return
+
+            def do_POST(self):
+                key, parts = self._key()
+                body = self._body()
+                if parts[-1] == "pods":           # create
+                    meta = body["metadata"]
+                    meta.setdefault("namespace", parts[3])
+                    key = f"{meta['namespace']}/{meta['name']}"
+                    with api.cond:
+                        if key in api.pods:
+                            return self._reply(409, {"code": 409})
+                        meta["uid"] = f"uid-{key}-{api.rv + 1}"
+                        body.setdefault("spec", {})
+                        api.pods[key] = body
+                        api._emit("ADDED", key)
+                    api.writes.append(("create", key, body))
+                    return self._reply(201, body)
+                with api.cond:                    # binding
+                    pod = api.pods.get(key)
+                    if pod is None:
+                        return self._reply(404, {"code": 404})
+                    uid = body["metadata"].get("uid", "")
+                    if uid and uid != pod["metadata"]["uid"]:
+                        return self._reply(409, {"code": 409})
+                    pod["spec"]["nodeName"] = body["target"]["name"]
+                    api._emit("MODIFIED", key)
+                api.writes.append(("bind", key, body))
+                self._reply(201, {"kind": "Status", "status": "Success"})
+
+            def do_PATCH(self):
+                key, _ = self._key()
+                body = self._body()
+                with api.cond:
+                    pod = api.pods.get(key)
+                    if pod is None:
+                        return self._reply(404, {"code": 404})
+                    pod["metadata"].setdefault("annotations", {}).update(
+                        body.get("metadata", {}).get("annotations", {}))
+                    api._emit("MODIFIED", key)
+                api.writes.append(("patch", key, body))
+                self._reply(200, pod)
+
+            def do_DELETE(self):
+                key, _ = self._key()
+                body = self._body()
+                api.deletes.append((key, body))
+                want = (body.get("preconditions") or {}).get("uid", "")
+                with api.cond:
+                    pod = api.pods.get(key)
+                    if pod is None:
+                        return self._reply(404, {"code": 404})
+                    if want and want != pod["metadata"]["uid"]:
+                        return self._reply(409, {"code": 409})
+                    api._emit("DELETED", key)
+                    del api.pods[key]
+                api.writes.append(("delete", key, body))
+                self._reply(200, {"kind": "Status", "status": "Success"})
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def _emit(self, etype: str, key: str) -> None:
+        """Log an event of ``key``'s current object (caller holds cond)."""
+        self.rv += 1
+        pod = self.pods[key]
+        pod["metadata"]["resourceVersion"] = str(self.rv)
+        self.events.append((self.rv, etype, json.loads(json.dumps(pod))))
+        self.cond.notify_all()
+
+    def request(self, method: str, path: str, body=None):
+        """One call to this server as a client would make it: (code,
+        body)."""
+        return _http_json(method, self.url + path, body)
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
 def _start_daemon(root: str, base: str, label: str, args: list):
     """One daemon of the placement path as a process of its own (``python
     -m``), its output in a log under ``base``; returns (process, log)."""
@@ -2719,39 +2897,92 @@ def _background_labels(rng, i: int) -> list:
     return [dict(pin, **gang), dict(pin, **gang)]
 
 
-def _booking_violations(engine) -> list:
-    """The booking invariants of ``tests/test_engine_fuzz.py`` over the
-    whole fleet, plus each leaf's use equal to the bookings on it."""
-    bad = []
-    used: dict = {}
-    for pod in engine.pod_status.values():
-        if pod.port and not pod.node_name:
-            bad.append(f"{pod.key}: port {pod.port} without a node")
-        for chip_id, compute, memory in pod.bookings:
-            c, m = used.get(chip_id, (0.0, 0))
-            used[chip_id] = (c + compute, m + memory)
-    for chip_id, leaf in engine.leaf_cells.items():
-        if not -1e-9 <= leaf.available <= leaf.leaf_cell_number + 1e-9:
-            bad.append(f"{chip_id}: available {leaf.available}")
-        if not 0 <= leaf.free_memory <= leaf.full_memory:
-            bad.append(f"{chip_id}: free memory {leaf.free_memory}")
-        c, m = used.get(chip_id, (0.0, 0))
-        if (abs(leaf.leaf_cell_number - leaf.available - c) > 1e-9
-                or leaf.full_memory - leaf.free_memory != m):
-            bad.append(f"{chip_id}: use {leaf.available}, "
-                       f"{leaf.free_memory} against bookings {c}, {m}")
-    return bad
+def _http_json(method: str, url: str, body=None, timeout: float = 10.0):
+    """One JSON request: ``(code, body)``, HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method)
+    req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, code = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raw, code = e.read(), e.code
+    try:
+        return code, json.loads(raw)
+    except ValueError:
+        return code, raw.decode()
 
 
-def _background_stream(engine, rc) -> dict:
-    """PLACE_BACKGROUND_PODS seeded submissions on the fake nodes, each
-    bound pod published as its requirement record, a bound one withdrawn
-    after about one submission in three. Times ``schedule`` alone."""
-    from kubeshare_tpu_torch.scheduler import Unschedulable
-    from kubeshare_tpu_torch.telemetry import aggregator
+def _http_metrics(base_url: str) -> str:
+    import urllib.request
 
+    with urllib.request.urlopen(base_url + "/metrics", timeout=10) as r:
+        return r.read().decode()
+
+
+def _poll(cond, what: str, timeout: float, period: float = 0.05):
+    """Wait for ``cond()`` to return a true value, which is returned;
+    fails 5i past ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"5i: timed out waiting for {what}")
+        time.sleep(period)
+
+
+def _phase_histograms(metrics_text: str) -> dict:
+    """``{phase: {le: cumulative count}}`` of the service's
+    ``kubeshare_sched_phase_latency_seconds``."""
+    from kubeshare_tpu_torch.obs.metrics import parse_exposition
+
+    fam = parse_exposition(metrics_text).get(
+        "kubeshare_sched_phase_latency_seconds", {"samples": []})
+    out: dict = {}
+    for name, labels, value in fam["samples"]:
+        if name.endswith("_bucket"):
+            le = float(labels["le"])
+            out.setdefault(labels["phase"], {})[le] = value
+    return out
+
+
+def _phase_quantiles(before: dict, after: dict) -> dict:
+    """p50 / p99 µs of each engine phase over the cycles between two
+    scrapes (interpolated in the histogram's buckets, as PromQL's
+    ``histogram_quantile``), with the cycle count."""
+    from kubeshare_tpu_torch.obs.metrics import quantile_from_buckets
+
+    out = {}
+    for phase, buckets in sorted(after.items()):
+        les = sorted(buckets)
+        cum = [buckets[le] - before.get(phase, {}).get(le, 0.0)
+               for le in les]
+        if not cum or cum[-1] <= 0:
+            continue
+        finite = [le for le in les if math.isfinite(le)]
+        out[phase] = {
+            "count": int(cum[-1]),
+            "p50_us": quantile_from_buckets(finite, cum, 0.5) * 1e6,
+            "p99_us": quantile_from_buckets(finite, cum, 0.99) * 1e6}
+    return out
+
+
+def _background_stream(client) -> dict:
+    """PLACE_BACKGROUND_PODS seeded submissions on the fake nodes, each a
+    ``POST /schedule`` to the service process (``ServiceClient``); the
+    service publishes each binding itself. An unbound single pod is
+    deleted at once, a bound one withdrawn after about one submission in
+    three. A gang pair whose first member waits only for its sibling is
+    left to the dispatcher's retry, which binds both once the second is
+    parked at the Permit barrier; it is deleted at the end if still
+    unbound, and at once if the fleet cannot hold it. Times each HTTP
+    round trip."""
     rng = random.Random(PLACE_SEED)
-    lat, bound = [], []
+    rtt, bound, gangs = [], [], []
     refused = 0
     i = 0
     while i < PLACE_BACKGROUND_PODS:
@@ -2759,75 +2990,140 @@ def _background_stream(engine, rc) -> dict:
         # a gang's members carry its rank ordinals, as a StatefulSet's do
         names = ([f"bg-{i}"] if len(sets) == 1
                  else [f"bg-{i}-{j}" for j in range(len(sets))])
-        pods = [engine.submit("bg", n, labels)
-                for n, labels in zip(names, sets)]
         i += len(sets)
-        for pod in pods:
+        codes = []
+        for name, labels in zip(names, sets):
             t0 = time.perf_counter()
-            try:
-                binding = engine.schedule(pod)
-            except Unschedulable:
-                binding = None
-            lat.append(time.perf_counter() - t0)
-            if binding is None:
-                refused += 1
-                continue
-            aggregator.publish_binding(rc, pod, binding)
-            bound.append(pod.key)
-        for pod in pods:
-            if not pod.node_name:
-                engine.delete_pod(pod.key)
+            code, body = client.schedule("bg", name, labels)
+            rtt.append(time.perf_counter() - t0)
+            check(code in (200, 202), f"5i: POST /schedule of bg/{name} "
+                                      f"answered {code}: {body}")
+            codes.append(code)
+        if len(names) > 1 and codes != [200] * len(names):
+            # a pair one member short of its barrier binds at the next
+            # retry; one the fleet cannot hold is deleted at once, or its
+            # pending members would search for preemptions every retry
+            reasons = [client.status("bg", n)[1].get("reason", "")
+                       for n in names]
+            if all(not r or "min_available" in r for r in reasons):
+                gangs.append(names)
+            else:
+                for name in names:
+                    client.delete("bg", name)
+                refused += len(names)
+        else:
+            for name, code in zip(names, codes):
+                if code == 200:
+                    bound.append(name)
+                else:
+                    refused += 1
+                    client.delete("bg", name)
         if bound and rng.random() < 0.3:
-            key = bound.pop(rng.randrange(len(bound)))
-            engine.delete_pod(key)
-            aggregator.withdraw(rc, key)
-    lat_us = sorted(x * 1e6 for x in lat)
-    return {"submitted": len(lat), "refused": refused,
-            "bound_at_end": len(bound),
-            "schedule_us_p50": _pct(lat_us, 0.5),
-            "schedule_us_p99": _pct(lat_us, 0.99),
-            "schedule_pods_per_sec": len(lat) / sum(lat)}
+            name = bound.pop(rng.randrange(len(bound)))
+            client.delete("bg", name)
+    deadline = time.monotonic() + 10.0
+    gangs_bound = 0
+    for names in gangs:
+        while True:
+            states = [client.status("bg", n)[1].get("status")
+                      for n in names]
+            if (all(s == "bound" for s in states)
+                    or time.monotonic() > deadline
+                    or not any(s in ("parked", "pending") for s in states)):
+                break
+            time.sleep(0.05)
+        if all(s == "bound" for s in states):
+            gangs_bound += 1
+            bound.extend(names)
+            continue
+        for n in names:
+            client.delete("bg", n)
+        refused += len(names)
+    lat_us = sorted(x * 1e6 for x in rtt)
+    return {"submitted": len(rtt), "refused": refused,
+            "bound_at_end": len(bound), "gangs_bound_late": gangs_bound,
+            "rtt_us_p50": _pct(lat_us, 0.5),
+            "rtt_us_p99": _pct(lat_us, 0.99),
+            "pods_per_sec": len(rtt) / sum(rtt)}
+
+
+def _admit(webhook_port: int, obj: dict) -> dict:
+    """What the apiserver does with a pod CREATE: the mutating webhook's
+    ``AdmissionReview`` round trip, its JSON patch applied."""
+    import base64
+
+    from kubeshare_tpu_torch.scheduler.webhook import apply_json_patch
+
+    code, review = _http_json("POST", f"http://127.0.0.1:{webhook_port}"
+                              "/mutate", {
+                                  "apiVersion": "admission.k8s.io/v1",
+                                  "kind": "AdmissionReview",
+                                  "request": {"uid": obj["metadata"]["name"],
+                                              "kind": {"kind": "Pod"},
+                                              "object": obj}})
+    resp = review.get("response", {}) if code == 200 else {}
+    check(resp.get("allowed") is True and resp.get("patch"),
+          f"5i: the webhook answered {code}: {review}")
+    return apply_json_patch(obj, json.loads(base64.b64decode(resp["patch"])))
+
+
+def _labels_only_pod(name: str, labels: dict) -> dict:
+    ns, _, pod_name = name.partition("/")
+    return {"metadata": {"namespace": ns, "name": pod_name,
+                         "labels": dict(labels)},
+            "spec": {"containers": [{"name": "lm",
+                                     "image": "kubeshare-tpu-torch"}]}}
 
 
 def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
-    """Phase 5i: a pod from its ``sharedtpu/*`` labels to the card. The
-    port's registry, collector (``--backend cuda``) and configd run as
-    processes; the engine runs here over the registry's fleet (the real
-    node and PLACE_FAKE_NODES fake ones), binds two 0.5 LM pods to the
-    card, configd writes the device's client file, 5e's launcher starts
-    the pods' managers, and the tenants start with their bindings' env."""
+    """Phase 5i: a pod from a Kubernetes object to a tenant on the card.
+    The port's registry, collector (``--backend cuda``), configd,
+    scheduler service (with its health watch), pod-event bridge and
+    admission webhook run as processes, a fake kube-apiserver here. The
+    fleet is the real node and PLACE_FAKE_NODES fake ones; the background
+    pods go to the service over HTTP; the LM pods are labels-only
+    objects that pass the webhook and are created on the apiserver, and
+    the bridge, the service, configd and 5e's launcher do the rest. The
+    tenants start with the env a kubelet builds from their pod objects."""
     import torch
 
     from kubeshare_tpu_torch import constants as C
     from kubeshare_tpu_torch.nodeagent.files import read_chip_clients
-    from kubeshare_tpu_torch.scheduler import SchedulerEngine, Unschedulable
-    from kubeshare_tpu_torch.telemetry import aggregator
+    from kubeshare_tpu_torch.scheduler.bridge import ServiceClient
+    from kubeshare_tpu_torch.scheduler.webhook import resolve_downward_env
     from kubeshare_tpu_torch.telemetry.registry import RegistryClient
 
     torch.cuda.empty_cache()
     node = _Node(root)
     chip = node.chip
     daemons: dict = {}
+    api = None
     out: dict = {"chip_id": chip.chip_id, "model": chip.model}
+
+    def start(label, args):
+        daemons[label] = _start_daemon(root, node.base, label, args)
+
+    def ready(label):
+        return _wait_ready(daemons[label][1], f"the {label}")
+
     try:
-        daemons["registry"] = _start_daemon(root, node.base, "registry", [
-            "kubeshare_tpu_torch.telemetry.registry", "--host", "127.0.0.1",
-            "--port", "0"])
-        ready = _wait_ready(daemons["registry"][1], "the registry")
-        port = int(ready.split()[1])
+        start("registry", ["kubeshare_tpu_torch.telemetry.registry",
+                           "--host", "127.0.0.1", "--port", "0"])
+        reg_port = int(ready("registry").split()[1])
         registry_args = ["--registry-host", "127.0.0.1", "--registry-port",
-                         str(port), "--node", chip.host, "--backend", "cuda"]
-        daemons["collector"] = _start_daemon(root, node.base, "collector", [
-            "kubeshare_tpu_torch.telemetry.collector", *registry_args])
-        daemons["configd"] = _start_daemon(root, node.base, "configd", [
-            "kubeshare_tpu_torch.nodeagent.configd", *registry_args,
-            "--base-dir", node.base, "--period", "0.1"])
+                         str(reg_port)]
+        node_args = [*registry_args, "--node", chip.host, "--backend",
+                     "cuda"]
+        start("collector", ["kubeshare_tpu_torch.telemetry.collector",
+                            *node_args])
+        start("configd", ["kubeshare_tpu_torch.nodeagent.configd",
+                          *node_args, "--base-dir", node.base, "--period",
+                          "0.1"])
+        start("webhook", ["kubeshare_tpu_torch.scheduler.webhook",
+                          "--port", "0"])
         for label in ("collector", "configd"):
-            _wait_ready(daemons[label][1], f"the {label}")
-        ready = node.start()
-        log(f"5i: registry on {port}, collector and configd READY; "
-            f"launcher proxy {ready}")
-        rc = RegistryClient("127.0.0.1", port)
+            ready(label)
+        rc = RegistryClient("127.0.0.1", reg_port)
         real = rc.capacity().get(chip.host, {})
         check(real.get("healthy") is True
               and [c["chip_id"] for c in real.get("chips", [])]
@@ -2836,64 +3132,123 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         check(chip.host in rc.leases()["leases"],
               "5i: the collector published no lease")
         fake = _fake_capacity(rc)
-        engine = SchedulerEngine()
-        nodes = aggregator.sync_engine_from_registry(engine, rc)
-        out["fleet"] = {"nodes": len(nodes), "devices": len(
-            engine.leaf_cells)}
-        check(len(engine.leaf_cells) == fake + 1,
-              f"5i: the engine sees {len(engine.leaf_cells)} devices")
+        start("service", ["kubeshare_tpu_torch.scheduler.service",
+                          *registry_args, "--host", "127.0.0.1", "--port",
+                          "0", "--health"])
+        svc_url = f"http://127.0.0.1:{ready('service').split()[1]}"
+        api = FakeKubeApi()
+        start("bridge", ["kubeshare_tpu_torch.scheduler.bridge",
+                         "--service", svc_url, "--kube-api", api.url])
+        hook_port = int(ready("webhook").split()[1])
+        ready("bridge")
+        proxy_ready = node.start()
+        log(f"5i: registry on {reg_port}, service {svc_url}, webhook on "
+            f"{hook_port}, apiserver {api.url}; collector, configd and "
+            f"bridge READY; launcher proxy {proxy_ready}")
+        client = ServiceClient(svc_url)
 
-        bg = out["background"] = _background_stream(engine, rc)
-        bad = _booking_violations(engine)
-        check(not bad, f"5i: booking invariants broken: {bad[:5]}")
-        card = engine.leaf_cells[chip.chip_id]
-        check(card.available == 1.0,
-              f"5i: a background pod landed on the card: {card.available}")
-        log(f"5i: engine over {len(nodes)} nodes, "
-            f"{len(engine.leaf_cells)} devices: {bg['submitted']} "
-            f"background schedules ({bg['refused']} unschedulable, "
-            f"{bg['bound_at_end']} bound at the end): schedule "
-            f"p50 {bg['schedule_us_p50']:.1f} us, p99 "
-            f"{bg['schedule_us_p99']:.1f} us, "
-            f"{bg['schedule_pods_per_sec']:.1f} pods/s (host numbers)")
+        def state():
+            code, body = client.state()
+            check(code == 200, f"5i: GET /state answered {code}")
+            return body
+
+        def invariants(when):
+            inv = client.invariants()
+            check(inv.get("ok") is True and inv.get("violations") == [],
+                  f"5i: GET /invariants {when}: {inv}")
+            return inv
+
+        st = state()
+        out["fleet"] = {"nodes": len(st["nodes"]),
+                        "devices": len(st["leaves"])}
+        check(len(st["leaves"]) == fake + 1,
+              f"5i: the service sees {len(st['leaves'])} devices")
+
+        scrape0 = _phase_histograms(_http_metrics(svc_url))
+        bg = out["background"] = _background_stream(client)
+        bg["engine_phases"] = _phase_quantiles(
+            scrape0, _phase_histograms(_http_metrics(svc_url)))
+        out["invariants_after_background"] = invariants("after the "
+                                                        "background")
+        card = state()["leaves"][chip.chip_id]
+        check(card["available"] == 1.0,
+              f"5i: a background pod landed on the card: {card}")
+        log(f"5i: service over {out['fleet']['nodes']} nodes, "
+            f"{out['fleet']['devices']} devices: {bg['submitted']} "
+            f"background POST /schedule ({bg['refused']} unbound and "
+            f"deleted, {bg['gangs_bound_late']} gang pairs bound after "
+            f"their Permit wait, {bg['bound_at_end']} bound at the end): "
+            f"round trip p50 {bg['rtt_us_p50']:.1f} us, p99 "
+            f"{bg['rtt_us_p99']:.1f} us, {bg['pods_per_sec']:.1f} pods/s; "
+            "engine phases in the service (p50 / p99 us, cycles): " + ", ".join(
+                f"{p} {q['p50_us']:.1f} / {q['p99_us']:.1f} ({q['count']})"
+                for p, q in bg["engine_phases"].items())
+            + " (host numbers)")
 
         labels = {C.POD_TPU_REQUEST: str(PLACE_REQUEST),
                   C.POD_TPU_LIMIT: "1.0", C.POD_TPU_MEMORY: str(PLACE_MEM),
                   C.POD_TPU_MODEL: chip.model}
-        bindings, pods = {}, {}
+
+        def create(name, pod_labels):
+            """Admit a labels-only pod and create it on the apiserver;
+            returns the creation's monotonic time."""
+            admitted = _admit(hook_port, _labels_only_pod(name, pod_labels))
+            check(admitted["spec"].get("schedulerName")
+                  == C.SCHEDULER_NAME,
+                  f"5i: the webhook left {name} to another scheduler")
+            ns = name.partition("/")[0]
+            t0 = time.monotonic()
+            code, body = api.request("POST", f"/api/v1/namespaces/{ns}/pods",
+                                     admitted)
+            check(code == 201, f"5i: creating {name} answered {code}")
+            return t0
+
+        def bound_pod(name):
+            pod = api.pods.get(name, {})
+            return pod if pod.get("spec", {}).get("nodeName") else None
+
+        def check_bound(name):
+            pod = _poll(lambda: bound_pod(name), f"{name}'s binding", 30)
+            ann = pod["metadata"].get("annotations", {})
+            binds = [b for k, key, b in api.writes
+                     if k == "bind" and key == name]
+            check(pod["spec"]["nodeName"] == chip.host
+                  and ann.get(C.POD_TPU_CHIP_ID) == chip.chip_id
+                  and ann.get(C.POD_CELL_ID)
+                  and binds and binds[-1]["target"]["name"] == chip.host,
+                  f"5i: {name} was bound as {pod}, Binding {binds}")
+            return pod, int(ann[C.POD_MANAGER_PORT])
+
+        t_create, pods, ports = {}, {}, {}
         for name, _ in PLACE_TENANTS:
-            ns, _, pod_name = name.partition("/")
-            pods[name] = engine.submit(ns, pod_name, labels)
-            bindings[name] = engine.schedule(pods[name])
-        ports = {n: b.port for n, b in bindings.items()}
-        check(all(b.chip_ids == [chip.chip_id] and b.node == chip.host
-                  for b in bindings.values()),
-              f"5i: the pods were bound to {bindings}")
-        check(len(set(ports.values())) == 2 and all(ports.values()),
-              f"5i: manager ports {ports}")
-        t_pub = time.monotonic()
-        for name, b in bindings.items():
-            aggregator.publish_binding(rc, pods[name], b)
+            t_create[name] = create(name, labels)
         ready_s = {}
-        for name, b in bindings.items():
+        for name, _ in PLACE_TENANTS:
+            pods[name], ports[name] = check_bound(name)
             line = _wait_ready(node.log(name), f"the pod manager of {name}")
-            ready_s[name] = time.monotonic() - t_pub
-            check(line == f"READY {b.port}",
-                  f"5i: {name}'s manager says {line!r}, binding port "
-                  f"{b.port}")
-            with socket.create_connection(("127.0.0.1", b.port), 5):
-                pass
-        out["bind_to_ready_s"] = ready_s
+            ready_s[name] = time.monotonic() - t_create[name]
+            check(line == f"READY {ports[name]}",
+                  f"5i: {name}'s manager says {line!r}, annotated port "
+                  f"{ports[name]}")
+        out["create_to_ready_s"] = ready_s
+        check(len(set(ports.values())) == 2, f"5i: manager ports {ports}")
         entries = read_chip_clients(chip.chip_id, node.base)
         check(sorted((e.name, e.port, e.request) for e in entries)
-              == sorted((n, b.port, PLACE_REQUEST)
-                        for n, b in bindings.items()),
+              == sorted((n, p, PLACE_REQUEST) for n, p in ports.items()),
               f"5i: configd's file lists {entries}")
-        log(f"5i: bound {', '.join(f'{n} port {p}' for n, p in ports.items())}"
-            f" to {chip.chip_id}; publish_binding to the manager's READY "
+        log(f"5i: webhook + apiserver + bridge bound "
+            f"{', '.join(f'{n} port {p}' for n, p in ports.items())} to "
+            f"{chip.chip_id}; create to the manager's READY "
             + ", ".join(f"{n} {s:.3f} s" for n, s in ready_s.items()))
 
-        envs = {n: b.env for n, b in bindings.items()}
+        envs = {}
+        for name, pod in pods.items():
+            envs[name] = resolve_downward_env(pod, pod["spec"]["containers"][0])
+            check(envs[name].get(C.ENV_POD_MANAGER_PORT) == str(ports[name])
+                  and envs[name].get(C.ENV_VISIBLE_CHIPS) == chip.chip_id
+                  and envs[name].get(C.ENV_TPU_MEMORY) == str(PLACE_MEM),
+                  f"5i: {name}'s env from its pod object is {envs[name]}")
+        out["tenant_env"] = envs
         pair = node.run([(n, seed, ports[n], PLACE_REQUEST)
                          for n, seed in PLACE_TENANTS], PLACE_PAIR_S, True,
                         pod_envs=envs)
@@ -2913,49 +3268,115 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             f"{reading['lifetime_held_share_a']:.4f} of the token over its "
             f"life, {reading['share_a']:.4f} of the window's steps")
 
-        third_name = PLACE_THIRD.partition("/")
-        third = engine.submit(third_name[0], third_name[2], labels)
-        try:
-            engine.schedule(third)
-            fail("5i: a third 0.5 pod was bound beside the two")
-        except Unschedulable as e:
-            out["third_refused"] = str(e)
-        big = engine.submit("smoke", "too-big", dict(
+        # a third 0.5 pod and one over the card's memory stay pending
+        t_third = create(PLACE_THIRD, labels)
+        create("smoke/too-big", dict(
             labels, **{C.POD_TPU_MEMORY: str(chip.memory + 1)}))
-        try:
-            engine.schedule(big)
-            fail("5i: a pod asking more memory than the card has was bound")
-        except Unschedulable as e:
-            out["too_big_refused"] = str(e)
-        engine.delete_pod(big.key)
+        refusals = {}
+        for name in (PLACE_THIRD, "smoke/too-big"):
+            ns, _, pod_name = name.partition("/")
+            st_ = _poll(lambda: (lambda s: s if s.get("status") == "pending"
+                                 and s.get("reason") else None)(
+                client.status(ns, pod_name)[1]), f"{name}'s refusal", 30)
+            refusals[name] = st_["reason"]
+        out["third_refused"] = refusals[PLACE_THIRD]
+        out["too_big_refused"] = refusals["smoke/too-big"]
+        time.sleep(1.5)             # past a retry: still nothing bound
+        check(bound_pod(PLACE_THIRD) is None
+              and bound_pod("smoke/too-big") is None,
+              "5i: a pod past the card's share or memory was bound")
+        api.request("DELETE", "/api/v1/namespaces/smoke/pods/too-big")
 
         gone, kept = (n for n, _ in PLACE_TENANTS)
         proc = node.launcher._managers[(chip.chip_id, gone)][1]
         t0 = time.monotonic()
-        engine.delete_pod(pods[gone].key)
-        aggregator.withdraw(rc, pods[gone].key)
-        _wait_for(lambda: [e.name for e in read_chip_clients(
-            chip.chip_id, node.base)] == [kept], "configd's rewrite", 30, "5i")
-        _wait_for(lambda: (proc.poll() is not None and (
-            chip.chip_id, gone) not in node.launcher._managers),
-            f"the stop of {gone}'s manager", 30, "5i")
+        ns, _, pod_name = gone.partition("/")
+        code, _ = api.request("DELETE",
+                              f"/api/v1/namespaces/{ns}/pods/{pod_name}")
+        check(code == 200, f"5i: deleting {gone} answered {code}")
+        _poll(lambda: proc.poll() is not None and (
+            chip.chip_id, gone) not in node.launcher._managers,
+            f"the stop of {gone}'s manager", 30)
         out["delete_to_stop_s"] = time.monotonic() - t0
-        binding = engine.schedule(third)
-        check(binding.chip_ids == [chip.chip_id],
-              f"5i: the third pod was bound to {binding}")
-        aggregator.publish_binding(rc, third, binding)
+        pods[PLACE_THIRD], ports[PLACE_THIRD] = check_bound(PLACE_THIRD)
         line = _wait_ready(node.log(PLACE_THIRD),
                            f"the pod manager of {PLACE_THIRD}")
-        check(line == f"READY {binding.port}",
+        out["delete_to_third_ready_s"] = time.monotonic() - t0
+        check(line == f"READY {ports[PLACE_THIRD]}",
               f"5i: {PLACE_THIRD}'s manager says {line!r}")
-        bad = _booking_violations(engine)
-        check(not bad, f"5i: booking invariants broken: {bad[:5]}")
-        log(f"5i: a third 0.5 pod and one of {chip.memory + 1} bytes were "
-            f"unschedulable while two were bound; delete_pod + withdraw to "
-            f"the manager's stop {out['delete_to_stop_s']:.3f} s; the third "
-            f"pod then bound on port {binding.port}")
+        creates = [k for k, key, _ in api.writes
+                   if k == "create" and key == PLACE_THIRD]
+        check(len(creates) == 1, f"5i: {PLACE_THIRD} was created "
+                                 f"{len(creates)} times")
+        invariants("after the delete")
+        log(f"5i: a third 0.5 pod stayed pending ({out['third_refused']!r}) "
+            f"and one of {chip.memory + 1} bytes too "
+            f"({out['too_big_refused']!r}); deleting {gone} on the "
+            f"apiserver stopped its manager in "
+            f"{out['delete_to_stop_s']:.3f} s, and the third pod, never "
+            f"resubmitted, bound by the dispatcher's retry and the "
+            f"bridge's poll: its manager READY on port "
+            f"{ports[PLACE_THIRD]} {out['delete_to_third_ready_s']:.3f} s "
+            f"after the delete ({t0 - t_third:.1f} s after its creation)")
 
-        for label in ("collector", "configd", "registry"):
+        # the node's only lease beater dies: SIGKILL, so nothing withdraws
+        managers = [node.launcher._managers[(chip.chip_id, n)][1]
+                    for n in (kept, PLACE_THIRD)]
+        collector, _ = daemons.pop("collector")
+        t_kill = time.monotonic()
+        collector.kill()
+        collector.wait()
+        seen: dict = {}
+
+        def health_state():
+            h = client.health()
+            st_ = h["nodes"].get(chip.host, {}).get("state")
+            if st_ and st_ not in seen:
+                seen[st_] = time.monotonic() - t_kill
+            return h if st_ == "dead" else None
+
+        health = _poll(health_state, f"{chip.host} declared dead", 90, 0.2)
+        t_dead = t_kill + seen["dead"]
+        check("suspect" in seen and seen["suspect"] < seen["dead"],
+              f"5i: {chip.host} went {seen} after the collector's kill")
+        _poll(lambda: read_chip_clients(chip.chip_id, node.base) == [],
+              "configd's empty file", 30)
+        _poll(lambda: all(p.poll() is not None for p in managers),
+              "the evicted pods' managers to stop", 30)
+        out["kill_to_suspect_s"] = seen["suspect"]
+        out["kill_to_dead_s"] = seen["dead"]
+        out["dead_to_stop_s"] = time.monotonic() - t_dead
+        for name in (kept, PLACE_THIRD):
+            ns, _, pod_name = name.partition("/")
+            st_ = client.status(ns, pod_name)[1]
+            check(st_.get("status") == "pending"
+                  and st_.get("evicted_from") == chip.host,
+                  f"5i: {name} after the node's death: {st_}")
+        check(health["evicted_total"] >= 2
+              and chip.host in health["quarantined"],
+              f"5i: GET /health after the death: {health}")
+        check(not any(k.startswith("smoke/") for k in rc.pods()),
+              "5i: the evicted pods' records were not withdrawn")
+        out["health"] = health
+        invariants("after the node's death")
+        log(f"5i: SIGKILL of the collector (the node's lease) to "
+            f"{chip.host} suspect {out['kill_to_suspect_s']:.3f} s, dead "
+            f"{out['kill_to_dead_s']:.3f} s; {health['evicted_total']} pods "
+            f"evicted and requeued, records withdrawn, configd's file "
+            f"empty and both managers stopped "
+            f"{out['dead_to_stop_s']:.3f} s after the death")
+
+        # a fresh collector beats the node again; its SIGTERM withdraws
+        # the capacity and the lease (the quarantine keeps pods off)
+        start("collector", ["kubeshare_tpu_torch.telemetry.collector",
+                            *node_args])
+        ready("collector")
+        lease = rc.leases()["leases"].get(chip.host, {})
+        check(rc.capacity().get(chip.host, {}).get("healthy") is True
+              and lease.get("age_s", 1e9) < lease.get("ttl_s", 0),
+              f"5i: the fresh collector published no live lease: {lease}")
+        for label in ("collector", "bridge", "webhook", "service",
+                      "configd", "registry"):
             proc_d, log_d = daemons.pop(label)
             _stop_daemon(proc_d, label, log_d)
             if label == "collector":
@@ -2963,11 +3384,15 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
                       and chip.host not in rc.leases()["leases"],
                       "5i: the stopped collector left its capacity or "
                       "lease")
+                log("5i: a fresh collector's SIGTERM: rc 0, the node's "
+                    "capacity and lease withdrawn")
     finally:
         for proc, _ in daemons.values():
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
+        if api is not None:
+            api.close()
         node.stop()
     return out
 

@@ -117,6 +117,10 @@ BASE_QUOTA_MS = 300.0
 #: smallest quota worth granting; below it a client waits for its window
 MIN_QUOTA_MS = 20.0
 
+# Name under which the scheduler registers (scheduler.go:35-56's
+# Name = "kubeshare-scheduler").
+SCHEDULER_NAME = "kubeshare-tpu-scheduler"
+
 # Well-known control-plane service ports (deploy/registry.yaml,
 # deploy/scheduler.yaml; ≙ the reference's collector 9004 / aggregator
 # 9005 ports).

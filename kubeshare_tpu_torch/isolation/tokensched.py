@@ -406,6 +406,17 @@ class TokenScheduler:
         with self._cond:
             return [n for n, q in self._waiting.items() if q]
 
+    def shares(self) -> dict[str, tuple[float, float]]:
+        """``{name: (request, limit)}`` as registered."""
+        with self._cond:
+            return dict(self._shares)
+
+    def effective(self, name: str) -> tuple[float, float]:
+        """The share the core enforces for ``name``: the registered one,
+        since the port has no burst credit (the JAX elastic plane)."""
+        with self._cond:
+            return self._shares[name]
+
     def accounting(self) -> dict:
         """One consistent snapshot of the shares: per client its
         ``(request, limit)``, class and whether it holds the token, the

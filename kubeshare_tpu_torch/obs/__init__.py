@@ -1,6 +1,5 @@
 """Observability of the port's data plane — the counterpart of
-``kubeshare_tpu/obs/``, less its decision recorder and its time-series
-store.
+``kubeshare_tpu/obs/``.
 
 - :mod:`.metrics` — labeled Counter/Gauge/Histogram families with a
   strict Prometheus exposition renderer, OpenMetrics exemplars on
@@ -18,6 +17,9 @@ store.
 - :mod:`.prof` — tracked locks, phase attribution and a stack sampler.
 - :mod:`.critpath` — one request's wall time split into front door,
   transport, grant wait and execute from many processes' spans.
+- :mod:`.tsdb` — the registry's bounded fleet time-series store.
+- :mod:`.decisions` — the scheduler's decision recorder: every submit,
+  outcome, preemption and eviction as a replayable trace.
 
 The port's token scheduler, proxy, wire, clients, resilience and serving
 modules feed these where the JAX package's feed its own.

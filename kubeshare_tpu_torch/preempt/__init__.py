@@ -10,8 +10,9 @@
   marked preempted yields the token *between* executes, never in the
   middle of one.
 
-Gang-aware preemption waits for the port's gang coordinator; the policy
-already counts it (:meth:`PreemptionPolicy.note_gang_preemption`).
+Gang-atomic preemption goes through the
+:class:`~kubeshare_tpu_torch.gang.coordinator.GangTokenCoordinator`, which
+consults the same policy.
 """
 
 from .policy import CLASS_PRIORITY, PreemptionPolicy

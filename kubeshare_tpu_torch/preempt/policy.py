@@ -17,8 +17,9 @@ families of the process registry:
   preempted holder forfeited (granted quota minus charged usage);
 - ``kubeshare_preempt_boost_grants_total`` — grants delivered out of FIFO
   order (the beneficiary, then the anti-starvation re-grant);
-- ``kubeshare_preempt_gang_total`` — gang-atomic preemptions (no caller
-  in the port until its gang coordinator exists).
+- ``kubeshare_preempt_gang_total`` — gang-atomic preemptions routed
+  through the :class:`~kubeshare_tpu_torch.gang.coordinator.
+  GangTokenCoordinator` two-phase protocol.
 
 Anti-starvation: every preemption queues the *holder* directly behind the
 beneficiary in the scheduler's directed-grant queue, so a best-effort
@@ -87,6 +88,9 @@ class PreemptionPolicy:
         self.min_hold_ms = float(min_hold_ms)
         self.enabled = bool(enabled)
         self._lock = threading.Lock()
+        #: optional decision recorder: token and gang preemptions land in
+        #: its replayable decision trace
+        self.decisions = None
         self._stats = {
             "preemptions": 0,
             "gang_preemptions": 0,
@@ -119,6 +123,11 @@ class PreemptionPolicy:
             by[holder] = by.get(holder, 0) + 1
         _PREEMPTIONS.inc(chip, waiter_class or "best-effort",
                          holder_class or "best-effort")
+        if self.decisions is not None:
+            self.decisions.record("token-preempt", chip=chip,
+                                  holder=holder,
+                                  waiter_class=waiter_class,
+                                  holder_class=holder_class)
 
     def note_yield(self, chip: str, yield_s: float,
                    reclaimed_ms: float) -> None:
@@ -141,6 +150,9 @@ class PreemptionPolicy:
         with self._lock:
             self._stats["gang_preemptions"] += 1
         _GANG.inc(gang, beneficiary)
+        if self.decisions is not None:
+            self.decisions.record("gang-preempt", gang=gang,
+                                  beneficiary=beneficiary)
 
     # -- views ---------------------------------------------------------------
 

@@ -1,8 +1,9 @@
 """The placement engine of the port — the counterpart of
 ``kubeshare_tpu/scheduler/``: the reference's extension points over the
-cell model, run in-process (see :mod:`.engine` for the parity map). The
-HTTP service, the Kubernetes bridge and the dispatcher are not ported
-yet.
+cell model (see :mod:`.engine` for the parity map), the enforcing loop
+around it (:mod:`.dispatcher`, :mod:`.healthwatch`), the HTTP service
+(:mod:`.service`) and the Kubernetes side: the pod-event bridge
+(:mod:`.bridge`) and the admission webhook (:mod:`.webhook`).
 """
 
 from .engine import Binding, SchedulerEngine, Unschedulable

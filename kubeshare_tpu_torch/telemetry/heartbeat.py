@@ -6,9 +6,9 @@ The reference has no liveness plane at all: a dead node's capacity
 lingers in Prometheus until scrape staleness ages it out, and nothing
 requeues the pods bound there. Here every node agent runs one
 :class:`Heartbeater` that PUTs a lease (monotonic epoch + TTL) into the
-registry on a fixed period; the JAX scheduler's healthwatch (not ported
-yet) turns missing beats into node death, eviction, and rescheduling.
-Wire format and tuning: ``doc/health.md``.
+registry on a fixed period; the scheduler's healthwatch
+(:mod:`..scheduler.healthwatch`) turns missing beats into node death,
+eviction, and rescheduling. Wire format and tuning: ``doc/health.md``.
 
 Epoch discipline — the whole point of the epoch is restart takeover:
 

@@ -7,10 +7,13 @@ Needs one CUDA card and runs from anywhere in a checkout. It builds the
 kernels, then:
 
 - by default, runs ``chip_smoke.place_phase`` once — the port's registry,
-  collector and configd as processes, the engine over the card's node and
-  63 fake ones with 2,000 background pods, two 0.5 LM pods bound to the
-  card and run as gate-mode tenants with their bindings' env — and prints
-  its numbers (every check as the smoke's);
+  collector, configd, scheduler service, pod-event bridge and admission
+  webhook as processes beside a fake kube-apiserver, the service over the
+  card's node and 63 fake ones with 2,000 background pods, two labels-only
+  0.5 LM pods bound to the card through the webhook, the apiserver and
+  the bridge and run as gate-mode tenants with the env of their pod
+  objects, a delete, the node's death and a fresh collector's stop —
+  and prints its numbers (every check as the smoke's);
 - with ``--mem-ab``, runs 5i's tenant pair through phase 5e's node path
   without and with the memory grant (``KUBESHARE_TPU_MEM``, 20 GiB) in
   the tenants' env, with the registry, collector and configd down or up

@@ -50,6 +50,16 @@ def test_port_sources_exist():
                  "kubeshare_tpu_torch/telemetry/aggregator.py",
                  "kubeshare_tpu_torch/nodeagent/configd.py",
                  "kubeshare_tpu_torch/nodeagent/queryip.py",
+                 "kubeshare_tpu_torch/obs/decisions.py",
+                 "kubeshare_tpu_torch/chaos/invariants.py",
+                 "kubeshare_tpu_torch/gang/coordinator.py",
+                 "kubeshare_tpu_torch/telemetry/remote_write.py",
+                 "kubeshare_tpu_torch/scheduler/healthwatch.py",
+                 "kubeshare_tpu_torch/scheduler/configwatch.py",
+                 "kubeshare_tpu_torch/scheduler/dispatcher.py",
+                 "kubeshare_tpu_torch/scheduler/service.py",
+                 "kubeshare_tpu_torch/scheduler/bridge.py",
+                 "kubeshare_tpu_torch/scheduler/webhook.py",
                  "chip_smoke.py", "scripts/torch_step_profile.py",
                  "scripts/torch_gate_pairs.py"):
         assert want in names

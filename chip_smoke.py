@@ -286,6 +286,14 @@ PLACE_MEM = 20 * 1024**3
 # each tenant trains this long past warm-up: their common window passes
 # 5e's GATE_MIN_WINDOW_S (8 s) with the start-up offset between them
 PLACE_PAIR_S = 10.0
+# the control plane's replicas: two services in the leader:scheduler
+# election, each on cell-routed shards, over one registry and its
+# follower; the node's launcher and proxy push their metrics there
+PLACE_SERVICES = ("svc-a", "svc-b")
+PLACE_SHARDS = 4
+PLACE_HA_TTL_S = 5.0
+PLACE_REPL_POLL_S = 0.2
+PLACE_PUSH_S = 1.0
 
 
 def log(msg: str) -> None:
@@ -1178,6 +1186,8 @@ class _Node:
         self.base = tempfile.mkdtemp(prefix="kubeshare-gate-")
         self.token_port = _free_port()
         self.managers: dict = {}          # pod name -> manager command
+        #: more arguments of the proxy's command (5i's remote write)
+        self.proxy_args: list = []
         node = self
 
         def proxy_cmd(chip_id, index, _exec_port, _token_port):
@@ -1185,7 +1195,7 @@ class _Node:
                 chip_id, index, _free_port(), node.token_port)
             env["PYTHONPATH"] = root
             # the shortened accounting window of the co-located phases
-            return cmd + ["-w", str(WINDOW_MS)], env
+            return cmd + ["-w", str(WINDOW_MS), *node.proxy_args], env
 
         def pmgr_cmd(name, port, request, limit, _token_port):
             cmd, env = launcherd.default_pmgr_cmd(name, port, request, limit,
@@ -2979,11 +2989,13 @@ def _background_stream(client) -> dict:
     three. A gang pair whose first member waits only for its sibling is
     left to the dispatcher's retry, which binds both once the second is
     parked at the Permit barrier; it is deleted at the end if still
-    unbound, and at once if the fleet cannot hold it. Times each HTTP
+    unbound. A pair the fleet cannot hold is left pending, as a user
+    leaves an unschedulable pod: the dispatcher's retries search for
+    preemptions only where something was released since. Times each HTTP
     round trip."""
     rng = random.Random(PLACE_SEED)
     rtt, bound, gangs = [], [], []
-    refused = 0
+    refused = pending_pairs = 0
     i = 0
     while i < PLACE_BACKGROUND_PODS:
         sets = _background_labels(rng, i)[:PLACE_BACKGROUND_PODS - i]
@@ -3001,16 +3013,13 @@ def _background_stream(client) -> dict:
             codes.append(code)
         if len(names) > 1 and codes != [200] * len(names):
             # a pair one member short of its barrier binds at the next
-            # retry; one the fleet cannot hold is deleted at once, or its
-            # pending members would search for preemptions every retry
+            # retry; one the fleet cannot hold stays pending
             reasons = [client.status("bg", n)[1].get("reason", "")
                        for n in names]
             if all(not r or "min_available" in r for r in reasons):
                 gangs.append(names)
             else:
-                for name in names:
-                    client.delete("bg", name)
-                refused += len(names)
+                pending_pairs += 1
         else:
             for name, code in zip(names, codes):
                 if code == 200:
@@ -3041,6 +3050,7 @@ def _background_stream(client) -> dict:
         refused += len(names)
     lat_us = sorted(x * 1e6 for x in rtt)
     return {"submitted": len(rtt), "refused": refused,
+            "pending_pairs": pending_pairs,
             "bound_at_end": len(bound), "gangs_bound_late": gangs_bound,
             "rtt_us_p50": _pct(lat_us, 0.5),
             "rtt_us_p99": _pct(lat_us, 0.99),
@@ -3075,16 +3085,35 @@ def _labels_only_pod(name: str, labels: dict) -> dict:
                                      "image": "kubeshare-tpu-torch"}]}}
 
 
+def _same_registry(lead, follow) -> bool:
+    """Whether a follower registry holds the leader's capacity, pods and
+    leases (a lease's epoch, holder and TTL: the follower stamps its own
+    times)."""
+    def leases(rc):
+        return {k: {f: v for f, v in lease.items()
+                    if f not in ("ts", "age_s")}
+                for k, lease in rc.leases()["leases"].items()}
+    return (follow.capacity() == lead.capacity()
+            and follow.pods() == lead.pods()
+            and leases(follow) == leases(lead))
+
+
 def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
-    """Phase 5i: a pod from a Kubernetes object to a tenant on the card.
-    The port's registry, collector (``--backend cuda``), configd,
-    scheduler service (with its health watch), pod-event bridge and
-    admission webhook run as processes, a fake kube-apiserver here. The
-    fleet is the real node and PLACE_FAKE_NODES fake ones; the background
-    pods go to the service over HTTP; the LM pods are labels-only
-    objects that pass the webhook and are created on the apiserver, and
-    the bridge, the service, configd and 5e's launcher do the rest. The
-    tenants start with the env a kubelet builds from their pod objects."""
+    """Phase 5i: a pod from a Kubernetes object to a tenant on the card,
+    through a leader failover. The port's registry and a follower of it,
+    collector (``--backend cuda``), configd, two scheduler services
+    (``svc-a``, ``svc-b``: four cell-routed shards, health watch, a
+    ``leader:scheduler`` election), pod-event bridge (over both services)
+    and admission webhook run as processes, a fake kube-apiserver here.
+    The launcher and its proxy remote-write their metrics to the
+    registry. The fleet is the real node and PLACE_FAKE_NODES fake ones;
+    the background pods go to the leader over HTTP; the LM pods are
+    labels-only objects that pass the webhook and are created on the
+    apiserver, and the bridge, the leader, configd and 5e's launcher do
+    the rest. Then the leader is SIGKILLed: the standby takes over and
+    places what follows. The tenants start with the env a kubelet builds
+    from their pod objects. Last, the doctor checks the stack, and the
+    follower is promoted once the leader registry stops."""
     import torch
 
     from kubeshare_tpu_torch import constants as C
@@ -3092,13 +3121,21 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
     from kubeshare_tpu_torch.scheduler.bridge import ServiceClient
     from kubeshare_tpu_torch.scheduler.webhook import resolve_downward_env
     from kubeshare_tpu_torch.telemetry.registry import RegistryClient
+    from kubeshare_tpu_torch.telemetry.remote_write import RemoteWriter
 
     torch.cuda.empty_cache()
+    t_phase = time.monotonic()
     node = _Node(root)
     chip = node.chip
     daemons: dict = {}
-    api = None
-    out: dict = {"chip_id": chip.chip_id, "model": chip.model}
+    api = writer = None
+    out: dict = {"chip_id": chip.chip_id, "model": chip.model,
+                 "stages_s": {}}
+
+    def lap(stage):
+        """Close a stage of 5i: its wall seconds since the last one."""
+        done = sum(out["stages_s"].values())
+        out["stages_s"][stage] = time.monotonic() - t_phase - done
 
     def start(label, args):
         daemons[label] = _start_daemon(root, node.base, label, args)
@@ -3110,6 +3147,11 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         start("registry", ["kubeshare_tpu_torch.telemetry.registry",
                            "--host", "127.0.0.1", "--port", "0"])
         reg_port = int(ready("registry").split()[1])
+        start("follower", ["kubeshare_tpu_torch.telemetry.registry",
+                           "--host", "127.0.0.1", "--port", "0",
+                           "--follower-of", f"127.0.0.1:{reg_port}",
+                           "--replication-poll", str(PLACE_REPL_POLL_S)])
+        follow_port = int(ready("follower").split()[1])
         registry_args = ["--registry-host", "127.0.0.1", "--registry-port",
                          str(reg_port)]
         node_args = [*registry_args, "--node", chip.host, "--backend",
@@ -3132,20 +3174,63 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         check(chip.host in rc.leases()["leases"],
               "5i: the collector published no lease")
         fake = _fake_capacity(rc)
-        start("service", ["kubeshare_tpu_torch.scheduler.service",
-                          *registry_args, "--host", "127.0.0.1", "--port",
-                          "0", "--health"])
-        svc_url = f"http://127.0.0.1:{ready('service').split()[1]}"
+        urls = {}
+        for holder in PLACE_SERVICES:
+            start(holder, ["kubeshare_tpu_torch.scheduler.service",
+                           *registry_args, "--host", "127.0.0.1", "--port",
+                           "0", "--health", "--shards", str(PLACE_SHARDS),
+                           "--shard-route", "cell", "--ha-ttl",
+                           str(PLACE_HA_TTL_S), "--ha-holder", holder])
+            urls[holder] = f"http://127.0.0.1:{ready(holder).split()[1]}"
+            if holder == PLACE_SERVICES[0]:
+                # the first leads, unfrozen, before the second contests
+                _poll(lambda: (lambda st: st.get("role") == "leader"
+                               and st.get("frozen") is False)(
+                    ServiceClient(urls[holder]).ha()),
+                    f"{holder}'s election", 30)
+        lead_url, standby_url = (urls[h] for h in PLACE_SERVICES)
         api = FakeKubeApi()
         start("bridge", ["kubeshare_tpu_torch.scheduler.bridge",
-                         "--service", svc_url, "--kube-api", api.url])
+                         "--service", f"{lead_url},{standby_url}",
+                         "--kube-api", api.url])
         hook_port = int(ready("webhook").split()[1])
         ready("bridge")
+        node.proxy_args = ["--remote-write", f"127.0.0.1:{reg_port}",
+                           "--instance", f"proxy-{chip.host}",
+                           "--push-period", str(PLACE_PUSH_S)]
         proxy_ready = node.start()
-        log(f"5i: registry on {reg_port}, service {svc_url}, webhook on "
-            f"{hook_port}, apiserver {api.url}; collector, configd and "
-            f"bridge READY; launcher proxy {proxy_ready}")
-        client = ServiceClient(svc_url)
+        # the launcher runs in this process: its remote write, as the
+        # launcher's CLI starts it with --registry-host
+        writer = RemoteWriter(rc, chip.host, "launcherd",
+                              period_s=PLACE_PUSH_S).start()
+        log(f"5i: registry on {reg_port}, its follower on {follow_port}, "
+            f"services {lead_url} and {standby_url} ({PLACE_SHARDS} shards "
+            f"each), webhook on {hook_port}, apiserver {api.url}; "
+            f"collector, configd and bridge READY; launcher proxy "
+            f"{proxy_ready}")
+        client = ServiceClient(lead_url)
+        standby = ServiceClient(standby_url)
+
+        has = {h: _poll(lambda c=c: (lambda st: st if st.get("epoch")
+                                     else None)(c.ha()), f"{h}'s /ha", 30)
+               for h, c in zip(PLACE_SERVICES, (client, standby))}
+        check([h["role"] for h in has.values()] == ["leader", "standby"]
+              and all(h["epoch"] == 1 for h in has.values())
+              and has[PLACE_SERVICES[0]]["frozen"] is False
+              and has[PLACE_SERVICES[1]]["frozen"] is True,
+              f"5i: GET /ha before the failover: {has}")
+        out["ha_before"] = has
+        instances = _poll(lambda: (lambda i: i if {
+            chip.host, f"proxy-{chip.host}"} <= set(i) else None)({
+                x["instance"]: x for x in rc.instances()["instances"]}),
+            "the node's instances in /instances", 30)
+        check(instances[chip.host]["job"] == "launcherd"
+              and instances[f"proxy-{chip.host}"]["job"] == "chipproxy",
+              f"5i: GET /instances: {instances}")
+        log(f"5i: one leader, {PLACE_SERVICES[0]} at epoch 1, "
+            f"{PLACE_SERVICES[1]} a frozen standby; /instances lists "
+            f"{chip.host} (launcherd) and proxy-{chip.host} (chipproxy)")
+        lap("start-up")
 
         def state():
             code, body = client.state()
@@ -3163,27 +3248,61 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
                         "devices": len(st["leaves"])}
         check(len(st["leaves"]) == fake + 1,
               f"5i: the service sees {len(st['leaves'])} devices")
+        from kubeshare_tpu_torch.scheduler.shard import ShardPlan
+        plan = ShardPlan({n: [None] * PLACE_FAKE_DEVICES
+                          if n != chip.host else [None]
+                          for n in st["nodes"]}, PLACE_SHARDS)
+        out["card_shard"] = plan.shard_of(chip.host)
 
-        scrape0 = _phase_histograms(_http_metrics(svc_url))
+        scrape0 = _phase_histograms(_http_metrics(lead_url))
         bg = out["background"] = _background_stream(client)
         bg["engine_phases"] = _phase_quantiles(
-            scrape0, _phase_histograms(_http_metrics(svc_url)))
+            scrape0, _phase_histograms(_http_metrics(lead_url)))
         out["invariants_after_background"] = invariants("after the "
                                                         "background")
         card = state()["leaves"][chip.chip_id]
         check(card["available"] == 1.0,
               f"5i: a background pod landed on the card: {card}")
+        kinds = client.decisions().get("kinds", {})
+        bg["cross_shard"] = {k: kinds.get(k, 0)
+                             for k in ("gang-cross-shard", "shard-spill")}
         log(f"5i: service over {out['fleet']['nodes']} nodes, "
-            f"{out['fleet']['devices']} devices: {bg['submitted']} "
+            f"{out['fleet']['devices']} devices, the card's node in shard "
+            f"{out['card_shard']} of {PLACE_SHARDS}: {bg['submitted']} "
             f"background POST /schedule ({bg['refused']} unbound and "
-            f"deleted, {bg['gangs_bound_late']} gang pairs bound after "
-            f"their Permit wait, {bg['bound_at_end']} bound at the end): "
+            f"deleted, {bg['pending_pairs']} pairs the fleet cannot hold "
+            f"left pending, {bg['gangs_bound_late']} gang pairs bound "
+            f"after their Permit wait, {bg['bound_at_end']} bound at the "
+            f"end; cross-shard: {bg['cross_shard']}): "
             f"round trip p50 {bg['rtt_us_p50']:.1f} us, p99 "
             f"{bg['rtt_us_p99']:.1f} us, {bg['pods_per_sec']:.1f} pods/s; "
             "engine phases in the service (p50 / p99 us, cycles): " + ", ".join(
                 f"{p} {q['p50_us']:.1f} / {q['p99_us']:.1f} ({q['count']})"
                 for p, q in bg["engine_phases"].items())
             + " (host numbers)")
+        lap("background")
+
+        # the follower registry holds what the leader holds
+        frc = RegistryClient("127.0.0.1", follow_port)
+        t0 = time.monotonic()
+        _poll(lambda: _same_registry(rc, frc), "the follower to catch up",
+              30, 0.02)
+        repl = frc.replication()
+        out["follower"] = {"catch_up_s": time.monotonic() - t0,
+                           "lag_s": repl.get("lag_s"),
+                           "cursor": repl.get("cursor"),
+                           "head": repl.get("head"),
+                           "rebases": repl.get("rebases"),
+                           "pods": len(frc.pods())}
+        check(repl.get("in_sync") is True and repl.get("role") == "follower",
+              f"5i: the follower's /replication: {repl}")
+        log(f"5i: the follower holds the leader's capacity, "
+            f"{out['follower']['pods']} pod records and leases "
+            f"{out['follower']['catch_up_s']:.3f} s after the background "
+            f"(replication lag {repl.get('lag_s')} s at poll "
+            f"{PLACE_REPL_POLL_S} s, cursor {repl.get('cursor')} of "
+            f"{repl.get('head')})")
+        lap("follower")
 
         labels = {C.POD_TPU_REQUEST: str(PLACE_REQUEST),
                   C.POD_TPU_LIMIT: "1.0", C.POD_TPU_MEMORY: str(PLACE_MEM),
@@ -3268,6 +3387,50 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             f"{reading['lifetime_held_share_a']:.4f} of the token over its "
             f"life, {reading['share_a']:.4f} of the window's steps")
 
+        # the proxy's grant waits reached the registry's fleet store
+        grant = _poll(lambda: rc.query(
+            "kubeshare_token_grant_wait_seconds", agg="quantile", q=0.99,
+            window_s=60.0,
+            matchers={"instance": f"proxy-{chip.host}"}).get("groups"),
+            "the proxy's grant waits in GET /query", 30, 0.2)
+        out["grant_wait_query"] = grant
+        log(f"5i: GET /query kubeshare_token_grant_wait_seconds p99 over "
+            f"proxy-{chip.host}'s remote-written series: {grant}")
+        lap("tenants")
+
+        # the leader dies: the standby takes over at the next epoch
+        lead_proc, _ = daemons.pop(PLACE_SERVICES[0])
+        t_kill = time.monotonic()
+        lead_proc.kill()
+        lead_proc.wait()
+        # the takeover is done when the new leader has unfrozen
+        ha_after = _poll(lambda: (lambda st: st if st.get("role") == "leader"
+                                  and st.get("frozen") is False
+                                  else None)(standby.ha()),
+                         f"{PLACE_SERVICES[1]}'s takeover", 60, 0.05)
+        out["failover_s"] = time.monotonic() - t_kill
+        check(ha_after["epoch"] == 2 and ha_after["frozen"] is False
+              and ha_after["takeovers"] == 1,
+              f"5i: GET /ha after the failover: {ha_after}")
+        out["ha_after"] = ha_after
+        client = standby
+        inv_b = invariants("after the failover")
+        for name, _ in PLACE_TENANTS:
+            ns, _, pod_name = name.partition("/")
+            st_ = client.status(ns, pod_name)[1]
+            check(st_.get("status") == "bound" and st_.get("node")
+                  == chip.host, f"5i: {name} on {PLACE_SERVICES[1]} after "
+                                f"the failover: {st_}")
+        check(rc.leader("scheduler")["holder"] == PLACE_SERVICES[1],
+              f"5i: the lease after the failover: "
+              f"{rc.leader('scheduler')}")
+        log(f"5i: SIGKILL of {PLACE_SERVICES[0]} to {PLACE_SERVICES[1]} "
+            f"holding leader:scheduler at epoch 2, unfrozen: "
+            f"{out['failover_s']:.3f} s (lease TTL {PLACE_HA_TTL_S} s, "
+            f"election every {PLACE_HA_TTL_S / 3:.2f} s); /invariants ok "
+            f"with {inv_b.get('bound')} bound, both LM pods among them")
+        lap("failover")
+
         # a third 0.5 pod and one over the card's memory stay pending
         t_third = create(PLACE_THIRD, labels)
         create("smoke/too-big", dict(
@@ -3318,6 +3481,7 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             f"bridge's poll: its manager READY on port "
             f"{ports[PLACE_THIRD]} {out['delete_to_third_ready_s']:.3f} s "
             f"after the delete ({t0 - t_third:.1f} s after its creation)")
+        lap("refusals, delete, third")
 
         # the node's only lease beater dies: SIGKILL, so nothing withdraws
         managers = [node.launcher._managers[(chip.chip_id, n)][1]
@@ -3375,18 +3539,60 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         check(rc.capacity().get(chip.host, {}).get("healthy") is True
               and lease.get("age_s", 1e9) < lease.get("ttl_s", 0),
               f"5i: the fresh collector published no live lease: {lease}")
-        for label in ("collector", "bridge", "webhook", "service",
-                      "configd", "registry"):
+        proc_d, log_d = daemons.pop("collector")
+        _stop_daemon(proc_d, "collector", log_d)
+        check(chip.host not in rc.capacity()
+              and chip.host not in rc.leases()["leases"],
+              "5i: the stopped collector left its capacity or lease")
+        log("5i: a fresh collector's SIGTERM: rc 0, the node's capacity "
+            "and lease withdrawn")
+        lap("node death, fresh collector")
+
+        # the doctor, chip check on, over the registry and the new leader
+        out["doctor"] = _doctor(root, node.base, f"127.0.0.1:{reg_port}",
+                                standby_url.partition("://")[2])
+        log(f"5i: the doctor exited 0 in {out['doctor']['seconds']:.2f} s: "
+            + "; ".join(out["doctor"]["lines"]))
+        lap("doctor")
+
+        writer.stop()
+        writer = None
+        lead_pods = rc.pods()
+        for label in ("bridge", "webhook", PLACE_SERVICES[1], "configd",
+                      "registry"):
             proc_d, log_d = daemons.pop(label)
             _stop_daemon(proc_d, label, log_d)
-            if label == "collector":
-                check(chip.host not in rc.capacity()
-                      and chip.host not in rc.leases()["leases"],
-                      "5i: the stopped collector left its capacity or "
-                      "lease")
-                log("5i: a fresh collector's SIGTERM: rc 0, the node's "
-                    "capacity and lease withdrawn")
+        # the leader registry is gone: SIGHUP promotes its follower
+        follower, follow_log = daemons["follower"]
+        follower.send_signal(signal.SIGHUP)
+        t_hup = time.monotonic()
+
+        def promoted():
+            try:
+                frc.put_lease("promoted-probe", 1)
+            except Exception:
+                return None
+            return frc.leases()["leases"].get("promoted-probe")
+
+        _poll(promoted, "a write to the promoted follower", 30, 0.05)
+        out["promote_s"] = time.monotonic() - t_hup
+        check(frc.replication().get("role") != "follower"
+              and frc.pods() == lead_pods,
+              f"5i: the promoted follower: {frc.replication()}, "
+              f"{len(frc.pods())} pod records, the leader's last "
+              f"{len(lead_pods)}")
+        daemons.pop("follower")
+        _stop_daemon(follower, "follower", follow_log)
+        log(f"5i: the leader registry stopped; SIGHUP promoted its "
+            f"follower, which took a write {out['promote_s']:.3f} s later "
+            f"and holds the leader's {len(lead_pods)} pod records")
+        lap("stop, promote")
+        out["wall_s"] = time.monotonic() - t_phase
+        log(f"5i: {out['wall_s']:.1f} s in all; by stage: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["stages_s"].items()))
     finally:
+        if writer is not None:
+            writer.stop()
         for proc, _ in daemons.values():
             if proc.poll() is None:
                 proc.kill()
@@ -3395,6 +3601,28 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             api.close()
         node.stop()
     return out
+
+
+def _doctor(root: str, base: str, registry: str, scheduler: str) -> dict:
+    """``python -m kubeshare_tpu_torch.doctor`` with its chip check on, as
+    an operator runs it on the node; fails 5i unless it exits 0."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_")}
+    env["PYTHONPATH"] = root
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubeshare_tpu_torch.doctor", "--registry",
+         registry, "--scheduler", scheduler, "--base-dir", base],
+        capture_output=True, text=True, timeout=240, env=env, cwd=root)
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    check(proc.returncode == 0,
+          f"5i: the doctor exited {proc.returncode}: "
+          + "; ".join(line for line in lines if " fail " in line)
+          + f" {proc.stderr[-2000:]}")
+    check(any(line.split()[:2] == ["chip", "ok"] for line in lines)
+          and any(line.split()[:2] == ["ha", "ok"] for line in lines),
+          f"5i: the doctor's chip or ha check: {lines}")
+    return {"seconds": time.monotonic() - t0, "lines": lines}
 
 
 def main(argv=None) -> int:

@@ -21,7 +21,9 @@ trace ids across the wire. The placement path takes a pod from its
 ``sharedtpu/*`` labels to a device: the telemetry registry
 (:mod:`.telemetry`), the per-node collector and config daemon
 (:mod:`.nodeagent`) and the scheduler engine (:mod:`.scheduler`) over the
-cell model (:mod:`.topology`).
+cell model (:mod:`.topology`). The scheduler runs as a service, sharded
+and in a leader election with a warm standby (:mod:`.ha`), and
+:mod:`.doctor` and :mod:`.topcli` check and show the deployed planes.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card they raise rather than fall back to the CPU.

@@ -53,7 +53,8 @@ the scheduler's ``execute_begin`` / ``execute_end``, so the ledger's
 ``granted-active`` interval closes after the completion barrier; a traced
 session's grants and executes carry its trace id; the RPC latency,
 resume, detach and replay families, and the flight recorder's notes on
-detach and resume. Not ported: remote write.
+detach and resume. With ``--remote-write`` the CLI pushes the process's
+metrics to the registry's fleet TSDB, as the JAX proxy does.
 """
 
 from __future__ import annotations
@@ -1779,8 +1780,11 @@ def main(argv=None) -> None:
     managers (:func:`.tokensched.serve`); ``--journal-dir`` (or
     ``KUBESHARE_JOURNAL_DIR``) keeps every resumable session on disk and
     restores the ones found there; ``KUBESHARE_FAULTS`` installs a fault
-    injector (:mod:`..resilience.faults`). Prints ``READY <port>[ TOKENS
-    <port>]`` once it serves."""
+    injector (:mod:`..resilience.faults`); ``--remote-write HOST:PORT``
+    pushes the process's metrics to that registry every
+    ``--push-period`` seconds as ``--instance`` (default ``<node>:<port>``,
+    job ``chipproxy``), and a clean stop marks the instance stale. Prints
+    ``READY <port>[ TOKENS <port>]`` once it serves."""
     import argparse
 
     from ..constants import (BASE_QUOTA_MS, ENV_JOURNAL_DIR, MIN_QUOTA_MS,
@@ -1804,6 +1808,15 @@ def main(argv=None) -> None:
                         default=os.environ.get(ENV_JOURNAL_DIR, ""),
                         help="directory of the durable session journal; "
                              "empty keeps sessions in memory only")
+    parser.add_argument("--remote-write", default="",
+                        help="HOST:PORT of the telemetry registry; when "
+                             "set, this proxy pushes its metric snapshot "
+                             "to the fleet TSDB every --push-period "
+                             "seconds")
+    parser.add_argument("--push-period", type=float, default=5.0)
+    parser.add_argument("--instance", default="",
+                        help="instance label for remote-write (default "
+                             "node:port)")
     args = parser.parse_args(argv)
 
     inj = _faults.from_env()
@@ -1825,7 +1838,21 @@ def main(argv=None) -> None:
     if args.token_port >= 0:
         token_server = serve_tokens(sched, args.host, args.token_port)
         tokens = f" TOKENS {token_server.server_address[1]}"
-    ready_until_signal(f"READY {server.server_address[1]}{tokens}")
+    writer = None
+    if args.remote_write:
+        from ..telemetry.registry import RegistryClient
+        from ..telemetry.remote_write import RemoteWriter, default_instance
+
+        rw_host, _, rw_port = args.remote_write.rpartition(":")
+        writer = RemoteWriter(
+            RegistryClient(rw_host or "127.0.0.1", int(rw_port)),
+            args.instance or default_instance(server.server_address[1]),
+            "chipproxy", period_s=args.push_period).start()
+    try:
+        ready_until_signal(f"READY {server.server_address[1]}{tokens}")
+    finally:
+        if writer is not None:
+            writer.stop()
     if token_server is not None:
         token_server.shutdown()
         token_server.server_close()

@@ -13,8 +13,8 @@ scheduler and serves execution on ``SCHD_PORT_START + i`` and token
 traffic for pod managers on a sibling port. Watching is mtime polling (the
 files are written atomically, so a poll never sees a torn file). With
 ``--registry-host`` the CLI also publishes the node's heartbeat lease to
-the telemetry registry, as the JAX daemon does; its remote-write option is
-not ported yet.
+the telemetry registry and pushes its metric snapshot there every
+``--push-period`` seconds (remote write), as the JAX daemon does.
 """
 
 from __future__ import annotations
@@ -217,8 +217,10 @@ def main(argv=None) -> None:
     visible CUDA device (``--backend fake`` for a fake fleet) and the pod
     managers its client files ask for; with a registry, beat the node's
     lease there too (the launcher is the node's liveness: if it dies, the
-    lease stops renewing). Prints ``READY`` once the first reconcile ran
-    and the heartbeat started."""
+    lease stops renewing) and push its metrics to the fleet TSDB, as
+    instance ``<node>``, job ``launcherd``; a clean stop marks the
+    instance stale. Prints ``READY`` once the first reconcile ran and the
+    heartbeat started."""
     import argparse
 
     from ..topology.discovery import discover_chips
@@ -237,23 +239,31 @@ def main(argv=None) -> None:
     parser.add_argument("--registry-port", type=int,
                         default=C.REGISTRY_PORT)
     parser.add_argument("--lease-ttl", type=float, default=C.LEASE_TTL_S)
+    parser.add_argument("--push-period", type=float, default=5.0,
+                        help="remote-write period for this node agent's "
+                             "metric snapshot")
     args = parser.parse_args(argv)
 
     chips = discover_chips(args.backend, host=args.node)
     daemon = LauncherDaemon([c.chip_id for c in chips],
                             base_dir=args.base_dir, poll_s=args.poll)
     daemon.start()
-    heartbeat = None
+    heartbeat = writer = None
     if args.registry_host:
         from ..telemetry.heartbeat import Heartbeater
         from ..telemetry.registry import RegistryClient
+        from ..telemetry.remote_write import RemoteWriter
 
-        heartbeat = Heartbeater(
-            RegistryClient(args.registry_host, args.registry_port),
-            args.node, ttl_s=args.lease_ttl).start()
+        registry = RegistryClient(args.registry_host, args.registry_port)
+        heartbeat = Heartbeater(registry, args.node,
+                                ttl_s=args.lease_ttl).start()
+        writer = RemoteWriter(registry, args.node, "launcherd",
+                              period_s=args.push_period).start()
     try:
         ready_until_signal("READY")
     finally:
+        if writer is not None:
+            writer.stop()
         if heartbeat is not None:
             heartbeat.stop()
         daemon.stop()

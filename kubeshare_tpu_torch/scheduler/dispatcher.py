@@ -1,6 +1,11 @@
 """The dispatcher — the enforcing scheduling loop around the engine.
 
-The port's copy of ``kubeshare_tpu/scheduler/dispatcher.py``.
+The port's copy of ``kubeshare_tpu/scheduler/dispatcher.py``. It
+reaches the reference's decisions but diverges on purpose in cost: a
+pending pod's retry searches for preemptions only on the nodes whose
+last answer for it may have changed (:meth:`Dispatcher._find_preemption`).
+Its replay has a warm standby's options of its own
+(``replay_bound(standby=True)``, :meth:`Dispatcher.park_replayed`).
 
 The engine (:mod:`.engine`) is the reference's eight extension points as
 pure functions; this module is the part of the kube-scheduler *framework*
@@ -41,7 +46,7 @@ from ..obs.trace import get_tracer
 from ..topology.cell import reclaim_resource, reserve_resource
 from ..utils.logger import get_logger
 from .engine import Binding, SchedulerEngine, Unschedulable
-from .labels import PodRequest
+from .labels import PodRequest, parse_group_labels
 from .scoring import select_cells
 
 log = get_logger("dispatcher")
@@ -109,6 +114,45 @@ class _Parked:
     since: float = 0.0            # parked-at, for the gang-wait metric
 
 
+def _record_labels(rec: dict) -> dict:
+    """The labels a requirement record replays with, the model it was
+    bound to among them (the JAX replay drops the model)."""
+    labels = {C.POD_TPU_REQUEST: rec.get("request", "0"),
+              C.POD_TPU_LIMIT: rec.get("limit", "0")}
+    if rec.get("priority", "0") not in ("", "0"):
+        labels[C.POD_PRIORITY] = rec["priority"]
+    if rec.get("group_name"):
+        labels[C.POD_GROUP_NAME] = rec["group_name"]
+        labels[C.POD_GROUP_HEADCOUNT] = rec.get("headcount", "0")
+        labels[C.POD_GROUP_THRESHOLD] = rec.get("threshold", "0")
+    models = {m for m in rec.get("model", "").split(",") if m}
+    if len(models) == 1:
+        labels[C.POD_TPU_MODEL] = models.pop()
+    return labels
+
+
+def _record_annotations(rec: dict) -> dict:
+    return {C.POD_TPU_CHIP_ID: rec.get("chip_id", ""),
+            C.POD_TPU_MEMORY: rec.get("memory", "0"),
+            C.POD_MANAGER_PORT: rec.get("port", "0"),
+            C.POD_CELL_ID: rec.get("cell_id", "")}
+
+
+def short_gangs(records: dict) -> set[str]:
+    """Keys of the requirement records whose gang has fewer records than
+    its min_available: members a leader reserved and published while
+    they waited at the Permit barrier, not bound gangs."""
+    members: dict[tuple, list[str]] = {}
+    need: dict[tuple, int] = {}
+    for key, rec in records.items():
+        if rec.get("group_name"):
+            group = (key.partition("/")[0], rec["group_name"])
+            members.setdefault(group, []).append(key)
+            need[group] = parse_group_labels(_record_labels(rec))[3]
+    return {key for group, keys in members.items()
+            if len(keys) < need[group] for key in keys}
+
+
 def _binding_of(pod: PodRequest, engine=None) -> Binding:
     """Reconstruct the Binding of an already-booked pod (resync/replay
     paths) so status queries keep the full annotations + env contract.
@@ -169,6 +213,10 @@ class Dispatcher:
         #: served via /evictions, executed by the bridge (API delete),
         #: completed by the victim's normal DELETED event
         self._evict_requested: dict[str, dict] = {}
+        #: pending pod key → (pod, memo token, {node: the victim search's
+        #: answer there and the generations it holds for}):
+        #: _find_preemption
+        self._preempt_memo: dict[str, tuple] = {}
         #: pods thrown off a dead node and not yet rebound: key →
         #: {"node", "since", "outcome"} — status() reports "node lost"
         #: instead of whatever generic reason later retries produce
@@ -859,7 +907,7 @@ class Dispatcher:
         control plane deletes the victims on the API server, their
         DELETED events reclaim the bookings, and this pod binds on a
         later cycle. Returns True when a plan was adopted."""
-        plan = self.engine.find_preemption(pod)
+        plan = self._find_preemption(pod)
         if plan is None:
             # a previous plan may have evaporated (capacity shifted so
             # even full eviction no longer helps) — its outstanding
@@ -899,6 +947,74 @@ class Dispatcher:
                       f"preempting {len(plan['victims'])} opportunistic "
                       f"pod(s) on {plan['node']}")
         return True
+
+    def _find_preemption(self, pod: PodRequest) -> dict | None:
+        """``engine.find_preemption``, searching only the nodes whose
+        last answer for this pod may have changed; the plan, or None, is
+        the full search's.
+
+        Per node the search answers "fit", "hopeless" or a plan
+        (``engine.preemption_on``). A hopeless node stays so until free
+        capacity there grows or its evictable bookings change, and both
+        bump ``engine.release_gen[node]``: binding more pods only shrinks
+        what evictions could free. A "fit" or a plan stands until any
+        booking there changes (``engine.touch_gen``) or, for a plan, a
+        gang among the node's victims gains or loses a member
+        (``engine.group_gen``). A fleet change, a new rank or a new gang
+        plan for the pod starts afresh. The JAX dispatcher searches every
+        node on every retry; pending pods the fleet cannot hold then
+        starve its lock (a divergence on purpose, in cost only)."""
+        eng = self.engine
+        group = eng.group_of(pod) if pod.group_name else None
+        token = (eng.release_epoch, pod.group_rank,
+                 None if group is None else
+                 (group.plan_model, repr(group.plan),
+                  sorted(group.plan_taken.items())))
+        memo = self._preempt_memo.get(pod.key)
+        if memo is None or memo[0] is not pod or memo[1] != token:
+            memo = self._preempt_memo[pod.key] = (pod, token, {})
+        known = memo[2]
+        stale = [n for n in eng.nodes
+                 if not self._memo_holds(n, known.get(n))]
+        if stale:
+            found: dict = {}
+            eng.find_preemption(pod, stale, results=found)
+            groups: dict[str, set] = {}
+            if any(isinstance(r, dict) for r in found.values()):
+                for p in eng.pod_status.values():
+                    if p.group_name and p.node_name in found:
+                        groups.setdefault(p.node_name, set()).add(
+                            p.group_key)
+            for node in stale:
+                got = found.get(node)
+                if got is None:
+                    known.pop(node, None)
+                elif got == "hopeless":
+                    known[node] = (got, eng.release_gen.get(node, 0))
+                else:
+                    known[node] = (got, eng.touch_gen.get(node, 0), tuple(
+                        (g, eng.group_gen.get(g, 0))
+                        for g in sorted(groups.get(node, ()))))
+        best = None
+        for node in eng.nodes:
+            got = known.get(node, (None,))[0]
+            if isinstance(got, dict) and (
+                    best is None
+                    or len(got["victims"]) < len(best["victims"])):
+                best = got
+        return (None if best is None else
+                {"node": best["node"], "victims": list(best["victims"])})
+
+    def _memo_holds(self, node: str, entry) -> bool:
+        """Whether a node's memoized search answer still holds."""
+        if entry is None:
+            return False
+        eng = self.engine
+        if entry[0] == "hopeless":
+            return entry[1] == eng.release_gen.get(node, 0)
+        return (entry[1] == eng.touch_gen.get(node, 0)
+                and all(eng.group_gen.get(g, 0) == gen
+                        for g, gen in entry[2]))
 
     def evictions(self) -> list[dict]:
         """Outstanding eviction requests (victims not yet observed gone)."""
@@ -1105,13 +1221,7 @@ class Dispatcher:
                 raise Unschedulable(
                     f"{key}: chip {chip_id} has {cell.free_memory} "
                     f"HBM free, grow needs {mem_grow}")
-            reclaim_resource(cell, old_request, memory)
-            reserve_resource(cell, new_request, new_memory)
-            pod.bookings[0] = (chip_id, new_request, new_memory)
-            pod.request = new_request
-            pod.memory = new_memory
-            pod.limit = max(pod.limit, new_request)
-            self.engine.alloc_gen += 1
+            self.engine.rebook(pod, new_request, new_memory)
             if self.decisions is not None:
                 self.decisions.record("resize", now, pod=key, chip=chip_id,
                                       src=old_request, dst=new_request)
@@ -1307,6 +1417,7 @@ class Dispatcher:
             self.events.emit(self.shard_id, "outcome", key,
                              self._clock(), status=outcome.status)
         self._last_reason.pop(key, None)
+        self._preempt_memo.pop(key, None)
         self._health_evicted.pop(key, None)  # rebound (or gone): the
         # "node lost" story ends with a terminal disposition
         # bound retention: without eviction a long-running scheduler keeps
@@ -1322,44 +1433,78 @@ class Dispatcher:
 
     # -- startup replay ----------------------------------------------------
 
-    def replay_bound(self) -> list[str]:
+    def replay_bound(self, records: dict | None = None,
+                     standby: bool = False) -> list[str]:
         """Re-book every requirement record from the registry (crash
         recovery; the informer's bound-pod re-queue, pod.go:47-78). Call
-        once, after capacity is synced and before start()."""
-        if self.registry is None:
+        once, after capacity is synced and before start().
+
+        The port's own options: ``records`` replays those instead of the
+        registry's whole set (the sharded plane gives each shard its
+        nodes' records). ``standby`` is a warm standby's replay: it also
+        drops the bound pods that have no record (the leader deleted
+        them since the last replay). A replayed pod keeps the model its
+        record was bound to as its pin, so a requeue after a node loss
+        keeps it on that model (the JAX replay drops the pin)."""
+        if self.registry is None and records is None:
             return []
         replayed = []
         with self._cond:
-            for key, rec in sorted(self.registry.pods().items()):
+            if records is None:
+                records = self.registry.pods()
+            for key, rec in sorted(records.items()):
                 namespace, _, name = key.partition("/")
-                labels = {C.POD_TPU_REQUEST: rec.get("request", "0"),
-                          C.POD_TPU_LIMIT: rec.get("limit", "0")}
-                if rec.get("priority", "0") not in ("", "0"):
-                    labels[C.POD_PRIORITY] = rec["priority"]
-                if rec.get("group_name"):
-                    labels[C.POD_GROUP_NAME] = rec["group_name"]
-                    labels[C.POD_GROUP_HEADCOUNT] = rec.get("headcount", "0")
-                    labels[C.POD_GROUP_THRESHOLD] = rec.get("threshold", "0")
-                annotations = {
-                    C.POD_TPU_CHIP_ID: rec.get("chip_id", ""),
-                    C.POD_TPU_MEMORY: rec.get("memory", "0"),
-                    C.POD_MANAGER_PORT: rec.get("port", "0"),
-                    C.POD_CELL_ID: rec.get("cell_id", ""),
-                }
                 try:
                     pod = self.engine.resync_bound(
-                        namespace, name, labels, annotations,
-                        rec.get("node", ""), uid=rec.get("uid", ""))
+                        namespace, name, _record_labels(rec),
+                        _record_annotations(rec), rec.get("node", ""),
+                        uid=rec.get("uid", ""))
                     self._results[key] = Outcome(
                         "bound", binding=_binding_of(pod, self.engine))
                     self._sync_gang(pod)
                     replayed.append(key)
                 except Exception as e:
                     log.error("replay of %s failed: %s", key, e)
+            if standby:
+                for key, pod in list(self.engine.pod_status.items()):
+                    if (pod.node_name and key not in records
+                            and key not in self._pending
+                            and key not in self._parked):
+                        self.engine.delete_pod(key)
+                        self._results.pop(key, None)
+                        self._sync_gang(pod)
         if replayed:
             log.info("replayed %d bound pods from the registry",
                      len(replayed))
         return replayed
+
+    def park_replayed(self, records: dict) -> list[str]:
+        """Book the records of gangs short of their min_available
+        (:func:`short_gangs`) and park them at the Permit barrier, as
+        their deposed leader held them: a sibling that arrives completes
+        the gang, else the deadline rejects it and withdraws the
+        records. A new leader's takeover (the port's own; the JAX
+        standby books them as bound, a torn gang)."""
+        parked = []
+        with self._cond:
+            now = self._clock()
+            for key, rec in sorted(records.items()):
+                namespace, _, name = key.partition("/")
+                try:
+                    pod = self.engine.resync_bound(
+                        namespace, name, _record_labels(rec),
+                        _record_annotations(rec), rec.get("node", ""),
+                        uid=rec.get("uid", ""))
+                except Exception as e:
+                    log.error("replay of %s failed: %s", key, e)
+                    continue
+                _, timeout_s = self.engine.permit(pod)
+                self._results.pop(key, None)
+                self._parked[key] = _Parked(
+                    pod, _binding_of(pod, self.engine), now + timeout_s,
+                    since=now)
+                parked.append(key)
+        return parked
 
     # -- invariants --------------------------------------------------------
 

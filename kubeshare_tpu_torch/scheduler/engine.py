@@ -201,6 +201,20 @@ class SchedulerEngine:
         #: reclaims, topology/health changes) — consumed by the gang
         #: planner's negative memoization
         self.alloc_gen = 0
+        #: the port's own, for the dispatcher's memo of victim searches
+        #: (a divergence on purpose, in cost only:
+        #: Dispatcher._find_preemption). Per node, ``release_gen`` is
+        #: bumped whenever free capacity there can have grown or its
+        #: evictable (opportunistic) bookings changed, ``touch_gen`` on
+        #: any booking change there; ``release_epoch`` on fleet changes;
+        #: per gang, ``group_gen`` when it gains or loses a member (a
+        #: gang victim's blast radius). Only the engine's own methods
+        #: bump them (a shard move: ``adopt``/``hand_over``; a resize:
+        #: ``rebook``)
+        self.release_gen: dict[str, int] = {}
+        self.touch_gen: dict[str, int] = {}
+        self.group_gen: dict[str, int] = {}
+        self.release_epoch = 0
         if config is not None:
             self._build(config)
 
@@ -222,6 +236,7 @@ class SchedulerEngine:
         the same replay the crash resync performs."""
         known = node_name in self.chips_by_node
         self.alloc_gen += 1
+        self.release_epoch += 1
         self._nodes_cache = None
         self._fleet_snapshot = None   # per-node edits invalidate the
         by_model: dict[str, list[ChipInfo]] = {}  # set_fleet no-op check
@@ -264,6 +279,7 @@ class SchedulerEngine:
             return
         self._fleet_snapshot = snapshot
         self._nodes_cache = None
+        self.release_epoch += 1
         for gone in set(self.chips_by_node) - set(fleet):
             del self.chips_by_node[gone]
             self.node_health.pop(gone, None)
@@ -313,9 +329,55 @@ class SchedulerEngine:
                 if cell is not None:
                     reserve_resource(cell, compute, memory)
 
+    def _note_release(self, node_name: str) -> None:
+        """Free capacity on *node_name* may have grown, or its evictable
+        bookings changed: a victim search must look at it again."""
+        self.release_gen[node_name] = self.release_gen.get(node_name, 0) + 1
+        self._note_touch(node_name)
+
+    def _note_touch(self, node_name: str) -> None:
+        """A booking on *node_name* changed."""
+        self.touch_gen[node_name] = self.touch_gen.get(node_name, 0) + 1
+
+    def _note_member(self, pod: PodRequest) -> None:
+        """*pod* joined or left this engine's pods."""
+        if pod.group_name:
+            key = pod.group_key
+            self.group_gen[key] = self.group_gen.get(key, 0) + 1
+
+    def adopt(self, pod: PodRequest) -> None:
+        """Take *pod*'s record over from another engine, its bookings as
+        they are (a shard move; the port's own)."""
+        self.pod_status[pod.key] = pod
+        self.groups.get_or_create(pod)
+        self._note_member(pod)
+
+    def hand_over(self, key: str) -> None:
+        """Give *key*'s record up to another engine, its bookings as they
+        are (a shard move; the port's own)."""
+        pod = self.pod_status.pop(key, None)
+        if pod is not None:
+            self._note_member(pod)
+
+    def rebook(self, pod: PodRequest, request: float, memory: int) -> None:
+        """Move a bound single-chip pod's booking to *request* and
+        *memory* in place, on its chip (the dispatcher's
+        ``resize_request`` checks that the leaf holds the growth)."""
+        chip_id, old_request, old_memory = pod.bookings[0]
+        cell = self.leaf_cells[chip_id]
+        reclaim_resource(cell, old_request, old_memory)
+        reserve_resource(cell, request, memory)
+        pod.bookings[0] = (chip_id, request, memory)
+        pod.request = request
+        pod.memory = memory
+        pod.limit = max(pod.limit, request)
+        self.alloc_gen += 1
+        self._note_release(pod.node_name)
+
     def set_node_health(self, node_name: str, healthy: bool) -> None:
         self._fleet_snapshot = None
         self.alloc_gen += 1
+        self._note_release(node_name)
         self._reported_health[node_name] = healthy
         effective = healthy and node_name not in self.health_veto
         self.node_health[node_name] = effective
@@ -383,6 +445,7 @@ class SchedulerEngine:
                                                 pod.slo_specs)
         self.pod_status[pod.key] = pod
         self.groups.get_or_create(pod)
+        self._note_member(pod)
         return pod
 
     def group_of(self, pod: PodRequest) -> PodGroup:
@@ -686,6 +749,8 @@ class SchedulerEngine:
             # full memory — so reclaim can mirror them.
             memory = 0
             self.alloc_gen += 1
+            (self._note_release if pod.opportunistic
+             else self._note_touch)(node_name)
             for cell in cells:
                 pod.bookings.append(
                     (cell.chip_id, cell.available, cell.free_memory))
@@ -716,6 +781,8 @@ class SchedulerEngine:
             self._release_plan_slot(pod)
             raise Unschedulable(f"node {node_name} port pool exhausted")
         self.alloc_gen += 1
+        (self._note_release if pod.opportunistic
+         else self._note_touch)(node_name)
         reserve_resource(cell, pod.request, pod.memory)
         pod.bookings.append((cell.chip_id, pod.request, pod.memory))
         pod.port = C.POD_MANAGER_PORT_START + offset
@@ -792,7 +859,8 @@ class SchedulerEngine:
 
     @_timed_phase("find_preemption")
     def find_preemption(self, pod: PodRequest,
-                        nodes: list[str] | None = None) -> dict | None:
+                        nodes: list[str] | None = None,
+                        results: dict | None = None) -> dict | None:
         """Victim search for a blocked GUARANTEE pod: the fewest
         opportunistic bookings on one node whose removal lets *pod* pass
         filtering. Returns ``{"node", "victims": [pod keys]}`` or None.
@@ -808,94 +876,116 @@ class SchedulerEngine:
         ``README.md:41-43``) with the displacement itself — the
         reference never evicts, so a late guarantee pod starves behind
         opportunistic ones until they exit on their own.
+
+        ``results`` (the port's own) gets what the search found on each
+        node: ``"fit"``, ``"hopeless"`` or the node's plan
+        (:meth:`preemption_on`); the plan returned is the first of the
+        fewest victims, in node order.
         """
         if not pod.needs_tpu or pod.opportunistic:
             return None
         best: dict | None = None
+        evictable = self._evictable(pod)
         for node in (nodes if nodes is not None else list(self.nodes)):
-            fit, why = self.filter(pod, node)
-            if fit:
-                # the block is NOT capacity on this node (a reserve-time
-                # refusal, e.g. gang rank exhaustion) — evictions here
-                # would kill filler without ever unblocking the pod
-                continue
-            if "cannot fit" not in why:
-                # non-capacity failure (model mismatch, port pool, gang
-                # sub-mesh): no amount of eviction produces a fit — skip
-                # the whole simulation on this node
-                continue
-            candidates = [
-                p for p in self.pod_status.values()
-                if p.node_name == node and p.opportunistic and p.bookings
-                and not (pod.group_name and p.group_key == pod.group_key)
-            ]
-            # Cheapest eviction first: lowest priority, then SMALLEST
-            # blast radius (a gang member drags its whole gang with it —
-            # preferring standalone pods keeps the victim count at what
-            # the fit actually needs), then newest (least sunk work).
-            def eviction_cost(p):
-                gang_size = (len(self._group_members(p)) if p.group_name
-                             else 1)
-                return (p.priority, gang_size, -p.timestamp)
-
-            candidates.sort(key=eviction_cost)
-            reclaimed: list[PodRequest] = []
-            plan: dict | None = None
-            try:
-                for victim in candidates:
-                    for chip_id, compute, memory in victim.bookings:
-                        cell = self.leaf_cells.get(chip_id)
-                        if cell is not None:
-                            reclaim_resource(cell, compute, memory)
-                    reclaimed.append(victim)
-                    fit, _ = self.filter(pod, node)
-                    if fit:
-                        # Drop greedily-taken victims that contributed
-                        # nothing: re-reserve each (newest-first) and
-                        # keep it OUT of the plan if the pod still fits
-                        # without its chips (the fit may have come from
-                        # a later, unrelated chip).
-                        needed = []
-                        for v in reversed(reclaimed):
-                            for chip_id, compute, memory in v.bookings:
-                                cell = self.leaf_cells.get(chip_id)
-                                if cell is not None:
-                                    reserve_resource(cell, compute,
-                                                     memory)
-                            still_fit, _ = self.filter(pod, node)
-                            if still_fit:
-                                continue          # v was unnecessary
-                            for chip_id, compute, memory in v.bookings:
-                                cell = self.leaf_cells.get(chip_id)
-                                if cell is not None:
-                                    reclaim_resource(cell, compute,
-                                                     memory)
-                            needed.append(v)
-                        # evicting part of a gang strands the rest —
-                        # the eviction list pulls in whole groups
-                        keys: list[str] = []
-                        for v in needed:
-                            if v.group_name:
-                                keys.extend(m.key for m in
-                                            self._group_members(v)
-                                            if m.key not in keys)
-                            elif v.key not in keys:
-                                keys.append(v.key)
-                        # restore state for the victims we kept reclaimed
-                        reclaimed = needed
-                        plan = {"node": node, "victims": keys}
-                        break
-            finally:
-                for victim in reclaimed:
-                    for chip_id, compute, memory in victim.bookings:
-                        cell = self.leaf_cells.get(chip_id)
-                        if cell is not None:
-                            reserve_resource(cell, compute, memory)
-            if plan is not None and (best is None or
-                                     len(plan["victims"])
-                                     < len(best["victims"])):
+            plan = self.preemption_on(pod, node, evictable.get(node, []))
+            if results is not None:
+                results[node] = plan
+            if isinstance(plan, dict) and (
+                    best is None
+                    or len(plan["victims"]) < len(best["victims"])):
                 best = plan
         return best
+
+    def _evictable(self, pod: PodRequest) -> dict[str, list[PodRequest]]:
+        """Each node's candidate victims for *pod*, in pod order, from one
+        pass over the pods (the reference makes one pass per node)."""
+        out: dict[str, list[PodRequest]] = {}
+        for p in self.pod_status.values():
+            if (p.opportunistic and p.bookings and not (
+                    pod.group_name and p.group_key == pod.group_key)):
+                out.setdefault(p.node_name, []).append(p)
+        return out
+
+    def preemption_on(self, pod: PodRequest, node: str,
+                      candidates: list[PodRequest]):
+        """:meth:`find_preemption` on one node: ``"fit"`` when *pod*
+        passes filtering there (no eviction can help), ``"hopeless"`` when
+        no eviction makes it pass, else the node's plan ``{"node",
+        "victims"}``. The port's split of the reference's loop body."""
+        fit, why = self.filter(pod, node)
+        if fit:
+            # the block is NOT capacity on this node (a reserve-time
+            # refusal, e.g. gang rank exhaustion) — evictions here
+            # would kill filler without ever unblocking the pod
+            return "fit"
+        if "cannot fit" not in why:
+            # non-capacity failure (model mismatch, port pool, gang
+            # sub-mesh): no amount of eviction produces a fit — skip
+            # the whole simulation on this node
+            return "hopeless"
+        candidates = list(candidates)
+
+        # Cheapest eviction first: lowest priority, then SMALLEST
+        # blast radius (a gang member drags its whole gang with it —
+        # preferring standalone pods keeps the victim count at what
+        # the fit actually needs), then newest (least sunk work).
+        def eviction_cost(p):
+            gang_size = (len(self._group_members(p)) if p.group_name
+                         else 1)
+            return (p.priority, gang_size, -p.timestamp)
+
+        candidates.sort(key=eviction_cost)
+        reclaimed: list[PodRequest] = []
+        plan: dict | None = None
+        try:
+            for victim in candidates:
+                for chip_id, compute, memory in victim.bookings:
+                    cell = self.leaf_cells.get(chip_id)
+                    if cell is not None:
+                        reclaim_resource(cell, compute, memory)
+                reclaimed.append(victim)
+                fit, _ = self.filter(pod, node)
+                if fit:
+                    # Drop greedily-taken victims that contributed
+                    # nothing: re-reserve each (newest-first) and
+                    # keep it OUT of the plan if the pod still fits
+                    # without its chips (the fit may have come from
+                    # a later, unrelated chip).
+                    needed = []
+                    for v in reversed(reclaimed):
+                        for chip_id, compute, memory in v.bookings:
+                            cell = self.leaf_cells.get(chip_id)
+                            if cell is not None:
+                                reserve_resource(cell, compute, memory)
+                        still_fit, _ = self.filter(pod, node)
+                        if still_fit:
+                            continue          # v was unnecessary
+                        for chip_id, compute, memory in v.bookings:
+                            cell = self.leaf_cells.get(chip_id)
+                            if cell is not None:
+                                reclaim_resource(cell, compute, memory)
+                        needed.append(v)
+                    # evicting part of a gang strands the rest —
+                    # the eviction list pulls in whole groups
+                    keys: list[str] = []
+                    for v in needed:
+                        if v.group_name:
+                            keys.extend(m.key for m in
+                                        self._group_members(v)
+                                        if m.key not in keys)
+                        elif v.key not in keys:
+                            keys.append(v.key)
+                    # restore state for the victims we kept reclaimed
+                    reclaimed = needed
+                    plan = {"node": node, "victims": keys}
+                    break
+        finally:
+            for victim in reclaimed:
+                for chip_id, compute, memory in victim.bookings:
+                    cell = self.leaf_cells.get(chip_id)
+                    if cell is not None:
+                        reserve_resource(cell, compute, memory)
+        return "hopeless" if plan is None else plan
 
     def unreserve(self, pod: PodRequest) -> list[str]:
         """Roll back a reservation; returns group members that should be
@@ -926,6 +1016,8 @@ class SchedulerEngine:
         # there).
         if pod.bookings:
             self.alloc_gen += 1
+        if pod.bookings or pod.port:
+            self._note_release(pod.node_name)
         for chip_id, compute, memory in pod.bookings:
             cell = self.leaf_cells.get(chip_id)
             if cell is not None:
@@ -946,6 +1038,7 @@ class SchedulerEngine:
         pod = self.pod_status.pop(pod_key, None)
         if pod is None:
             return
+        self._note_member(pod)
         if pod.trace_span is not None:
             get_tracer().finish(pod.trace_span)
             pod.trace_span = None
@@ -977,6 +1070,8 @@ class SchedulerEngine:
         pod.timestamp = self._clock()
         self.pod_status[pod.key] = pod
         self.groups.get_or_create(pod)
+        self._note_release(node_name)
+        self._note_member(pod)
         memory = int(annotations.get(C.POD_TPU_MEMORY, "0") or 0)
         chip_ids = [c for c in
                     annotations.get(C.POD_TPU_CHIP_ID, "").split(",") if c]

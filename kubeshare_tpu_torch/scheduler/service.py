@@ -44,8 +44,9 @@ API (JSON):
 - ``GET  /preempt``   preemption plane: policy config + enforcement stats
   (preemptions fired, quantum reclaimed, gang preemptions; ``attached:
   false`` until a policy is wired — doc/isolation-wire.md)
-- ``GET  /ha``        ``{"attached": false, "frozen": ...}``: the port
-  has no leader election yet (the JAX ``ha/``)
+- ``GET  /ha``        control-plane HA: leadership role, lease epoch,
+  takeover history, frozen state, replication lag (doc/ha.md;
+  ``attached: false`` when this service is not in an election)
 - ``GET  /decisions`` decision-recorder summary (doc/replay.md)
 - ``GET  /evictions`` outstanding preemption eviction requests
 - ``GET  /healthz``
@@ -82,28 +83,22 @@ log = get_logger("schedsvc")
 #: the JAX service's planes the port has not ported yet (ROADMAP.md,
 #: queue 1), each with what it needs and the queue item that ports it
 UNPORTED = {
-    "shards": "the sharded scheduler plane (scheduler/shard.py), not "
-              "ported yet: ROADMAP queue 1 item 2",
     "autopilot": "the autopilot plane (autopilot/), not ported yet: "
                  "ROADMAP queue 1 item 6",
     "rightsize": "the capacity rightsizer (rightsize/), not ported yet: "
                  "ROADMAP queue 1 item 6",
     "elastic": "the elastic training plane (elastic/), not ported yet: "
                "ROADMAP queue 1 item 4",
-    "ha": "control-plane HA (ha/), not ported yet: ROADMAP queue 1 "
-          "item 2",
 }
 
 #: the JAX CLI's flags of those planes: any use of one exits 2 naming
-#: its plane (``--shards`` is refused only above 1)
+#: its plane
 UNPORTED_FLAGS = {
-    "--shard-route": "shards",
     "--autopilot": "autopilot", "--autopilot-budget": "autopilot",
     "--autopilot-journal": "autopilot",
     "--rightsize": "rightsize", "--rightsize-journal": "rightsize",
     "--elastic": "elastic", "--elastic-journal": "elastic",
     "--elastic-grow": "elastic",
-    "--ha-holder": "ha", "--ha-ttl": "ha", "--ha-resync-period": "ha",
 }
 
 
@@ -121,22 +116,45 @@ class SchedulerService:
     def __init__(self, engine: SchedulerEngine,
                  registry: RegistryClient | TelemetryRegistry,
                  replay: bool = True, healthwatch=None,
-                 shards: int = 1,
+                 shards: int = 1, shard_route: str = "cell",
                  **dispatcher_kw):
         """``healthwatch``: None/False = no liveness plane (pre-health
         behavior); True = a default :class:`HealthWatch` over
         ``registry``; or pass a configured instance.
 
-        ``shards`` must be 1: the sharded plane (the JAX package's
-        ``scheduler/shard.py``) is not ported yet."""
+        ``shards > 1`` runs the sharded plane (doc/sharding.md): the
+        fleet is synced from the registry once, carved into subtree
+        shards, and served through a
+        :class:`~.shard.ShardedDispatcher` behind the same endpoints
+        (``self.engine`` becomes the merged fleet façade).  Per-shard
+        registry capacity sync is off in this mode — the subtree
+        inventory is fixed at build time."""
         self.engine = engine
         self.registry = registry
-        if shards > 1:
-            raise ValueError(f"shards > 1 needs {UNPORTED['shards']}")
-        self.dispatcher = Dispatcher(
-            engine, registry,
-            sync=lambda: sync_engine_from_registry(engine, registry),
-            **dispatcher_kw)
+        self.shards = max(1, int(shards))
+        if self.shards > 1:
+            from .shard import build_sharded
+
+            try:
+                sync_engine_from_registry(engine, registry)
+            except Exception as e:
+                log.warning("sharded build: initial fleet sync "
+                            "failed: %s", e)
+            fleet = {}
+            for node, models in engine.chips_by_node.items():
+                chips = sorted((c for cs in models.values() for c in cs),
+                               key=lambda c: c.chip_id)
+                fleet[node] = (chips,
+                               engine.node_health.get(node, True))
+            self.dispatcher = build_sharded(
+                fleet, self.shards, route=shard_route,
+                registry=registry, **dispatcher_kw)
+            self.engine = self.dispatcher.engine
+        else:
+            self.dispatcher = Dispatcher(
+                engine, registry,
+                sync=lambda: sync_engine_from_registry(engine, registry),
+                **dispatcher_kw)
         if healthwatch is True:
             healthwatch = HealthWatch(registry)
         self.healthwatch: HealthWatch | None = healthwatch or None
@@ -172,6 +190,11 @@ class SchedulerService:
         self._server: ThreadingHTTPServer | None = None
         self.serving = None
         self.remote_write = None
+        # control-plane HA (doc/ha.md): None until attach_standby —
+        # GET /ha reports detached and no fencing is applied
+        self.standby = None
+        self._ha_thread: threading.Thread | None = None
+        self._ha_stop = threading.Event()
 
     def start_remote_write(self, instance: str | None = None,
                            job: str = "scheduler",
@@ -195,6 +218,23 @@ class SchedulerService:
         """Wire a serving :class:`~..serving.FrontDoor` (doc/serving.md);
         exposes its join view on ``/serving``."""
         self.serving = frontdoor
+        return self
+
+    def attach_standby(self, holder: str, ttl_s: float = 5.0,
+                       resync_period_s: float | None = None,
+                       resync_source=None) -> "SchedulerService":
+        """Join the ``leader:scheduler`` election (doc/ha.md). The
+        dispatcher freezes until this service holds the lease: a primary
+        simply acquires first and renews; a warm standby re-syncs its
+        engine on a cadence and takes over at the next epoch when the
+        lease expires. ``serve()`` starts the election thread; under a
+        virtual clock drive ``self.standby.step(now)`` directly."""
+        from ..ha import WarmStandby
+
+        self.standby = WarmStandby(
+            self.dispatcher, self.registry, holder, ttl_s=ttl_s,
+            resync_period_s=resync_period_s, resync_source=resync_source,
+            decisions=self.decisions)
         return self
 
     def attach_preempt(self, policy) -> "SchedulerService":
@@ -340,9 +380,23 @@ class SchedulerService:
         return self.decisions.state()
 
     def ha_state(self) -> dict:
-        """``GET /ha`` body: the JAX service's for a service in no
-        election, which the port's always is."""
-        return {"attached": False, "frozen": bool(self.dispatcher.frozen)}
+        """``GET /ha`` body: leadership role, lease epoch, takeover
+        history, frozen state (doc/ha.md); ``attached: false`` when this
+        service is not in an election. Includes the registry's
+        replication status when it exposes one."""
+        if self.standby is None:
+            return {"attached": False,
+                    "frozen": bool(getattr(self.dispatcher, "frozen",
+                                           False))}
+        st = self.standby.state()
+        repl = (getattr(self.registry, "replication_status", None)
+                or getattr(self.registry, "replication", None))
+        if repl is not None:
+            try:
+                st["replication"] = repl()
+            except Exception as e:
+                st["replication"] = {"error": str(e)}
+        return st
 
     def render_metrics(self) -> str:
         """Scheduler-side Prometheus exposition (the reference's only
@@ -375,6 +429,30 @@ class SchedulerService:
                 "kubeshare_scheduler_topology_rebuilds_total "
                 f"{self.engine.rebuild_count}",
             ]
+        if self.standby is not None:
+            # HA gauges only exist once an election is joined — the
+            # exposition stays byte-identical with HA off (doc/ha.md)
+            lead = self.standby.lead
+            lines += [
+                *render_help_type("kubeshare_ha_leader", "gauge",
+                                  "1 when this scheduler holds the "
+                                  "leader:scheduler lease, else 0."),
+                f"kubeshare_ha_leader {1 if lead.is_leader else 0}",
+                *render_help_type("kubeshare_ha_epoch", "gauge",
+                                  "Leadership epoch fencing this "
+                                  "scheduler's registry writes."),
+                f"kubeshare_ha_epoch {lead.epoch}",
+                # takeovers are already counted by the obs registry
+                # (kubeshare_ha_takeovers_total{domain=...}) — only the
+                # gauges that need live standby state are hand-rendered
+                *render_help_type(
+                    "kubeshare_ha_last_takeover_timestamp_seconds",
+                    "gauge",
+                    "Scheduler-clock time of the last takeover "
+                    "(0 = never)."),
+                "kubeshare_ha_last_takeover_timestamp_seconds "
+                f"{self.standby.last_takeover_ts}",
+            ]
         return "\n".join(lines) + "\n" + render_default()
 
     @staticmethod
@@ -404,6 +482,21 @@ class SchedulerService:
             except Exception as e:
                 log.warning("startup replay skipped: %s", e)
         self.dispatcher.start()
+        if self.standby is not None and self._ha_thread is None:
+            # election cadence well inside the lease TTL (the ttl/3
+            # heartbeater rule) so a healthy leader never lapses
+            period = max(0.2, self.standby.lead.ttl_s / 3.0)
+
+            def _ha_loop():
+                while not self._ha_stop.wait(period):
+                    try:
+                        self.standby.step()
+                    except Exception:
+                        log.exception("ha election step failed")
+
+            self._ha_thread = threading.Thread(
+                target=_ha_loop, daemon=True, name="ha-election")
+            self._ha_thread.start()
         svc = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -515,6 +608,17 @@ class SchedulerService:
         return self._server.server_address[1]
 
     def close(self) -> None:
+        if self._ha_thread is not None:
+            self._ha_stop.set()
+            self._ha_thread.join(timeout=5.0)
+            self._ha_thread = None
+        if self.standby is not None and self.standby.lead.is_leader:
+            # graceful handoff: drop the lease now so a standby takes
+            # over at the next tick instead of waiting out the TTL
+            try:
+                self.standby.lead.resign()
+            except Exception:
+                log.exception("leadership resign on close failed")
         if self.remote_write is not None:
             self.remote_write.stop()
             self.remote_write = None
@@ -562,9 +666,18 @@ def main(argv=None) -> None:
                         help="enable the lease-driven health plane "
                              "(detection -> eviction -> reschedule)")
     parser.add_argument("--shards", type=int, default=1,
-                        help="scheduler shards: 1 = the single-lock "
-                             "dispatcher; >1 is refused, needing "
-                             + UNPORTED["shards"])
+                        help="cell-keyed scheduler shards (doc/"
+                             "sharding.md): >1 partitions the fleet "
+                             "into N subtree shards with per-shard "
+                             "queues/locks behind the same endpoints "
+                             "(1 = the single-lock dispatcher)")
+    parser.add_argument("--shard-route", default="cell",
+                        choices=("cell", "score"),
+                        help="with --shards>1: 'cell' = per-subtree "
+                             "placement with spillover + cross-shard "
+                             "gangs (the throughput mode); 'score' = "
+                             "global score walk, placement-identical "
+                             "to single-lock (the migration mode)")
     parser.add_argument("--lease-ttl", type=float, default=C.LEASE_TTL_S,
                         help="heartbeat lease TTL the healthwatch assumes "
                              "for nodes that did not declare one")
@@ -603,14 +716,25 @@ def main(argv=None) -> None:
                         help="how long a latency-class request waits "
                              "behind a lower-class holder before it is "
                              "preempted (default: policy default)")
+    parser.add_argument("--ha-holder", default="",
+                        help="join the leader:scheduler election under "
+                             "this holder name (doc/ha.md): the "
+                             "dispatcher freezes until this process "
+                             "holds the lease and takes over with "
+                             "epoch-fenced binds when it expires "
+                             "(empty = HA off, pre-HA behavior)")
+    parser.add_argument("--ha-ttl", type=float, default=5.0,
+                        help="leadership lease TTL in seconds; the "
+                             "election is stepped at ttl/3")
+    parser.add_argument("--ha-resync-period", type=float, default=None,
+                        help="standby warm-resync period in seconds "
+                             "(default: the lease TTL)")
     for flag, plane in UNPORTED_FLAGS.items():
         parser.add_argument(flag, nargs="?", const="", default=None,
                             help=f"refused: needs {UNPORTED[plane]}")
     args = parser.parse_args(argv)
     refused = [(flag, plane) for flag, plane in UNPORTED_FLAGS.items()
                if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if args.shards > 1:
-        refused.insert(0, ("--shards", "shards"))
     if refused:
         flag, plane = refused[0]
         parser.exit(2, f"{parser.prog}: {flag} needs {UNPORTED[plane]}\n")
@@ -633,13 +757,17 @@ def main(argv=None) -> None:
         engine, registry,
         healthwatch=(HealthWatch(registry, ttl_s=args.lease_ttl)
                      if args.health else None),
-        max_pending=args.max_pending or None)
+        max_pending=args.max_pending or None,
+        shards=args.shards, shard_route=args.shard_route)
     if args.preempt:
         from ..preempt import PreemptionPolicy
 
         kwargs = ({} if args.preempt_grace_ms is None
                   else {"grace_ms": args.preempt_grace_ms})
         svc.attach_preempt(PreemptionPolicy(**kwargs))
+    if args.ha_holder:
+        svc.attach_standby(args.ha_holder, ttl_s=args.ha_ttl,
+                           resync_period_s=args.ha_resync_period)
     svc.serve(args.host, args.port)
     if not args.no_remote_write:
         svc.start_remote_write(period_s=args.push_period)

@@ -2,9 +2,11 @@
 ``kubeshare_tpu/telemetry/``: the registry bus that capacity, leases and
 requirement records go through, the per-node collector and heartbeat, and
 the aggregator's bridge from the scheduler engine to the registry. See
-:mod:`.registry`, :mod:`.collector`, :mod:`.heartbeat`,
+:mod:`.registry` (whose CLI also runs a replication follower of another
+registry, ``--follower-of``), :mod:`.collector`, :mod:`.heartbeat`,
 :mod:`.aggregator` and :mod:`.remote_write`, the push of a process's
-exposition into the registry's fleet store.
+exposition into the registry's fleet store, which the scheduler, the
+launcher and the proxy run.
 """
 
 from .aggregator import (publish_binding, requirement_record,

@@ -1,8 +1,8 @@
 """The telemetry registry — the cluster state bus.
 
-The port's copy of ``kubeshare_tpu/telemetry/registry.py``. Its CLI has no
-``--follower-of``: the replication follower (the JAX package's ``ha/``) is
-not ported yet; the registry itself applies and serves the op stream.
+The port's copy of ``kubeshare_tpu/telemetry/registry.py``. Its CLI runs
+a replication follower with ``--follower-of`` (the port's ``ha/``), which
+SIGHUP promotes to a writable leader.
 
 The reference routes *scheduling decisions* through Prometheus: collectors
 export ``gpu_capacity``, the aggregator exports ``gpu_requirement``, and
@@ -1215,9 +1215,13 @@ class RegistryClient:
 
 def main(argv=None) -> None:
     """``python -m kubeshare_tpu_torch.telemetry.registry [--port N]
-    [--journal PATH]`` — serve the registry; prints ``READY <port>`` once
-    it listens, and stops on SIGTERM or SIGINT."""
+    [--journal PATH] [--follower-of HOST:PORT[,...]]`` — serve the
+    registry; prints ``READY <port>`` once it listens, and stops on
+    SIGTERM or SIGINT. A follower tails the leader's op stream, answers
+    writes 307 to the leader, and is promoted to a writable leader by
+    SIGHUP. Every handler is in place before ``READY``."""
     import argparse
+    import signal
 
     from .. import constants as C
     from ..utils import ready_until_signal
@@ -1230,13 +1234,37 @@ def main(argv=None) -> None:
     parser.add_argument("--journal", default="",
                         help="JSONL journal path; state survives restarts "
                              "when set (mount a PVC/hostPath there)")
+    parser.add_argument("--follower-of", default="",
+                        help="run as a replication follower tailing this "
+                             "leader registry ('host:port' or a comma-"
+                             "separated list, doc/ha.md): reads answer "
+                             "with staleness marks, writes 307 to the "
+                             "leader; SIGHUP promotes to writable leader")
+    parser.add_argument("--replication-poll", type=float, default=0.5,
+                        help="follower pull period in seconds")
     args = parser.parse_args(argv)
 
     registry = TelemetryRegistry(journal=args.journal or None)
+    follower = None
+    if args.follower_of:
+        from ..ha import ReplicationFollower
+
+        endpoints = [h.strip() for h in args.follower_of.split(",")
+                     if h.strip()]
+        source = RegistryClient(
+            endpoints if len(endpoints) > 1 else endpoints[0])
+        follower = ReplicationFollower(
+            registry, source, leader_hint=endpoints[0],
+            poll_s=args.replication_poll).start()
+        # the promotion joins the pull thread: run it off the handler
+        signal.signal(signal.SIGHUP, lambda *a: threading.Thread(
+            target=follower.promote, name="ha-promote").start())
     registry.serve(args.host, args.port)
     try:
         ready_until_signal(f"READY {registry.port}")
     finally:
+        if follower is not None:
+            follower.stop()
         registry.close()
 
 

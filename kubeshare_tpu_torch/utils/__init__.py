@@ -25,8 +25,13 @@ def ready_until_signal(ready: str) -> None:
     run while the interrupted main thread holds that Event's lock inside
     ``Event.wait``, and then waits on itself for ever. Once a signal came,
     the default actions are back, so a second one ends a stuck shutdown.
+    The main thread wakes every 0.2 s rather than waiting in ``pause``: a
+    signal sent to the process may be taken by another thread, whose
+    C-level handler only flags it for the main thread, which would then
+    sleep on (every handler of the process runs there, SIGHUP's too).
     """
     import signal
+    import time
 
     sigs = (signal.SIGTERM, signal.SIGINT)
     for sig in sigs:
@@ -34,7 +39,7 @@ def ready_until_signal(ready: str) -> None:
     try:
         print(ready, flush=True)
         while True:
-            signal.pause()
+            time.sleep(0.2)
     except _Stop:
         pass
     finally:

@@ -2,7 +2,7 @@
 """Unschedulable gang pairs left pending in the scheduler service.
 
     python3 scripts/torch_gang_backlog.py [--give-up-s 30] [--max-s 300]
-                                          [--out r.json]
+                                          [--shards N] [--out r.json]
 
 Runs on the host alone; needs no card. It starts the port's registry and
 scheduler service (``--health``) as processes, as phase 5i of
@@ -15,6 +15,7 @@ fresh daemons:
 - ``keep``: such a pair is left pending, as a user leaves an
   unschedulable pod.
 
+``--shards 4`` runs the service as 5i does, on four cell-routed shards.
 Both modes delete an unbound single pod at once and withdraw about one
 bound pod in three, as 5i does. Every 100 submissions it prints the
 pairs left pending, the ``POST /schedule`` round trip's p50 and p99, and
@@ -134,7 +135,8 @@ def _close_window(cs, svc_url, windows, rtt, w_start, pending_pairs,
     return runs_before + (runs or 0)
 
 
-def run_mode(cs, keep: bool, give_up_s: float, max_s: float) -> dict:
+def run_mode(cs, keep: bool, give_up_s: float, max_s: float,
+             shards: int = 1) -> dict:
     from kubeshare_tpu_torch.telemetry.registry import RegistryClient
 
     base = tempfile.mkdtemp(prefix="gang-backlog-")
@@ -149,7 +151,9 @@ def run_mode(cs, keep: bool, give_up_s: float, max_s: float) -> dict:
         daemons["service"] = cs._start_daemon(
             ROOT, base, "service", ["kubeshare_tpu_torch.scheduler.service",
                                     "--registry-port", str(port), "--host",
-                                    "127.0.0.1", "--port", "0", "--health"])
+                                    "127.0.0.1", "--port", "0", "--health",
+                                    "--shards", str(shards), "--shard-route",
+                                    "cell"])
         svc_port = cs._wait_ready(daemons["service"][1],
                                   "the service").split()[1]
         return stream(cs, f"http://127.0.0.1:{svc_port}", keep, give_up_s,
@@ -167,13 +171,17 @@ def main(argv=None) -> int:
                         help="a round trip longer than this ends a mode")
     parser.add_argument("--max-s", type=float, default=300.0,
                         help="a mode ends after sending this long")
+    parser.add_argument("--shards", type=int, default=1,
+                        help="the service's --shards (cell route)")
     parser.add_argument("--out", default="",
                         help="also write the result here (JSON)")
     args = parser.parse_args(argv)
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
 
-    result = {"modes": [run_mode(cs, keep, args.give_up_s, args.max_s)
+    result = {"shards": args.shards,
+              "modes": [run_mode(cs, keep, args.give_up_s, args.max_s,
+                                 args.shards)
                         for keep in (False, True)]}
     if args.out:
         with open(args.out, "w") as f:

@@ -124,7 +124,10 @@ def test_a_labels_only_pod_reaches_an_attached_tenant(tmp_path, monkeypatch,
     def proxy_cmd(chip_id, index, _exec, _tokens):
         cmd, env = launcherd.default_proxy_cmd(chip_id, index, free_port(),
                                                token_port)
-        return cmd + ["--device", "cpu", "-w", "1000"], dict(
+        # an accounting window longer than the test: the usage read after
+        # the tenant's exit still holds its charges (a 1 s window rolled
+        # over while a loaded box tore the tenant down)
+        return cmd + ["--device", "cpu", "-w", "120000"], dict(
             env, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
 
     def pmgr_cmd(name, port, request, limit, _tokens):

@@ -60,6 +60,14 @@ def test_port_sources_exist():
                  "kubeshare_tpu_torch/scheduler/service.py",
                  "kubeshare_tpu_torch/scheduler/bridge.py",
                  "kubeshare_tpu_torch/scheduler/webhook.py",
+                 "kubeshare_tpu_torch/scheduler/shard.py",
+                 "kubeshare_tpu_torch/ha/__init__.py",
+                 "kubeshare_tpu_torch/ha/leadership.py",
+                 "kubeshare_tpu_torch/ha/replication.py",
+                 "kubeshare_tpu_torch/ha/standby.py",
+                 "kubeshare_tpu_torch/doctor.py",
+                 "kubeshare_tpu_torch/topcli.py",
+                 "scripts/torch_gang_backlog.py",
                  "chip_smoke.py", "scripts/torch_step_profile.py",
                  "scripts/torch_gate_pairs.py"):
         assert want in names

@@ -2,7 +2,8 @@
 requests give the same codes and bodies, each service over its own
 package's registry, in process. Then the service CLI: it serves, pushes
 its metrics to the registry, stops on SIGTERM right after ``READY`` with
-rc 0, and refuses each flag of a plane the port has not ported.
+rc 0, runs sharded and in a leader election, and refuses each flag of a
+plane the port has not ported.
 
 Mirrors ``tests/test_sim_service.py``'s service cases and the service
 parts of ``test_healthwatch.py``, ``test_decisions.py`` and
@@ -256,9 +257,25 @@ def test_a_preempt_policy_records_into_the_services_decisions():
         svc.close()
 
 
-def test_sharded_construction_is_refused_with_its_plane():
-    with pytest.raises(ValueError, match="scheduler/shard.py"):
-        SchedulerService(SchedulerEngine(), TelemetryRegistry(), shards=2)
+def test_sharded_construction_serves_as_the_jax_sharded_service():
+    """``shards=2`` over two hosts: each shard owns one host, and the
+    same requests give the same answers as the JAX sharded service."""
+    sharded = both_services(hosts=2, shards=2, shard_route="score")
+    try:
+        for svc in sharded:
+            assert len(svc.dispatcher.shards) == 2
+        state = same(sharded, "GET", "/state")[1]
+        assert state["nodes"] == ["tpu-host-0", "tpu-host-1"]
+        assert len(state["leaves"]) == 8
+        for i in range(5):
+            assert same(sharded, "POST", "/schedule",
+                        pod(f"w{i}", shared("1", "1")))[0] == 200
+        assert same(sharded, "GET", "/invariants")[1]["ok"]
+        same(sharded, "GET", "/state")
+        same(sharded, "GET", "/ha")
+    finally:
+        for svc in sharded:
+            svc.close()
 
 
 def test_the_service_client_speaks_to_the_service(pair):
@@ -336,15 +353,57 @@ def test_the_service_cli_serves_and_pushes_its_metrics():
     assert rc == 0
 
 
+@pytest.mark.parametrize("flags", [
+    ["--shards", "2"], ["--shards", "4", "--shard-route", "cell"],
+    ["--ha-holder", "a"], ["--ha-holder", "a", "--ha-ttl", "5"],
+    ["--ha-holder", "a", "--ha-resync-period", "2"]],
+    ids=lambda f: "-".join(f[::2]))
+def test_the_shard_and_ha_flags_start_a_service_answering_ha_and_state(
+        flags):
+    reg = TelemetryRegistry()
+    reg.serve(port=0)
+    by_host = {}
+    for chip in FakeTopology(hosts=4, mesh=(2,)).chips():
+        by_host.setdefault(chip.host, []).append(chip.to_labels())
+    for host, labels in by_host.items():
+        reg.put_capacity(host, labels)
+    proc = _spawn(["--registry-port", str(reg.port), "--port", "0",
+                   "--host", "127.0.0.1", "--no-remote-write", *flags])
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY "), proc.stderr.read()
+        client = ServiceClient(f"http://127.0.0.1:{line.split()[1]}")
+        code, state = client.state()
+        assert code == 200 and len(state["leaves"]) == 8
+        ha = client._call("GET", "/ha")[1]
+        if "--ha-holder" in flags:
+            assert ha["attached"] is True and ha["holder"] == "a"
+            deadline = time.monotonic() + 30
+            while ((ha["role"] != "leader" or ha["frozen"])
+                   and time.monotonic() < deadline):
+                time.sleep(0.1)
+                ha = client._call("GET", "/ha")[1]
+            assert ha["role"] == "leader" and ha["epoch"] == 1
+            assert ha["frozen"] is False
+        else:
+            assert ha == {"attached": False, "frozen": False}
+        assert client.schedule("ns", "a", shared("1", "1"))[0] == 200
+        assert client.invariants()["ok"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=20)
+        reg.close()
+    assert rc == 0
+
+
 @pytest.mark.parametrize("flag", [
-    ["--shards", "2"], ["--shard-route", "cell"], ["--autopilot"],
+    ["--autopilot"],
     ["--autopilot-budget", "8"], ["--autopilot-journal", "a.jsonl"],
     ["--rightsize"], ["--rightsize-journal", "r.jsonl"], ["--elastic"],
-    ["--elastic-journal", "e.jsonl"], ["--elastic-grow"],
-    ["--ha-holder", "a"], ["--ha-ttl", "5"], ["--ha-resync-period", "2"]],
+    ["--elastic-journal", "e.jsonl"], ["--elastic-grow"]],
     ids=lambda f: f[0])
 def test_an_unported_planes_flag_exits_2_naming_it(flag):
-    plane = UNPORTED_FLAGS.get(flag[0], "shards")
+    plane = UNPORTED_FLAGS[flag[0]]
     proc = _spawn(["--registry-port", "1", "--port", "0", *flag])
     out, err = proc.communicate(timeout=30)
     assert proc.returncode == 2

@@ -98,6 +98,20 @@ failing the run (non-zero exit, no result line) when it fails:
       pod's creation to its manager's READY, from a delete to the stop,
       from the kill to the node's death and from the death to the
       managers' stop, and the tenants' rates and share;
+   j. the zoo — the JAX package's other workload models at full width
+      (``ZOO``: cifar10, ResNet-18, the ResNet-50-class depth, VGG-16,
+      the LSTM LM, the mixture-of-experts LM with flash attention): for
+      each, one fp32 train step on the card against the CPU, the Adam
+      kernel against its plain version over the whole tree (2 launches a
+      step for ResNet-18, 3 for the ResNet-50 class), an exclusive run
+      through ``run_training`` (steps/s, wall ms a step) and a profiled
+      one through its ``profile_dir`` (device ms, idle share, kernels a
+      step); then the resumable sweep: cifar10's CLI with
+      ``--checkpoint --checkpoint-every`` as a gate-mode tenant of 5e's
+      node path, run once uninterrupted, once SIGKILLed after its first
+      promoted save and started again, which must restore the saved
+      step, skip the warm-up, end at ``--steps`` with the uninterrupted
+      run's Adam count and end on its final loss;
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
@@ -294,6 +308,47 @@ PLACE_SHARDS = 4
 PLACE_HA_TTL_S = 5.0
 PLACE_REPL_POLL_S = 0.2
 PLACE_PUSH_S = 1.0
+# phase 5j: the zoo. The JAX package's workload models at full width,
+# each through run_training: (label, model module, init keywords, loss)
+ZOO = (("cifar10", "cifar10", {}, "loss_fn"),
+       ("resnet18", "resnet", {}, "loss_fn"),
+       ("resnet50", "resnet", {"blocks_per_stage": (3, 4, 6, 3)},
+        "loss_fn"),
+       ("vgg16", "vgg", {}, "loss_fn"),
+       ("lstm", "lstm", {}, "loss_fn"),
+       ("moe_lm", "transformer", {"n_experts": 4}, "flash_loss_fn"))
+# timed steps of the exclusive run, and of the profiled one
+ZOO_STEPS = 30
+ZOO_PROFILE_STEPS = 5
+# the card-vs-CPU step: the first rows of the model's batch, fp32
+# activations; loss to 1e-5 relative, grads to ZOO_GRAD_RTOL times the
+# model's own largest |g| on the CPU (the worst reading, ResNet-50's,
+# is 4.0e-5 of it; the LSTM's largest |g| is 0.0155, cifar10's 5.3),
+# every param to 2*lr and those with |g| above ZOO_FIRM_G (both devices
+# agree on sign(g)) to ZOO_FIRM_ATOL
+ZOO_CHECK_ROWS = 2
+ZOO_GRAD_RTOL = 1e-4
+ZOO_FIRM_G = 1e-3
+ZOO_FIRM_ATOL = 1e-5
+# calls a timing of Adam over the ResNet-50-class tree averages (its plain
+# version takes ~43 ms a call)
+ZOO_ADAM_ITERS = 20
+# the resumable sweep (examples/families/opportunistic/resumable-sweep.yaml)
+# as a gate-mode tenant: cifar10's CLI, SIGKILLed after its first promoted
+# save and started again, against an uninterrupted run of the same seed
+# (ungated, beside the killed run). Every earlier reading of the two ended
+# equal bit for bit (final loss 3.662071e-05 in both, params 0.0 apart),
+# so the bounds only leave room for a conv backward that sums in another
+# order from run to run: the final loss to SWEEP_LOSS_RTOL of it, the
+# params to SWEEP_PARAM_ATOL (a tenth of one Adam step's lr, so one step
+# too many or too few fails) and both params' loss on a batch neither
+# trained on to SWEEP_HELD_RTOL
+SWEEP_POD = ("smoke/sweep", 1.0)
+SWEEP_STEPS = 120
+SWEEP_EVERY = 20
+SWEEP_LOSS_RTOL = 1e-2
+SWEEP_PARAM_ATOL = 1e-4
+SWEEP_HELD_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -434,37 +489,58 @@ def adam_check(dev, rng) -> float:
         log(f"  fused_adam {shape}{' +4B offset' if offset else ''}: "
             f"ok, max abs err {float((kp - rp).abs().max()):.3e}")
     for model, leaves in trees.items():
-        shapes = [np.shape(a) for a in leaves]
-        host = [[rng.standard_normal(int(np.prod(s)) + (j == 0)).astype(
-            np.float32) for j, s in enumerate(shapes)] for _ in range(4)]
-        host[3] = [np.abs(a) for a in host[3]]
-        base = [[torch.from_numpy(a).to(dev) for a in h] for h in host]
-        # leaf 0 starts 4 bytes into its storage: the scalar path
-        tree = lambda: [[b.clone()[(j == 0):].view(s)
-                         for j, (b, s) in enumerate(zip(bs, shapes))]
-                        for bs in base]
-        kern, plain = tree(), tree()
-        check(kern[0][0].data_ptr() % 16 != 0, "leaf 0 is aligned")
-        before = fa.launches
-        fa.adam_update_tree(*kern, step, lr=1e-2)
-        launched = fa.launches - before
-        for p, g, m, v in zip(*plain):
-            fa.adam_update_reference(p, g, m, v, step, lr=1e-2)
-        torch.cuda.synchronize()
-        check(launched == fa.tree_launches(leaves) == 1,
+        launched, err = adam_tree_check(dev, rng, model, leaves)
+        check(launched == 1,
               f"fused_adam over the {model} tree: {launched} launches")
-        err = _check_adam_close(f"the {model} tree", [
-            (k, r) for i in (0, 2, 3) for k, r in zip(kern[i], plain[i])])
         worst = max(worst, err)
-        log(f"  fused_adam {model} tree ({len(leaves)} leaves, leaf 0 "
-            f"+4B offset) in {launched} launch: ok, max abs err {err:.3e}")
     return worst
 
 
-def adam_timing(dev, rng, init_fn) -> dict:
-    """Kernel (one multi-tensor launch), plain version (leaf by leaf) and
-    torch._fused_adam_ over the whole tree of ``init_fn`` (one optimizer
-    step), plus the bound of that work."""
+def adam_tree_check(dev, rng, model: str, leaves) -> tuple[int, float]:
+    """Kernel against plain version over a whole tree of ``leaves``' shapes
+    (random p, g, m and v >= 0), leaf 0 an unaligned view: one optimizer
+    step, which launches once per ``TABLE_LEAVES`` leaves. Returns the
+    launches it made (checked against ``tree_launches``) and the max abs
+    error."""
+    import numpy as np
+    import torch
+
+    from kubeshare_tpu_torch.ops import fused_adam as fa
+
+    step = torch.tensor(3.0, device=dev)
+    shapes = [np.shape(a) for a in leaves]
+    host = [[rng.standard_normal(int(np.prod(s)) + (j == 0)).astype(
+        np.float32) for j, s in enumerate(shapes)] for _ in range(4)]
+    host[3] = [np.abs(a) for a in host[3]]
+    base = [[torch.from_numpy(a).to(dev) for a in h] for h in host]
+    # leaf 0 starts 4 bytes into its storage: the scalar path
+    tree = lambda: [[b.clone()[(j == 0):].view(s)
+                     for j, (b, s) in enumerate(zip(bs, shapes))]
+                    for bs in base]
+    kern, plain = tree(), tree()
+    check(kern[0][0].data_ptr() % 16 != 0, "leaf 0 is aligned")
+    before = fa.launches
+    fa.adam_update_tree(*kern, step, lr=1e-2)
+    launched = fa.launches - before
+    for p, g, m, v in zip(*plain):
+        fa.adam_update_reference(p, g, m, v, step, lr=1e-2)
+    torch.cuda.synchronize()
+    check(launched == fa.tree_launches(leaves),
+          f"fused_adam over the {model} tree: {launched} launches, "
+          f"expected {fa.tree_launches(leaves)}")
+    err = _check_adam_close(f"the {model} tree", [
+        (k, r) for i in (0, 2, 3) for k, r in zip(kern[i], plain[i])])
+    log(f"  fused_adam {model} tree ({len(leaves)} leaves, leaf 0 "
+        f"+4B offset) in {launched} launch{'es' if launched > 1 else ''}: "
+        f"ok, max abs err {err:.3e}")
+    return launched, err
+
+
+def adam_timing(dev, rng, init_fn, iters: int = 100) -> dict:
+    """Kernel (one multi-tensor launch a TABLE_LEAVES leaves), plain
+    version (leaf by leaf) and torch._fused_adam_ over the whole tree of
+    ``init_fn`` (one optimizer step), each the mean of ``iters`` calls,
+    plus the bound of that work."""
     import numpy as np
     import torch
 
@@ -501,7 +577,7 @@ def adam_timing(dev, rng, init_fn) -> dict:
     runs = {"kernel": [], "plain": [], "library": []}
     for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
         fn = {"kernel": kernel, "plain": plain, "library": library}[name]
-        runs[name].append(cuda_time_ms(fn, 100, flush))
+        runs[name].append(cuda_time_ms(fn, iters, flush))
     byte_ms = (n * ADAM_BYTES_PER_PARAM + 4) / PEAK_BYTES_PER_S * 1e3
     op_ms = n * ADAM_OPS_PER_PARAM / PEAK_FP32_FLOPS * 1e3
     return {"params": int(n), "leaves": len(leaves),
@@ -515,55 +591,73 @@ def adam_timing(dev, rng, init_fn) -> dict:
             "runs_ms": runs}
 
 
-def step_check(dev) -> dict:
-    """One mnist train step (batch 8, fp32 activations) on the card
-    against the same step on the CPU (plain versions): the kernel inside
-    the real step. Adam's first step is ~ -lr*sign(g), so a parameter
-    whose |g| is near eps may flip sign between the two devices' sums:
-    such elements are held to 2*lr, the rest to 1e-5."""
+def card_vs_cpu_step(dev, label: str, mod, params, batch, loss_fn,
+                     grad_atol: float, firm_g: float,
+                     firm_atol: float, grad_rtol: float = 0.0) -> dict:
+    """One train step of ``loss_fn`` (``mod``'s activations in fp32) on
+    the card (the kernels, cuDNN, cuBLAS) against the same step on the CPU
+    (plain versions), from the same params and batch: the loss to 1e-5
+    relative, grads to ``grad_atol`` plus ``grad_rtol`` times the largest
+    |g| on the CPU. Adam's first step is ~ -lr*sign(g),
+    so a parameter whose |g| is near eps may flip sign between the two
+    devices' sums: every param is held to 2*lr, those with |g| above
+    ``firm_g`` to ``firm_atol``."""
     import numpy as np
     import torch
 
-    from kubeshare_tpu_torch.models import common, mnist
+    from kubeshare_tpu_torch.models import common
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
     from kubeshare_tpu_torch.utils.tree import tree_leaves
 
     lr = 1e-3
-    params = mnist.init(7)
-    x, y = mnist.batch_fn(8)
-    batch = (x[:8], y[:8])
-    saved = mnist.DTYPE
-    mnist.DTYPE = torch.float32
+    saved = mod.DTYPE
+    mod.DTYPE = torch.float32
     try:
         out = {}
         for where in ("cpu", dev):
             p = common.to_device(params, where)
             b = common.to_device(batch, where)
-            _, grads = common.value_and_grad(mnist.loss_fn, p, b)
+            loss, grads = common.value_and_grad(loss_fn, p, b)
             opt = fused_adam(lr)
-            step = common.make_train_step(mnist.loss_fn, opt)
-            p, _, loss = step(p, opt.init(p), b)
+            p, _ = opt.update(grads, opt.init(p), p)   # the step's body
             out[str(where)] = (float(loss),
                                [t.cpu().numpy() for t in tree_leaves(p)],
                                [t.cpu().numpy() for t in tree_leaves(grads)])
     finally:
-        mnist.DTYPE = saved
+        mod.DTYPE = saved
     (lc, pc, gc), (lg, pg, gg) = out["cpu"], out[str(dev)]
     check(abs(lc - lg) <= 1e-5 * max(1.0, abs(lc)),
-          f"train-step loss cuda {lg} vs cpu {lc}")
+          f"{label} train-step loss cuda {lg} vs cpu {lc}")
     worst = 0.0
     for a, b, g in zip(pc, pg, gc):
         d = np.abs(a - b)
-        check(d.max() <= 2 * lr + 1e-6, f"param moved {d.max()} apart")
-        firm = np.abs(g) > 1e-4
+        check(d.max() <= 2 * lr + 1e-6,
+              f"{label}: param moved {d.max()} apart")
+        firm = np.abs(g) > firm_g
         if firm.any():
-            check(d[firm].max() <= 1e-5,
-                  f"param with |g|>1e-4 off by {d[firm].max()}")
+            check(d[firm].max() <= firm_atol,
+                  f"{label}: param with |g|>{firm_g} off by "
+                  f"{d[firm].max()}")
             worst = max(worst, float(d[firm].max()))
     grad_err = max(float(np.abs(a - b).max()) for a, b in zip(gc, gg))
-    check(grad_err <= 1e-5, f"grads cuda vs cpu off by {grad_err}")
+    grad_max = max(float(np.abs(g).max()) for g in gc)
+    grad_bound = grad_atol + grad_rtol * grad_max
+    check(grad_err <= grad_bound,
+          f"{label}: grads cuda vs cpu off by {grad_err} > {grad_bound}")
     return {"loss_cpu": lc, "loss_cuda": lg, "grad_max_abs_err": grad_err,
+            "grad_max_abs": grad_max, "grad_bound": grad_bound,
             "param_max_abs_err_firm": worst}
+
+
+def step_check(dev) -> dict:
+    """One mnist train step (batch 8, fp32 activations) on the card
+    against the CPU: the kernel inside the real step; grads and the
+    params with |g| > 1e-4 to 1e-5."""
+    from kubeshare_tpu_torch.models import mnist
+
+    x, y = mnist.batch_fn(8)
+    return card_vs_cpu_step(dev, "mnist", mnist, mnist.init(7),
+                            (x[:8], y[:8]), mnist.loss_fn, 1e-5, 1e-4, 1e-5)
 
 
 def exclusive(dev, init_fn, loss_fn, batch_fn, steps: int,
@@ -982,51 +1076,15 @@ def flash_timing(dev, rng, shape, iters: int, plain: bool) -> dict:
 def transformer_step_check(dev) -> dict:
     """One small transformer train step with flash attention (fp32
     activations, head dim 32 as at full width) on the card (kernels)
-    against the CPU (plain versions): loss to 1e-5 relative, grads to
-    1e-4 (the flash gradient bar), params as in step_check."""
-    import numpy as np
-    import torch
-
+    against the CPU (plain versions): grads to 1e-4 (the flash gradient
+    bar), the params with |g| > 1e-4 to 1e-6."""
     from kubeshare_tpu_torch.models import common, transformer
-    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
-    from kubeshare_tpu_torch.utils.tree import tree_leaves
 
-    lr = 1e-3
-    params = transformer.init(7, seq_len=64, vocab=128, dim=256, layers=2)
-    batch = common.synthetic_token_batch(8, 2, 64, 128)
-    saved = transformer.DTYPE
-    transformer.DTYPE = torch.float32
-    try:
-        out = {}
-        for where in ("cpu", dev):
-            p = common.to_device(params, where)
-            b = common.to_device(batch, where)
-            _, grads = common.value_and_grad(transformer.flash_loss_fn, p, b)
-            opt = fused_adam(lr)
-            step = common.make_train_step(transformer.flash_loss_fn, opt)
-            p, _, loss = step(p, opt.init(p), b)
-            out[str(where)] = (float(loss),
-                               [t.cpu().numpy() for t in tree_leaves(p)],
-                               [t.cpu().numpy() for t in tree_leaves(grads)])
-    finally:
-        transformer.DTYPE = saved
-    (lc, pc, gc), (lg, pg, gg) = out["cpu"], out[str(dev)]
-    check(abs(lc - lg) <= 1e-5 * max(1.0, abs(lc)),
-          f"transformer step loss cuda {lg} vs cpu {lc}")
-    grad_err = max(float(np.abs(a - b).max()) for a, b in zip(gc, gg))
-    check(grad_err <= 1e-4, f"transformer grads cuda vs cpu off by "
-          f"{grad_err}")
-    worst = 0.0
-    for a, b, g in zip(pc, pg, gc):
-        d = np.abs(a - b)
-        check(d.max() <= 2 * lr + 1e-6, f"param moved {d.max()} apart")
-        firm = np.abs(g) > 1e-4
-        if firm.any():
-            check(d[firm].max() <= 1e-6,
-                  f"param with |g|>1e-4 off by {d[firm].max()}")
-            worst = max(worst, float(d[firm].max()))
-    return {"loss_cpu": lc, "loss_cuda": lg, "grad_max_abs_err": grad_err,
-            "param_max_abs_err_firm": worst}
+    return card_vs_cpu_step(
+        dev, "transformer", transformer,
+        transformer.init(7, seq_len=64, vocab=128, dim=256, layers=2),
+        common.synthetic_token_batch(8, 2, 64, 128),
+        transformer.flash_loss_fn, 1e-4, 1e-4, 1e-6)
 
 
 def _timed_build(name: str) -> tuple[float, str]:
@@ -1242,6 +1300,30 @@ class _Node:
             _wait_ready(self.log(name), f"the pod manager of {name}")
         return ports
 
+    def tenant_env(self, name: str, port: int, request: float, gated: bool,
+                   pod_env: dict | None = None) -> dict:
+        """A tenant process's env: this one's without any pod variable, the
+        port's shim first on the path, and a pod's env (``pod_env``, a
+        binding's, when given; else one for the manager on ``port``)."""
+        from kubeshare_tpu_torch import constants as C
+
+        shim = os.path.join(self.root, "kubeshare_tpu_torch", "_shim")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("KUBESHARE_TPU_")
+               and k != C.ENV_VISIBLE_CHIPS}
+        env["PYTHONPATH"] = os.pathsep.join([shim, self.root])
+        if pod_env is not None:
+            env.update(pod_env)
+        else:
+            env.update({C.ENV_POD_MANAGER_PORT: str(port),
+                        C.ENV_POD_NAME: name,
+                        C.ENV_TPU_REQUEST: str(request),
+                        C.ENV_TPU_LIMIT: "1.0",
+                        C.ENV_VISIBLE_CHIPS: self.chip.chip_id})
+        if not gated:
+            env[C.ENV_ATTACH_MODE] = "off"
+        return env
+
     def run(self, tenants, seconds: float, gated: bool,
             pod_envs: dict | None = None) -> dict:
         """Run the tenants ``(name, seed, manager port, request)`` side by
@@ -1249,27 +1331,14 @@ class _Node:
         binding's env, when given; else one built here); while they run,
         sample each gated one's charged ms from the token scheduler's
         ``usage`` op. Returns each tenant's record and its samples."""
-        from kubeshare_tpu_torch import constants as C
         from kubeshare_tpu_torch.isolation import protocol
 
-        shim = os.path.join(self.root, "kubeshare_tpu_torch", "_shim")
         procs, outs, usage = {}, {}, {}
         try:
             for name, seed, port, request in tenants:
-                env = {k: v for k, v in os.environ.items()
-                       if not k.startswith("KUBESHARE_TPU_")
-                       and k != C.ENV_VISIBLE_CHIPS}
-                env["PYTHONPATH"] = os.pathsep.join([shim, self.root])
-                if pod_envs is not None:
-                    env.update(pod_envs[name])
-                else:
-                    env.update({C.ENV_POD_MANAGER_PORT: str(port),
-                                C.ENV_POD_NAME: name,
-                                C.ENV_TPU_REQUEST: str(request),
-                                C.ENV_TPU_LIMIT: "1.0",
-                                C.ENV_VISIBLE_CHIPS: self.chip.chip_id})
-                if not gated:
-                    env[C.ENV_ATTACH_MODE] = "off"
+                env = self.tenant_env(
+                    name, port, request, gated,
+                    pod_envs[name] if pod_envs is not None else None)
                 outs[name] = os.path.join(
                     self.base, name.replace("/", "_") + ".json")
                 with open(self.log(name + "-tenant"), "w") as log_file:
@@ -3625,6 +3694,270 @@ def _doctor(root: str, base: str, registry: str, scheduler: str) -> dict:
     return {"seconds": time.monotonic() - t0, "lines": lines}
 
 
+# --- phase 5j: the zoo -----------------------------------------------------------
+
+def _zoo_model(label: str):
+    """``(module, init_fn, loss_fn)`` of one of ZOO's models."""
+    from kubeshare_tpu_torch.models import get_model
+
+    _, name, kw, loss = next(z for z in ZOO if z[0] == label)
+    mod = get_model(name)
+    return mod, partial(mod.init, **kw), getattr(mod, loss)
+
+
+def zoo_step_check(dev, label: str) -> dict:
+    """One train step of the full-width model on ZOO_CHECK_ROWS rows with
+    fp32 activations, on the card against the CPU from the same params,
+    held as ZOO says."""
+    mod, init_fn, loss_fn = _zoo_model(label)
+    batch = tuple(a[:ZOO_CHECK_ROWS] for a in mod.batch_fn(8))
+    return card_vs_cpu_step(dev, f"5j {label}", mod, init_fn(7), batch,
+                            loss_fn, 0.0, ZOO_FIRM_G, ZOO_FIRM_ATOL,
+                            grad_rtol=ZOO_GRAD_RTOL)
+
+
+def _trace_summary(trace_dir: str, steps: int) -> dict:
+    """Device ms a step (kernels, copies and memsets), kernels a step and
+    the port's kernels' launches a step, from the chrome trace that
+    ``run_training``'s profiler wrote into ``trace_dir``."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    tags = {"fused_adam": "adam_multi_tensor_kernel",
+            "flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
+            "flash_dkv": "flash_dkv_"}
+    return {"device_ms": sum(e.get("dur", 0.0) for e in device) / 1e3
+            / steps,
+            "kernels": len(kernels) / steps,
+            "ours": {k: sum(tag in n for n in kernels) / steps
+                     for k, tag in tags.items()},
+            "trace_bytes": os.path.getsize(path)}
+
+
+def zoo_run(dev, label: str, trace_dir: str) -> dict:
+    """The model alone on the card through ``run_training``: ZOO_STEPS
+    timed steps (steps/s, wall ms a step), then ZOO_PROFILE_STEPS under
+    its profiler (device ms, idle share and kernels a step)."""
+    from kubeshare_tpu_torch.models import common
+
+    mod, init_fn, loss_fn = _zoo_model(label)
+    res = common.run_training(init_fn, loss_fn, mod.batch_fn,
+                              steps=ZOO_STEPS, device=dev)
+    check(math.isfinite(res.final_loss) and res.final_loss < res.first_loss,
+          f"5j {label}: loss {res.first_loss} -> {res.final_loss}")
+    prof = common.run_training(init_fn, loss_fn, mod.batch_fn,
+                               steps=ZOO_PROFILE_STEPS, device=dev,
+                               profile_dir=trace_dir)
+    check(math.isfinite(prof.final_loss), f"5j {label}: profiled loss")
+    trace = _trace_summary(trace_dir, ZOO_PROFILE_STEPS)
+    wall_ms = 1e3 / res.steps_per_sec
+    return {"steps_per_sec": res.steps_per_sec, "wall_ms": wall_ms,
+            "first_loss": res.first_loss, "final_loss": res.final_loss,
+            "device_ms": trace["device_ms"],
+            "device_idle_share": max(0.0, 1.0 - trace["device_ms"] / wall_ms),
+            "kernels_per_step": trace["kernels"],
+            "ours_per_step": trace["ours"],
+            "trace_bytes": trace["trace_bytes"],
+            "steps_run": ZOO_STEPS + ZOO_PROFILE_STEPS + 2 * res.warmup_steps}
+
+
+def _final_loss(text: str) -> float:
+    return float(text.rsplit("final loss", 1)[1].split()[0])
+
+
+def sweep_phase(root: str) -> dict:
+    """5j-cli, the resumable sweep pod: cifar10's CLI at full width with
+    ``--checkpoint DIR --checkpoint-every SWEEP_EVERY``, a gate-mode
+    tenant of 5e's node path (launcher, proxy, pod manager; attached only
+    by the shim). It is SIGKILLed once its first save is promoted, then
+    started again with the same arguments, while an uninterrupted run of
+    the same seed goes beside it (ungated). It must restore the saved
+    step, skip the warm-up, run the SWEEP_STEPS - saved steps left, end
+    at SWEEP_STEPS with the uninterrupted run's Adam count, and end on
+    its final loss (and its params on their held-out loss)."""
+    import numpy as np
+    import torch
+
+    from kubeshare_tpu_torch.isolation import protocol
+    from kubeshare_tpu_torch.models import checkpoint as ck
+    from kubeshare_tpu_torch.models import cifar10, common
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    name, request = SWEEP_POD
+    node = _Node(root)
+    out: dict = {"stages_s": {}}
+    t_phase = time.monotonic()
+
+    def lap(stage):
+        out["stages_s"][stage] = (time.monotonic() - t_phase
+                                  - sum(out["stages_s"].values()))
+
+    def launch(label: str, ckpt: str, gated: bool = True):
+        ports = node.clients([(name, request)]) if gated else {name: 0}
+        cmd = [sys.executable, "-m", "kubeshare_tpu_torch.models.cifar10",
+               "--steps", str(SWEEP_STEPS), "--checkpoint", ckpt,
+               "--checkpoint-every", str(SWEEP_EVERY)]
+        with open(node.log(f"sweep-{label}"), "w") as log_file:
+            return subprocess.Popen(
+                cmd, env=node.tenant_env(name, ports[name], request, gated),
+                cwd=root, stdout=log_file, stderr=subprocess.STDOUT)
+
+    def finish(label: str, proc) -> str:
+        rc = proc.wait(timeout=600)
+        text = _tail(node.log(f"sweep-{label}"), 20000)
+        check(rc == 0, f"5j-cli {label} run exited {rc}: {text[-3000:]}")
+        return text
+
+    ck_root = tempfile.mkdtemp(prefix="kubeshare-sweep-")
+    full_ck = os.path.join(ck_root, "full")
+    kill_ck = os.path.join(ck_root, "killed")
+    like = common.to_device(cifar10.init(0), "cpu")
+    like = (like, fused_adam().init(like))
+    full = proc = None
+    try:
+        node.start()
+        lap("start")
+        full = launch("full", full_ck, gated=False)
+        proc = launch("killed", kill_ck)
+        deadline = time.monotonic() + 300
+        while not os.path.isdir(kill_ck):
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  f"5j-cli: no promoted save: "
+                  f"{_tail(node.log('sweep-killed'))}")
+            time.sleep(0.01)
+        conn = protocol.Connection("127.0.0.1", node.token_port)
+        conn.call({"op": "attach", "name": name})
+        charged = conn.call({"op": "usage"})[0]["used_ms"]
+        conn.close()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+        check(charged > 0, f"5j-cli: the tenant was not gated ({charged})")
+        _, _, saved = ck.load_checkpoint(kill_ck, *like)
+        check(0 < saved < SWEEP_STEPS and saved % SWEEP_EVERY == 0,
+              f"5j-cli: the killed run saved step {saved}")
+        full_text = finish("full", full)
+        lap("killed and uninterrupted")
+        proc = launch("resumed", kill_ck)
+        text = finish("resumed", proc)
+        lap("resumed")
+        managers = dict(node.managers)
+        p, s, at = ck.load_checkpoint(kill_ck, *like)
+        fp, fs, fat = ck.load_checkpoint(full_ck, *like)
+    finally:
+        for run in (full, proc):
+            if run is not None and run.poll() is None:
+                run.kill()
+                run.wait()
+        node.stop()
+        shutil.rmtree(ck_root, ignore_errors=True)
+    check(f"cifar10: resumed at step {saved} from {kill_ck}, 0 warm-up "
+          f"steps" in text, f"5j-cli: no resume from {saved}: {text}")
+    check(f"cifar10: {SWEEP_STEPS - saved} steps in" in text,
+          f"5j-cli: not {SWEEP_STEPS - saved} timed steps: {text}")
+    check(f"cifar10: {SWEEP_STEPS} steps in" in full_text,
+          f"5j-cli: the uninterrupted run: {full_text}")
+    check(at == fat == SWEEP_STEPS, f"5j-cli: final steps {at}, {fat}")
+    # the warm-up steps update too: a resume that ran them again would
+    # end with a larger count
+    count, full_count = float(s["count"]), float(fs["count"])
+    check(count == full_count == SWEEP_STEPS + 2,
+          f"5j-cli: Adam counts {count}, {full_count}")
+    loss, full_loss = _final_loss(text), _final_loss(full_text)
+    check(abs(loss - full_loss) <= SWEEP_LOSS_RTOL * abs(full_loss),
+          f"5j-cli: final loss {loss} against uninterrupted {full_loss}")
+    param_err = max(float(np.abs((a - b).numpy()).max())
+                    for a, b in zip(tree_leaves(p), tree_leaves(fp)))
+    check(param_err <= SWEEP_PARAM_ATOL,
+          f"5j-cli: final params {param_err} apart from the uninterrupted "
+          f"run's")
+    # both final params on a batch neither trained on (fp32, on the CPU)
+    held_out = common.to_device(cifar10.batch_fn(2), "cpu")
+    saved_dtype = cifar10.DTYPE
+    cifar10.DTYPE = torch.float32
+    try:
+        held = [float(cifar10.loss_fn(params, held_out)) for params in (p, fp)]
+    finally:
+        cifar10.DTYPE = saved_dtype
+    check(abs(held[0] - held[1]) <= SWEEP_HELD_RTOL * abs(held[1]),
+          f"5j-cli: held-out loss {held[0]} against uninterrupted "
+          f"{held[1]}")
+    out.update(saved_step=saved, resumed_steps=SWEEP_STEPS - saved,
+               final_loss=loss, uninterrupted_final_loss=full_loss,
+               held_out_loss=held[0], uninterrupted_held_out_loss=held[1],
+               adam_count=count, param_max_abs_diff=param_err,
+               charged_ms_at_kill=charged, manager=managers.get(name),
+               seconds=time.monotonic() - t_phase)
+    return out
+
+
+def zoo_phase(root: str, dev, rng) -> dict:
+    """Phase 5j: each ZOO model's card-vs-CPU step, its whole tree through
+    the Adam kernel against the plain version, its exclusive and profiled
+    runs (launch counts reset before each model and read after), then
+    the resumable sweep through a node. Returns every reading, the
+    launches of the in-process runs and the seconds by stage."""
+    import torch
+
+    from kubeshare_tpu_torch.ops import fused_adam as fa
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.monotonic()
+    out: dict = {"models": {}, "stages_s": {},
+                 "launches": {k: 0 for k in _counts()}}
+    trace_root = tempfile.mkdtemp(prefix="kubeshare-zoo-")
+    try:
+        for label, name, _, _ in ZOO:
+            t_model = time.monotonic()
+            mod, init_fn, _ = _zoo_model(label)
+            leaves = tree_leaves(init_fn(0))
+            rec = {"leaves": len(leaves),
+                   "params": int(sum(a.size for a in leaves)),
+                   "adam_per_step": fa.tree_launches(leaves)}
+            rec["step_check"] = zoo_step_check(dev, label)
+            _, rec["adam_max_abs_err"] = adam_tree_check(dev, rng, label,
+                                                         leaves)
+            torch.cuda.empty_cache()
+            _reset_counts()
+            rec.update(zoo_run(dev, label, os.path.join(trace_root, label)))
+            got = _counts()
+            ran = rec["steps_run"]
+            want = {"fused_adam": rec["adam_per_step"] * ran}
+            if name == "transformer":
+                want.update({f"flash_{k}": mod.LAYERS * ran
+                             for k in ("fwd", "dq", "dkv")})
+            for kernel in out["launches"]:
+                check(got[kernel] == want.get(kernel, 0),
+                      f"5j {label}: {got[kernel]} {kernel} launches, "
+                      f"expected {want.get(kernel, 0)}")
+                out["launches"][kernel] += got[kernel]
+            per_step = {k: n // ran for k, n in want.items()}
+            check(all(abs(rec["ours_per_step"][k] - n) < 1e-9
+                      for k, n in per_step.items()),
+                  f"5j {label}: the trace's launches a step "
+                  f"{rec['ours_per_step']}, expected {per_step}")
+            rec["launches"] = got
+            out["models"][label] = rec
+            out["stages_s"][label] = time.monotonic() - t_model
+            log(f"5j {label}: {json.dumps(rec)}")
+        # the multi-table launch timed: 140 leaves, three launches
+        t_adam = time.monotonic()
+        out["adam_resnet50"] = adam_timing(
+            dev, rng, _zoo_model("resnet50")[1], ZOO_ADAM_ITERS)
+        out["stages_s"]["adam_resnet50"] = time.monotonic() - t_adam
+    finally:
+        shutil.rmtree(trace_root, ignore_errors=True)
+    out["sweep"] = sweep_phase(root)
+    out["stages_s"]["sweep"] = out["sweep"]["seconds"]
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument("--out", default="",
@@ -3944,6 +4277,52 @@ def main(argv=None) -> int:
     phases["placement"] = place
     for k in launches:
         launches[k] += place["launches"][k]
+
+    # the zoo: the JAX package's other workload models at full width, in
+    # this process, then the resumable sweep's CLI through a node
+    zoo = zoo_phase(root, dev, rng)
+    for label, rec in zoo["models"].items():
+        log(f"5j {label} ({rec['leaves']} leaves, {rec['params']} params, "
+            f"{rec['adam_per_step']} Adam launch(es) a step): card vs cpu "
+            f"step: loss {rec['step_check']['loss_cuda']:.6f} / "
+            f"{rec['step_check']['loss_cpu']:.6f}, grads max abs err "
+            f"{rec['step_check']['grad_max_abs_err']:.3e} (largest |g| "
+            f"{rec['step_check']['grad_max_abs']:.3g}, bound "
+            f"{rec['step_check']['grad_bound']:.3e}), firm params "
+            f"{rec['step_check']['param_max_abs_err_firm']:.3e}; Adam "
+            f"kernel vs plain {rec['adam_max_abs_err']:.3e}; exclusive "
+            f"{rec['steps_per_sec']:.3f} steps/s, wall "
+            f"{rec['wall_ms']:.3f} ms a step, device "
+            f"{rec['device_ms']:.3f} ms, idle "
+            f"{100 * rec['device_idle_share']:.1f}%, "
+            f"{rec['kernels_per_step']:.1f} kernels a step; loss "
+            f"{rec['first_loss']:.4f} -> {rec['final_loss']:.4f}; launches "
+            f"{rec['launches']}")
+    r = zoo["adam_resnet50"]
+    log(f"5j fused_adam over the resnet50 tree ({r['params']} params, "
+        f"{r['leaves']} leaves, {r['launches']} launches): kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"torch._fused_adam_ {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    sw = zoo["sweep"]
+    log(f"5j-cli: cifar10 --steps {SWEEP_STEPS} --checkpoint-every "
+        f"{SWEEP_EVERY} as gate-mode tenant {SWEEP_POD[0]}: SIGKILLed "
+        f"after the promoted save of step {sw['saved_step']} (charged "
+        f"{sw['charged_ms_at_kill']:.1f} ms by then), resumed there with "
+        f"no warm-up for {sw['resumed_steps']} steps, Adam count "
+        f"{sw['adam_count']:.0f}; final loss {sw['final_loss']!r} "
+        f"against the uninterrupted run's "
+        f"{sw['uninterrupted_final_loss']!r}; on a held-out batch "
+        f"{sw['held_out_loss']!r} against {sw['uninterrupted_held_out_loss']!r}; "
+        f"final params max abs diff {sw['param_max_abs_diff']:.3e}; "
+        f"stages s " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sw["stages_s"].items()))
+    log(f"5j: {zoo['seconds']:.1f} s in all; by stage s " + ", ".join(
+        f"{k} {v:.1f}" for k, v in zoo["stages_s"].items())
+        + f"; launches {zoo['launches']}")
+    phases["zoo"] = zoo
+    for k in launches:
+        launches[k] += zoo["launches"][k]
     out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Where a train step of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_step_profile.py [--model mnist|transformer]
-        [--steps 100] [--out result.json] [--trace trace.json]
+    python3 scripts/torch_step_profile.py [--model NAME] [--steps 100]
+        [--out result.json] [--trace trace.json]
 
-Needs one CUDA card. Runs the port's model at full width with the
-fused-Adam kernel, two ways, as the main path does:
-
-- ``mnist`` (default): batch 128, bf16 activations;
-- ``transformer``: batch 8, seq 256, vocab 4096, dim 256, 8 heads, 4
-  layers, bf16, with the flash-attention kernels as the attention body.
+Needs one CUDA card. Runs one of the port's models (``NAME`` any of
+``models.MODEL_NAMES``; default ``mnist``) at full width with the
+fused-Adam kernel, two ways, as the main path does. Each model takes its
+own widths and bf16 activations; ``transformer`` (batch 8, seq 256,
+vocab 4096, dim 256, 8 heads, 4 layers) runs with the flash-attention
+kernels as the attention body.
 
 The two ways:
 
@@ -57,8 +57,11 @@ def _self_device_us(evt) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="torch_step_profile.py")
-    parser.add_argument("--model", choices=("mnist", "transformer"),
-                        default="mnist")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from kubeshare_tpu_torch.models import MODEL_NAMES
+
+    parser.add_argument("--model", choices=MODEL_NAMES, default="mnist")
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--out", default="")
     parser.add_argument("--trace", default="",
@@ -71,15 +74,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_step_profile: needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from kubeshare_tpu_torch.models import common, mnist, transformer
+    from kubeshare_tpu_torch.models import common, get_model
     from kubeshare_tpu_torch.ops import build
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
 
-    model, loss_fn = {"mnist": (mnist, mnist.loss_fn),
-                      "transformer": (transformer,
-                                      transformer.flash_loss_fn)}[args.model]
+    model = get_model(args.model)
+    loss_fn = (model.flash_loss_fn if args.model == "transformer"
+               else model.loss_fn)
     build.load("fused_adam")
     if args.model == "transformer":
         build.load("flash_attention")

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from kubeshare_tpu_torch.models import common, mnist, transformer
+from kubeshare_tpu_torch.models import (cifar10, common, lstm, mnist, resnet,
+                                        transformer, vgg)
 from kubeshare_tpu_torch.ops import flash_attention as tfl
 from kubeshare_tpu_torch.ops import fused_adam as tfa
 from kubeshare_tpu_torch.utils.tree import tree_leaves
@@ -106,6 +107,73 @@ def test_multi_tensor_adam_splits_a_large_tree_on_card(cuda):
     for i in (0, 2, 3):
         for got, want in zip(tree[i], plain[i]):
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tree,launches", [("65 leaves", 2),
+                                            ("resnet18", 2),
+                                            ("resnet50", 3)])
+def test_adam_past_one_table_matches_plain_on_card(cuda, tree, launches):
+    """Past TABLE_LEAVES (64) leaves a step splits into more launches:
+    65 leaves and ResNet-18's 76 take 2, the ResNet-50-class tree's 140
+    take 3; every leaf bit for bit as the plain version."""
+    init = {"65 leaves": lambda seed: [np.zeros(7 + i, np.float32)
+                                       for i in range(65)],
+            "resnet18": resnet.init, "resnet50": resnet.init50}[tree]
+    kern, plain = _adam_trees(cuda, init, 5)
+    step = torch.tensor(3.0, device=cuda)
+    for _ in range(2):          # the second call takes the cached tables
+        before = tfa.launches
+        tfa.adam_update_tree(*kern, step, lr=1e-2)
+        assert tfa.launches - before == tfa.tree_launches(kern[0]) \
+            == launches
+        for p, g, m, v in zip(*plain):
+            tfa.adam_update_reference(p, g, m, v, step, lr=1e-2)
+        torch.cuda.synchronize()
+        for i in (0, 2, 3):
+            for got, want in zip(kern[i], plain[i]):
+                assert torch.equal(got, want)
+
+
+#: the zoo's models at full width: (module, init keywords, loss name)
+ZOO = {"cifar10": (cifar10, {}, "loss_fn"), "resnet18": (resnet, {}, "loss_fn"),
+       "resnet50": (resnet, {"blocks_per_stage": resnet.RESNET50_BLOCKS},
+                    "loss_fn"),
+       "vgg16": (vgg, {}, "loss_fn"), "lstm": (lstm, {}, "loss_fn"),
+       "moe_lm": (transformer, {"n_experts": 4}, "flash_loss_fn")}
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_zoo_train_step_card_matches_cpu(cuda, monkeypatch, name):
+    """One fp32 step of each zoo model at full width on 2 rows of its
+    batch, the card (kernels, cuDNN, cuBLAS) against the CPU (plain
+    versions): loss to 1e-5 relative, grads to 1e-4 of the model's own
+    largest |g| (as chip_smoke.py's ZOO_GRAD_RTOL), every param to 2*lr
+    and those with |g| > 1e-3 to 1e-5."""
+    mod, kw, loss_name = ZOO[name]
+    monkeypatch.setattr(mod, "DTYPE", torch.float32)
+    loss_fn = getattr(mod, loss_name)
+    lr = 1e-3
+    params = mod.init(7, **kw)
+    batch = tuple(a[:2] for a in mod.batch_fn(8))
+    out = {}
+    for where in ("cpu", cuda):
+        p = common.to_device(params, where)
+        b = common.to_device(batch, where)
+        loss, grads = common.value_and_grad(loss_fn, p, b)
+        opt = tfa.fused_adam(lr)
+        p, _ = opt.update(grads, opt.init(p), p)
+        out[str(where)] = (float(loss),
+                           [t.cpu().numpy() for t in tree_leaves(p)],
+                           [t.cpu().numpy() for t in tree_leaves(grads)])
+    (lc, pc, gc), (lg, pg, gg) = out["cpu"], out[str(cuda)]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    scale = max(float(np.abs(g).max()) for g in gc)
+    for a, b in zip(gc, gg):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4 * scale)
+    for a, b, g in zip(pc, pg, gc):
+        np.testing.assert_allclose(b, a, atol=2 * lr + 1e-6, rtol=0)
+        firm = np.abs(g) > 1e-3
+        np.testing.assert_allclose(b[firm], a[firm], atol=1e-5, rtol=0)
 
 
 def test_kernel_refuses_bad_args_on_card(cuda):

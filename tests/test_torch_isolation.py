@@ -312,8 +312,8 @@ def test_compile_validates_spec_and_args(proxy):
             c.compile_loop({"program": "nope", "model": "tinymlp"}, carry,
                            *batch)
         with pytest.raises(RuntimeError, match="unknown model"):
-            c.compile_loop({"program": "train_step", "model": "vgg"}, carry,
-                           *batch)
+            c.compile_loop({"program": "train_step", "model": "alexnet"},
+                           carry, *batch)
         with pytest.raises(RuntimeError, match="optimizer"):
             c.compile_loop({"program": "train_step", "model": "tinymlp",
                             "optimizer": {"name": "sgd"}}, carry, *batch)

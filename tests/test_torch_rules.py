@@ -33,6 +33,12 @@ def test_port_sources_exist():
     for want in ("kubeshare_tpu_torch/ops/fused_adam.py",
                  "kubeshare_tpu_torch/ops/flash_attention.py",
                  "kubeshare_tpu_torch/models/transformer.py",
+                 "kubeshare_tpu_torch/models/cifar10.py",
+                 "kubeshare_tpu_torch/models/vgg.py",
+                 "kubeshare_tpu_torch/models/resnet.py",
+                 "kubeshare_tpu_torch/models/lstm.py",
+                 "kubeshare_tpu_torch/models/checkpoint.py",
+                 "kubeshare_tpu_torch/ops/moe.py",
                  "kubeshare_tpu_torch/isolation/proxy.py",
                  "kubeshare_tpu_torch/isolation/podmgr.py",
                  "kubeshare_tpu_torch/attach.py",
@@ -172,6 +178,83 @@ def test_transformer_entry_points_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         common.main_cli("transformer", transformer.init, transformer.loss_fn,
                         transformer.batch_fn, argv=["--steps", "1"])
+
+
+@pytest.mark.parametrize("name", ["mnist", "cifar10", "lstm", "resnet", "vgg",
+                                  "transformer", "tinymlp"])
+def test_every_model_cli_defaults_to_cuda(no_cuda, name):
+    """Each model's CLI and ``run_training`` raise without a card when no
+    device is given, before any parameter is made."""
+    from kubeshare_tpu_torch.models import MODEL_NAMES, common, get_model
+
+    assert name in MODEL_NAMES
+    mod = get_model(name)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.main_cli(name, mod.init, mod.loss_fn, mod.batch_fn,
+                        argv=["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.run_training(mod.init, mod.loss_fn, mod.batch_fn, steps=1,
+                            checkpoint="unused", profile_dir="unused")
+
+
+def test_profile_writes_a_trace_on_the_cpu(tmp_path):
+    """``--profile DIR`` wraps the timed loop in ``torch.profiler`` and
+    writes its trace into DIR: the timed steps' ops, not the warm-up's."""
+    import json
+
+    from kubeshare_tpu_torch.models import common, tinymlp
+
+    res = common.main_cli("tinymlp", tinymlp.init, tinymlp.loss_fn,
+                          tinymlp.batch_fn,
+                          argv=["--device", "cpu", "--steps", "3",
+                                "--profile", str(tmp_path / "prof")])
+    assert res.steps == 3
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    mms = [e for e in events if e.get("name") == "aten::mm"]
+    # tinymlp's step: 2 matmuls forward, 3 backward (none for the input)
+    assert len(mms) == 3 * 5, len(mms)
+
+
+_GANG_RANK = """
+import sys, torch.distributed as dist
+from kubeshare_tpu_torch.models import common, tinymlp
+dist.init_process_group("gloo", init_method=sys.argv[1], rank=int(sys.argv[2]),
+                        world_size=2)
+try:
+    common.main_cli("tinymlp", tinymlp.init, tinymlp.loss_fn,
+                    tinymlp.batch_fn, argv=["--device", "cpu", "--steps", "1",
+                                            "--checkpoint", sys.argv[3]])
+except RuntimeError as e:
+    print("REFUSED", e)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_checkpoint_in_a_gang_is_refused_naming_its_item(tmp_path):
+    """Under a two-rank gloo group ``--checkpoint`` raises before any step
+    or file, naming the ROADMAP item that brings gang checkpoints."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    ckpt = tmp_path / "ck"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GANG_RANK, f"tcp://127.0.0.1:{port}",
+         str(rank), str(ckpt)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert "REFUSED --checkpoint with world size 2" in out, out + err
+        assert "ROADMAP queue 1 item 4" in out
+    assert not ckpt.exists() and not (tmp_path / "ck.staging").exists()
 
 
 def test_flash_attention_runs_on_cuda_or_cpu_only():

@@ -112,6 +112,21 @@ failing the run (non-zero exit, no result line) when it fails:
       promoted save and started again, which must restore the saved
       step, skip the warm-up, end at ``--steps`` with the uninterrupted
       run's Adam count and end on its final loss;
+   k. gangs — first ``flash_attention_lse`` forward and backward at a
+      ring shard's shape in bf16, causal and not, with a random nonzero
+      cotangent for O and the lse, against the plain versions; then two
+      gang members on the one card (the gang env of
+      ``gang-jax-distributed.yaml``, joined by the shim as whole-device
+      members: gloo, since they share the device), each the LM's CLI
+      (this script's ``--gang-member`` mode runs the CLI module as
+      ``__main__`` and records its result and launch counts), over four
+      meshes: dp = 2; sp = 2 with ring-flash; sp = 2 with Ulysses-flash;
+      tp = 2. Each run's global loss must match one process's, the
+      replicated leaves must be equal on both ranks, and the flash
+      launches a rank makes must be those its ring steps call for; then a
+      one-rank gang (NCCL) with ``--checkpoint``, SIGKILLed after a save
+      and started again, must resume at the saved step through the
+      sharded checkpoint;
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
@@ -124,6 +139,13 @@ is the tenant of phases 5e, 5f, 5g and 5i (``--compiled``: its train step
 wrapped in ``torch.compile``; ``--steps``: exactly N steps): it holds no
 isolation code, trains, and writes its per-step end times, losses and
 kernel launch counts to ``out.json``.
+
+    python3 chip_smoke.py --gang-member out.json -- <CLI arguments>
+
+is a gang member of phase 5k: the transformer's CLI with those arguments,
+run as ``python -m kubeshare_tpu_torch.models.transformer`` runs it, then
+its result (loss, steps, the runner's backend, a digest of each local
+parameter shard) and kernel launch counts written to ``out.json``.
 """
 
 from __future__ import annotations
@@ -349,6 +371,30 @@ SWEEP_EVERY = 20
 SWEEP_LOSS_RTOL = 1e-2
 SWEEP_PARAM_ATOL = 1e-4
 SWEEP_HELD_RTOL = 1e-3
+# phase 5k: gangs. Two ranks of the LM's CLI on the one card (the gang env
+# of examples/families/distribute/gang-jax-distributed.yaml), over four
+# meshes: (label, KUBESHARE_TPU_MESH, KUBESHARE_TPU_SP_ATTN)
+GANG_MESHES = (("a-dp2", "", ""),
+               ("b-ring-flash", "dp=1,sp=2,tp=1", "ring_flash"),
+               ("c-ulysses-flash", "dp=1,sp=2,tp=1", "ulysses_flash"),
+               ("d-tp2", "dp=1,sp=1,tp=2", ""))
+GANG_STEPS = 10
+GANG_WARMUP = 2                 # run_training's untimed steps
+# a gang's final loss against one process's, relative: bf16 keeps 8
+# significant bits and the gang sums in another order (per-rank halves,
+# the ring's merge, the all-reduce). On the H100 the four meshes read
+# 1.2e-4 to 4.9e-4 after 10 + 2 steps; this is 4x the worst of them
+GANG_LOSS_RTOL = 2e-3
+# flash forward launches a rank makes per layer per step, by mesh: ring-
+# flash on sp = 2 launches the diagonal on rank 0, past + diagonal on
+# rank 1; Ulysses-flash one full-sequence launch; the dense CLI none
+GANG_FLASH_PER_LAYER = {"a-dp2": (0, 0), "b-ring-flash": (1, 2),
+                        "c-ulysses-flash": (1, 1), "d-tp2": (0, 0)}
+# the one-rank NCCL gang with a checkpoint: steps, save period
+GANG_CKPT_STEPS = 40
+GANG_CKPT_EVERY = 10
+# the lse cotangent on the card: a ring shard's shape, bf16
+LSE_SHAPE = (8, 128, 8, 32)
 
 
 def log(msg: str) -> None:
@@ -3958,6 +4004,297 @@ def zoo_phase(root: str, dev, rng) -> dict:
     return out
 
 
+# --- phase 5k: gangs -------------------------------------------------------------
+
+def lse_cotangent_check(dev, rng) -> dict:
+    """``flash_attention_lse`` through autograd at LSE_SHAPE in bf16,
+    causal and not, with a random nonzero cotangent for both O and the lse
+    (what ring attention's merge feeds back): O, the lse, dQ, dK and dV
+    against the plain versions at KERNEL_TOL. Returns each one's max abs
+    error, worst over both masks."""
+    import torch
+
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
+    b, s, h, d = LSE_SHAPE
+    scale = 1.0 / math.sqrt(d)
+    randn = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape).astype("float32")).to(dev)
+    worst: dict = {}
+    for causal in (True, False):
+        q, k, v = (randn(b, s, h, d).to(torch.bfloat16) for _ in range(3))
+        g, g_lse = randn(b, s, h, d), randn(b, s, h)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o, lse = fl.flash_attention_lse(*leaves, causal=causal)
+        ((o * g).sum() + (lse * g_lse).sum()).backward()
+        ro, rlse = fl.flash_fwd_reference(q, k, v, causal, None, scale)
+        dcap = ((g * ro).sum(-1) - g_lse).transpose(1, 2)
+        args = (q, k, v, g, rlse, dcap, causal, None, scale)
+        rdk, rdv = fl.flash_dkv_reference(*args)
+        torch.cuda.synchronize()
+        label = f"lse cotangent, {'causal' if causal else 'non-causal'}"
+        for name, got, want in (
+                ("O", o.detach(), ro), ("lse", lse.detach(),
+                                        rlse.transpose(1, 2)),
+                ("dQ", leaves[0].grad, fl.flash_dq_reference(*args)),
+                ("dK", leaves[1].grad, rdk), ("dV", leaves[2].grad, rdv)):
+            err = _check_flash_close("lse", label, name, got, want)[0]
+            worst[name] = max(worst.get(name, 0.0), err)
+    log(f"  flash_attention_lse {LSE_SHAPE} bf16, cotangents for O and lse: "
+        "ok, max abs err " + ", ".join(f"{n} {e:.2e}"
+                                      for n, e in worst.items()))
+    return worst
+
+
+def gang_member(out_path: str, cli_args: list) -> int:
+    """A gang member of 5k: the transformer's CLI run as ``python -m``
+    runs it (the shim already joined the gang at start-up), its
+    ``TrainResult`` and the params of its last sharded step kept, then
+    the record written to ``out_path``."""
+    import hashlib
+    import runpy
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from kubeshare_tpu_torch.models import common
+    from kubeshare_tpu_torch.parallel import mesh as pmesh
+    from kubeshare_tpu_torch.parallel import runner
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    kept = {}
+    real_training = common.run_training
+    real_step = pmesh.make_sharded_train_step
+
+    def run_training(*args, **kwargs):
+        kept["result"] = real_training(*args, **kwargs)
+        return kept["result"]
+
+    def make_sharded_train_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def kept_step(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            kept["params"] = out[0]
+            return out
+        return kept_step
+
+    common.run_training = run_training
+    pmesh.make_sharded_train_step = make_sharded_train_step
+    _reset_counts()
+    sys.argv = ["kubeshare_tpu_torch.models.transformer", *cli_args]
+    t0 = time.perf_counter()
+    runpy.run_module("kubeshare_tpu_torch.models.transformer",
+                     run_name="__main__", alter_sys=True)
+    wall = time.perf_counter() - t0
+    res = kept["result"]
+    leaves = []
+    for x in tree_leaves(kept["params"]):
+        local = x.to_local() if isinstance(x, DTensor) else x
+        # whole on this rank: a Shard over an axis of size 1 splits nothing
+        replicated = tuple(local.shape) == tuple(x.shape)
+        data = local.detach().float().cpu().contiguous().numpy().tobytes()
+        leaves.append({"replicated": replicated,
+                       "digest": hashlib.sha256(data).hexdigest()})
+    rec = {"rank": dist.get_rank() if dist.is_initialized() else 0,
+           "world": dist.get_world_size() if dist.is_initialized() else 1,
+           "backend": runner.backend(), "reason": runner.backend_reason(),
+           "final_loss": res.final_loss, "first_loss": res.first_loss,
+           "steps": res.steps, "start_step": res.start_step,
+           "warmup_steps": res.warmup_steps, "seconds": res.seconds,
+           "steps_per_sec": res.steps_per_sec, "wall_s": wall,
+           "launches": _counts(), "leaves": leaves}
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _gang_env(root: str, port: int, rank: int, world: int,
+              extra: dict) -> dict:
+    """A whole-device gang member's env, as the gang manifest gives it:
+    coordinator, world size and rank, the shim first on the path."""
+    from kubeshare_tpu_torch import constants as C
+
+    shim = os.path.join(root, "kubeshare_tpu_torch", "_shim")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_")
+           and k != C.ENV_VISIBLE_CHIPS}
+    env.update({"PYTHONPATH": os.pathsep.join([shim, root]),
+                C.ENV_COORDINATOR: f"127.0.0.1:{port}",
+                C.ENV_NUM_PROCESSES: str(world),
+                C.ENV_PROCESS_ID: str(rank),
+                C.ENV_GROUP_NAME: "smoke-gang",
+                C.ENV_RENDEZVOUS_TIMEOUT_S: "120", **extra})
+    return env
+
+
+def _gang_run(root: str, base: str, label: str, world: int, extra: dict,
+              cli_args: list, kill_when=None) -> list:
+    """``world`` gang members of the LM's CLI, side by side; their records
+    (and stderr) once all exit. ``kill_when()`` True: SIGKILL them then."""
+    from kubeshare_tpu_torch.utils.virtualcpu import free_port
+
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        out = os.path.join(base, f"{label}-{rank}.json")
+        errf = open(os.path.join(base, f"{label}-{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(root, "chip_smoke.py"),
+             "--gang-member", out, "--", *cli_args],
+            env=_gang_env(root, port, rank, world, extra), cwd=root,
+            stdout=errf, stderr=subprocess.STDOUT), out, errf))
+    killed = False
+    try:
+        deadline = time.monotonic() + 300
+        while any(p.poll() is None for p, _, _ in procs):
+            check(time.monotonic() < deadline, f"5k {label}: no end in 300 s")
+            if kill_when is not None and not killed and kill_when():
+                for p, _, _ in procs:
+                    p.send_signal(signal.SIGKILL)
+                killed = True
+            time.sleep(0.01)
+    finally:
+        for p, _, errf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            errf.close()
+    recs = []
+    for rank, (p, out, _) in enumerate(procs):
+        text = _tail(os.path.join(base, f"{label}-{rank}.log"), 20000)
+        if killed:
+            recs.append({"log": text, "rc": p.returncode})
+            continue
+        check(p.returncode == 0 and os.path.exists(out),
+              f"5k {label} rank {rank} exited {p.returncode}: "
+              f"{text[-3000:]}")
+        with open(out) as f:
+            recs.append(dict(json.load(f), log=text))
+    return recs
+
+
+def gang_phase(root: str, dev, rng, adam_per_step: int, layers: int) -> dict:
+    """Phase 5k: the lse cotangent on the card, four two-rank LM gangs
+    through the CLI held to one process, and a one-rank NCCL gang's
+    checkpoint resume. Returns every reading, the launches of the ranks
+    and of this process's runs, and the seconds by stage."""
+    from kubeshare_tpu_torch.models import checkpoint as ck
+    from kubeshare_tpu_torch.models import common, transformer
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+
+    t_phase = time.monotonic()
+    out: dict = {"stages_s": {}, "runs": {},
+                 "launches": {k: 0 for k in _counts()}}
+
+    def lap(stage):
+        out["stages_s"][stage] = (time.monotonic() - t_phase
+                                  - sum(out["stages_s"].values()))
+
+    def add(counts):
+        for k in out["launches"]:
+            out["launches"][k] += counts[k]
+
+    _reset_counts()
+    out["lse_max_abs_err"] = lse_cotangent_check(dev, rng)
+    lap("lse cotangent")
+    # the one-process run every gang is held to: the CLI's defaults
+    _reset_counts()
+    one = common.run_training(transformer.init, transformer.loss_fn,
+                              transformer.batch_fn, GANG_STEPS, device=dev)
+    add(_counts())
+    out["one_process"] = {"final_loss": one.final_loss,
+                          "steps_per_sec": one.steps_per_sec}
+    lap("one process")
+    base = tempfile.mkdtemp(prefix="kubeshare-gang-")
+    ran = GANG_STEPS + GANG_WARMUP
+    try:
+        for label, mesh, attn in GANG_MESHES:
+            extra = {}
+            if mesh:
+                extra["KUBESHARE_TPU_MESH"] = mesh
+            if attn:
+                extra["KUBESHARE_TPU_SP_ATTN"] = attn
+            recs = _gang_run(root, base, label, 2, extra,
+                             ["--steps", str(GANG_STEPS)])
+            for rec in recs:
+                rank = rec["rank"]
+                check(rec["backend"] == "gloo"
+                      and "share device" in rec["reason"]
+                      and "backend gloo: ranks [0, 1] share device"
+                      in rec["log"],
+                      f"5k {label} rank {rank}: backend {rec['backend']} "
+                      f"({rec['reason']})")
+                check(abs(rec["final_loss"] - one.final_loss)
+                      <= GANG_LOSS_RTOL * abs(one.final_loss),
+                      f"5k {label} rank {rank}: final loss "
+                      f"{rec['final_loss']} against one process's "
+                      f"{one.final_loss}")
+                want = {"fused_adam": adam_per_step * ran}
+                per = GANG_FLASH_PER_LAYER[label][rank] * layers * ran
+                want.update({f"flash_{k}": per for k in ("fwd", "dq", "dkv")})
+                check(rec["launches"] == want,
+                      f"5k {label} rank {rank}: launches {rec['launches']}, "
+                      f"expected {want}")
+                add(rec["launches"])
+            check(recs[0]["final_loss"] == recs[1]["final_loss"],
+                  f"5k {label}: the ranks report losses "
+                  f"{recs[0]['final_loss']} and {recs[1]['final_loss']}")
+            same = [a["digest"] == b["digest"]
+                    for a, b in zip(recs[0]["leaves"], recs[1]["leaves"])
+                    if a["replicated"]]
+            check(same and all(same), f"5k {label}: replicated leaves "
+                  f"differ between the ranks ({same.count(False)} of "
+                  f"{len(same)})")
+            out["runs"][label] = {
+                "mesh": mesh or "default", "sp_attn": attn or None,
+                "final_loss": [r["final_loss"] for r in recs],
+                "loss_rel_err": abs(recs[0]["final_loss"] - one.final_loss)
+                / abs(one.final_loss),
+                "steps_per_sec": [r["steps_per_sec"] for r in recs],
+                "wall_s": [r["wall_s"] for r in recs],
+                "replicated_leaves": len(same),
+                "launches": [r["launches"] for r in recs]}
+            log(f"5k {label}: {json.dumps(out['runs'][label])}")
+            lap(label)
+
+        # one rank on its own device: NCCL, with a checkpoint
+        ckpt = os.path.join(base, "ckpt")
+        cli = ["--steps", str(GANG_CKPT_STEPS), "--checkpoint", ckpt,
+               "--checkpoint-every", str(GANG_CKPT_EVERY)]
+        _gang_run(root, base, "nccl-killed", 1, {}, cli,
+                  kill_when=lambda: os.path.isdir(ckpt))
+        like = common.to_device(transformer.init(0), "cpu")
+        _, _, saved = ck.load_checkpoint(ckpt, like, fused_adam().init(like))
+        check(0 < saved < GANG_CKPT_STEPS and saved % GANG_CKPT_EVERY == 0,
+              f"5k nccl: the killed run saved step {saved}")
+        rec, = _gang_run(root, base, "nccl-resumed", 1, {}, cli)
+        check(rec["backend"] == "nccl",
+              f"5k nccl: backend {rec['backend']} ({rec['reason']})")
+        check(rec["start_step"] == saved and rec["warmup_steps"] == 0
+              and rec["steps"] == GANG_CKPT_STEPS - saved
+              and f"resumed at step {saved} from {ckpt}" in rec["log"],
+              f"5k nccl: resumed at {rec['start_step']} for "
+              f"{rec['steps']} steps, saved {saved}: {rec['log'][-2000:]}")
+        _, state, at = ck.load_checkpoint(ckpt, like, fused_adam().init(like))
+        check(at == GANG_CKPT_STEPS
+              and float(state["count"]) == GANG_CKPT_STEPS + GANG_WARMUP,
+              f"5k nccl: the final checkpoint is at step {at}, Adam count "
+              f"{float(state['count'])}")
+        add(rec["launches"])
+        out["nccl_checkpoint"] = {
+            "backend": rec["backend"], "reason": rec["reason"],
+            "saved_step": saved, "resumed_steps": rec["steps"],
+            "final_loss": rec["final_loss"],
+            "steps_per_sec": rec["steps_per_sec"]}
+        log(f"5k nccl: {json.dumps(out['nccl_checkpoint'])}")
+        lap("nccl checkpoint")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
     parser.add_argument("--out", default="",
@@ -3972,7 +4309,18 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=0,
                         help="as a tenant, train exactly this many steps")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--gang-member", default="",
+                        help="run the transformer's CLI with the arguments "
+                             "after '--' as a gang member, writing its "
+                             "record here (JSON)")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    member_args = []
+    if "--" in argv:
+        cut = argv.index("--")
+        argv, member_args = argv[:cut], argv[cut + 1:]
     args = parser.parse_args(argv)
+    if member_args and not args.gang_member:
+        parser.error("arguments after '--' are a gang member's")
     t_start = time.perf_counter()
 
     import torch
@@ -3998,6 +4346,8 @@ def main(argv=None) -> int:
         return 2
     if args.tenant:
         return tenant(args.tenant, args.seconds, args.seed, False)
+    if args.gang_member:
+        return gang_member(args.gang_member, member_args)
     import numpy as np
 
     # full fp32 on the card wherever numbers are compared: cuDNN convs
@@ -4323,6 +4673,34 @@ def main(argv=None) -> int:
     phases["zoo"] = zoo
     for k in launches:
         launches[k] += zoo["launches"][k]
+
+    # gangs: the lse cotangent here, then the LM's CLI as gang members
+    # (each rank counts its own launches), held to one process here
+    gang = gang_phase(root, dev, rng, adam_launches["transformer"],
+                      transformer.LAYERS)
+    for label, r in gang["runs"].items():
+        log(f"5k {label} ({r['mesh']}, sp attention {r['sp_attn']}): "
+            f"final loss {r['final_loss']} against one process's "
+            f"{gang['one_process']['final_loss']!r} (rel err "
+            f"{r['loss_rel_err']:.2e}); steps/s by rank "
+            + ", ".join(f"{x:.3f}" for x in r["steps_per_sec"])
+            + " (one process "
+            f"{gang['one_process']['steps_per_sec']:.3f}); wall s by rank "
+            + ", ".join(f"{x:.1f}" for x in r["wall_s"])
+            + f"; {r['replicated_leaves']} replicated leaves equal on both "
+            f"ranks; launches by rank {r['launches']}")
+    nc = gang["nccl_checkpoint"]
+    log(f"5k nccl: one-rank gang, backend {nc['backend']} ({nc['reason']}); "
+        f"SIGKILLed after the save of step {nc['saved_step']}, resumed "
+        f"there for {nc['resumed_steps']} steps, final loss "
+        f"{nc['final_loss']!r}, {nc['steps_per_sec']:.3f} steps/s")
+    log(f"5k: {gang['seconds']:.1f} s in all; by stage s " + ", ".join(
+        f"{k} {v:.1f}" for k, v in gang["stages_s"].items())
+        + f"; lse cotangent max abs err {gang['lse_max_abs_err']}; "
+        f"launches {gang['launches']}")
+    phases["gang"] = gang
+    for k in launches:
+        launches[k] += gang["launches"][k]
     out.update(phases=phases, launches=launches,
                seconds=time.perf_counter() - t_start)
     if args.out:

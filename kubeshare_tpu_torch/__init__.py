@@ -24,6 +24,9 @@ trace ids across the wire. The placement path takes a pod from its
 cell model (:mod:`.topology`). The scheduler runs as a service, sharded
 and in a leader election with a warm standby (:mod:`.ha`), and
 :mod:`.doctor` and :mod:`.topcli` check and show the deployed planes.
+A gang of processes joins one ``torch.distributed`` group from the
+scheduler's env and trains over a device mesh, with sequence parallelism
+for the LM (:mod:`.parallel`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card they raise rather than fall back to the CPU.

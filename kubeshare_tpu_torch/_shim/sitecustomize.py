@@ -9,9 +9,9 @@ present this is a no-op, so the shim is safe to install globally.
 Failure policy (as ``kubeshare_tpu/_shim/sitecustomize.py``): when the
 env REQUESTS an attach and it cannot be made, the process must DIE — a pod
 silently running unmetered after a manager outage is an isolation breach.
-``SystemExit`` from the attach (a bad device grant, a gang env the port
-refuses, a memory grant it cannot enforce, CUDA initialized before a proxy
-attach) passes through; any other failure — a proxy or pod manager that
+``SystemExit`` from the attach (a bad device grant, a gang member whose
+rendezvous failed, a memory grant it cannot enforce, CUDA initialized
+before a proxy attach) passes through; any other failure — a proxy or pod manager that
 does not answer — becomes one here.
 Processes without kubeshare env are untouched.
 """

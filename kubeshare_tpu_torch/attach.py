@@ -561,17 +561,13 @@ def _pin_visible_devices() -> bool:
     return True
 
 
-def _refuse_unported(what: str) -> None:
-    raise SystemExit(
-        f"kubeshare-tpu: the pod's env asks for {what}, which the PyTorch "
-        f"port does not have yet; refusing to run unmetered")
-
-
 def attach_if_env() -> str:
     """Entry point of the sitecustomize shim: attach as the injected env
     asks (a no-op without it), in the JAX package's order. Returns the
-    mode activated: ``"proxy"``, ``"gate"``, ``"visible"`` (no metering,
-    but the grant was pinned — the whole-device path) or ``""``."""
+    mode activated: ``"proxy"``, ``"gate"``, ``"distributed"`` (a
+    whole-device gang member that joined its group), ``"visible"`` (no
+    metering, but the grant was pinned — the whole-device path) or
+    ``""``."""
     mode = os.environ.get(C.ENV_ATTACH_MODE, "").lower()
     if mode == "off" or _active is not None:
         return ""
@@ -591,22 +587,48 @@ def attach_if_env() -> str:
         request, 1.0)
     request = request or limit
     memory = int(os.environ.get(C.ENV_TPU_MEMORY, "0") or 0)
-    if proxy_port and mode in ("", "proxy"):
-        # the proxy owns the device: no local device to join a gang with
-        attach_proxy(host, proxy_port, name, request, limit, memory)
-        return "proxy"
-    if all(os.environ.get(k) for k in (C.ENV_COORDINATOR,
-                                       C.ENV_NUM_PROCESSES,
-                                       C.ENV_PROCESS_ID)):
-        _refuse_unported("a gang join (distributed rendezvous)")
     if mode == "gate" and not mgr_port:
         log.warning("attach mode 'gate' requested but %s unset",
                     C.ENV_POD_MANAGER_PORT)
         return ""
-    if mgr_port:
+    if proxy_port and mode in ("", "proxy"):
+        # the proxy owns the device: its executions are forwarded there,
+        # so there is no local device to rank in a gang — never joins
+        attach_proxy(host, proxy_port, name, request, limit, memory)
+        return "proxy"
+    if mgr_port and mode in ("", "gate"):
         attach_gate(host, mgr_port, name, request, limit, memory)
+        # a gate-mode pod owns its device, so a fractional gang still
+        # trains one model across its members (metered by tokens)
+        _join_gang_or_die()
         return "gate"
+    # whole-device pod (no manager port): nothing to meter; the pin
+    # confines the process, and a gang member joins its group
+    if _join_gang_or_die():
+        return "distributed"
     return "visible" if pinned else ""
+
+
+def _join_gang_or_die() -> bool:
+    """Join the gang's ``torch.distributed`` group when the gang env is
+    present (:func:`~kubeshare_tpu_torch.parallel.runner.
+    distributed_init_from_env`). A member whose rendezvous FAILS exits 1
+    rather than train solo: the rest of the gang waits for its rank, and
+    only a restart retries. SystemExit passes the shim's guard. Off-gang
+    it returns False before importing anything (the ``parallel`` package
+    imports torch, which a plain process must not pay for)."""
+    if not all(os.environ.get(k) for k in (C.ENV_COORDINATOR,
+                                           C.ENV_NUM_PROCESSES,
+                                           C.ENV_PROCESS_ID)):
+        return False
+    from .parallel.runner import distributed_init_from_env
+
+    try:
+        return distributed_init_from_env()
+    except Exception as exc:
+        log.error("gang member failed its rendezvous: %s — exiting so "
+                  "the restart can retry", exc)
+        raise SystemExit(1) from exc
 
 
 def detach() -> None:

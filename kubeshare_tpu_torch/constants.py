@@ -80,12 +80,15 @@ ENV_ATTACH_MODE = "KUBESHARE_TPU_ATTACH"  # proxy | gate | off (default auto)
 # proxy brings its tenants' sessions back. Unset: no journal.
 ENV_JOURNAL_DIR = "KUBESHARE_JOURNAL_DIR"
 
-# Gang/distributed contract: the port has no gang runtime yet, so a pod
-# that carries all three of these is refused rather than trained solo.
+# Gang/distributed contract: the scheduler injects the gang's size and
+# this member's rank; the COORDINATOR address (host:port of rank 0) is
+# wired by the manifest and consumed by parallel.runner, which joins one
+# torch.distributed group; the rendezvous waits at most TIMEOUT_S.
 ENV_GROUP_NAME = "KUBESHARE_TPU_GROUP"
 ENV_NUM_PROCESSES = "KUBESHARE_TPU_NUM_PROCESSES"
 ENV_PROCESS_ID = "KUBESHARE_TPU_PROCESS_ID"
 ENV_COORDINATOR = "KUBESHARE_TPU_COORDINATOR"
+ENV_RENDEZVOUS_TIMEOUT_S = "KUBESHARE_TPU_RENDEZVOUS_TIMEOUT_S"
 
 # Library path (cmd/kubeshare-query-ip/main.go:22-34): the control-plane
 # address file the query-ip init helper writes.

@@ -1,11 +1,9 @@
 """Gang-atomic token grants: the co-scheduled gang, not the chip, is
 the unit of time-slicing.
 
-The port's copy of ``kubeshare_tpu/gang/coordinator.py``. The
-reference's uniform effective shares (``set_effective_gang``,
-``restore_base``) wait for the elastic slice, which gives the port's
-``TokenScheduler`` the ``set_effective`` they call (ROADMAP queue 1
-item 4).
+The port's copy of ``kubeshare_tpu/gang/coordinator.py``, the elastic
+plane's uniform effective shares (``set_effective_gang``,
+``restore_base``) included.
 
 The per-chip :class:`~kubeshare_tpu_torch.isolation.tokensched.TokenScheduler`
 stays the single source of truth for shares and window accounting; the
@@ -530,6 +528,59 @@ class GangTokenCoordinator:
             now = self._clock()
             for chip in chips:
                 self._ledger.unpause(chip, now=now)
+
+    # -- uniform effective shares (elastic plane) ---------------------
+
+    def set_effective_gang(self, gang_id: str, request: float,
+                           limit: float) -> bool:
+        """Apply one effective (request, limit) to every member chip's
+        client — all or nothing: on the first member refusing (a native
+        core without ``ts_set_effective``, a client gone) the members
+        already adjusted go back to their base shares and False is
+        returned."""
+        with self._lock:
+            g = self._gangs.get(gang_id)
+            if g is None:
+                return False
+            members = list(g.members)
+        applied: list[tuple[str, str]] = []
+        for chip, client in members:
+            with self._lock:
+                sched = self._scheds.get(chip)
+            ok = False
+            if sched is not None:
+                try:
+                    ok = sched.set_effective(client, request, limit)
+                except KeyError:
+                    ok = False
+            if not ok:
+                self._restore(applied)
+                return False
+            applied.append((chip, client))
+        return True
+
+    def restore_base(self, gang_id: str) -> None:
+        """Return every member chip's client to its registered base share
+        (the revocation path)."""
+        with self._lock:
+            g = self._gangs.get(gang_id)
+            if g is None:
+                return
+            members = list(g.members)
+        self._restore(members)
+
+    def _restore(self, members) -> None:
+        for chip, client in members:
+            with self._lock:
+                sched = self._scheds.get(chip)
+            if sched is None:
+                continue
+            base = sched.shares().get(client)
+            if base is not None:
+                try:
+                    sched.set_effective(client, *base)
+                except KeyError:
+                    pass
 
     # -- non-blocking auto-drive (chaos virtual time) -----------------
 

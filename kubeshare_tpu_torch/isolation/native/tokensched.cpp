@@ -19,9 +19,7 @@
 //
 // Pure computation: no threads, no sockets, no clocks. The caller (the
 // Python facade in ../tokensched.py) supplies `now_ms` and does the
-// waiting. A plain C interface for ctypes. The JAX copy's
-// ts_set_effective (elastic burst credit) has no caller in the port and is
-// left out.
+// waiting. A plain C interface for ctypes.
 
 #include <algorithm>
 #include <cstdio>
@@ -128,6 +126,19 @@ int ts_add_client(void* h, const char* name, double request, double limit) {
   c.limit = limit;
   c.vtime = first ? 0.0 : vmin;
   s->clients.emplace(name, std::move(c));
+  return 0;
+}
+
+// Adjust a client's effective share in place (elastic burst credit): the
+// validation of ts_add_client, taking hold at the next ts_poll; vtime and
+// the usage window are untouched, so a revoke is symmetric and instant.
+int ts_set_effective(void* h, const char* name, double request, double limit) {
+  auto* s = static_cast<Scheduler*>(h);
+  if (request <= 0.0 || limit <= 0.0 || limit > 1.0 || request > limit) return -1;
+  Client* c = find(s, name);
+  if (!c) return -2;
+  c->request = request;
+  c->limit = limit;
   return 0;
 }
 

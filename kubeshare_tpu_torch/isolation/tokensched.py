@@ -168,6 +168,19 @@ class PyTokenCore:
             c.vtime += used_ms / c.request
         self._holder = None
 
+    def set_effective(self, name: str, request: float, limit: float) -> None:
+        """Adjust a client's effective share in place (elastic burst
+        credit): the validation of ``add_client``, taking hold at the next
+        grant decision. Usage history and vtime are untouched, so a
+        revocation is symmetric and instant."""
+        if request <= 0 or limit <= 0 or limit > 1 or request > limit:
+            raise ValueError(f"bad request/limit: {request}/{limit}")
+        c = self._clients.get(name)
+        if c is None:
+            raise KeyError(name)
+        c.request = request
+        c.limit = limit
+
     def window_usage(self, name: str, now_ms: float) -> float:
         return self._clients[name].window_usage(now_ms, self.window_ms)
 
@@ -201,6 +214,7 @@ def _bind_native(lib: ctypes.CDLL) -> None:
                      ("ts_cancel_request", [vp, cp]),
                      ("ts_poll", [vp, db, cp, ctypes.c_int, dbp, dbp]),
                      ("ts_release_token", [vp, cp, db, db]),
+                     ("ts_set_effective", [vp, cp, db, db]),
                      ("ts_client_count", [vp]),
                      ("ts_holder", [vp, cp, ctypes.c_int])):
         getattr(lib, fn).restype = ctypes.c_int
@@ -269,6 +283,14 @@ class NativeTokenCore:
         if self._lib.ts_release_token(self._handle(), name.encode(), used_ms,
                                       now_ms) != 0:
             raise ValueError(f"{name} does not hold the token")
+
+    def set_effective(self, name: str, request: float, limit: float) -> None:
+        rc = self._lib.ts_set_effective(self._handle(), name.encode(),
+                                        request, limit)
+        if rc == -1:
+            raise ValueError(f"bad request/limit: {request}/{limit}")
+        if rc == -2:
+            raise KeyError(name)
 
     def window_usage(self, name: str, now_ms: float) -> float:
         u = self._lib.ts_window_usage(self._handle(), name.encode(), now_ms)
@@ -348,6 +370,9 @@ class TokenScheduler:
         self._waiting: dict[str, deque] = {}
         self._held_since: dict[str, float] = {}   # name -> grant time (s)
         self._shares: dict[str, tuple[float, float]] = {}
+        # the share the core enforces: the base one, or the elastic
+        # plane's burst credit (set_effective)
+        self._effective: dict[str, tuple[float, float]] = {}
         self._classes: dict[str, str] = {}
         self._clock = clock or _now_ms
         self.window_ms = window_ms
@@ -383,6 +408,7 @@ class TokenScheduler:
         with self._cond:
             self._core.add_client(name, request, limit)
             self._shares[name] = (request, limit)
+            self._effective[name] = (request, limit)
             self._classes[name] = tpu_class or "best-effort"
 
     def remove_client(self, name: str) -> None:
@@ -395,6 +421,7 @@ class TokenScheduler:
                 # the ledger here, or the interval stays open
                 self._ledger.release(self.chip, now=self._ledger_clock())
             self._shares.pop(name, None)
+            self._effective.pop(name, None)
             self._classes.pop(name, None)
             self._preempt_flags.discard(name)
             self._preempt_marked_at.pop(name, None)
@@ -406,31 +433,51 @@ class TokenScheduler:
         with self._cond:
             return [n for n, q in self._waiting.items() if q]
 
+    def set_effective(self, name: str, request: float, limit: float) -> bool:
+        """Push an adjusted effective share into the core (a burst credit
+        granted or revoked). Returns False when the core refuses the call
+        (``RuntimeError``: a closed scheduler): the caller must treat the
+        credit as never granted. Raises KeyError for an unknown client and
+        ValueError for a bad share, as ``add_client``."""
+        with self._cond:
+            try:
+                self._core.set_effective(name, request, limit)
+            except RuntimeError:
+                return False
+            self._effective[name] = (request, limit)
+            self._cond.notify_all()   # a raised limit may unblock a waiter
+            return True
+
     def shares(self) -> dict[str, tuple[float, float]]:
-        """``{name: (request, limit)}`` as registered."""
+        """Base (guaranteed) ``{name: (request, limit)}`` as registered,
+        never changed by burst credit."""
         with self._cond:
             return dict(self._shares)
 
     def effective(self, name: str) -> tuple[float, float]:
-        """The share the core enforces for ``name``: the registered one,
-        since the port has no burst credit (the JAX elastic plane)."""
+        """The share the core enforces for ``name``: the base one unless
+        :meth:`set_effective` changed it."""
         with self._cond:
-            return self._shares[name]
+            return self._effective[name]
 
     def accounting(self) -> dict:
-        """One consistent snapshot of the shares: per client its
-        ``(request, limit)``, class and whether it holds the token, the
-        request sum (which must stay <= 1.0), the holders marked
-        preempted, and the core in use."""
+        """One consistent snapshot of the shares: per client its base and
+        effective ``(request, limit)``, class and whether it holds the
+        token, the effective-request sum (which must stay <= 1.0 even
+        under elastic lending), the holders marked preempted, and the core
+        in use."""
         with self._cond:
             clients = {name: {"request": req, "limit": lim,
+                              "effective_request": self._effective[name][0],
+                              "effective_limit": self._effective[name][1],
                               "class": self._classes.get(name,
                                                          "best-effort"),
                               "holding": name in self._held_since}
                        for name, (req, lim) in self._shares.items()}
             return {"chip": self.chip, "core": self._core.kind,
                     "clients": clients,
-                    "share_sum": sum(c["request"] for c in clients.values()),
+                    "share_sum": sum(c["effective_request"]
+                                     for c in clients.values()),
                     "waiting": [n for n, q in self._waiting.items() if q],
                     "preempted": sorted(self._preempt_flags)}
 
@@ -746,8 +793,8 @@ class TokenScheduler:
             self._cond.notify_all()
 
 
-def serve(scheduler: TokenScheduler, host: str = "127.0.0.1", port: int = 0
-          ) -> protocol.FramedServer:
+def serve(scheduler: TokenScheduler, host: str = "127.0.0.1", port: int = 0,
+          coordinator=None) -> protocol.FramedServer:
     """Expose a :class:`TokenScheduler` over framed-JSON TCP — the wire of
     ``kubeshare_tpu.isolation.tokensched.serve``, which pod managers and
     gates of either package speak.
@@ -767,14 +814,25 @@ def serve(scheduler: TokenScheduler, host: str = "127.0.0.1", port: int = 0
     connections' disconnects don't. A request's ``_trace`` (the wire's
     trace id) tags the grant it waits for.
 
+    A server started with a :class:`~kubeshare_tpu_torch.gang.coordinator.
+    GangTokenCoordinator` also speaks the gang-grant extension:
+    ``gang_register`` (publishes a gang's ``members``, ``[[chip,
+    client], ...]``, and makes this connection its owner: the
+    connection's disconnect unregisters it), ``gang_acquire`` (blocks
+    until every member holds its token; replies ``held``),
+    ``gang_release`` and ``gang_state`` (the coordinator's snapshot).
+    Without a coordinator those names answer the standard unknown-op
+    error, as the wire did before the extension.
+
     A scheduler with a preemption policy also answers ``preempt_poll``
     (is the connection-bound client's hold marked preempted?) and
     ``preempt_state`` (the policy's snapshot); without one they answer the
-    standard unknown-op error, as a JAX server without a policy does. The
-    gang (``gang_*``) extension answers that error always.
+    standard unknown-op error, as a JAX server without a policy does.
     """
     def handle(req: dict, state: dict) -> dict:
         op = req.get("op")
+        if coordinator is not None and op in GANG_OPS:
+            return _handle_gang(coordinator, op, req, state)
         if scheduler.preempt is not None and op in ("preempt_poll",
                                                     "preempt_state"):
             if op == "preempt_state":
@@ -832,5 +890,41 @@ def serve(scheduler: TokenScheduler, host: str = "127.0.0.1", port: int = 0
                 scheduler.remove_client(state["name"])
             except RuntimeError:
                 pass  # scheduler already closed — nothing left to free
+        if coordinator is not None:
+            for gang in state.get("gangs", ()):
+                try:
+                    coordinator.unregister_gang(gang)
+                except Exception:
+                    pass
 
     return protocol.serve_framed(host, port, handle, cleanup)
+
+
+#: the gang-grant extension's ops (answered only with a coordinator)
+GANG_OPS = ("gang_register", "gang_acquire", "gang_release", "gang_state")
+
+
+def _handle_gang(coordinator, op: str, req: dict, state: dict) -> dict:
+    """The gang-grant extension. ``gang_register`` publishes membership
+    and makes this connection the gang's owner (its disconnect withdraws
+    the gang, as with client ownership); ``gang_acquire`` and
+    ``gang_release`` drive the two-phase gang-atomic grant;
+    ``gang_state`` returns the coordinator's snapshot."""
+    if op == "gang_state":
+        return {"ok": True, "state": coordinator.snapshot()}
+    gang = req.get("gang")
+    if not gang:
+        raise ValueError("gang ops require a 'gang' id")
+    if op == "gang_register":
+        members = [(str(c), str(cl)) for c, cl in req["members"]]
+        coordinator.register_gang(
+            gang, members, namespace=req.get("namespace", ""),
+            tpu_class=req.get("class", "best-effort"))
+        state.setdefault("gangs", set()).add(gang)
+        return {"ok": True}
+    if op == "gang_acquire":
+        held = coordinator.acquire(gang, timeout=req.get("timeout"),
+                                   trace_id=req.get("trace_id", ""))
+        return {"ok": True, "held": dict(held)}
+    coordinator.release(gang, used_ms=req.get("used_ms"))   # gang_release
+    return {"ok": True}

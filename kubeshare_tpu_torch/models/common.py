@@ -7,8 +7,11 @@ turns them into a train step and a timed loop. The loop takes an optional
 ``gate`` callable, run before every step: the isolation runtime's
 client-side execution gate plugs in there without the model knowing.
 It resumes from and saves to a checkpoint (:mod:`.checkpoint`), and
-traces its timed steps with ``torch.profiler``. The mesh hooks of the
-JAX version come with the port's meshes.
+traces its timed steps with ``torch.profiler``. Over a mesh
+(:mod:`~kubeshare_tpu_torch.parallel.mesh`) it trains the sharded step;
+a gang member (a process that joined a ``torch.distributed`` group,
+:mod:`~kubeshare_tpu_torch.parallel.runner`) trains over the gang's
+mesh.
 """
 
 from __future__ import annotations
@@ -123,7 +126,8 @@ def run_training(init_fn: Callable, loss_fn: Callable, batch_fn: Callable,
                  optimizer: Optimizer | None = None,
                  device=None, checkpoint: str = "",
                  checkpoint_every: int = 0,
-                 profile_dir: str = "") -> TrainResult:
+                 profile_dir: str = "",
+                 mesh=None, mesh_hooks: dict | None = None) -> TrainResult:
     """Train to ``steps`` timed steps on one fixed synthetic batch.
 
     ``device`` defaults to the CUDA card (``"cpu"`` must be asked for).
@@ -141,13 +145,48 @@ def run_training(init_fn: Callable, loss_fn: Callable, batch_fn: Callable,
     with the same arguments continues the same trajectory.
 
     ``profile_dir`` wraps only the timed loop in ``torch.profiler`` and
-    writes its trace there."""
+    writes its trace there.
+
+    ``mesh`` (a DeviceMesh over the group's ranks) trains the sharded
+    step: params and Adam's state laid out per ``param_sharding``, the
+    batch per ``data_sharding``; ``mesh_hooks`` lets a model swap in a
+    mesh-aware loss (``"loss"``: ``mesh -> loss_fn or None``) and batch
+    layout (``"batch_sharding"``: ``mesh -> placements``), as the
+    transformer's sequence parallelism does. A gang member with no mesh
+    trains over ``runner.gang_mesh()``, and a gang's checkpoint path must
+    pass ``verify_shared_path`` first. The loss reported is the global
+    loss."""
+    import torch.distributed as dist
+
     device = resolve_device(device)
+    gang = dist.is_available() and dist.is_initialized()
+    if mesh is None and gang:
+        # a gang member trains over the whole gang
+        from ..parallel.runner import gang_mesh
+        mesh = gang_mesh(device_type=device.type)
+    if checkpoint and gang:
+        from .checkpoint import verify_shared_path
+        verify_shared_path(checkpoint)
     params = to_device(init_fn(seed), device)
     batch = to_device(batch_fn(seed + 1), device)
     optimizer = optimizer or fused_adam(learning_rate)
     opt_state = optimizer.init(params)
-    step = make_train_step(loss_fn, optimizer)
+    if mesh is None:
+        step = make_train_step(loss_fn, optimizer)
+    else:
+        from ..parallel.mesh import (data_sharding, make_sharded_train_step,
+                                     param_sharding, shard_tree)
+        hooks = mesh_hooks or {}
+        if "loss" in hooks:
+            loss_fn = hooks["loss"](mesh) or loss_fn
+        batch_sharding = (hooks.get("batch_sharding") or data_sharding)(mesh)
+        step = make_sharded_train_step(loss_fn, optimizer, mesh,
+                                       batch_sharding=batch_sharding)
+        params = shard_tree(params, param_sharding(mesh, params), mesh)
+        # Adam's moments take their leaves' layout; its count replicates
+        opt_state = shard_tree(opt_state, param_sharding(mesh, opt_state),
+                               mesh)
+        batch = shard_tree(batch, batch_sharding, mesh)
 
     done = 0
     if checkpoint:
@@ -197,9 +236,11 @@ def run_training(init_fn: Callable, loss_fn: Callable, batch_fn: Callable,
 
 
 def main_cli(model_name: str, init_fn, loss_fn, batch_fn,
-             argv=None) -> TrainResult:
+             argv=None, mesh_hooks: dict | None = None) -> TrainResult:
     """Shared ``python -m kubeshare_tpu_torch.models.<name> --steps N``,
-    with the JAX CLI's flags; ``--device`` takes ``--platform``'s place."""
+    with the JAX CLI's flags; ``--device`` takes ``--platform``'s place.
+    A gang member (the attach shim joined its group from the pod's env)
+    trains over the gang's mesh, with the model's ``mesh_hooks``."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -222,7 +263,7 @@ def main_cli(model_name: str, init_fn, loss_fn, batch_fn,
                           learning_rate=args.lr, seed=args.seed,
                           device=args.device, checkpoint=args.checkpoint,
                           checkpoint_every=args.checkpoint_every,
-                          profile_dir=args.profile)
+                          profile_dir=args.profile, mesh_hooks=mesh_hooks)
     if result.start_step:
         print(f"{model_name}: resumed at step {result.start_step} from "
               f"{args.checkpoint}, {result.warmup_steps} warm-up steps")

@@ -10,8 +10,14 @@ long-context path passes
 ``init(..., n_experts=E)`` swaps every block's dense FFN for a top-1
 routed mixture of ``E`` experts (:mod:`~kubeshare_tpu_torch.ops.moe`);
 its Switch load-balancing loss, summed over the blocks, enters
-``loss_fn`` at ``AUX_COEF``. The dense LM has no aux term to add. The
-sequence-parallel loss hooks come with the port's meshes.
+``loss_fn`` at ``AUX_COEF``. The dense LM has no aux term to add.
+
+Under a gang's mesh with an ``sp`` axis the CLI trains sequence-parallel
+(``MESH_HOOKS``): the token batch is split over ``sp`` and the attention
+is ring, ring-flash, Ulysses or Ulysses-flash, picked by
+``KUBESHARE_TPU_SP_ATTN`` (:func:`_loss_for_mesh`). Everything else in a
+block is pointwise over the sequence; the position table and RoPE read
+this rank's global offset.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..ops import (dense_apply, dense_init, layernorm_apply, layernorm_init,
 from ..ops.attention import dot_product_attention, mha_apply, mha_init
 from ..ops.flash_attention import flash_attention
 from ..ops.moe import moe_apply, moe_init
+from ..parallel.collectives import seq_offset
 from .common import main_cli, synthetic_token_batch
 
 BATCH_SIZE = 8
@@ -92,8 +99,10 @@ def _forward(params: dict, tokens: torch.Tensor, attn_fn=None):
     seq = tokens.shape[1]
     x = params["embed"][tokens.long()]
     if not USE_ROPE:
-        # learned absolute positions, added in fp32; RoPE replaces them
-        x = x + params["pos"][:seq]
+        # learned absolute positions, added in fp32; RoPE replaces them.
+        # A sequence-split rank's block starts at its offset.
+        off = seq_offset()
+        x = x + params["pos"][off:off + seq]
     x = x.to(DTYPE)
     if attn_fn is None and WINDOW is not None:
         attn_fn = partial(dot_product_attention, causal=True, window=WINDOW)
@@ -153,6 +162,71 @@ def flash_loss_fn(params: dict, batch) -> torch.Tensor:
 batch_fn = partial(synthetic_token_batch, batch_size=BATCH_SIZE,
                    seq_len=SEQ_LEN, vocab=VOCAB)
 
+#: the sequence-parallel strategies ``KUBESHARE_TPU_SP_ATTN`` picks from
+SP_ATTN = ("ring", "ring_flash", "ulysses", "ulysses_flash")
+
+
+def _loss_for_mesh(mesh):
+    """The sequence-parallel loss when the gang's mesh has an ``sp`` axis
+    (e.g. ``KUBESHARE_TPU_MESH="dp=2,sp=2,tp=2"``); None (keep the dense
+    default) otherwise. ``KUBESHARE_TPU_SP_ATTN`` picks the strategy:
+
+    - ``ring`` (default) — any head count, O((seq/sp)²) score memory;
+    - ``ring_flash`` — ring with the flash kernels as each step's tile;
+    - ``ulysses`` — the all-to-all head/sequence exchange, two exchanges
+      in all, needs heads divisible by sp;
+    - ``ulysses_flash`` — Ulysses with the flash kernel as the local body.
+
+    A sliding window needs a Ulysses strategy: the ring's blocks have
+    shifted origins, so the band cannot ride it."""
+    from ..parallel.ringattention import (make_ring_attention,
+                                          make_ring_flash_attention)
+    from ..parallel.ulysses import make_ulysses_attention
+
+    if "sp" not in mesh.mesh_dim_names:
+        return None
+    kind = os.environ.get("KUBESHARE_TPU_SP_ATTN", "ring").lower()
+    if kind not in SP_ATTN:
+        # a typo must not silently wire in plain ring: on a long-context
+        # gang that is an O((seq/sp)²) tile and an OOM with no clue why
+        raise ValueError(
+            f"KUBESHARE_TPU_SP_ATTN={kind!r}: want ring | ring_flash | "
+            "ulysses | ulysses_flash")
+    if WINDOW is not None and kind in ("ring", "ring_flash"):
+        raise ValueError(
+            f"KUBESHARE_TPU_TRANSFORMER_WINDOW={WINDOW} needs an "
+            "ulysses strategy (KUBESHARE_TPU_SP_ATTN=ulysses[_flash], "
+            "which in turn needs heads AND kv_heads divisible by sp); "
+            f"the {kind} path is full-causal — windowed attention with "
+            "kv_heads not divisible by sp is unsupported under "
+            "sequence parallelism")
+    if kind == "ulysses_flash":
+        attn = make_ulysses_attention(
+            mesh, causal=False,
+            attn_fn=partial(flash_attention, causal=True, window=WINDOW))
+    elif kind == "ulysses" and WINDOW is not None:
+        attn = make_ulysses_attention(
+            mesh, causal=False,
+            attn_fn=partial(dot_product_attention, causal=True,
+                            window=WINDOW))
+    elif kind == "ulysses":
+        attn = make_ulysses_attention(mesh)
+    elif kind == "ring_flash":
+        attn = make_ring_flash_attention(mesh)
+    else:
+        attn = make_ring_attention(mesh)
+    return partial(loss_fn, attn_fn=attn)
+
+
+def _token_sharding_hook(mesh):
+    from ..parallel.mesh import token_sharding
+    return token_sharding(mesh)
+
+
+MESH_HOOKS = {"loss": _loss_for_mesh,
+              "batch_sharding": _token_sharding_hook}
+
 
 if __name__ == "__main__":
-    main_cli("transformer", init, loss_fn, batch_fn)
+    main_cli("transformer", init, loss_fn, batch_fn,
+             mesh_hooks=MESH_HOOKS)

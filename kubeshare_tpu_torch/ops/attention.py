@@ -128,7 +128,13 @@ def mha_apply(params: dict, x: torch.Tensor, heads: int, causal: bool = True,
     k = qkv[..., dim:dim + kvd].reshape(b, s, kv_heads, hd)
     v = qkv[..., dim + kvd:].reshape(b, s, kv_heads, hd)
     if use_rope:
-        q, k = rope(q), rope(k)
+        # global positions: inside a sequence-split step this rank's
+        # block starts at its offset
+        from ..parallel.collectives import seq_offset
+
+        off = seq_offset()
+        pos = torch.arange(off, off + s, device=x.device) if off else None
+        q, k = rope(q, pos), rope(k, pos)
     if attn_fn is None:
         o = dot_product_attention(q, k, v, causal=causal)
     else:

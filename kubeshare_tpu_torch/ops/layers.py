@@ -126,10 +126,30 @@ def batchnorm_apply(params: dict, x: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """Normalize over every axis but the last with this batch's mean and
     population variance (``jnp.var``'s; no running statistics, as in the
-    JAX package), in the dtype of ``x``."""
+    JAX package), in the dtype of ``x``.
+
+    Inside a sharded step whose batch is split over mesh axes, the
+    statistics are the GLOBAL batch's, as XLA computes them under the
+    JAX package's data parallelism: fp32 sums over this rank's rows,
+    summed over those axes (:func:`~kubeshare_tpu_torch.parallel.
+    collectives.sum_over_axes`, differentiable)."""
     axes = tuple(range(x.ndim - 1))
-    mean = x.mean(axes, keepdim=True)
-    var = x.var(axes, keepdim=True, correction=0)
+    from ..parallel.collectives import current_view, sum_over_axes
+
+    view = current_view()
+    if view is None or not view.batch_axes:
+        mean = x.mean(axes, keepdim=True)
+        var = x.var(axes, keepdim=True, correction=0)
+    else:
+        count = x[..., 0].numel()
+        for name in view.batch_axes:
+            count *= view.mesh.size(view.mesh.mesh_dim_names.index(name))
+        xf = x.float()
+        mean = sum_over_axes(xf.sum(axes, keepdim=True), view.mesh,
+                             view.batch_axes) / count
+        var = sum_over_axes(((xf - mean) ** 2).sum(axes, keepdim=True),
+                            view.mesh, view.batch_axes) / count
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
     y = (x - mean) * torch.rsqrt(var + eps)
     return y * params["scale"] + params["bias"]
 

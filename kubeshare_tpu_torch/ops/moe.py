@@ -10,8 +10,10 @@ JAX package leaves them to XLA outside any Pallas kernel, and here they
 are ``torch.einsum`` (cuBLAS on the card). Over-capacity tokens are
 dropped: their FFN output is zero, and the block's residual carries them.
 
-``expert_sharding`` (the expert stacks over an ``ep`` mesh axis) comes
-with the port's meshes.
+``expert_sharding`` lays the expert stacks over an ``ep`` mesh axis.
+Under a sharded step whose batch is split (dp, dcn or sp of size > 1)
+``moe_apply`` raises: JAX routes over the GLOBAL batch's groups, which
+a rank holding part of the batch cannot (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -61,6 +63,16 @@ def moe_apply(params: dict, x: torch.Tensor, capacity_factor: float = 1.25,
     about E. Gradients reach the router through the gate probabilities
     and the aux loss only: the argmax, one-hots and cumsum carry none, as
     under ``jax.grad``."""
+    from ..parallel.collectives import batch_split
+
+    split = batch_split()
+    if split:
+        raise NotImplementedError(
+            f"the mixture of experts under a mesh that splits the batch "
+            f"over {split}: the JAX package routes, drops and balances "
+            f"over the global batch's groups, which a rank holding part "
+            f"of the batch cannot; use a mesh with dp = sp = 1 (ROADMAP "
+            f"queue 3, 'MoE under a batch-splitting mesh')")
     b, s, d = x.shape
     n = b * s
     e = params["router"].shape[1]
@@ -104,3 +116,18 @@ def moe_apply(params: dict, x: torch.Tensor, capacity_factor: float = 1.25,
     frac_probs = probs.mean(dim=(0, 1))
     aux = (frac_tokens * frac_probs).sum() * e
     return out.reshape(b, s, d), aux
+
+
+def expert_sharding(mesh, params: dict) -> dict:
+    """The expert stacks' leading E axis over ``ep`` (the router
+    replicated), as placements: the layout of ``kubeshare_tpu``'s
+    ``expert_sharding``. A sharded step gathers each stack where the
+    experts use it. Raises without an ``ep`` axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    if "ep" not in names:
+        raise ValueError(f"mesh {names} has no 'ep' axis")
+    stack = tuple(Shard(0) if n == "ep" else Replicate() for n in names)
+    return {"router": tuple(Replicate() for _ in names),
+            "fc": stack, "proj": stack}

@@ -88,7 +88,7 @@ UNPORTED = {
     "rightsize": "the capacity rightsizer (rightsize/), not ported yet: "
                  "ROADMAP queue 1 item 6",
     "elastic": "the elastic training plane (elastic/), not ported yet: "
-               "ROADMAP queue 1 item 4",
+               "ROADMAP queue 1 item 5",
 }
 
 #: the JAX CLI's flags of those planes: any use of one exits 2 naming

@@ -34,7 +34,8 @@ SHIM = REPO / "kubeshare_tpu_torch" / "_shim"
 ATTACH_ENV = (C.ENV_CHIP_PROXY_PORT, C.ENV_POD_MANAGER_PORT,
               C.ENV_ATTACH_MODE, C.ENV_VISIBLE_CHIPS, C.ENV_POD_NAME,
               C.ENV_TPU_REQUEST, C.ENV_TPU_LIMIT, C.ENV_TPU_MEMORY,
-              C.ENV_COORDINATOR, C.ENV_NUM_PROCESSES, C.ENV_PROCESS_ID)
+              C.ENV_COORDINATOR, C.ENV_NUM_PROCESSES, C.ENV_PROCESS_ID,
+              C.ENV_RENDEZVOUS_TIMEOUT_S)
 
 
 @pytest.fixture(autouse=True)
@@ -569,21 +570,33 @@ def chip_proxy():
     ({C.ENV_CHIP_PROXY_PORT: "1", C.ENV_ATTACH_MODE: "proxy"},
      "proxy attach"),
     ({C.ENV_ATTACH_MODE: "proxy"}, "proxy attach"),
-    ({C.ENV_POD_MANAGER_PORT: "1", C.ENV_COORDINATOR: "10.0.0.1:1234",
-      C.ENV_NUM_PROCESSES: "2", C.ENV_PROCESS_ID: "0"}, "gang join"),
+    ({C.ENV_POD_MANAGER_PORT: "<manager>", C.ENV_COORDINATOR: "<free>",
+      C.ENV_NUM_PROCESSES: "2", C.ENV_PROCESS_ID: "1",
+      C.ENV_RENDEZVOUS_TIMEOUT_S: "1"}, "gang join"),
 ])
-def test_unported_modes_are_refused(monkeypatch, chip_proxy, env, what):
+def test_unported_modes_are_refused(monkeypatch, chip_proxy, token_server,
+                                    env, what):
     """The env's modes in the JAX package's order. A proxy port attaches
     in proxy mode (the default) and a proxy that is not there fails the
     attach (the shim then stops the process, below); mode ``proxy``
-    without a port warns and attaches nothing. A gang join, not ported,
-    stops the process before anything attaches: it never runs
-    unmetered."""
+    without a port warns and attaches nothing. A gate-mode gang member
+    joins its gang after its gate: here the rest of the gang never comes,
+    so the rendezvous times out and the member exits 1 (gated until
+    then); it never runs solo."""
+    from kubeshare_tpu_torch.utils.virtualcpu import free_port
+
+    monkeypatch.delenv(C.ENV_RENDEZVOUS_TIMEOUT_S, raising=False)
+    fill = {"<proxy>": str(chip_proxy.port),
+            "<manager>": str(token_server[1]),
+            "<free>": f"127.0.0.1:{free_port()}"}
     for k, v in env.items():
-        monkeypatch.setenv(k, str(chip_proxy.port) if v == "<proxy>" else v)
+        monkeypatch.setenv(k, fill.get(v, v))
     if what == "gang join":
-        with pytest.raises(SystemExit, match=what):
+        with pytest.raises(SystemExit) as e:
             attach.attach_if_env()
+        assert e.value.code == 1
+        assert attach.active_mode() == "gate"     # the gate came first
+        attach.detach()
     elif env.get(C.ENV_CHIP_PROXY_PORT) == "1":
         with pytest.raises(OSError):          # nothing listens on port 1
             attach.attach_if_env()
@@ -612,15 +625,23 @@ def test_attach_off_attaches_nothing(monkeypatch, token_server):
       C.ENV_POD_NAME: "doomed", C.ENV_TPU_REQUEST: "1",
       C.ENV_TPU_LIMIT: "1"}, "refusing to run unmetered"),
     ({C.ENV_CHIP_PROXY_PORT: "1"}, "refusing to run unmetered"),
-    ({C.ENV_POD_MANAGER_PORT: "1", C.ENV_COORDINATOR: "h:1",
-      C.ENV_NUM_PROCESSES: "2", C.ENV_PROCESS_ID: "1"}, "gang join"),
+    ({C.ENV_COORDINATOR: "<free>", C.ENV_NUM_PROCESSES: "2",
+      C.ENV_PROCESS_ID: "1", C.ENV_RENDEZVOUS_TIMEOUT_S: "1"},
+     "failed its rendezvous"),
     ({C.ENV_VISIBLE_CHIPS: "no-index-"}, "refusing to start"),
 ], ids=["no-manager", "proxy-mode", "gang", "bad-grant"])
 def test_shim_fails_closed(env, message):
     """A pod whose env requests an attach that cannot be made DIES — no
-    manager, no proxy where the proxy port points, a gang env, a bad
-    grant — instead of running unmetered."""
+    manager, no proxy where the proxy port points, a gang member whose
+    rendezvous fails (exit 1), a bad grant — instead of running
+    unmetered or solo."""
+    from kubeshare_tpu_torch.utils.virtualcpu import free_port
+
+    env = {k: f"127.0.0.1:{free_port()}" if v == "<free>" else v
+           for k, v in env.items()}
     proc = _run(["-c", "print('RAN UNMETERED')"], _pod_env(**env))
+    if C.ENV_COORDINATOR in env:
+        assert proc.returncode == 1
     assert proc.returncode != 0
     assert "RAN UNMETERED" not in proc.stdout
     assert message in proc.stderr, proc.stderr[-2000:]

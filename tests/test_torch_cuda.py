@@ -899,3 +899,90 @@ def test_the_collector_finds_the_card_and_a_pod_binds_to_it(cuda):
     assert binding.env[C.ENV_VISIBLE_CHIPS] == card.chip_id
     aggregator.publish_binding(reg, pod, binding)
     assert reg.pods(node=col.node)["ns/p"]["chip_id"] == card.chip_id
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_lse_cotangent_on_card_matches_plain(cuda, causal):
+    """``flash_attention_lse`` forward and backward in bf16 at a ring
+    shard's shape, with a nonzero cotangent for O AND the lse (what ring
+    attention's merge gives the kernels): O, the lse, dQ, dK and dV
+    against the plain versions at ``KERNEL_TOL``."""
+    import math
+
+    rng = np.random.default_rng(11)
+    b, s, h, d = 8, 128, 8, 32
+    randn = lambda *shape: torch.from_numpy(rng.standard_normal(
+        shape).astype(np.float32)).to(cuda)
+    q, k, v = (randn(b, s, h, d).to(torch.bfloat16) for _ in range(3))
+    g, g_lse = randn(b, s, h, d), randn(b, s, h)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(tfl.launches)
+    o, lse = tfl.flash_attention_lse(*leaves, causal=causal)
+    ((o * g).sum() + (lse * g_lse).sum()).backward()
+    torch.cuda.synchronize()
+    assert {n: tfl.launches[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    scale = 1.0 / math.sqrt(d)
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, causal, None, scale)
+    dcap = ((g * ro).sum(-1) - g_lse).transpose(1, 2)
+    args = (q, k, v, g, rlse, dcap, causal, None, scale)
+    rdk, rdv = tfl.flash_dkv_reference(*args)
+    for got, want in ((o, ro), (lse, rlse.transpose(1, 2)),
+                      (leaves[0].grad, tfl.flash_dq_reference(*args)),
+                      (leaves[1].grad, rdk), (leaves[2].grad, rdv)):
+        atol, rtol = tfl.KERNEL_TOL[got.dtype]
+        torch.testing.assert_close(got.detach(), want, atol=atol, rtol=rtol)
+
+
+_RING_RANK = """
+import json
+from kubeshare_tpu_torch.models import common, transformer
+from kubeshare_tpu_torch.ops import flash_attention as fl
+from kubeshare_tpu_torch.parallel import runner
+assert runner.distributed_init_from_env()
+fl.reset_launches()
+r = common.run_training(transformer.init, transformer.loss_fn,
+                        transformer.batch_fn, 2,
+                        mesh_hooks=transformer.MESH_HOOKS)
+print("RESULT", json.dumps({"loss": r.final_loss, "backend": runner.backend(),
+                            "fwd": fl.launches["fwd"]}))
+"""
+
+
+def test_a_two_rank_ring_flash_step_on_card_matches_one_process(cuda):
+    """Two ranks on the one card (gloo: they share it) train the LM at
+    full width, the sequence split over sp = 2 with ring-flash attention:
+    the global loss after 2 + 2 steps matches one process's to 2e-3
+    (bf16 sums in another order; chip_smoke.py's gangs read at most
+    4.9e-4 after 10 + 2 steps), and rank 0 launches the forward kernel
+    4 times a step (the diagonal only), rank 1 8 times (past and
+    diagonal)."""
+    import json
+
+    from kubeshare_tpu_torch.utils.virtualcpu import free_port
+
+    port = free_port()
+    root = Path(__file__).resolve().parent.parent
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, KUBESHARE_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   KUBESHARE_TPU_NUM_PROCESSES="2",
+                   KUBESHARE_TPU_PROCESS_ID=str(rank),
+                   KUBESHARE_TPU_RENDEZVOUS_TIMEOUT_S="120",
+                   KUBESHARE_TPU_MESH="dp=1,sp=2,tp=1",
+                   KUBESHARE_TPU_SP_ATTN="ring_flash",
+                   PYTHONPATH=str(root))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RING_RANK], env=env, cwd=str(root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=300) for p in procs]
+    got = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        got.append(json.loads(out.split("RESULT", 1)[1]))
+    one = common.run_training(transformer.init, transformer.loss_fn,
+                              transformer.batch_fn, 2)
+    for rank, rec in enumerate(got):
+        assert rec["backend"] == "gloo"
+        assert rec["loss"] == pytest.approx(one.final_loss, rel=2e-3)
+        assert rec["fwd"] == transformer.LAYERS * (1 + rank) * 4

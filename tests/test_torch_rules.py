@@ -73,6 +73,14 @@ def test_port_sources_exist():
                  "kubeshare_tpu_torch/ha/standby.py",
                  "kubeshare_tpu_torch/doctor.py",
                  "kubeshare_tpu_torch/topcli.py",
+                 "kubeshare_tpu_torch/parallel/__init__.py",
+                 "kubeshare_tpu_torch/parallel/mesh.py",
+                 "kubeshare_tpu_torch/parallel/runner.py",
+                 "kubeshare_tpu_torch/parallel/ringattention.py",
+                 "kubeshare_tpu_torch/parallel/ulysses.py",
+                 "kubeshare_tpu_torch/parallel/pipeline.py",
+                 "kubeshare_tpu_torch/parallel/collectives.py",
+                 "kubeshare_tpu_torch/utils/virtualcpu.py",
                  "scripts/torch_gang_backlog.py",
                  "chip_smoke.py", "scripts/torch_step_profile.py",
                  "scripts/torch_gate_pairs.py"):
@@ -222,23 +230,29 @@ from kubeshare_tpu_torch.models import common, tinymlp
 dist.init_process_group("gloo", init_method=sys.argv[1], rank=int(sys.argv[2]),
                         world_size=2)
 try:
-    common.main_cli("tinymlp", tinymlp.init, tinymlp.loss_fn,
-                    tinymlp.batch_fn, argv=["--device", "cpu", "--steps", "1",
-                                            "--checkpoint", sys.argv[3]])
-except RuntimeError as e:
-    print("REFUSED", e)
+    r = common.main_cli("tinymlp", tinymlp.init, tinymlp.loss_fn,
+                        tinymlp.batch_fn, argv=["--device", "cpu", "--steps",
+                                                "1", "--checkpoint",
+                                                sys.argv[3]])
+    print("SAVED", r.steps)
 finally:
     dist.destroy_process_group()
 """
 
 
 def test_checkpoint_in_a_gang_is_refused_naming_its_item(tmp_path):
-    """Under a two-rank gloo group ``--checkpoint`` raises before any step
-    or file, naming the ROADMAP item that brings gang checkpoints."""
+    """Under a two-rank gloo group ``--checkpoint`` is no longer refused:
+    both ranks train over the gang's mesh and write ONE committed
+    checkpoint (every rank's shards, ``.metadata`` last), which a single
+    process then restores, at its step."""
     import os
     import socket
     import subprocess
     import sys
+
+    from kubeshare_tpu_torch.models import checkpoint as ck
+    from kubeshare_tpu_torch.models import common, tinymlp
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -252,9 +266,27 @@ def test_checkpoint_in_a_gang_is_refused_naming_its_item(tmp_path):
     outs = [p.communicate(timeout=120) for p in procs]
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err
-        assert "REFUSED --checkpoint with world size 2" in out, out + err
-        assert "ROADMAP queue 1 item 4" in out
-    assert not ckpt.exists() and not (tmp_path / "ck.staging").exists()
+        assert "SAVED 1" in out, out + err
+    assert (ckpt / ".metadata").is_file()
+    assert not (tmp_path / "ck.staging").exists()
+    like = common.to_device(tinymlp.init(0), "cpu")
+    _, state, step = ck.load_checkpoint(ckpt, like, fused_adam().init(like))
+    assert step == 1 and float(state["count"]) == 3.0   # 2 warm-up + 1
+
+
+def test_parallel_entry_points_default_to_cuda(no_cuda):
+    """A mesh's tensors live on the card unless the caller says the CPU:
+    ``make_mesh`` and ``gang_mesh`` default to cuda, and training over such
+    a mesh raises without a card, before any collective."""
+    from kubeshare_tpu_torch.models import common, tinymlp
+    from kubeshare_tpu_torch.parallel import mesh, runner
+
+    assert mesh.make_mesh(range(1)).device_type == "cuda"
+    assert runner.gang_mesh().device_type == "cuda"
+    assert mesh.make_mesh(range(1), device_type="cpu").device_type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.run_training(tinymlp.init, tinymlp.loss_fn, tinymlp.batch_fn,
+                            steps=1, mesh=mesh.make_mesh(range(1)))
 
 
 def test_flash_attention_runs_on_cuda_or_cpu_only():

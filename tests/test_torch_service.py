@@ -408,6 +408,10 @@ def test_an_unported_planes_flag_exits_2_naming_it(flag):
     out, err = proc.communicate(timeout=30)
     assert proc.returncode == 2
     assert f"{flag[0]} needs {UNPORTED[plane]}" in err and "ROADMAP" in err
+    # each plane names the queue item that ports it: elastic/ is item 5
+    # (item 4, parallel/ and gangs, is ported)
+    item = {"elastic": 5}.get(plane, 6)
+    assert f"ROADMAP queue 1 item {item}" in err
     assert "READY" not in out
 
 

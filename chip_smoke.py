@@ -41,10 +41,10 @@ failing the run (non-zero exit, no result line) when it fails:
       alone ungated (``KUBESHARE_TPU_ATTACH=off``), alone gated at request
       1.0, two side by side at request 0.5, alone gated, two at requests
       0.25 and 0.75, alone gated, alone ungated. Each pair's first tenant
-      must hold its requested share of the token over its life (and of
-      the steps, in the even pair), the pair's steps must come in runs of
-      one tenant, and the two tenants' charges must not sum past the
-      time they were held in;
+      must hold its requested share of the token in the pair's common
+      window (and over its life and of the steps, in the even pair), the
+      pair's steps must come in runs of one tenant, and the two tenants'
+      charges must not sum past the time they were held in;
    f. the proxy-mode pair — the reference's default attach: a
       ``ChipProxy`` on the card in this process (token scheduler window
       1 s), and tenant processes (``--tenant --compiled``) attached only
@@ -127,6 +127,34 @@ failing the run (non-zero exit, no result line) when it fails:
       one-rank gang (NCCL) with ``--checkpoint``, SIGKILLed after a save
       and started again, must resume at the saved step through the
       sharded checkpoint;
+   l. the autopilot's quota and the elastic plane — 5l-quota: a
+      ``ChipProxy`` on the card with the native token scheduler (window
+      1 s) and an ``ElasticQuota`` on it; two threaded ``ProxyClient``s
+      train the full-width flash LM through ``compile_loop`` + ``chain``,
+      a lender (request 0.5, limit 1.0) briefly and then idle, a borrower
+      (0.25 / 0.25) all along. The quota must lend 0.75 of the lender's
+      measured headroom (0.375), raise the borrower's window share clearly
+      past its limit while lent, and revoke the credit inside the
+      lender's next demand, before its grant; every step launches the
+      LM's kernels exactly. 5l-elastic: four gang ranks on the one card
+      (the gang env and the shim, gloo), each this script's
+      ``--elastic-member``, hold an ``ElasticTrainer`` of the flash LM on
+      ranks [0, 1]; rank 0's ``ElasticOrchestrator`` (over a dispatcher
+      with the sim's gang) resizes it to 4 ranks before step 5 and to 1
+      before step 9. Every loss must match the unresized run's, the
+      final params too within a stated bound, each restate move the hand
+      count of leaves and bytes, the journal recover onto the 1-chip
+      mesh, every rank in the mesh launch the kernels once a layer a step
+      and none outside it, and a checkpoint restate from 4 ranks onto one
+      give the saved state bit for bit. 5i's services run with both
+      planes attached, and 5i reads their fragmentation, a dry-run plan
+      and the doctor's checks of them.
+   The paths run in this order but for three: 5j's sweep, 5k's gangs
+   and 5l-elastic run last and side by side, all started together after
+   5l-quota (each checks correctness, in processes that count their own
+   launches, and their start-ups, not the card, take their time); 5k's
+   part in this process, the lse cotangent and the one-process run, runs
+   before 5l-quota, and 5k's five gangs start together;
 6. the outputs of the main paths: finite, of the expected shapes.
 
 The second-to-last line is the kernels' JSON record; the last line is
@@ -146,6 +174,12 @@ is a gang member of phase 5k: the transformer's CLI with those arguments,
 run as ``python -m kubeshare_tpu_torch.models.transformer`` runs it, then
 its result (loss, steps, the runner's backend, a digest of each local
 parameter shard) and kernel launch counts written to ``out.json``.
+
+    python3 chip_smoke.py --elastic-member out.json
+
+is a rank of phase 5l's elastic gang (joined by the shim from the gang
+env): it writes its losses, resizes, launches by step and, on rank 0, the
+orchestrator's outcomes and the checks' readings to ``out.json``.
 """
 
 from __future__ import annotations
@@ -215,7 +249,7 @@ LM_SPEC = {"program": "train_step", "model": "transformer",
 # the gate pair (phase 5e): a tenant's untimed first steps, and how long
 # each run trains after them — alone (ungated, then gated) and as a pair
 TENANT_WARMUP_STEPS = 5
-GATE_SOLO_S = 10.0
+GATE_SOLO_S = 3.0
 GATE_PAIR_S = 20.0
 # the common window of the pair must be at least this long to be read
 GATE_MIN_WINDOW_S = 8.0
@@ -239,8 +273,8 @@ GATE_TOTALS = ("charged_ms", "renews", "drain_ms", "waited_ms")
 # train after their warm-up steps, the pairs' (pod name, seed, request)
 # each — even, and uneven, as in 5e — and the lone tenant's first losses
 # held against the eager step
-PROXY_SOLO_S = 10.0
-PROXY_PAIR_S = 20.0
+PROXY_SOLO_S = 3.0
+PROXY_PAIR_S = 14.0
 PROXY_PAIRS = {"even": (("smoke/proxy-a", 10, 0.5),
                         ("smoke/proxy-b", 20, 0.5)),
                "uneven": (("smoke/proxy-c", 30, 0.25),
@@ -253,8 +287,8 @@ PROXY_FIRST_LOSSES = 3
 # the looped steps of 5g-loop
 RESUME_TENANT = ("smoke/resume", 0)
 RESUME_STEPS = 72
-CRASH_AT = 24
-MIGRATE_AT = 24
+CRASH_AT = 8
+MIGRATE_AT = 8
 LOOP_STEPS = 64
 # phase 5h: latency-class serving beside a best-effort trainer. Four
 # sender threads (two tenants of each class) submit one row each at a
@@ -395,6 +429,42 @@ GANG_CKPT_STEPS = 40
 GANG_CKPT_EVERY = 10
 # the lse cotangent on the card: a ring shard's shape, bf16
 LSE_SHAPE = (8, 128, 8, 32)
+# phase 5l-quota: idle-share lending on the card's token scheduler (window
+# WINDOW_MS). (name, request, limit) of the lender and the borrower
+QUOTA_LENDER = ("quota/lender", 0.5, 1.0)
+QUOTA_BORROWER = ("quota/borrower", 0.25, 0.25)
+QUOTA_CHAIN = 8               # steps a chain call asks for
+QUOTA_WARM_S = 1.0            # the lender trains this long, then idles
+QUOTA_IDLE_S = 1.5            # then this long before the first reading
+QUOTA_READ_S = 2.0            # each reading: before, lent, after
+QUOTA_SETTLE_S = 1.0          # a window, before the lent and after readings
+QUOTA_STEP_EVERY_S = 0.25     # the quota's step cadence while it lends
+QUOTA_SAMPLE_S = 0.1          # window-usage samples within a reading
+QUOTA_GRANT_WAIT_S = 10.0     # longest wait for the borrower at its cap
+# the borrower's window share while lent must pass both this (its limit
+# is 0.25, its effective limit while lent 0.625) and this many times its
+# share before lending (a burst can overrun a grant, so a share read at
+# the limit sits a little above it), and fall again once revoked
+QUOTA_LENT_MIN = 0.35
+QUOTA_LENT_OVER = 1.3
+# phase 5l-elastic: a gang of ELASTIC_WORLD ranks on the one card, the LM
+# with flash attention resized 2 -> 4 -> 1 ranks before the steps of
+# ELASTIC_PLAN (step index -> devices), ELASTIC_STEPS in all, against an
+# unresized run on ranks [0, 1]
+ELASTIC_WORLD = 4
+ELASTIC_STEPS = 12
+ELASTIC_PLAN = {4: 4, 8: 1}
+ELASTIC_SEED = 5
+ELASTIC_LR = 1e-3
+ELASTIC_GANG = "sim/trainer"
+# the resized run's final params against the unresized run's: the mean
+# abs difference over every weight. The runs differ in rounding only (the
+# meshes sum in another order), so a few weights with near-zero Adam
+# moments part by up to ~ELASTIC_LR while the mean stays near 8e-7 on an
+# H100; a restate that loses optimizer state moves every weight's update
+# by a fraction of ELASTIC_LR: 9.6e-4 with Adam's count restarted, 2.0e-3
+# with its moments zeroed (PERF.md)
+ELASTIC_PARAM_MEAN_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1522,11 +1592,14 @@ def pair_reading(pair: dict, entries) -> dict:
     union_ms = 1000.0 * (
         max(pair[n]["ends"][i1] for n, (_, i1) in span.items())
         - min(pair[n]["ends"][i0] for n, (i0, _) in span.items()))
-    # the token each tenant held over its life up to the window's end:
-    # the stride scheduler evens the ms held over request out from
-    # registration on, start-up included (a tenant's first step holds the
-    # token through its CUDA start-up, seconds, which the lower request
-    # then pays back by waiting inside the common window)
+    # the token each tenant held over its life up to the window's end,
+    # start-up included: a tenant's first step holds the token through
+    # its CUDA start-up (seconds, and varying: PERF.md §6), which the
+    # stride scheduler charges at 1/request. Between two requests of one
+    # size the other tenant takes that debt back within the window; when
+    # the lower request (0.25) owes it, the higher one (limit 1.0)
+    # reaches its window cap every ~1 s and the lower one is granted a
+    # whole quota each time, so the debt stays (see check_pair)
     life = {n: pair[n]["gate"][i1][GATE_TOTALS.index("charged_ms")]
             for n, (_, i1) in span.items()}
     return {
@@ -1552,25 +1625,31 @@ def pair_reading(pair: dict, entries) -> dict:
 
 def check_pair(kind: str, reading: dict) -> None:
     """What one token allows: the first tenant's share of the token held
-    over its life, and in an even pair also its share of the common
-    window's steps, within GATE_SHARE_SLACK of its requested share; the
-    step ends in runs of one tenant (GATE_MIN_MEAN_RUN); the tenants'
-    held time, by their gates and by the scheduler's ``usage`` op, no
-    more than the time it was held in."""
+    in the common window, and in an even pair also its share of the
+    token held over its life and of the window's steps, within
+    GATE_SHARE_SLACK of its requested share; the step ends in runs of
+    one tenant (GATE_MIN_MEAN_RUN); the tenants' held time, by their
+    gates and by the scheduler's ``usage`` op, no more than the time it
+    was held in.
+
+    An uneven pair's share over the life is read, not held to the
+    request: its lower request keeps the debt of its own start-up (see
+    pair_reading), so that share follows the length of its first step
+    while its share in the window stays near the request (PERF.md §6;
+    ``scripts/torch_gate_startup.py`` measures both)."""
     a = next(iter(reading["requests"]))
     wanted = reading["share_wanted"]
-    share = reading["lifetime_held_share_a"]
-    check(abs(share - wanted) <= GATE_SHARE_SLACK * wanted,
-          f"gate pair {kind}: {a} held {share} of the token, not within "
-          f"{GATE_SHARE_SLACK:.0%} of its request's {wanted}")
+    shares = {"of the token in the window": reading["gate_held_share_a"]}
     if wanted == 0.5:
-        # identical start-ups cancel: the window's steps split as the
-        # token does (an uneven pair's lower request is still paying its
-        # start-up back in the window, see pair_reading)
-        share = reading["share_a"]
+        # identical start-ups cancel: the debt is taken back within the
+        # window, and the window's steps split as the token does
+        shares["of the token over its life"] = reading[
+            "lifetime_held_share_a"]
+        shares["of the window's steps"] = reading["share_a"]
+    for where, share in shares.items():
         check(abs(share - wanted) <= GATE_SHARE_SLACK * wanted,
-              f"gate pair {kind}: device-time share of {a} {share} not "
-              f"within {GATE_SHARE_SLACK:.0%} of its request's {wanted}")
+              f"gate pair {kind}: {a} held {share} {where}, not within "
+              f"{GATE_SHARE_SLACK:.0%} of its request's {wanted}")
     charged = reading["charged_ms_per_window"]
     check(math.isfinite(reading["charged_share_a"]),
           f"gate pair {kind}: no charge sampled in the common window")
@@ -3262,11 +3341,11 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         start("registry", ["kubeshare_tpu_torch.telemetry.registry",
                            "--host", "127.0.0.1", "--port", "0"])
         reg_port = int(ready("registry").split()[1])
+        # the daemons that need only the registry start together
         start("follower", ["kubeshare_tpu_torch.telemetry.registry",
                            "--host", "127.0.0.1", "--port", "0",
                            "--follower-of", f"127.0.0.1:{reg_port}",
                            "--replication-poll", str(PLACE_REPL_POLL_S)])
-        follow_port = int(ready("follower").split()[1])
         registry_args = ["--registry-host", "127.0.0.1", "--registry-port",
                          str(reg_port)]
         node_args = [*registry_args, "--node", chip.host, "--backend",
@@ -3278,6 +3357,7 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
                           "0.1"])
         start("webhook", ["kubeshare_tpu_torch.scheduler.webhook",
                           "--port", "0"])
+        follow_port = int(ready("follower").split()[1])
         for label in ("collector", "configd"):
             ready(label)
         rc = RegistryClient("127.0.0.1", reg_port)
@@ -3295,7 +3375,11 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
                            *registry_args, "--host", "127.0.0.1", "--port",
                            "0", "--health", "--shards", str(PLACE_SHARDS),
                            "--shard-route", "cell", "--ha-ttl",
-                           str(PLACE_HA_TTL_S), "--ha-holder", holder])
+                           str(PLACE_HA_TTL_S), "--ha-holder", holder,
+                           "--autopilot", "--autopilot-journal",
+                           os.path.join(node.base, f"{holder}-ap.jsonl"),
+                           "--elastic", "--elastic-journal",
+                           os.path.join(node.base, f"{holder}-el.jsonl")])
             urls[holder] = f"http://127.0.0.1:{ready(holder).split()[1]}"
             if holder == PLACE_SERVICES[0]:
                 # the first leads, unfrozen, before the second contests
@@ -3396,6 +3480,58 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
                 for p, q in bg["engine_phases"].items())
             + " (host numbers)")
         lap("background")
+
+        # the autopilot and elastic planes, attached: the fragmentation
+        # of the whole fleet, a dry-run plan that touches nothing, and
+        # the elastic plane's view of the background's gangs
+        ap = client.autopilot()
+        leaves = sum(n["leaves"] for n in ap.get("per_node", {}).values())
+        check(ap.get("attached") is True and ap.get("enabled") is True
+              and leaves == out["fleet"]["devices"]
+              and 0.0 <= ap.get("fragmentation", -1.0) <= 1.0,
+              f"5i: GET /autopilot: {json.dumps(ap)[:2000]}")
+        def placed():
+            return {k: (v["node"], v["chips"])
+                    for k, v in state()["pods"].items() if v["node"]}
+
+        pods0 = placed()
+        t0 = time.perf_counter()
+        code, body = client._call("POST", "/autopilot/plan", {})
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        check(code == 200 and "plan" in body,
+              f"5i: POST /autopilot/plan answered {code}: {body}")
+        plan = body["plan"]
+        pods1 = placed()
+        moved = [k for k in pods0.keys() & pods1.keys()
+                 if pods0[k] != pods1[k]]
+        check(not moved and client.autopilot().get("applied_total") == 0,
+              f"5i: the dry-run plan moved pods: {moved[:5]}")
+        el = client.elastic()
+        check(el.get("attached") is True and el.get("enabled") is True
+              and el.get("resizes_total") == 0,
+              f"5i: GET /elastic: {json.dumps(el)[:2000]}")
+        out["planes"] = {
+            "fragmentation": ap["fragmentation"],
+            "stranded_free": ap["stranded_free"],
+            "total_free": ap["total_free"], "devices": leaves,
+            "largest_placeable_gang": ap["largest_placeable_gang"],
+            "plan_ms": plan_ms, "plan_moves": len(plan["moves"]),
+            "plan_skipped": len(plan["skipped"]),
+            "plan_after": plan["fragmentation_after"],
+            "plan_reason": plan.get("reason", ""),
+            "elastic_gangs": len(el["gangs"]),
+            "elastic_config": el["config"]}
+        log(f"5i: GET /autopilot over {leaves} devices: fragmentation "
+            f"{ap['fragmentation']} ({ap['stranded_free']:.2f} of "
+            f"{ap['total_free']:.2f} free stranded), largest placeable "
+            f"gang {ap['largest_placeable_gang']}; POST /autopilot/plan "
+            f"round trip {plan_ms:.1f} ms: {len(plan['moves'])} moves "
+            f"(fragmentation -> {plan['fragmentation_after']}, "
+            f"{len(plan['skipped'])} skipped; "
+            f"{plan.get('reason', 'improving')}), nothing moved; GET "
+            f"/elastic: {len(el['gangs'])} gangs, {el['resizes_total']} "
+            f"resizes (host numbers)")
+        lap("planes")
 
         # the follower registry holds what the leader holds
         frc = RegistryClient("127.0.0.1", follow_port)
@@ -3734,9 +3870,9 @@ def _doctor(root: str, base: str, registry: str, scheduler: str) -> dict:
           f"5i: the doctor exited {proc.returncode}: "
           + "; ".join(line for line in lines if " fail " in line)
           + f" {proc.stderr[-2000:]}")
-    check(any(line.split()[:2] == ["chip", "ok"] for line in lines)
-          and any(line.split()[:2] == ["ha", "ok"] for line in lines),
-          f"5i: the doctor's chip or ha check: {lines}")
+    for name in ("chip", "ha", "autopilot", "elastic"):
+        check(any(line.split()[:2] == [name, "ok"] for line in lines),
+              f"5i: the doctor's {name} check: {lines}")
     return {"seconds": time.monotonic() - t0, "lines": lines}
 
 
@@ -3887,11 +4023,12 @@ def sweep_phase(root: str) -> dict:
         _, _, saved = ck.load_checkpoint(kill_ck, *like)
         check(0 < saved < SWEEP_STEPS and saved % SWEEP_EVERY == 0,
               f"5j-cli: the killed run saved step {saved}")
-        full_text = finish("full", full)
-        lap("killed and uninterrupted")
+        lap("killed")
+        # started again at once, the uninterrupted run still beside it
         proc = launch("resumed", kill_ck)
+        full_text = finish("full", full)
         text = finish("resumed", proc)
-        lap("resumed")
+        lap("resumed and uninterrupted")
         managers = dict(node.managers)
         p, s, at = ck.load_checkpoint(kill_ck, *like)
         fp, fs, fat = ck.load_checkpoint(full_ck, *like)
@@ -3942,12 +4079,13 @@ def sweep_phase(root: str) -> dict:
     return out
 
 
-def zoo_phase(root: str, dev, rng) -> dict:
+def zoo_phase(dev, rng) -> dict:
     """Phase 5j: each ZOO model's card-vs-CPU step, its whole tree through
     the Adam kernel against the plain version, its exclusive and profiled
-    runs (launch counts reset before each model and read after), then
-    the resumable sweep through a node. Returns every reading, the
-    launches of the in-process runs and the seconds by stage."""
+    runs (launch counts reset before each model and read after). The
+    resumable sweep through a node (:func:`sweep_phase`) runs later,
+    beside 5k. Returns every reading, the launches of the in-process runs
+    and the seconds by stage."""
     import torch
 
     from kubeshare_tpu_torch.ops import fused_adam as fa
@@ -3998,8 +4136,6 @@ def zoo_phase(root: str, dev, rng) -> dict:
         out["stages_s"]["adam_resnet50"] = time.monotonic() - t_adam
     finally:
         shutil.rmtree(trace_root, ignore_errors=True)
-    out["sweep"] = sweep_phase(root)
-    out["stages_s"]["sweep"] = out["sweep"]["seconds"]
     out["seconds"] = time.monotonic() - t0
     return out
 
@@ -4129,9 +4265,11 @@ def _gang_env(root: str, port: int, rank: int, world: int,
 
 
 def _gang_run(root: str, base: str, label: str, world: int, extra: dict,
-              cli_args: list, kill_when=None) -> list:
-    """``world`` gang members of the LM's CLI, side by side; their records
-    (and stderr) once all exit. ``kill_when()`` True: SIGKILL them then."""
+              cli_args: list, kill_when=None, mode: str = "--gang-member",
+              phase: str = "5k") -> list:
+    """``world`` gang members of the LM's CLI (``mode`` ``--elastic-member``:
+    5l's elastic ranks), side by side; their records (and stderr) once all
+    exit. ``kill_when()`` True: SIGKILL them then."""
     from kubeshare_tpu_torch.utils.virtualcpu import free_port
 
     port = free_port()
@@ -4139,16 +4277,17 @@ def _gang_run(root: str, base: str, label: str, world: int, extra: dict,
     for rank in range(world):
         out = os.path.join(base, f"{label}-{rank}.json")
         errf = open(os.path.join(base, f"{label}-{rank}.log"), "w")
+        args = [mode, out, "--", *cli_args] if cli_args else [mode, out]
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.join(root, "chip_smoke.py"),
-             "--gang-member", out, "--", *cli_args],
+            [sys.executable, os.path.join(root, "chip_smoke.py"), *args],
             env=_gang_env(root, port, rank, world, extra), cwd=root,
             stdout=errf, stderr=subprocess.STDOUT), out, errf))
     killed = False
     try:
         deadline = time.monotonic() + 300
         while any(p.poll() is None for p, _, _ in procs):
-            check(time.monotonic() < deadline, f"5k {label}: no end in 300 s")
+            check(time.monotonic() < deadline,
+                  f"{phase} {label}: no end in 300 s")
             if kill_when is not None and not killed and kill_when():
                 for p, _, _ in procs:
                     p.send_signal(signal.SIGKILL)
@@ -4167,108 +4306,133 @@ def _gang_run(root: str, base: str, label: str, world: int, extra: dict,
             recs.append({"log": text, "rc": p.returncode})
             continue
         check(p.returncode == 0 and os.path.exists(out),
-              f"5k {label} rank {rank} exited {p.returncode}: "
+              f"{phase} {label} rank {rank} exited {p.returncode}: "
               f"{text[-3000:]}")
         with open(out) as f:
             recs.append(dict(json.load(f), log=text))
     return recs
 
 
-def gang_phase(root: str, dev, rng, adam_per_step: int, layers: int) -> dict:
-    """Phase 5k: the lse cotangent on the card, four two-rank LM gangs
-    through the CLI held to one process, and a one-rank NCCL gang's
-    checkpoint resume. Returns every reading, the launches of the ranks
-    and of this process's runs, and the seconds by stage."""
+def gang_local(dev, rng) -> dict:
+    """5k's part in this process: the lse cotangent on the card, then the
+    one-process run every gang is held to (the CLI's defaults; launch
+    counts reset before it and read after)."""
+    from kubeshare_tpu_torch.models import common, transformer
+
+    t0 = time.monotonic()
+    _reset_counts()
+    out: dict = {"lse_max_abs_err": lse_cotangent_check(dev, rng)}
+    t1 = time.monotonic()
+    _reset_counts()
+    one = common.run_training(transformer.init, transformer.loss_fn,
+                              transformer.batch_fn, GANG_STEPS, device=dev)
+    out["launches"] = _counts()
+    out["one_process"] = {"final_loss": one.final_loss,
+                          "steps_per_sec": one.steps_per_sec}
+    out["stages_s"] = {"lse cotangent": t1 - t0,
+                       "one process": time.monotonic() - t1}
+    return out
+
+
+def gang_phase(root: str, local: dict, adam_per_step: int,
+               layers: int) -> dict:
+    """Phase 5k's gangs, after :func:`gang_local`: four two-rank LM gangs
+    through the CLI, each held to the one-process run, and a one-rank
+    NCCL gang's checkpoint resume, all five started together (each is a
+    correctness check; their start-ups dominate). Returns every reading,
+    the launches of the ranks and of the one-process run, and each
+    stage's own wall seconds."""
     from kubeshare_tpu_torch.models import checkpoint as ck
     from kubeshare_tpu_torch.models import common, transformer
     from kubeshare_tpu_torch.ops.fused_adam import fused_adam
 
     t_phase = time.monotonic()
-    out: dict = {"stages_s": {}, "runs": {},
-                 "launches": {k: 0 for k in _counts()}}
-
-    def lap(stage):
-        out["stages_s"][stage] = (time.monotonic() - t_phase
-                                  - sum(out["stages_s"].values()))
+    out: dict = dict(local, runs={}, stages_s=dict(local["stages_s"]),
+                     launches=dict(local["launches"]))
+    one_loss = local["one_process"]["final_loss"]
 
     def add(counts):
         for k in out["launches"]:
             out["launches"][k] += counts[k]
 
-    _reset_counts()
-    out["lse_max_abs_err"] = lse_cotangent_check(dev, rng)
-    lap("lse cotangent")
-    # the one-process run every gang is held to: the CLI's defaults
-    _reset_counts()
-    one = common.run_training(transformer.init, transformer.loss_fn,
-                              transformer.batch_fn, GANG_STEPS, device=dev)
-    add(_counts())
-    out["one_process"] = {"final_loss": one.final_loss,
-                          "steps_per_sec": one.steps_per_sec}
-    lap("one process")
     base = tempfile.mkdtemp(prefix="kubeshare-gang-")
+    ckpt = os.path.join(base, "ckpt")
+    cli = ["--steps", str(GANG_CKPT_STEPS), "--checkpoint", ckpt,
+           "--checkpoint-every", str(GANG_CKPT_EVERY)]
+    like = common.to_device(transformer.init(0), "cpu")
     ran = GANG_STEPS + GANG_WARMUP
-    try:
-        for label, mesh, attn in GANG_MESHES:
-            extra = {}
-            if mesh:
-                extra["KUBESHARE_TPU_MESH"] = mesh
-            if attn:
-                extra["KUBESHARE_TPU_SP_ATTN"] = attn
-            recs = _gang_run(root, base, label, 2, extra,
-                             ["--steps", str(GANG_STEPS)])
-            for rec in recs:
-                rank = rec["rank"]
-                check(rec["backend"] == "gloo"
-                      and "share device" in rec["reason"]
-                      and "backend gloo: ranks [0, 1] share device"
-                      in rec["log"],
-                      f"5k {label} rank {rank}: backend {rec['backend']} "
-                      f"({rec['reason']})")
-                check(abs(rec["final_loss"] - one.final_loss)
-                      <= GANG_LOSS_RTOL * abs(one.final_loss),
-                      f"5k {label} rank {rank}: final loss "
-                      f"{rec['final_loss']} against one process's "
-                      f"{one.final_loss}")
-                want = {"fused_adam": adam_per_step * ran}
-                per = GANG_FLASH_PER_LAYER[label][rank] * layers * ran
-                want.update({f"flash_{k}": per for k in ("fwd", "dq", "dkv")})
-                check(rec["launches"] == want,
-                      f"5k {label} rank {rank}: launches {rec['launches']}, "
-                      f"expected {want}")
-                add(rec["launches"])
-            check(recs[0]["final_loss"] == recs[1]["final_loss"],
-                  f"5k {label}: the ranks report losses "
-                  f"{recs[0]['final_loss']} and {recs[1]['final_loss']}")
-            same = [a["digest"] == b["digest"]
-                    for a, b in zip(recs[0]["leaves"], recs[1]["leaves"])
-                    if a["replicated"]]
-            check(same and all(same), f"5k {label}: replicated leaves "
-                  f"differ between the ranks ({same.count(False)} of "
-                  f"{len(same)})")
-            out["runs"][label] = {
-                "mesh": mesh or "default", "sp_attn": attn or None,
-                "final_loss": [r["final_loss"] for r in recs],
-                "loss_rel_err": abs(recs[0]["final_loss"] - one.final_loss)
-                / abs(one.final_loss),
-                "steps_per_sec": [r["steps_per_sec"] for r in recs],
-                "wall_s": [r["wall_s"] for r in recs],
-                "replicated_leaves": len(same),
-                "launches": [r["launches"] for r in recs]}
-            log(f"5k {label}: {json.dumps(out['runs'][label])}")
-            lap(label)
 
+    def mesh_run(label: str, mesh: str, attn: str):
+        t0 = time.monotonic()
+        extra = {}
+        if mesh:
+            extra["KUBESHARE_TPU_MESH"] = mesh
+        if attn:
+            extra["KUBESHARE_TPU_SP_ATTN"] = attn
+        recs = _gang_run(root, base, label, 2, extra,
+                         ["--steps", str(GANG_STEPS)])
+        return recs, time.monotonic() - t0
+
+    def nccl_run():
         # one rank on its own device: NCCL, with a checkpoint
-        ckpt = os.path.join(base, "ckpt")
-        cli = ["--steps", str(GANG_CKPT_STEPS), "--checkpoint", ckpt,
-               "--checkpoint-every", str(GANG_CKPT_EVERY)]
+        t0 = time.monotonic()
         _gang_run(root, base, "nccl-killed", 1, {}, cli,
                   kill_when=lambda: os.path.isdir(ckpt))
-        like = common.to_device(transformer.init(0), "cpu")
         _, _, saved = ck.load_checkpoint(ckpt, like, fused_adam().init(like))
         check(0 < saved < GANG_CKPT_STEPS and saved % GANG_CKPT_EVERY == 0,
               f"5k nccl: the killed run saved step {saved}")
         rec, = _gang_run(root, base, "nccl-resumed", 1, {}, cli)
+        return saved, rec, time.monotonic() - t0
+
+    try:
+        with ThreadPoolExecutor(len(GANG_MESHES) + 1) as pool:
+            runs = {label: pool.submit(mesh_run, label, mesh, attn)
+                    for label, mesh, attn in GANG_MESHES}
+            nccl = pool.submit(nccl_run)
+            for label, mesh, attn in GANG_MESHES:
+                recs, secs = runs[label].result()
+                for rec in recs:
+                    rank = rec["rank"]
+                    check(rec["backend"] == "gloo"
+                          and "share device" in rec["reason"]
+                          and "backend gloo: ranks [0, 1] share device"
+                          in rec["log"],
+                          f"5k {label} rank {rank}: backend "
+                          f"{rec['backend']} ({rec['reason']})")
+                    check(abs(rec["final_loss"] - one_loss)
+                          <= GANG_LOSS_RTOL * abs(one_loss),
+                          f"5k {label} rank {rank}: final loss "
+                          f"{rec['final_loss']} against one process's "
+                          f"{one_loss}")
+                    want = {"fused_adam": adam_per_step * ran}
+                    per = GANG_FLASH_PER_LAYER[label][rank] * layers * ran
+                    want.update({f"flash_{k}": per
+                                 for k in ("fwd", "dq", "dkv")})
+                    check(rec["launches"] == want,
+                          f"5k {label} rank {rank}: launches "
+                          f"{rec['launches']}, expected {want}")
+                    add(rec["launches"])
+                check(recs[0]["final_loss"] == recs[1]["final_loss"],
+                      f"5k {label}: the ranks report losses "
+                      f"{recs[0]['final_loss']} and {recs[1]['final_loss']}")
+                same = [a["digest"] == b["digest"]
+                        for a, b in zip(recs[0]["leaves"], recs[1]["leaves"])
+                        if a["replicated"]]
+                check(same and all(same), f"5k {label}: replicated leaves "
+                      f"differ between the ranks ({same.count(False)} of "
+                      f"{len(same)})")
+                out["runs"][label] = {
+                    "mesh": mesh or "default", "sp_attn": attn or None,
+                    "final_loss": [r["final_loss"] for r in recs],
+                    "loss_rel_err": abs(recs[0]["final_loss"] - one_loss)
+                    / abs(one_loss),
+                    "steps_per_sec": [r["steps_per_sec"] for r in recs],
+                    "wall_s": [r["wall_s"] for r in recs],
+                    "replicated_leaves": len(same),
+                    "launches": [r["launches"] for r in recs]}
+                out["stages_s"][label] = secs
+                log(f"5k {label}: {json.dumps(out['runs'][label])}")
+            saved, rec, secs = nccl.result()
         check(rec["backend"] == "nccl",
               f"5k nccl: backend {rec['backend']} ({rec['reason']})")
         check(rec["start_step"] == saved and rec["warmup_steps"] == 0
@@ -4287,12 +4451,496 @@ def gang_phase(root: str, dev, rng, adam_per_step: int, layers: int) -> dict:
             "saved_step": saved, "resumed_steps": rec["steps"],
             "final_loss": rec["final_loss"],
             "steps_per_sec": rec["steps_per_sec"]}
+        out["stages_s"]["nccl checkpoint"] = secs
         log(f"5k nccl: {json.dumps(out['nccl_checkpoint'])}")
-        lap("nccl checkpoint")
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    out["seconds"] = time.monotonic() - t_phase
+    out["seconds"] = (time.monotonic() - t_phase
+                      + sum(local["stages_s"].values()))
     return out
+
+
+# --- phase 5l: the autopilot's quota and the elastic plane ----------------------
+
+def _quota_reading(sched, proxy, steps: dict, seconds: float) -> dict:
+    """The borrower's and the lender's window share (scheduler's
+    ``window_usage``, sampled), the borrower's device share (the proxy's
+    execution ms) and steps/s, over ``seconds``."""
+    names = (QUOTA_LENDER[0], QUOTA_BORROWER[0])
+    b = QUOTA_BORROWER[0]
+    sess = proxy._sessions[b]
+    shares = {n: [] for n in names}
+    t0, ms0, n0 = time.monotonic(), sess.exec_ms_total, steps[b]
+    while time.monotonic() - t0 < seconds:
+        for n in names:
+            shares[n].append(sched.window_usage(n) / WINDOW_MS)
+        time.sleep(QUOTA_SAMPLE_S)
+    span = time.monotonic() - t0
+    return {"window_share": {n: sum(v) / len(v) for n, v in shares.items()},
+            "borrower_exec_share": (sess.exec_ms_total - ms0)
+            / (span * 1000.0),
+            "borrower_steps_per_sec": (steps[b] - n0) / span,
+            "seconds": span}
+
+
+def quota_phase(dev, adam_per_step: int, layers: int) -> dict:
+    """5l-quota: a ``ChipProxy`` on the card with the native-core token
+    scheduler (window WINDOW_MS) and an ``ElasticQuota`` attached to it;
+    two threaded ``ProxyClient``s train the full-width flash LM through
+    ``compile_loop`` + ``chain``: the lender (request 0.5, limit 1.0)
+    briefly, then idles; the borrower (0.25 / 0.25) all along. Read: the
+    borrower's share before lending, the grant (0.75 of the lender's
+    measured headroom), its share while lent (the quota stepping on a
+    cadence), the revocation inside the lender's first demand when it
+    trains again, and its share after. Launches: exactly the LM step's
+    per step of either client."""
+    import numpy as np
+
+    from kubeshare_tpu_torch.autopilot import ElasticQuota
+    from kubeshare_tpu_torch.autopilot import elastic as quota_mod
+    from kubeshare_tpu_torch.constants import BASE_QUOTA_MS, MIN_QUOTA_MS
+    from kubeshare_tpu_torch.isolation import programs
+    from kubeshare_tpu_torch.isolation.client import ProxyClient
+    from kubeshare_tpu_torch.isolation.proxy import ChipProxy
+    from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
+    from kubeshare_tpu_torch.models import transformer
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.monotonic()
+    lender, borrower = QUOTA_LENDER[0], QUOTA_BORROWER[0]
+    sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS)
+    proxy = ChipProxy(device=dev, scheduler=sched)
+    proxy.serve()
+    quota = ElasticQuota().attach("card", sched)
+    revokes0 = quota_mod._REVOKES.value("lender-demand")
+    # the counts go to 0 once both clients have compiled
+    ready = threading.Barrier(3, timeout=300, action=_reset_counts)
+    a_idle, a_resume, stop = (threading.Event() for _ in range(3))
+    steps = {lender: 0, borrower: 0}
+    losses: dict = {lender: [], borrower: []}
+    errors: dict = {}
+
+    def client(name: str, request: float, limit: float, seed: int) -> None:
+        try:
+            with ProxyClient("127.0.0.1", proxy.port, name, request,
+                             limit) as c:
+                carry = c.put_tree(programs.initial_carry(LM_SPEC, seed))
+                batch = c.put_tree(tuple(transformer.batch_fn(seed + 1)))
+                loop = c.compile_loop(LM_SPEC, carry, *batch)
+                ready.wait()
+
+                def chain():
+                    nonlocal carry
+                    carry, loss = loop.chain(QUOTA_CHAIN, carry, *batch)
+                    steps[name] += loop.last_n
+                    losses[name].append(float(c.get(loss)))
+                    c.free(loss)
+
+                if name == lender:
+                    t_end = time.monotonic() + QUOTA_WARM_S
+                    while time.monotonic() < t_end:
+                        chain()
+                    a_idle.set()
+                    check(a_resume.wait(300), "5l-quota: no resume")
+                while not stop.is_set():
+                    chain()
+                leaves = tree_leaves(c.get_tree(carry))
+                check(all(np.isfinite(x).all() for x in leaves),
+                      f"5l-quota {name}: carry not finite")
+        except BaseException:
+            errors[name] = traceback.format_exc()
+            ready.abort()
+            a_idle.set()
+
+    threads = [threading.Thread(target=client, args=(n, rq, lm, seed),
+                                name=n)
+               for (n, rq, lm), seed in ((QUOTA_LENDER, 30),
+                                         (QUOTA_BORROWER, 40))]
+    cadence_stop = threading.Event()
+    steps_seen: list = []
+
+    def cadence() -> None:
+        while not cadence_stop.wait(QUOTA_STEP_EVERY_S):
+            steps_seen.append(quota.step()["card"])
+
+    out: dict = {}
+    cad = threading.Thread(target=cadence, name="quota-cadence")
+    try:
+        for t in threads:
+            t.start()
+        ready.wait()
+        check(a_idle.wait(300) and not errors,
+              f"5l-quota: the clients failed: {errors}")
+        time.sleep(QUOTA_IDLE_S)
+        out["before"] = _quota_reading(sched, proxy, steps, QUOTA_READ_S)
+        # the grant: the lender's window usage read under the lock the
+        # step takes, so both see one window; taken while the borrower
+        # waits at its cap (it does most of the time), since a borrower
+        # mid-burst shows neither a wait nor the hold in progress
+        t0 = time.monotonic()
+        while True:
+            with sched._cond:
+                if (borrower in sched.waiting()
+                        or time.monotonic() - t0 > QUOTA_GRANT_WAIT_S):
+                    used = sched.window_usage(lender) / WINDOW_MS
+                    grant = quota.step()["card"]
+                    break
+            time.sleep(0.001)
+        headroom = QUOTA_LENDER[1] - used
+        out["grant"] = dict(grant, lender_usage=used, headroom=headroom,
+                            effective=sched.effective(borrower),
+                            base=sched.shares(),
+                            waited_s=time.monotonic() - t0)
+        cad.start()
+        time.sleep(QUOTA_SETTLE_S)
+        out["lent"] = _quota_reading(sched, proxy, steps, QUOTA_READ_S)
+        cadence_stop.set()
+        cad.join()
+        out["revocations_while_lent"] = quota.revocations
+        # the lender's demand returns: B must be at base inside the hook
+        hook = sched.on_demand
+        at_hook: list = []
+
+        def watch(name):
+            hook(name)
+            if name == lender and not at_hook:
+                at_hook.append((name, sched.effective(borrower),
+                                name in sched._held_since))
+
+        sched.on_demand = watch
+        a_resume.set()
+        _wait_for(lambda: at_hook, "5l-quota: the lender's demand", 60)
+        time.sleep(QUOTA_SETTLE_S)
+        out["after"] = _quota_reading(sched, proxy, steps, QUOTA_READ_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+            check(not t.is_alive(), f"5l-quota: {t.name} did not finish")
+        launches = _counts()
+    finally:
+        stop.set()
+        a_resume.set()
+        cadence_stop.set()
+        proxy.close()
+    check(not errors, f"5l-quota: the clients failed: {errors}")
+    snap = quota.snapshot()
+    base = out["grant"]["base"]
+    eff = out["grant"]["effective"]
+    lent = grant["lent"]
+    check(grant["lenders"] == [lender] and grant["borrowers"] == [borrower]
+          and abs(lent - quota.lend_frac * headroom) <= 1e-6
+          and abs(lent - 0.375) <= 0.02,
+          f"5l-quota: the grant {out['grant']}, wanted "
+          f"{quota.lend_frac} x headroom {headroom}")
+    check(base == {lender: QUOTA_LENDER[1:], borrower: QUOTA_BORROWER[1:]}
+          and abs(eff[0] - (QUOTA_BORROWER[1] + lent)) <= 1e-9
+          and abs(eff[1] - (QUOTA_BORROWER[2] + lent)) <= 1e-9,
+          f"5l-quota: effective {eff}, base {base}, lent {lent}")
+    check(out["revocations_while_lent"] == 0
+          and all(s["lent"] == lent for s in steps_seen),
+          f"5l-quota: the credit moved while lent: {steps_seen}")
+    share = {k: out[k]["window_share"][borrower]
+             for k in ("before", "lent", "after")}
+    check(share["lent"] > max(QUOTA_LENT_MIN,
+                              QUOTA_LENT_OVER * share["before"])
+          and share["after"] < share["lent"],
+          f"5l-quota: the borrower's window share before / lent / after "
+          f"{share}: not clearly above {QUOTA_LENT_MIN} and "
+          f"{QUOTA_LENT_OVER}x the share before while lent")
+    check(at_hook == [(lender, QUOTA_BORROWER[1:], False)],
+          f"5l-quota: inside the lender's first demand: {at_hook}")
+    revoked = quota_mod._REVOKES.value("lender-demand") - revokes0
+    check(quota.revocations == 1 and revoked == 1
+          and snap["chips"]["card"] == {},
+          f"5l-quota: revocations {quota.revocations} ({revoked} "
+          f"lender-demand), credits {snap['chips']}")
+    per_step = _launches_per_step(adam_per_step, layers)
+    n = steps[lender] + steps[borrower]
+    want = {k: v * n for k, v in per_step.items()}
+    check(launches == want,
+          f"5l-quota: launches {launches}, expected {want} for {n} steps")
+    for name, ls in losses.items():
+        check(ls and all(math.isfinite(x) for x in ls),
+              f"5l-quota {name}: losses {ls[:3]}")
+    out.update(share=share, reclaimed_ms=snap["reclaimed_ms"],
+               revocations=quota.revocations, at_hook=at_hook,
+               steps=steps, launches=launches, cadence_steps=len(steps_seen),
+               seconds=time.monotonic() - t_phase)
+    return out
+
+
+def _whole_leaves(tree) -> list:
+    """Every leaf of a tree laid out on a mesh, whole, as numpy on the
+    mesh's ranks (a collective over its axes); None elsewhere."""
+    from kubeshare_tpu_torch.elastic.restate import whole_leaf
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    wholes = [whole_leaf(x) for x in tree_leaves(tree)]
+    return [None if w is None else w.cpu().numpy().copy() for w in wholes]
+
+
+def elastic_member(out_path: str) -> int:
+    """A gang rank of 5l-elastic (the shim joined the gang at start-up):
+    the unresized reference on ranks [0, 1], then an ``ElasticTrainer`` of
+    the full-width flash LM on ranks [0, 1] resized 2 -> 4 -> 1 by rank
+    0's ``ElasticOrchestrator`` mid-run (the others follow its plans), then
+    grown back to 4 ranks and ``restate_via_checkpoint`` onto rank 0.
+    Writes its record to ``out_path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubeshare_tpu_torch.elastic import (ElasticConfig,
+                                             ElasticOrchestrator,
+                                             ElasticTrainer, recover,
+                                             restate_via_checkpoint)
+    from kubeshare_tpu_torch.elastic.sim import _gang_labels
+    from kubeshare_tpu_torch.elastic.trainer import (announce, announcing,
+                                                     follow)
+    from kubeshare_tpu_torch.models import transformer
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+    from kubeshare_tpu_torch.parallel import mesh as pmesh
+    from kubeshare_tpu_torch.parallel import runner
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    me = dist.get_rank()
+    base = os.path.dirname(os.path.abspath(out_path))
+    params = transformer.init(ELASTIC_SEED)
+    batches = [tuple(transformer.batch_fn(ELASTIC_SEED + 100 + i))
+               for i in range(ELASTIC_STEPS)]
+
+    def bank(k):
+        return list(range(k))
+
+    def run(tr, boundary=None) -> list:
+        recs = []
+        for i, b in enumerate(batches):
+            if boundary is not None:
+                boundary(i)
+            c0 = _counts()
+            loss = tr.train_step(b)
+            torch.cuda.synchronize()
+            c1 = _counts()
+            recs.append({"devices": tr.num_devices, "in_mesh": tr.in_mesh,
+                         "loss": loss,
+                         "launches": {k: c1[k] - c0[k] for k in c1}})
+        return recs
+
+    t0 = time.perf_counter()
+    ref = ElasticTrainer(transformer.flash_loss_fn, fused_adam(ELASTIC_LR),
+                         params, devices=bank(2))
+    ref_steps = run(ref)
+    ref_params = _whole_leaves(ref.params)
+    del ref
+    ref_s = time.perf_counter() - t0
+
+    tr = ElasticTrainer(transformer.flash_loss_fn, fused_adam(ELASTIC_LR),
+                        params, devices=bank(2))
+    resize_s: list = []
+    outcomes: list = []
+    orch = None
+    if me == 0:
+        from kubeshare_tpu_torch.scheduler.dispatcher import Dispatcher
+        from kubeshare_tpu_torch.scheduler.engine import SchedulerEngine
+        from kubeshare_tpu_torch.topology.discovery import FakeTopology
+
+        eng = SchedulerEngine()
+        by_host: dict = {}
+        for chip in FakeTopology(hosts=2, mesh=(2, 2)).chips():
+            by_host.setdefault(chip.host, []).append(chip)
+        for host, chips in sorted(by_host.items()):
+            eng.add_node(host, chips)
+        disp = Dispatcher(eng)
+        for i in range(ELASTIC_WORLD):
+            disp.submit("sim", f"trainer-{i}",
+                        _gang_labels(0.25, "trainer", ELASTIC_WORLD))
+        disp.step()
+        orch = ElasticOrchestrator(
+            disp, cfg=ElasticConfig(cooldown_s=0.0),
+            journal_path=os.path.join(base, "elastic.jsonl"))
+        # the members pack onto one chip; the job starts on two, as the
+        # sim's ramp starts it (no restater yet: the trainer is there)
+        start = orch.resize(ELASTIC_GANG, 2)
+        check(start["outcome"] == "applied",
+              f"5l: the gang's start on 2 chips: {start}")
+        inner = announcing(tr.restater(bank))
+
+        def restate(plan):
+            t = time.perf_counter()
+            inner(plan)
+            resize_s.append(time.perf_counter() - t)
+
+        orch.register_restater(ELASTIC_GANG, restate)
+
+    def boundary(i):
+        if me == 0:
+            if i in ELASTIC_PLAN:
+                outcomes.append(orch.resize(ELASTIC_GANG, ELASTIC_PLAN[i]))
+            announce(None)
+        else:
+            t = time.perf_counter()
+            if follow(tr, bank):
+                resize_s.append(time.perf_counter() - t)
+
+    t0 = time.perf_counter()
+    el_steps = run(tr, boundary)
+    el_s = time.perf_counter() - t0
+    final = _whole_leaves(tr.params)
+    rec = {"rank": me, "world": dist.get_world_size(),
+           "backend": runner.backend(), "reason": runner.backend_reason(),
+           "ref_steps": ref_steps, "steps": el_steps, "step": tr.step,
+           "resizes": [{"step": r["step"], "chips": r["chips"],
+                        "stats": r["stats"]} for r in tr.resizes],
+           "resize_s": resize_s, "ref_s": ref_s, "elastic_s": el_s}
+    elastic_resizes = len(tr.resizes)
+    if me == 0:
+        diffs = [np.abs(a - b) for a, b in zip(final, ref_params)]
+        rec.update(outcomes=outcomes,
+                   recover=recover(os.path.join(base, "elastic.jsonl")),
+                   param_max_abs_diff=max(float(d.max()) for d in diffs),
+                   param_mean_abs_diff=float(
+                       sum(d.sum(dtype=np.float64) for d in diffs)
+                       / sum(d.size for d in diffs)))
+    # the checkpoint path: the 4-rank state onto rank 0 through DCP
+    tr.resize(bank(ELASTIC_WORLD))
+    rec["regrow"] = tr.resizes[elastic_resizes]["stats"]
+    saved = _whole_leaves((tr.params, tr.opt_state))
+    t0 = time.perf_counter()
+    p1, s1, step = restate_via_checkpoint(
+        os.path.join(base, "ckpt"), tr.params, tr.opt_state,
+        pmesh.make_mesh(bank(1)), step=tr.step)
+    rec["checkpoint_s"] = time.perf_counter() - t0
+    restored = _whole_leaves((p1, s1))
+    if me == 0:
+        rec["checkpoint"] = {
+            "step": step, "leaves": len(saved),
+            "bit_equal": all(a.dtype == b.dtype and a.shape == b.shape
+                             and a.tobytes() == b.tobytes()
+                             for a, b in zip(saved, restored)),
+            "bytes": int(sum(a.nbytes for a in saved))}
+    rec["launches"] = _counts()
+    with open(out_path, "w") as f:
+        json.dump(rec, f, default=str)
+    return 0
+
+
+def _elastic_bytes(adam_per_step: int) -> dict:
+    """The hand count of one resize's restate: the LM's leaves and their
+    bytes, twice more for Adam's mu and nu, and its 4-byte count."""
+    import numpy as np
+
+    from kubeshare_tpu_torch.models import transformer
+    from kubeshare_tpu_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(transformer.init(0))
+    nbytes = sum(int(np.asarray(x).nbytes) for x in leaves)
+    return {"donated": 0, "resharded": 3 * len(leaves) + 1, "streamed": 0,
+            "bytes_donated": 0, "bytes_resharded": 3 * nbytes + 4,
+            "bytes_streamed": 0}
+
+
+def elastic_phase(root: str, adam_per_step: int, layers: int) -> dict:
+    """5l-elastic: ELASTIC_WORLD gang ranks on the one card (the gang env
+    and the shim, gloo), each this script's ``--elastic-member``; rank 0's
+    orchestrator resizes the flash LM 2 -> 4 -> 1 ranks mid-run. Held to
+    the unresized run, the hand count of the restate, the journal's
+    recovery, the kernels' launches a rank a step, and a bit-exact
+    checkpoint restate."""
+    t_phase = time.monotonic()
+    base = tempfile.mkdtemp(prefix="kubeshare-elastic-")
+    try:
+        recs = _gang_run(root, base, "elastic", ELASTIC_WORLD, {}, [],
+                         mode="--elastic-member", phase="5l")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    per_step = _launches_per_step(adam_per_step, layers)
+    none = {k: 0 for k in per_step}
+    want_stats = _elastic_bytes(adam_per_step)
+    r0 = recs[0]
+    # read before any check, so that a failing run still shows them
+    log(f"5l-elastic: losses {[x['loss'] for x in r0['steps']]} against "
+        f"the unresized run's {[x['loss'] for x in r0['ref_steps']]}; final "
+        f"params mean abs diff {r0['param_mean_abs_diff']:.3e}, max "
+        f"{r0['param_max_abs_diff']:.3e}")
+    for rec in recs:
+        rank = rec["rank"]
+        check(rec["backend"] == "gloo" and "share device" in rec["reason"],
+              f"5l rank {rank}: backend {rec['backend']} ({rec['reason']})")
+        check(rec["step"] == ELASTIC_STEPS
+              and [(r["step"], r["chips"]) for r in rec["resizes"]]
+              == list(ELASTIC_PLAN.items()),
+              f"5l rank {rank}: step {rec['step']}, resizes "
+              f"{[(r['step'], r['chips']) for r in rec['resizes']]}")
+        check(all(r["stats"] == want_stats for r in rec["resizes"])
+              and rec["regrow"] == want_stats,
+              f"5l rank {rank}: restate stats "
+              f"{[r['stats'] for r in rec['resizes']]}, hand count "
+              f"{want_stats}")
+        for run in ("ref_steps", "steps"):
+            for i, st in enumerate(rec[run]):
+                want = per_step if st["in_mesh"] else none
+                check(st["launches"] == want
+                      and st["in_mesh"] == (rank < st["devices"]),
+                      f"5l rank {rank} {run}[{i}] on {st['devices']} "
+                      f"devices: launches {st['launches']}, expected {want}")
+    check([(o["outcome"], o["from_chips"], o["to_chips"])
+           for o in r0["outcomes"]]
+          == [("applied", 2, 4), ("applied", 4, 1)],
+          f"5l: resizes {r0['outcomes']}")
+    for i, (a, b) in enumerate(zip(r0["steps"], r0["ref_steps"])):
+        check(math.isfinite(a["loss"])
+              and abs(a["loss"] - b["loss"])
+              <= GANG_LOSS_RTOL * abs(b["loss"]),
+              f"5l: step {i} loss {a['loss']} against the unresized "
+              f"run's {b['loss']}")
+    check(r0["param_mean_abs_diff"] <= ELASTIC_PARAM_MEAN_ATOL,
+          f"5l: final params {r0['param_mean_abs_diff']} from the "
+          f"unresized run's on average (bound {ELASTIC_PARAM_MEAN_ATOL})")
+    rec_ = r0["recover"].get(ELASTIC_GANG, {})
+    check(rec_.get("mesh") == "new" and len(rec_.get("chips") or []) == 1,
+          f"5l: recover(journal) {r0['recover']}")
+    ck = r0["checkpoint"]
+    check(ck["bit_equal"] and ck["step"] == ELASTIC_STEPS
+          and ck["leaves"] == want_stats["resharded"],
+          f"5l: restate_via_checkpoint {ck}")
+    launches = {k: sum(r["launches"][k] for r in recs) for k in per_step}
+    return {
+        "outcomes": [{k: o.get(k) for k in ("from_chips", "to_chips",
+                                            "outcome", "pause_s")}
+                     for o in r0["outcomes"]],
+        "losses": [s["loss"] for s in r0["steps"]],
+        "ref_losses": [s["loss"] for s in r0["ref_steps"]],
+        "loss_max_rel_err": max(
+            abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            for a, b in zip(r0["steps"], r0["ref_steps"])),
+        "param_max_abs_diff": r0["param_max_abs_diff"],
+        "param_mean_abs_diff": r0["param_mean_abs_diff"],
+        "stats": want_stats, "recover": rec_, "checkpoint": ck,
+        "resize_s": [r["resize_s"] for r in recs],
+        "checkpoint_s": [r["checkpoint_s"] for r in recs],
+        "ref_s": [r["ref_s"] for r in recs],
+        "elastic_s": [r["elastic_s"] for r in recs],
+        "launches": launches,
+        "launches_by_rank": [r["launches"] for r in recs],
+        "seconds": time.monotonic() - t_phase}
+
+
+def side_by_side_phase(root: str, local: dict, adam_per_step: int,
+                       layers: int) -> dict:
+    """5j-cli (:func:`sweep_phase`), 5k's gangs (:func:`gang_phase`, after
+    :func:`gang_local`) and 5l-elastic (:func:`elastic_phase`), all
+    started together: each checks correctness, its processes count their
+    own launches, and their start-ups, not the card, take their time.
+    Returns the three phases' results and the seconds of the whole."""
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(2) as pool:
+        sweep = pool.submit(sweep_phase, root)
+        elastic = pool.submit(elastic_phase, root, adam_per_step, layers)
+        gang = gang_phase(root, local, adam_per_step, layers)
+        return {"sweep": sweep.result(), "gang": gang,
+                "elastic": elastic.result(),
+                "seconds": time.monotonic() - t0}
 
 
 def main(argv=None) -> int:
@@ -4313,6 +4961,9 @@ def main(argv=None) -> int:
                         help="run the transformer's CLI with the arguments "
                              "after '--' as a gang member, writing its "
                              "record here (JSON)")
+    parser.add_argument("--elastic-member", default="",
+                        help="run as a rank of phase 5l's elastic gang, "
+                             "writing its record here (JSON)")
     argv = list(sys.argv[1:] if argv is None else argv)
     member_args = []
     if "--" in argv:
@@ -4348,6 +4999,8 @@ def main(argv=None) -> int:
         return tenant(args.tenant, args.seconds, args.seed, False)
     if args.gang_member:
         return gang_member(args.gang_member, member_args)
+    if args.elastic_member:
+        return elastic_member(args.elastic_member)
     import numpy as np
 
     # full fp32 on the card wherever numbers are compared: cuDNN convs
@@ -4361,6 +5014,14 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
     out: dict = {"card": card}
+    phase_s: dict = {}
+    t_mark = [t_start]
+
+    def mark(name: str) -> None:
+        """Close a stretch of the run: its wall seconds since the last."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -4440,6 +5101,8 @@ def main(argv=None) -> int:
     log(f"transformer train step card vs cpu: "
         f"{out['transformer_step_check']}")
 
+    mark("start-up, builds, kernel checks")
+
     # --- main paths: counts from 0 before each, read after each ---------
     phases: dict = {}
     # fused Adam launches one optimizer step makes over each model's tree
@@ -4491,6 +5154,7 @@ def main(argv=None) -> int:
     launches = {k: sum(p[m]["launches"][k] for p in phases.values()
                        for m in ("exclusive", "colocated"))
                 for k in _counts()}
+    mark("5a-5d")
 
     # the gate pair: tenant processes, each counting its own launches
     gate = gate_phase(root, adam_launches["transformer"], transformer.LAYERS)
@@ -4511,6 +5175,7 @@ def main(argv=None) -> int:
     phases["gate"] = gate
     for k in launches:
         launches[k] += gate["launches"][k]
+    mark("5e")
 
     # the proxy-mode pair: tenant processes with no CUDA device, their
     # compiled steps run on a proxy in this process, counted here
@@ -4561,6 +5226,7 @@ def main(argv=None) -> int:
     phases["proxy"] = prox
     for k in launches:
         launches[k] += prox["launches"][k]
+    mark("5f")
 
     # the proxy survives and streams: the looped step, then a tenant
     # through a proxy crash and a live migration, counted here
@@ -4596,6 +5262,7 @@ def main(argv=None) -> int:
     phases["resilience"] = {"loop": g_loop, "resume": g_res}
     for k in launches:
         launches[k] += g_loop["launches"][k] + g_res["launches"][k]
+    mark("5g")
 
     # latency-class serving beside a best-effort trainer, counted here
     h = serve_phase(dev, per_step, g_loop["one_call_losses"])
@@ -4616,6 +5283,7 @@ def main(argv=None) -> int:
     phases["serving"] = h
     for k in launches:
         launches[k] += h["launches"][k]
+    mark("5h")
 
     # a pod from its labels to the card: the placement path's daemons as
     # processes, the engine here; the tenants count their own launches
@@ -4627,10 +5295,12 @@ def main(argv=None) -> int:
     phases["placement"] = place
     for k in launches:
         launches[k] += place["launches"][k]
+    mark("5i")
 
     # the zoo: the JAX package's other workload models at full width, in
-    # this process, then the resumable sweep's CLI through a node
-    zoo = zoo_phase(root, dev, rng)
+    # this process (the resumable sweep's CLI through a node runs later,
+    # beside 5k)
+    zoo = zoo_phase(dev, rng)
     for label, rec in zoo["models"].items():
         log(f"5j {label} ({rec['leaves']} leaves, {rec['params']} params, "
             f"{rec['adam_per_step']} Adam launch(es) a step): card vs cpu "
@@ -4654,7 +5324,50 @@ def main(argv=None) -> int:
         f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"torch._fused_adam_ {r['library_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    sw = zoo["sweep"]
+    log(f"5j: {zoo['seconds']:.1f} s in all (5j-cli below); by stage s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in zoo["stages_s"].items())
+        + f"; launches {zoo['launches']}")
+    phases["zoo"] = zoo
+    for k in launches:
+        launches[k] += zoo["launches"][k]
+    mark("5j")
+
+    # 5k's part in this process: the lse cotangent, the one-process run
+    gang_here = gang_local(dev, rng)
+    mark("5k (in this process)")
+
+    # the autopilot's quota lending on the card's token scheduler, counted
+    # here
+    quota = quota_phase(dev, adam_launches["transformer"], transformer.LAYERS)
+    for k in ("before", "lent", "after"):
+        r = quota[k]
+        log(f"5l-quota {k}: borrower window share "
+            f"{r['window_share'][QUOTA_BORROWER[0]]:.4f} (lender "
+            f"{r['window_share'][QUOTA_LENDER[0]]:.4f}), device share "
+            f"{r['borrower_exec_share']:.4f}, "
+            f"{r['borrower_steps_per_sec']:.3f} steps/s over "
+            f"{r['seconds']:.2f} s")
+    g = quota["grant"]
+    log(f"5l-quota: lent {g['lent']} of the window = {QUOTA_LENDER[0]}'s "
+        f"headroom {g['headroom']:.6f} (usage {g['lender_usage']:.6f}) x "
+        f"0.75; borrower effective {g['effective']}, base {g['base']}; "
+        f"{quota['cadence_steps']} cadence steps held it; inside the "
+        f"lender's first demand {quota['at_hook']}; revocations "
+        f"{quota['revocations']}, reclaimed {quota['reclaimed_ms']} "
+        f"device-ms; steps {quota['steps']}; launches {quota['launches']}; "
+        f"{quota['seconds']:.1f} s")
+    phases["quota"] = quota
+    for k in launches:
+        launches[k] += quota["launches"][k]
+    mark("5l-quota")
+
+    # then the paths of processes that count their own launches and check
+    # correctness alone, side by side: the sweep through a node, 5k's
+    # gangs, 5l-elastic's ranks
+    side = side_by_side_phase(root, gang_here, adam_launches["transformer"],
+                              transformer.LAYERS)
+    sw = zoo["sweep"] = side["sweep"]
+    zoo["stages_s"]["sweep"] = sw["seconds"]
     log(f"5j-cli: cifar10 --steps {SWEEP_STEPS} --checkpoint-every "
         f"{SWEEP_EVERY} as gate-mode tenant {SWEEP_POD[0]}: SIGKILLed "
         f"after the promoted save of step {sw['saved_step']} (charged "
@@ -4667,17 +5380,7 @@ def main(argv=None) -> int:
         f"final params max abs diff {sw['param_max_abs_diff']:.3e}; "
         f"stages s " + ", ".join(
             f"{k} {v:.1f}" for k, v in sw["stages_s"].items()))
-    log(f"5j: {zoo['seconds']:.1f} s in all; by stage s " + ", ".join(
-        f"{k} {v:.1f}" for k, v in zoo["stages_s"].items())
-        + f"; launches {zoo['launches']}")
-    phases["zoo"] = zoo
-    for k in launches:
-        launches[k] += zoo["launches"][k]
-
-    # gangs: the lse cotangent here, then the LM's CLI as gang members
-    # (each rank counts its own launches), held to one process here
-    gang = gang_phase(root, dev, rng, adam_launches["transformer"],
-                      transformer.LAYERS)
+    gang = side["gang"]
     for label, r in gang["runs"].items():
         log(f"5k {label} ({r['mesh']}, sp attention {r['sp_attn']}): "
             f"final loss {r['final_loss']} against one process's "
@@ -4701,7 +5404,29 @@ def main(argv=None) -> int:
     phases["gang"] = gang
     for k in launches:
         launches[k] += gang["launches"][k]
-    out.update(phases=phases, launches=launches,
+
+    el = side["elastic"]
+    log(f"5l-elastic: {ELASTIC_WORLD} gloo ranks on the card, the flash LM "
+        f"resized " + ", ".join(
+            f"{o['from_chips']} -> {o['to_chips']} {o['outcome']} "
+            f"(pause {o['pause_s']:.3f} s)" for o in el["outcomes"])
+        + f"; {ELASTIC_STEPS} steps, losses max rel err "
+        f"{el['loss_max_rel_err']:.2e} against the unresized run "
+        f"({el['losses'][-1]!r} vs {el['ref_losses'][-1]!r}); final params "
+        f"mean abs diff {el['param_mean_abs_diff']:.3e} (bound "
+        f"{ELASTIC_PARAM_MEAN_ATOL}; max {el['param_max_abs_diff']:.3e}); "
+        f"each restate {el['stats']}; recover {el['recover']}; restate "
+        f"seconds by rank {el['resize_s']}; checkpoint onto one rank "
+        f"{el['checkpoint']} in {el['checkpoint_s'][0]:.2f} s; wall s by "
+        f"rank: reference {el['ref_s']}, elastic {el['elastic_s']}; "
+        f"launches by rank {el['launches_by_rank']}; "
+        f"{el['seconds']:.1f} s")
+    phases["elastic"] = el
+    for k in launches:
+        launches[k] += el["launches"][k]
+    log(f"5j-cli, 5k and 5l-elastic side by side: {side['seconds']:.1f} s")
+    mark("5j-cli, 5k, 5l-elastic")
+    out.update(phases=phases, launches=launches, phase_s=phase_s,
                seconds=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -4724,6 +5449,8 @@ def main(argv=None) -> int:
             "max_abs_err": flash_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log("seconds by stretch: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"seconds: {out['seconds']:.1f}")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

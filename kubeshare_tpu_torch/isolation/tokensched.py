@@ -39,8 +39,11 @@ from ..obs import prof as obs_prof
 from ..obs import slo as obs_slo
 from ..obs.flight import default_recorder as flight_default_recorder
 from ..obs.trace import get_tracer
+from ..utils.logger import get_logger
 from . import protocol
 from .native import load_library
+
+log = get_logger("tokensched")
 
 _INF = float("inf")
 
@@ -388,6 +391,13 @@ class TokenScheduler:
         #: regardless of stride order
         self._boost: deque = deque()
         self._hold_quota: dict[str, float] = {}   # name -> granted quota
+        #: demand hook (the autopilot's elastic quota): called as
+        #: ``on_demand(name)`` under the lock the moment a client asks
+        #: for the token, BEFORE the grant decision, so a lender whose
+        #: demand returns has its credit revoked within that same token
+        #: cycle. Its exceptions are logged and swallowed: quota policy
+        #: must never break the data path.
+        self.on_demand = None
 
     @property
     def core(self):
@@ -492,6 +502,7 @@ class TokenScheduler:
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             self._core.request_token(name)
+            self._note_demand(name)
             return self._wait_noted(name, deadline, trace_id)
 
     def renew(self, name: str, used_ms: float,
@@ -508,6 +519,7 @@ class TokenScheduler:
             self._core.release_token(name, used_ms, self._clock())
             self._note_release(name, used_ms)
             self._core.request_token(name)
+            self._note_demand(name)
             self._cond.notify_all()
             return self._wait_noted(name, deadline, trace_id)
 
@@ -657,6 +669,15 @@ class TokenScheduler:
         return max(0.001, due)
 
     # -- internals -----------------------------------------------------------
+
+    def _note_demand(self, name: str) -> None:
+        # caller holds self._cond, right after request_token
+        if self.on_demand is None:
+            return
+        try:
+            self.on_demand(name)
+        except Exception:
+            log.exception("on_demand hook failed for %s", name)
 
     def _wait_noted(self, name: str, deadline: float | None,
                     trace_id: str) -> float:

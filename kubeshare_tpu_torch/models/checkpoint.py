@@ -329,6 +329,10 @@ def _template(like) -> torch.Tensor:
     DTensor, an empty host DTensor of its shard and layout."""
     from torch.distributed.tensor import DTensor
 
+    if isinstance(like, DTensor) and like.dim() == 0:
+        # a scalar is replicated: read it whole (on a rank outside the
+        # mesh DTensor would take its empty shape as none given)
+        return torch.empty((), dtype=like.dtype)
     if isinstance(like, DTensor):
         local = torch.empty(tuple(like.to_local().shape), dtype=like.dtype)
         return DTensor.from_local(local, _host_mesh(like.device_mesh),
@@ -346,7 +350,8 @@ def _restored(t: torch.Tensor, like):
     from torch.distributed.tensor import DTensor
 
     if isinstance(like, DTensor):
-        local = t.to_local().to(like.to_local().device)
+        local = (t.to_local() if isinstance(t, DTensor) else t).to(
+            like.to_local().device)
         return DTensor.from_local(local, like.device_mesh, like.placements,
                                   run_check=False, shape=like.shape,
                                   stride=like.stride())

@@ -23,12 +23,19 @@ API (JSON):
 - ``GET  /state``     engine snapshot (nodes, leaves, pods)
 - ``GET  /health``    per-node liveness states + shed/evicted totals
   (doc/health.md; empty when the health plane is off)
-- ``GET  /autopilot``, ``GET /rightsize``, ``GET /elastic`` answer
-  ``{"attached": false, "enabled": false}``, and their POSTs
-  (``/autopilot/plan``, ``/autopilot/apply``, ``/rightsize/plan``,
-  ``/rightsize/apply``, ``/elastic/resize``) 409: the port has no
-  autopilot, rightsizer or elastic plane yet, and the JAX service
-  answers so when they are detached
+- ``GET  /autopilot`` fragmentation score + move/credit state
+  (doc/autopilot.md; ``{"attached": false, "enabled": false}`` when the
+  plane is off)
+- ``POST /autopilot/plan``   dry-run: emit a migration plan, touch nothing
+- ``POST /autopilot/apply``  plan + execute one cycle (409 when detached)
+- ``GET  /elastic``   elastic training plane: per-gang mesh, last resize,
+  pause percentiles, cooldowns (doc/elastic.md; detached as above)
+- ``POST /elastic/resize``  {"gang","target_chips"{,"reason"}} → 200
+  applied or noop, 409 refused / rolled back / detached
+- ``GET  /rightsize`` answers ``{"attached": false, "enabled": false}``
+  and its POSTs (``/rightsize/plan``, ``/rightsize/apply``) 409: the
+  port has no rightsizer yet, and the JAX service answers so when it is
+  detached
 - ``GET  /serving``   serving front-door join view: per-tenant queues,
   admit/shed totals, batch stats (doc/serving.md; ``{"attached":
   false}`` when no front door is wired)
@@ -83,32 +90,23 @@ log = get_logger("schedsvc")
 #: the JAX service's planes the port has not ported yet (ROADMAP.md,
 #: queue 1), each with what it needs and the queue item that ports it
 UNPORTED = {
-    "autopilot": "the autopilot plane (autopilot/), not ported yet: "
-                 "ROADMAP queue 1 item 6",
     "rightsize": "the capacity rightsizer (rightsize/), not ported yet: "
                  "ROADMAP queue 1 item 6",
-    "elastic": "the elastic training plane (elastic/), not ported yet: "
-               "ROADMAP queue 1 item 5",
 }
 
 #: the JAX CLI's flags of those planes: any use of one exits 2 naming
-#: its plane
+#: its plane. ``--elastic-grow`` acts only through the rightsizer.
 UNPORTED_FLAGS = {
-    "--autopilot": "autopilot", "--autopilot-budget": "autopilot",
-    "--autopilot-journal": "autopilot",
     "--rightsize": "rightsize", "--rightsize-journal": "rightsize",
-    "--elastic": "elastic", "--elastic-journal": "elastic",
-    "--elastic-grow": "elastic",
+    "--elastic-grow": "rightsize",
 }
 
 
-#: POST endpoints of detached planes and the JAX service's 409 body
+#: POST endpoints of the rightsizer, never attached, and the JAX
+#: service's 409 body for them
 DETACHED_POSTS = {
-    "/autopilot/plan": "autopilot not attached",
-    "/autopilot/apply": "autopilot not attached",
     "/rightsize/plan": "rightsizer not attached",
     "/rightsize/apply": "rightsizer not attached",
-    "/elastic/resize": "elastic not attached",
 }
 
 
@@ -195,6 +193,10 @@ class SchedulerService:
         self.standby = None
         self._ha_thread: threading.Thread | None = None
         self._ha_stop = threading.Event()
+        # the autopilot and elastic planes: None until attached, and
+        # their GETs answer detached
+        self.autopilot = None
+        self.elastic = None
 
     def start_remote_write(self, instance: str | None = None,
                            job: str = "scheduler",
@@ -218,6 +220,20 @@ class SchedulerService:
         """Wire a serving :class:`~..serving.FrontDoor` (doc/serving.md);
         exposes its join view on ``/serving``."""
         self.serving = frontdoor
+        return self
+
+    def attach_autopilot(self, autopilot) -> "SchedulerService":
+        """Wire an :class:`~..autopilot.Autopilot` built over
+        ``self.dispatcher`` (doc/autopilot.md); exposes it on
+        ``/autopilot``."""
+        self.autopilot = autopilot
+        return self
+
+    def attach_elastic(self, orchestrator) -> "SchedulerService":
+        """Wire an :class:`~..elastic.ElasticOrchestrator` built over
+        ``self.dispatcher`` (doc/elastic.md); exposes it on ``/elastic``
+        (GET = snapshot, POST /elastic/resize)."""
+        self.elastic = orchestrator
         return self
 
     def attach_standby(self, holder: str, ttl_s: float = 5.0,
@@ -304,9 +320,22 @@ class SchedulerService:
 
     @staticmethod
     def detached_state() -> dict:
-        """``GET /autopilot``, ``/rightsize`` and ``/elastic``: the JAX
-        service's body for a detached plane."""
+        """The JAX service's body for a detached plane (``GET
+        /rightsize`` always, ``/autopilot`` and ``/elastic`` until
+        attached)."""
         return {"attached": False, "enabled": False}
+
+    def autopilot_state(self) -> dict:
+        """``GET /autopilot`` body; cheap when no autopilot is wired."""
+        if self.autopilot is None:
+            return self.detached_state()
+        return self.autopilot.snapshot()
+
+    def elastic_state(self) -> dict:
+        """``GET /elastic`` body; cheap when no orchestrator is wired."""
+        if self.elastic is None:
+            return self.detached_state()
+        return self.elastic.snapshot()
 
     def serving_state(self) -> dict:
         """``GET /serving`` body; cheap when no front door is wired."""
@@ -531,7 +560,11 @@ class SchedulerService:
                     return self._reply(200, svc.state())
                 if self.path == "/health":
                     return self._reply(200, svc.health())
-                if self.path in ("/autopilot", "/rightsize", "/elastic"):
+                if self.path == "/autopilot":
+                    return self._reply(200, svc.autopilot_state())
+                if self.path == "/elastic":
+                    return self._reply(200, svc.elastic_state())
+                if self.path == "/rightsize":
                     return self._reply(200, svc.detached_state())
                 if self.path == "/serving":
                     return self._reply(200, svc.serving_state())
@@ -577,6 +610,27 @@ class SchedulerService:
                                    body.get("node", ""),
                                    body.get("uid", ""))
                         return self._reply(200, {"ok": True})
+                    if self.path == "/autopilot/plan":
+                        if svc.autopilot is None:
+                            return self._reply(
+                                409, {"error": "autopilot not attached"})
+                        return self._reply(200,
+                                           {"plan": svc.autopilot.plan()})
+                    if self.path == "/autopilot/apply":
+                        if svc.autopilot is None:
+                            return self._reply(
+                                409, {"error": "autopilot not attached"})
+                        return self._reply(200, svc.autopilot.cycle())
+                    if self.path == "/elastic/resize":
+                        if svc.elastic is None:
+                            return self._reply(
+                                409, {"error": "elastic not attached"})
+                        out = svc.elastic.resize(
+                            body["gang"], int(body["target_chips"]),
+                            reason=body.get("reason", "operator"))
+                        code = (200 if out.get("outcome")
+                                in ("applied", "noop") else 409)
+                        return self._reply(code, out)
                     if self.path in DETACHED_POSTS:
                         return self._reply(
                             409, {"error": DETACHED_POSTS[self.path]})
@@ -686,6 +740,24 @@ def main(argv=None) -> None:
                              "discovery when omitted); the file is watched "
                              "and the process exits on change for a clean "
                              "rebuild (config.go:122-136 parity)")
+    parser.add_argument("--autopilot", action="store_true",
+                        help="attach the autopilot plane: /autopilot "
+                             "snapshot + explicit plan/apply endpoints "
+                             "(doc/autopilot.md)")
+    parser.add_argument("--autopilot-budget", type=int, default=8,
+                        help="autopilot per-cycle migration budget")
+    parser.add_argument("--autopilot-journal", default="",
+                        help="JSONL move journal path (crash-safe batch "
+                             "recovery); empty = no journal")
+    parser.add_argument("--elastic", action="store_true",
+                        help="attach the elastic SPMD training plane: "
+                             "live gang sub-mesh grow/shrink on "
+                             "/elastic + /elastic/resize "
+                             "(doc/elastic.md)")
+    parser.add_argument("--elastic-journal", default="",
+                        help="elastic resize JSONL journal path (the "
+                             "crash-recovery commit log); empty = no "
+                             "journal")
     parser.add_argument("--flight-dump-dir", default="",
                         help="persist flight-recorder black-box dumps as "
                              "JSONL files here (in-memory only when empty)")
@@ -759,6 +831,32 @@ def main(argv=None) -> None:
                      if args.health else None),
         max_pending=args.max_pending or None,
         shards=args.shards, shard_route=args.shard_route)
+    cooldowns = None
+    if args.autopilot or args.elastic:
+        # the cooldown rail is SHARED: a pod the autopilot just moved
+        # must not be elastically re-homed at once, and vice versa — one
+        # ledger backs both planes
+        from ..autopilot import CooldownLedger
+
+        cooldowns = CooldownLedger()
+    if args.autopilot:
+        from ..autopilot import Autopilot, Planner, Rebalancer
+
+        planner = Planner(svc.dispatcher, budget=args.autopilot_budget,
+                          cooldowns=cooldowns)
+        rebalancer = Rebalancer(svc.dispatcher, planner=planner,
+                                journal_path=(args.autopilot_journal
+                                              or None),
+                                gang_coordinator=svc.gangcoord)
+        svc.attach_autopilot(Autopilot(
+            svc.dispatcher, planner=planner, rebalancer=rebalancer))
+    if args.elastic:
+        from ..elastic import ElasticOrchestrator
+
+        svc.attach_elastic(ElasticOrchestrator(
+            svc.dispatcher, gang_coordinator=svc.gangcoord,
+            cooldowns=cooldowns,
+            journal_path=(args.elastic_journal or None)))
     if args.preempt:
         from ..preempt import PreemptionPolicy
 

@@ -4,11 +4,12 @@
     python3 scripts/torch_gang_runs.py [--out result.json]
 
 Needs one CUDA card and runs from anywhere in a checkout. It builds the
-kernels, then runs ``chip_smoke.gang_phase``: ``flash_attention_lse``
-with nonzero cotangents for O and the lse against the plain versions;
-four two-rank gangs of the LM's CLI on the one card (dp = 2; sp = 2 with
-ring-flash and with Ulysses-flash; tp = 2), each held to one process's
-loss, its replicated leaves equal on both ranks and its flash launches
+kernels, then runs ``chip_smoke.gang_local`` (``flash_attention_lse``
+with nonzero cotangents for O and the lse against the plain versions,
+and the one-process run), then ``chip_smoke.gang_phase``, whose five
+gangs start together: four two-rank gangs of the LM's CLI on the one
+card (dp = 2; sp = 2 with ring-flash and with Ulysses-flash; tp = 2),
+each held to one process's loss, its replicated leaves equal on both ranks and its flash launches
 counted by rank; and a one-rank NCCL gang with a checkpoint, SIGKILLed
 after a save and resumed. Every check is the smoke's. Prints one JSON
 object as its last line.
@@ -48,9 +49,8 @@ def main(argv=None) -> int:
     cs.log(f"card: {card}")
     with ThreadPoolExecutor(len(cs.KERNELS)) as pool:
         list(pool.map(cs._timed_build, cs.KERNELS))
-    gang = cs.gang_phase(ROOT, torch.device("cuda", 0),
-                         np.random.default_rng(0),
-                         fa.tree_launches(transformer.init(0)),
+    local = cs.gang_local(torch.device("cuda", 0), np.random.default_rng(0))
+    gang = cs.gang_phase(ROOT, local, fa.tree_launches(transformer.init(0)),
                          transformer.LAYERS)
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "gang": gang}

@@ -10,9 +10,10 @@ depth, VGG-16, the LSTM LM and the mixture-of-experts LM with flash
 attention) one train step on the card against the CPU, the fused-Adam
 kernel against its plain version over the model's whole tree, an
 exclusive run through ``run_training`` and a profiled one (wall and
-device ms a step, idle share, kernels a step); then the resumable
-sweep, cifar10's CLI as a gate-mode tenant SIGKILLed after its first
-promoted save and started again. Every check is the smoke's. Prints
+device ms a step, idle share, kernels a step); then
+``chip_smoke.sweep_phase``, the resumable sweep: cifar10's CLI as a
+gate-mode tenant SIGKILLed after its first promoted save and started
+again. Every check is the smoke's. Prints
 one JSON object as its last line.
 """
 
@@ -48,8 +49,8 @@ def main(argv=None) -> int:
     cs.log(f"card: {card}")
     with ThreadPoolExecutor(len(cs.KERNELS)) as pool:
         list(pool.map(cs._timed_build, cs.KERNELS))
-    zoo = cs.zoo_phase(ROOT, torch.device("cuda", 0),
-                       np.random.default_rng(0))
+    zoo = cs.zoo_phase(torch.device("cuda", 0), np.random.default_rng(0))
+    zoo["sweep"] = cs.sweep_phase(ROOT)
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "zoo": zoo}
     if args.out:

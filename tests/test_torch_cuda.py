@@ -986,3 +986,76 @@ def test_a_two_rank_ring_flash_step_on_card_matches_one_process(cuda):
         assert rec["backend"] == "gloo"
         assert rec["loss"] == pytest.approx(one.final_loss, rel=2e-3)
         assert rec["fwd"] == transformer.LAYERS * (1 + rank) * 4
+
+
+_ELASTIC_RANK = """
+import json
+import numpy as np
+from kubeshare_tpu_torch.elastic import ElasticTrainer
+from kubeshare_tpu_torch.elastic.restate import whole_leaf
+from kubeshare_tpu_torch.models import transformer
+from kubeshare_tpu_torch.ops import flash_attention as fl
+from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+from kubeshare_tpu_torch.parallel import runner
+from kubeshare_tpu_torch.utils.tree import tree_leaves
+assert runner.distributed_init_from_env()
+
+def whole(tree):
+    wholes = [whole_leaf(x) for x in tree_leaves(tree)]
+    return [None if w is None else w.cpu().numpy().tobytes() for w in wholes]
+
+tr = ElasticTrainer(transformer.flash_loss_fn, fused_adam(1e-3),
+                    transformer.init(3), devices=[0])
+tr.train_step(tuple(transformer.batch_fn(4)))
+before = whole((tr.params, tr.opt_state))
+same, fwd = [], []
+for ranks in ([0, 1], [1]):
+    rec = tr.resize(ranks)
+    after = whole((tr.params, tr.opt_state))
+    if None not in before and None not in after:
+        same.append(before == after)
+    fl.reset_launches()
+    tr.train_step(tuple(transformer.batch_fn(5 + len(ranks))))
+    fwd.append(fl.launches["fwd"])
+    before = whole((tr.params, tr.opt_state))
+print("RESULT", json.dumps({"same": same, "fwd": fwd, "step": tr.step,
+                            "stats": rec["stats"],
+                            "backend": runner.backend()}))
+"""
+
+
+def test_an_elastic_resize_on_card_keeps_the_state_and_runs_flash(cuda):
+    """Two ranks on the one card (gloo) hold the flash LM's
+    ``ElasticTrainer``: grown from rank 0 to ranks [0, 1] and shrunk onto
+    rank 1 alone, the state a rank held before each resize comes back bit
+    for bit, and only the ranks in the mesh launch the flash forward,
+    once a layer a step."""
+    import json
+
+    from kubeshare_tpu_torch.utils.virtualcpu import free_port
+
+    port = free_port()
+    root = Path(__file__).resolve().parent.parent
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, KUBESHARE_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   KUBESHARE_TPU_NUM_PROCESSES="2",
+                   KUBESHARE_TPU_PROCESS_ID=str(rank),
+                   KUBESHARE_TPU_RENDEZVOUS_TIMEOUT_S="120",
+                   PYTHONPATH=str(root))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _ELASTIC_RANK], env=env, cwd=str(root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=300) for p in procs]
+    got = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        got.append(json.loads(out.split("RESULT", 1)[1]))
+    layers = transformer.LAYERS
+    # rank 0 compares across the grow, rank 1 across the shrink
+    assert [r["same"] for r in got] == [[True], [True]]
+    assert [r["fwd"] for r in got] == [[layers, 0], [layers, layers]]
+    for rec in got:
+        assert rec["backend"] == "gloo" and rec["step"] == 3
+        assert rec["stats"]["resharded"] == 3 * len(
+            tree_leaves(transformer.init(0))) + 1

@@ -81,6 +81,18 @@ def test_port_sources_exist():
                  "kubeshare_tpu_torch/parallel/pipeline.py",
                  "kubeshare_tpu_torch/parallel/collectives.py",
                  "kubeshare_tpu_torch/utils/virtualcpu.py",
+                 "kubeshare_tpu_torch/autopilot/__init__.py",
+                 "kubeshare_tpu_torch/autopilot/cooldown.py",
+                 "kubeshare_tpu_torch/autopilot/elastic.py",
+                 "kubeshare_tpu_torch/autopilot/planner.py",
+                 "kubeshare_tpu_torch/autopilot/rebalancer.py",
+                 "kubeshare_tpu_torch/autopilot/controller.py",
+                 "kubeshare_tpu_torch/elastic/__init__.py",
+                 "kubeshare_tpu_torch/elastic/orchestrator.py",
+                 "kubeshare_tpu_torch/elastic/restate.py",
+                 "kubeshare_tpu_torch/elastic/trainer.py",
+                 "kubeshare_tpu_torch/elastic/sim.py",
+                 "scripts/torch_elastic_runs.py",
                  "scripts/torch_gang_backlog.py",
                  "chip_smoke.py", "scripts/torch_step_profile.py",
                  "scripts/torch_gate_pairs.py"):
@@ -295,3 +307,37 @@ def test_flash_attention_runs_on_cuda_or_cpu_only():
     q = torch.zeros(1, 16, 2, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q, q, q)
+
+
+def test_the_elastic_trainer_defaults_to_cuda(no_cuda):
+    """The elastic data plane's meshes live on the card unless the caller
+    says the CPU, and a trainer raises without a card before any state is
+    laid out."""
+    from kubeshare_tpu_torch.elastic import ElasticTrainer
+    from kubeshare_tpu_torch.models import tinymlp
+    from kubeshare_tpu_torch.ops.fused_adam import fused_adam
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ElasticTrainer(tinymlp.loss_fn, fused_adam(), tinymlp.init(0),
+                       devices=[0])
+
+
+def test_the_control_planes_import_without_torch():
+    """The service, doctor and topcli load the autopilot and the elastic
+    orchestrator as control plane: neither pulls in torch, so neither
+    initialises CUDA or torch.distributed."""
+    import subprocess
+    import sys
+
+    probe = ("import sys\n"
+             "import kubeshare_tpu_torch.autopilot\n"
+             "import kubeshare_tpu_torch.elastic\n"
+             "import kubeshare_tpu_torch.elastic.orchestrator\n"
+             "import kubeshare_tpu_torch.elastic.sim\n"
+             "import kubeshare_tpu_torch.scheduler.service\n"
+             "print(sorted(m for m in sys.modules\n"
+             "             if m == 'torch' or m.startswith('torch.')))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

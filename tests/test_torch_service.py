@@ -397,10 +397,7 @@ def test_the_shard_and_ha_flags_start_a_service_answering_ha_and_state(
 
 
 @pytest.mark.parametrize("flag", [
-    ["--autopilot"],
-    ["--autopilot-budget", "8"], ["--autopilot-journal", "a.jsonl"],
-    ["--rightsize"], ["--rightsize-journal", "r.jsonl"], ["--elastic"],
-    ["--elastic-journal", "e.jsonl"], ["--elastic-grow"]],
+    ["--rightsize"], ["--rightsize-journal", "r.jsonl"], ["--elastic-grow"]],
     ids=lambda f: f[0])
 def test_an_unported_planes_flag_exits_2_naming_it(flag):
     plane = UNPORTED_FLAGS[flag[0]]
@@ -408,10 +405,10 @@ def test_an_unported_planes_flag_exits_2_naming_it(flag):
     out, err = proc.communicate(timeout=30)
     assert proc.returncode == 2
     assert f"{flag[0]} needs {UNPORTED[plane]}" in err and "ROADMAP" in err
-    # each plane names the queue item that ports it: elastic/ is item 5
-    # (item 4, parallel/ and gangs, is ported)
-    item = {"elastic": 5}.get(plane, 6)
-    assert f"ROADMAP queue 1 item {item}" in err
+    # only the rightsizer is left, item 6; --elastic-grow acts only
+    # through it, so it names that plane
+    assert plane == "rightsize"
+    assert "rightsizer" in err and "ROADMAP queue 1 item 6" in err
     assert "READY" not in out
 
 

@@ -333,6 +333,58 @@ def test_cores_break_vtime_ties_by_name(names):
     assert orders == [sorted(names)] * 4
 
 
+@pytest.mark.parametrize("requests", [(0.25, 0.75), (0.5, 0.5)])
+def test_a_capped_creditor_leaves_the_debt(requests):
+    """chip_smoke.py's gate pairs on a virtual clock (window 1 s, quota
+    300 ms, min 20 ms, limit 1.0 each): tenant a's first grant is held
+    7 s (its CUDA start-up), b's 2 s, every later one a 31 ms step past
+    its quota. b, owed a's start-up, reaches its window cap every ~1 s
+    and a is granted a whole quota each time: at requests 0.25 / 0.75 a
+    keeps its request's share from then on, so its debt stays and its
+    share over its life stays high; at 0.5 / 0.5 b takes the debt back.
+    The same on all four cores."""
+    def scenario(core):
+        core.add_client("a", requests[0], 1.0)
+        core.add_client("b", requests[1], 1.0)
+        first = {"a": 7000.0, "b": 2000.0}
+        held = {"a": 0.0, "b": 0.0}
+        at = {}
+        now = 0.0
+        for name in held:
+            core.request_token(name)
+        while now < 40000.0:
+            granted = core.poll(now)
+            if not isinstance(granted, tuple):
+                now = max(now + 1.0, granted)
+                continue
+            name, quota = granted
+            used = first.pop(name, quota + 31.0)
+            now += used
+            held[name] += used
+            core.release_token(name, used, now)
+            core.request_token(name)
+            now += 1.0
+            if now >= 10000.0 and not at:
+                at = dict(held)
+        return at, held
+
+    cores = [c(1000.0, 300.0, 20.0) for c in (
+        NativeTokenCore, PyTokenCore, jts.NativeTokenCore, jts.PyTokenCore)]
+    runs = [scenario(c) for c in cores]
+    for c in cores:
+        c.close()
+    assert all(r == pytest.approx(runs[-1]) for r in runs)
+    at, held = runs[0]
+    life = held["a"] / (held["a"] + held["b"])
+    late = (held["a"] - at["a"]) / (
+        held["a"] - at["a"] + held["b"] - at["b"])
+    if requests[0] == 0.25:
+        assert late == pytest.approx(0.25, abs=0.02)
+        assert life > 0.35
+    else:
+        assert life == pytest.approx(0.5, abs=0.01)
+
+
 # --- the blocking façade -----------------------------------------------------
 
 def test_blocking_facade_serializes_holders():

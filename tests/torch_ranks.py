@@ -1,5 +1,6 @@
 """Rank-side halves of the port's multi-rank tests (``test_torch_parallel``,
-``test_torch_ring``, ``test_torch_runner``): module-level functions that
+``test_torch_ring``, ``test_torch_runner``, ``test_torch_elastic``):
+module-level functions that
 :class:`kubeshare_tpu_torch.utils.virtualcpu.RankPool` runs on every gloo
 rank. They import no JAX, so a rank process pays torch's import only; the
 test modules compute the JAX side and compare.
@@ -256,3 +257,174 @@ def shared_path(paths, wait_s: float):
         return None
     except SystemExit as e:
         return str(e)
+
+
+# --- the elastic plane -----------------------------------------------------------
+
+def _adam_tree(params, lr: float):
+    """Host tensors of ``params`` and fused Adam's state over them."""
+    gp = common.to_device(params, "cpu")
+    return gp, fused_adam(lr).init(gp)
+
+
+def _whole(tree) -> list:
+    """Every leaf of a tree laid out on a mesh, whole, on the mesh's
+    ranks (None on a rank outside it)."""
+    out = []
+    for x in tree_flatten(tree)[0]:
+        if x.device_mesh.get_coordinate() is None:
+            out.append(None)
+        else:
+            out.append(_full(x, x.device_mesh))
+    return out
+
+
+def elastic_restate(transition: str, params, lr: float):
+    """``restate_state`` of params and Adam's state through the meshes of
+    ``transition`` ("grow-shrink": ranks [0, 1] → [0..3] → [0];
+    "relayout": (dp=4, tp=1) → (dp=2, tp=2) over [0..3]): each step's
+    stats, and the whole leaves after each, on rank 0."""
+    from kubeshare_tpu_torch.elastic.restate import place_tree, restate_state
+
+    if transition == "grow-shrink":
+        meshes = [pmesh.make_mesh(r, device_type="cpu")
+                  for r in ([0, 1], [0, 1, 2, 3], [0])]
+    else:
+        meshes = [pmesh.make_mesh([0, 1, 2, 3], dp=dp, tp=tp,
+                                  device_type="cpu")
+                  for dp, tp in ((4, 1), (2, 2))]
+    gp, state = _adam_tree(params, lr)
+    p, s = place_tree(gp, meshes[0]), place_tree(state, meshes[0])
+    steps = []
+    for mesh in meshes[1:]:
+        p, s, stats = restate_state(p, s, mesh)
+        steps.append((stats, _whole(p) + _whole(s),
+                      [tuple(x.placements) for x in tree_flatten(p)[0]]))
+    return steps if dist.get_rank() == 0 else None
+
+
+def elastic_trainer(params, batches, lr: float, resize_at: dict):
+    """An ``ElasticTrainer`` of tinymlp over ranks [0, 1], resized before
+    the steps in ``resize_at`` (step -> ranks), and an unresized one on
+    the same batches: losses, resize records and whole final params of
+    each, on rank 0; every rank's step count and losses."""
+    from kubeshare_tpu_torch.elastic import ElasticTrainer
+    from kubeshare_tpu_torch.models import tinymlp
+
+    runs = {}
+    for label, at in (("elastic", resize_at), ("base", {})):
+        tr = ElasticTrainer(tinymlp.loss_fn, fused_adam(lr), params,
+                            devices=[0, 1], device_type="cpu")
+        for i, b in enumerate(batches):
+            if i in at:
+                tr.resize(at[i])
+            tr.train_step(b)
+        runs[label] = {
+            "step": tr.step, "losses": tr.losses,
+            "resizes": [(r["step"], r["chips"], r["stats"])
+                        for r in tr.resizes],
+            "params": _whole(tr.params), "count": _whole(tr.opt_state)[0],
+            "in_mesh": tr.in_mesh}
+    return runs
+
+
+def elastic_checkpoint(path: str, params, batches, lr: float):
+    """Train tinymlp two steps on all four ranks, then
+    ``restate_via_checkpoint`` onto rank 0 alone: the saved and the
+    restored whole leaves and step, on rank 0."""
+    from kubeshare_tpu_torch.elastic import (ElasticTrainer,
+                                             restate_via_checkpoint)
+    from kubeshare_tpu_torch.models import tinymlp
+
+    tr = ElasticTrainer(tinymlp.loss_fn, fused_adam(lr), params,
+                        devices=[0, 1, 2, 3], device_type="cpu")
+    for b in batches:
+        tr.train_step(b)
+    saved = _whole(tr.params) + _whole(tr.opt_state)
+    one = pmesh.make_mesh([0], device_type="cpu")
+    p, s, step = restate_via_checkpoint(path, tr.params, tr.opt_state, one,
+                                        step=tr.step)
+    got = (saved, _whole(p) + _whole(s), step, tr.step,
+           [tuple(x.device_mesh.mesh.flatten().tolist())
+            for x in tree_flatten((p, s))[0]])
+    return got if dist.get_rank() == 0 else None
+
+
+def elastic_orchestrated(journal: str, params, batches, lr: float,
+                         plan: dict, steal_at: int | None):
+    """The smoke's elastic drive at tinymlp size: rank 0 hosts a
+    dispatcher over a fake fleet with a four-member gang booked as
+    ``elastic/sim.py`` books one and an ``ElasticOrchestrator`` whose
+    restater announces each plan; before the steps in ``plan`` (step ->
+    target chips) rank 0 resizes, the others follow. With ``steal_at``,
+    that resize's destination chips are taken after its restate, so its
+    flip fails and the trainer follows the mirrored plan back. Rank 0
+    returns the outcomes, the trainer's resize records, losses and step,
+    the journal's recovery and the mesh size at the end; the others their
+    step and resize count."""
+    from kubeshare_tpu_torch.elastic import (ElasticConfig,
+                                             ElasticOrchestrator,
+                                             ElasticTrainer, recover)
+    from kubeshare_tpu_torch.elastic.sim import _gang_labels
+    from kubeshare_tpu_torch.elastic.trainer import (announce, announcing,
+                                                     follow)
+    from kubeshare_tpu_torch.models import tinymlp
+
+    def bank(k):
+        return list(range(k))
+
+    tr = ElasticTrainer(tinymlp.loss_fn, fused_adam(lr), params,
+                        devices=bank(2), device_type="cpu")
+    me = dist.get_rank()
+    outcomes = []
+    if me == 0:
+        from kubeshare_tpu_torch.scheduler.dispatcher import Dispatcher
+        from kubeshare_tpu_torch.scheduler.engine import SchedulerEngine
+        from kubeshare_tpu_torch.topology.cell import reserve_resource
+        from kubeshare_tpu_torch.topology.discovery import FakeTopology
+
+        clk = [0.0]
+        eng = SchedulerEngine(clock=lambda: clk[0])
+        by_host: dict = {}
+        for chip in FakeTopology(hosts=2, mesh=(2, 2)).chips():
+            by_host.setdefault(chip.host, []).append(chip)
+        for host, chips in sorted(by_host.items()):
+            eng.add_node(host, chips)
+        disp = Dispatcher(eng, clock=lambda: clk[0])
+        for i in range(4):
+            disp.submit("sim", f"trainer-{i}",
+                        _gang_labels(0.25, "trainer", 4))
+        disp.step(0.0)
+        orch = ElasticOrchestrator(
+            disp, cfg=ElasticConfig(pause_timeout_s=5.0, cooldown_s=0.0),
+            journal_path=journal, clock=lambda: clk[0])
+        # the members pack onto one chip: start the job on two, where the
+        # trainer is (no restater yet)
+        outcomes.append(orch.resize("sim/trainer", 2, now=0.0))
+        inner = announcing(tr.restater(bank))
+        steal = {"on": False}
+
+        def restate(p):
+            inner(p)
+            if steal["on"] and not p.get("revert"):
+                with disp.lock:
+                    for mv in p["moves"]:
+                        c = eng.leaf_cells[mv["to_chip"]]
+                        reserve_resource(c, c.available, 0)
+
+        orch.register_restater("sim/trainer", restate)
+    for i, b in enumerate(batches):
+        if me == 0:
+            if i in plan:
+                steal["on"] = i == steal_at
+                outcomes.append(orch.resize("sim/trainer", plan[i],
+                                            now=float(i)))
+            announce(None)
+        else:
+            follow(tr, bank)
+        tr.train_step(b)
+    if me != 0:
+        return {"step": tr.step, "resizes": len(tr.resizes)}
+    return {"outcomes": outcomes, "step": tr.step, "losses": tr.losses,
+            "resizes": [(r["step"], r["chips"]) for r in tr.resizes],
+            "recover": recover(journal), "chips": tr.num_devices}

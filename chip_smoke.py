@@ -127,7 +127,8 @@ failing the run (non-zero exit, no result line) when it fails:
       one-rank gang (NCCL) with ``--checkpoint``, SIGKILLed after a save
       and started again, must resume at the saved step through the
       sharded checkpoint;
-   l. the autopilot's quota and the elastic plane — 5l-quota: a
+   l. the autopilot's quota, the rightsizer and the elastic plane —
+      5l-quota: a
       ``ChipProxy`` on the card with the native token scheduler (window
       1 s) and an ``ElasticQuota`` on it; two threaded ``ProxyClient``s
       train the full-width flash LM through ``compile_loop`` + ``chain``,
@@ -136,7 +137,16 @@ failing the run (non-zero exit, no result line) when it fails:
       measured headroom (0.375), raise the borrower's window share clearly
       past its limit while lent, and revoke the credit inside the
       lender's next demand, before its grant; every step launches the
-      LM's kernels exactly. 5l-elastic: four gang ranks on the one card
+      LM's kernels exactly. 5l-rightsize, right after on the same proxy
+      and clients: the lender turns idle, holding each grant mostly
+      idle, and the borrower trains against a step-time objective it
+      misses at its cap; over a ``Dispatcher`` that books both on the
+      card, one ``Rightsizer.cycle()`` must grow the borrower and shrink
+      the lender through the card's scheduler (bookings equal to the
+      effective shares read back from the core, the borrower's window
+      share past its old limit), a failed batch must roll back on both,
+      the journal hold both batches. 5l-elastic: four gang ranks on the
+      one card
       (the gang env and the shim, gloo), each this script's
       ``--elastic-member``, hold an ``ElasticTrainer`` of the flash LM on
       ranks [0, 1]; rank 0's ``ElasticOrchestrator`` (over a dispatcher
@@ -146,9 +156,12 @@ failing the run (non-zero exit, no result line) when it fails:
       count of leaves and bytes, the journal recover onto the 1-chip
       mesh, every rank in the mesh launch the kernels once a layer a step
       and none outside it, and a checkpoint restate from 4 ranks onto one
-      give the saved state bit for bit. 5i's services run with both
-      planes attached, and 5i reads their fragmentation, a dry-run plan
-      and the doctor's checks of them.
+      give the saved state bit for bit. 5i's services run with the
+      autopilot, rightsize and elastic planes attached, and 5i reads the
+      fragmentation, dry-run plans of the autopilot and the rightsizer,
+      the doctor's checks of all three, and replays the leader's decision
+      trace (its first background pods) through ``replay_trace`` and
+      ``topcli --replay-diff``.
    The paths run in this order but for three: 5j's sweep, 5k's gangs
    and 5l-elastic run last and side by side, all started together after
    5l-quota (each checks correctness, in processes that count their own
@@ -161,10 +174,11 @@ The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --tenant out.json [--compiled] [--seconds S]
-        [--steps N] [--seed N]
+        [--steps N] [--seed N] [--peers a.json,b.json]
 
 is the tenant of phases 5e, 5f, 5g and 5i (``--compiled``: its train step
-wrapped in ``torch.compile``; ``--steps``: exactly N steps): it holds no
+wrapped in ``torch.compile``; ``--steps``: exactly N steps; ``--peers``:
+the other tenants' records, whose warm-up it waits for): it holds no
 isolation code, trains, and writes its per-step end times, losses and
 kernel launch counts to ``out.json``.
 
@@ -249,6 +263,8 @@ LM_SPEC = {"program": "train_step", "model": "transformer",
 # the gate pair (phase 5e): a tenant's untimed first steps, and how long
 # each run trains after them — alone (ungated, then gated) and as a pair
 TENANT_WARMUP_STEPS = 5
+# how long past its own warm-up a tenant waits for its peers' (--peers)
+TENANT_MEET_WAIT_S = 60.0
 GATE_SOLO_S = 3.0
 GATE_PAIR_S = 20.0
 # the common window of the pair must be at least this long to be read
@@ -353,8 +369,9 @@ PLACE_TENANTS = (("smoke/place-a", 10), ("smoke/place-b", 11))
 PLACE_THIRD = "smoke/place-c"
 PLACE_REQUEST = 0.5
 PLACE_MEM = 20 * 1024**3
-# each tenant trains this long past warm-up: their common window passes
-# 5e's GATE_MIN_WINDOW_S (8 s) with the start-up offset between them
+# each tenant trains this long past both tenants' warm-up, so that their
+# common window passes 5e's GATE_MIN_WINDOW_S (8 s) whatever the start-up
+# offset between them (a first step's token hold varies by seconds)
 PLACE_PAIR_S = 10.0
 # the control plane's replicas: two services in the leader:scheduler
 # election, each on cell-routed shards, over one registry and its
@@ -364,6 +381,12 @@ PLACE_SHARDS = 4
 PLACE_HA_TTL_S = 5.0
 PLACE_REPL_POLL_S = 0.2
 PLACE_PUSH_S = 1.0
+# the leader's decision trace is fetched once this many background pods
+# are in (its ring of 8,192 entries holds them with the fleet entry that
+# opens it; the whole background overruns it) and replayed at this tick
+PLACE_REPLAY_PODS = 500
+PLACE_REPLAY_TICK_S = 0.002
+PLACE_REPLAY_DRAIN_S = 1.0
 # phase 5j: the zoo. The JAX package's workload models at full width,
 # each through run_training: (label, model module, init keywords, loss)
 ZOO = (("cifar10", "cifar10", {}, "loss_fn"),
@@ -430,9 +453,10 @@ GANG_CKPT_EVERY = 10
 # the lse cotangent on the card: a ring shard's shape, bf16
 LSE_SHAPE = (8, 128, 8, 32)
 # phase 5l-quota: idle-share lending on the card's token scheduler (window
-# WINDOW_MS). (name, request, limit) of the lender and the borrower
-QUOTA_LENDER = ("quota/lender", 0.5, 1.0)
-QUOTA_BORROWER = ("quota/borrower", 0.25, 0.25)
+# WINDOW_MS). (name, request, limit) of the lender and the borrower, each
+# its own tenant (namespace): 5l-rightsize resizes them by tenant
+QUOTA_LENDER = ("lender/lm", 0.5, 1.0)
+QUOTA_BORROWER = ("borrower/lm", 0.25, 0.25)
 QUOTA_CHAIN = 8               # steps a chain call asks for
 QUOTA_WARM_S = 1.0            # the lender trains this long, then idles
 QUOTA_IDLE_S = 1.5            # then this long before the first reading
@@ -447,6 +471,37 @@ QUOTA_GRANT_WAIT_S = 10.0     # longest wait for the borrower at its cap
 # the limit sits a little above it), and fall again once revoked
 QUOTA_LENT_MIN = 0.35
 QUOTA_LENT_OVER = 1.3
+# phase 5l-rightsize, in 5l-quota's process right after its readings, on its
+# proxy, scheduler and clients: the lender turns idle (one step, then
+# RZ_THINK_S of think time, over the proxy's 50 ms idle release, so each
+# grant is mostly held idle) and the borrower keeps training against a
+# step-time objective it misses at its 0.25 cap. RightsizeConfig's
+# defaults but one cut: its observation window, 600 s, is RZ_WINDOW_S,
+# the "before" reading (a ledger window of 600 s would judge a tenant
+# only after 60 s of grants)
+RZ_WINDOW_S = 4.0
+RZ_THINK_S = 0.15
+# the borrower's chain call once 5l-rightsize starts: short bursts, so its
+# window share follows its limit (chains of QUOTA_CHAIN steps overran the
+# 0.25 limit up to 1.14x on a host whose device step read 26.9 ms, and
+# reached 0.90x of 0.35 after the grow, run 16f) and its objective gets
+# more samples
+RZ_CHAIN = 2
+RZ_SETTLE_S = 1.0             # before each reading
+RZ_READ_S = 4.0               # the reading after the resize
+# the borrower's objective: step time (wall seconds a step of a chain
+# call, the token wait included) at p90, its bound the device step time
+# the proxy measures for it over the "before" reading divided by this:
+# the step time it would see with this share of the card
+RZ_SLO_SHARE = 0.3
+# the windows read against a tenant's effective limit: a burst can overrun
+# a grant (5l-quota's borrower read up to 1.08x its limit in PR 15)
+RZ_SHARE_OVER = 1.3
+# the grown borrower's window share after the resize must pass its old
+# limit (0.25) and this many times its share before: a core that kept the
+# old share would hold it at the limit (chains of RZ_CHAIN steps read
+# 0.2235-0.2360 before the resize, 0.3026-0.3236 after, 1.35-1.43x)
+RZ_SHARE_GROWN = 1.2
 # phase 5l-elastic: a gang of ELASTIC_WORLD ranks on the one card, the LM
 # with flash attention resized 2 -> 4 -> 1 ranks before the steps of
 # ELASTIC_PLAN (step index -> devices), ELASTIC_STEPS in all, against an
@@ -1266,16 +1321,21 @@ def _reset_counts() -> None:
 # --- phase 5e: the gate pair ---------------------------------------------------
 
 def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
-           steps: int = 0) -> int:
+           steps: int = 0, peers: tuple = ()) -> int:
     """The tenant process of the gate and proxy pairs: an unmodified
     training loop, metered only if the shim attached it. The full-width
     transformer with flash attention on ``cuda`` if this process has a
     card (under proxy attach it has none: on ``cpu``, its compiled step
     running on the proxy), the loss read every step; after
     TENANT_WARMUP_STEPS steps it trains ``seconds`` more (or, with
-    ``steps``, exactly that many steps in all). After each step it also
-    reads the gate's totals (``attach.gate_stats``), if gated.
-    ``compiled`` wraps the step in ``torch.compile``."""
+    ``steps``, exactly that many steps in all). With ``peers``, the other
+    tenants' record paths, it writes its warm-up end beside its own record
+    (``<out_path>.warm``) and trains ``seconds`` past the latest warm-up
+    end among them all, so that the run's common window is ``seconds``
+    long whatever their start-up offset (it stops waiting
+    TENANT_MEET_WAIT_S past its own). After each step it also reads the
+    gate's totals (``attach.gate_stats``), if gated. ``compiled`` wraps
+    the step in ``torch.compile``."""
     import torch
 
     from kubeshare_tpu_torch import attach
@@ -1295,8 +1355,9 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
     started = time.monotonic()
     stop_at = None
     first_proxy = None
+    waiting = [p + ".warm" for p in peers]
     while (len(ends) < steps if steps
-           else stop_at is None or ends[-1] < stop_at):
+           else stop_at is None or ends[-1] < stop_at or waiting):
         params, state, loss = step(params, state, batch)
         losses.append(float(loss))          # host read: the step is done
         ends.append(time.monotonic())
@@ -1306,6 +1367,17 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
         gate.append([totals[k] for k in GATE_TOTALS] if totals else None)
         if len(ends) == TENANT_WARMUP_STEPS:
             stop_at = ends[-1] + seconds
+            if peers:
+                with open(out_path + ".warm.tmp", "w") as f:
+                    f.write(repr(ends[-1]))
+                os.replace(out_path + ".warm.tmp", out_path + ".warm")
+        if stop_at is not None and waiting:
+            for path in [p for p in waiting if os.path.exists(p)]:
+                with open(path) as f:
+                    stop_at = max(stop_at, float(f.read()) + seconds)
+                waiting.remove(path)
+            if ends[-1] > ends[TENANT_WARMUP_STEPS - 1] + TENANT_MEET_WAIT_S:
+                waiting = []
     with open(out_path, "w") as f:
         json.dump({"attach": attach.active_mode(), "ends": ends,
                    "started": started,
@@ -1441,27 +1513,30 @@ class _Node:
         return env
 
     def run(self, tenants, seconds: float, gated: bool,
-            pod_envs: dict | None = None) -> dict:
+            pod_envs: dict | None = None, meet: bool = False) -> dict:
         """Run the tenants ``(name, seed, manager port, request)`` side by
         side, each a process with only a pod's env (``pod_envs[name]``, a
-        binding's env, when given; else one built here); while they run,
+        binding's env, when given; else one built here); with ``meet``,
+        each trains ``seconds`` past the last one's warm-up; while they run,
         sample each gated one's charged ms from the token scheduler's
         ``usage`` op. Returns each tenant's record and its samples."""
         from kubeshare_tpu_torch.isolation import protocol
 
-        procs, outs, usage = {}, {}, {}
+        procs, usage = {}, {}
+        outs = {name: os.path.join(self.base, name.replace("/", "_") + ".json")
+                for name, *_ in tenants}
         try:
             for name, seed, port, request in tenants:
                 env = self.tenant_env(
                     name, port, request, gated,
                     pod_envs[name] if pod_envs is not None else None)
-                outs[name] = os.path.join(
-                    self.base, name.replace("/", "_") + ".json")
+                peers = [o for n, o in outs.items() if meet and n != name]
                 with open(self.log(name + "-tenant"), "w") as log_file:
                     procs[name] = subprocess.Popen(
                         [sys.executable, os.path.abspath(__file__),
                          "--tenant", outs[name], "--seconds", str(seconds),
-                         "--seed", str(seed)],
+                         "--seed", str(seed)]
+                        + (["--peers", ",".join(peers)] if peers else []),
                         env=env, cwd=self.root, stdout=log_file,
                         stderr=subprocess.STDOUT)
             conns = {}
@@ -3175,7 +3250,7 @@ def _phase_quantiles(before: dict, after: dict) -> dict:
     return out
 
 
-def _background_stream(client) -> dict:
+def _background_stream(client, at=None) -> dict:
     """PLACE_BACKGROUND_PODS seeded submissions on the fake nodes, each a
     ``POST /schedule`` to the service process (``ServiceClient``); the
     service publishes each binding itself. An unbound single pod is
@@ -3186,12 +3261,16 @@ def _background_stream(client) -> dict:
     unbound. A pair the fleet cannot hold is left pending, as a user
     leaves an unschedulable pod: the dispatcher's retries search for
     preemptions only where something was released since. Times each HTTP
-    round trip."""
+    round trip. ``at`` is ``(n, fn)``: ``fn()`` runs once the first n
+    pods are in."""
     rng = random.Random(PLACE_SEED)
     rtt, bound, gangs = [], [], []
     refused = pending_pairs = 0
     i = 0
     while i < PLACE_BACKGROUND_PODS:
+        if at is not None and i >= at[0]:
+            at[1]()
+            at = None
         sets = _background_labels(rng, i)[:PLACE_BACKGROUND_PODS - i]
         # a gang's members carry its rank ordinals, as a StatefulSet's do
         names = ([f"bg-{i}"] if len(sets) == 1
@@ -3249,6 +3328,106 @@ def _background_stream(client) -> dict:
             "rtt_us_p50": _pct(lat_us, 0.5),
             "rtt_us_p99": _pct(lat_us, 0.99),
             "pods_per_sec": len(rtt) / sum(rtt)}
+
+
+def _replay_phase(trace: str, base: str) -> dict:
+    """The leader's decision trace (``GET /decisions/trace``) through the
+    port's replay plane: rebased to its fleet entry's instant (the
+    service's clock is the host's monotonic one, the replay's starts at
+    0), given a short drain, replayed through a sharded build like the
+    leader's, then ``topcli --replay-diff --shard-equiv --json`` on the
+    two traces, in this process."""
+    import contextlib
+    import io
+
+    from kubeshare_tpu_torch import topcli
+    from kubeshare_tpu_torch.obs.decisions import (parse_trace_jsonl,
+                                                   trace_jsonl)
+    from kubeshare_tpu_torch.replay import replay_trace
+
+    parsed = parse_trace_jsonl(trace)
+    header, entries = parsed["header"], parsed["entries"]
+    check(header.get("dropped") == 0 and entries
+          and entries[0]["kind"] == "fleet" and entries[0]["nodes"],
+          f"5i: the decision trace lost its head: {header}")
+    t0 = entries[0]["t"]
+    for e in entries:
+        e["t"] = round(e["t"] - t0, 6)
+    header = dict(header, meta=dict(header.get("meta") or {},
+                                    drain_s=PLACE_REPLAY_DRAIN_S))
+    recorded = "\n".join(json.dumps(x, sort_keys=True)
+                         for x in [header, *entries]) + "\n"
+    inputs = [e for e in entries
+              if e["kind"] in ("submit", "delete", "node-health")]
+    t1 = time.perf_counter()
+    rep = replay_trace(recorded, tick_s=PLACE_REPLAY_TICK_S,
+                       config={"shards": PLACE_SHARDS,
+                               "shard_route": "cell"})
+    replay_s = time.perf_counter() - t1
+    paths = [os.path.join(base, f"decisions-{k}.jsonl")
+             for k in ("recorded", "replayed")]
+    for path, text in zip(paths, (recorded, trace_jsonl(rep))):
+        with open(path, "w") as f:
+            f.write(text)
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = topcli.main(["--replay-diff", paths[0], "--against", paths[1],
+                          "--shard-equiv", "--json"])
+    diff_s = time.perf_counter() - t1
+    diff = json.loads(buf.getvalue())
+    check(rc in (0, 1) and rc == (0 if diff["identical"] else 1)
+          and diff["pods"]["recorded"] > 0,
+          f"5i: topcli --replay-diff exited {rc}: {buf.getvalue()[:2000]}")
+    counts = {k: len(diff[k]) for k in ("moved", "denied", "delayed",
+                                        "missing", "extra")}
+    counts.update(identical=diff["identical"], pods=diff["pods"],
+                  rng_divergence=diff["rng_divergence"])
+    extra = _replay_extras(entries, rep.entries(), diff["extra"])
+    check(extra["pending_at_cut"] == counts["extra"],
+          f"5i: a pod extra in the replay was not pending when the trace "
+          f"was taken: {json.dumps(extra)}")
+    return {"entries": len(entries), "inputs": len(inputs),
+            "span_s": max((e["t"] for e in inputs), default=0.0),
+            "replay_s": replay_s, "diff_s": diff_s, "rc": rc,
+            "counts": counts, "extra": extra}
+
+
+def _replay_extras(recorded: list, replayed: list, extra: list) -> dict:
+    """What the recording says of each pod the replay settled and the
+    recording did not: pending at the cut (submitted, and no outcome or
+    delete after its last submit), gang members among them, how long
+    before the cut they were submitted, and whether the replay bound
+    them after the cut (in its drain) or before it."""
+    from kubeshare_tpu_torch import constants as C
+
+    # the last pod decision: the dispatcher's clock (a ``leadership``
+    # entry carries the lease's wall clock)
+    cut = max(e["t"] for e in recorded if "pod" in e)
+    extra = set(extra)
+    submit: dict = {}       # pod -> its last submit, None once settled
+    for e in recorded:
+        if e.get("pod") not in extra:
+            continue
+        if e["kind"] == "submit":
+            submit[e["pod"]] = e
+        elif e["kind"] in ("outcome", "delete"):
+            submit[e["pod"]] = None
+    pending = sorted(p for p, e in submit.items() if e is not None)
+    bound_t = {e["pod"]: e["t"] for e in replayed
+               if e.get("kind") == "outcome" and e.get("status") == "bound"
+               and e.get("pod") in extra}
+    ages = [cut - submit[p]["t"] for p in pending]
+    return {"pending_at_cut": len(pending),
+            "gang_members": sum(1 for p in pending
+                                if submit[p].get("labels", {}).get(
+                                    C.POD_GROUP_NAME)),
+            "submitted_s_before_cut": [round(min(ages, default=0.0), 6),
+                                       round(max(ages, default=0.0), 6)],
+            "bound_after_cut": sum(1 for p in pending
+                                   if bound_t.get(p, -1.0) > cut),
+            "bound_before_cut": sum(1 for p in pending
+                                    if 0.0 <= bound_t.get(p, -1.0) <= cut)}
 
 
 def _admit(webhook_port: int, obj: dict) -> dict:
@@ -3379,7 +3558,10 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
                            "--autopilot", "--autopilot-journal",
                            os.path.join(node.base, f"{holder}-ap.jsonl"),
                            "--elastic", "--elastic-journal",
-                           os.path.join(node.base, f"{holder}-el.jsonl")])
+                           os.path.join(node.base, f"{holder}-el.jsonl"),
+                           "--rightsize", "--rightsize-journal",
+                           os.path.join(node.base, f"{holder}-rz.jsonl"),
+                           "--elastic-grow"])
             urls[holder] = f"http://127.0.0.1:{ready(holder).split()[1]}"
             if holder == PLACE_SERVICES[0]:
                 # the first leads, unfrozen, before the second contests
@@ -3454,7 +3636,17 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         out["card_shard"] = plan.shard_of(chip.host)
 
         scrape0 = _phase_histograms(_http_metrics(lead_url))
-        bg = out["background"] = _background_stream(client)
+        traces = []
+
+        def fetch_trace():
+            import urllib.request
+
+            with urllib.request.urlopen(f"{lead_url}/decisions/trace",
+                                        timeout=60) as r:
+                traces.append(r.read().decode())
+
+        bg = out["background"] = _background_stream(
+            client, at=(PLACE_REPLAY_PODS, fetch_trace))
         bg["engine_phases"] = _phase_quantiles(
             scrape0, _phase_histograms(_http_metrics(lead_url)))
         out["invariants_after_background"] = invariants("after the "
@@ -3490,9 +3682,15 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
               and leaves == out["fleet"]["devices"]
               and 0.0 <= ap.get("fragmentation", -1.0) <= 1.0,
               f"5i: GET /autopilot: {json.dumps(ap)[:2000]}")
+        # a placed pod's node, chips and request; the live dispatcher may
+        # bind a pending pair between two reads, so a dry run is held to
+        # the pods placed in both
         def placed():
-            return {k: (v["node"], v["chips"])
+            return {k: (v["node"], v["chips"], v["request"])
                     for k, v in state()["pods"].items() if v["node"]}
+
+        def changed(a, b):
+            return sorted(k for k in a.keys() & b.keys() if a[k] != b[k])
 
         pods0 = placed()
         t0 = time.perf_counter()
@@ -3502,14 +3700,33 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
               f"5i: POST /autopilot/plan answered {code}: {body}")
         plan = body["plan"]
         pods1 = placed()
-        moved = [k for k in pods0.keys() & pods1.keys()
-                 if pods0[k] != pods1[k]]
+        moved = changed(pods0, pods1)
         check(not moved and client.autopilot().get("applied_total") == 0,
               f"5i: the dry-run plan moved pods: {moved[:5]}")
         el = client.elastic()
         check(el.get("attached") is True and el.get("enabled") is True
               and el.get("resizes_total") == 0,
               f"5i: GET /elastic: {json.dumps(el)[:2000]}")
+        code, rz = client._call("GET", "/rightsize")
+        check(code == 200 and rz.get("attached") is True
+              and rz.get("enabled") is True
+              and rz["config"]["elastic_grow"] is True,
+              f"5i: GET /rightsize answered {code}: {json.dumps(rz)[:2000]}")
+        pods2 = placed()
+        t0 = time.perf_counter()
+        code, body = client._call("POST", "/rightsize/plan", {})
+        rz_plan_ms = (time.perf_counter() - t0) * 1e3
+        check(code == 200 and "plan" in body,
+              f"5i: POST /rightsize/plan answered {code}: {body}")
+        rz_plan = body["plan"]
+        pods3 = placed()
+        moved = changed(pods2, pods3)
+        bound_between = len(pods3.keys() - pods2.keys())
+        gone_between = len(pods2.keys() - pods3.keys())
+        check(not moved
+              and client._call("GET", "/rightsize")[1]["applied_total"] == 0,
+              f"5i: the rightsizer's dry-run plan moved or resized pods: "
+              f"{[(k, pods2[k], pods3[k]) for k in moved[:5]]}")
         out["planes"] = {
             "fragmentation": ap["fragmentation"],
             "stranded_free": ap["stranded_free"],
@@ -3520,7 +3737,13 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             "plan_after": plan["fragmentation_after"],
             "plan_reason": plan.get("reason", ""),
             "elastic_gangs": len(el["gangs"]),
-            "elastic_config": el["config"]}
+            "elastic_config": el["config"],
+            "rightsize_plan_ms": rz_plan_ms,
+            "rightsize_plan_bound_between": bound_between,
+            "rightsize_plan_gone_between": gone_between,
+            "rightsize_plan": {k: rz_plan.get(k) for k in (
+                "resizes", "moves", "skipped", "chip_equivalents",
+                "elastic")}}
         log(f"5i: GET /autopilot over {leaves} devices: fragmentation "
             f"{ap['fragmentation']} ({ap['stranded_free']:.2f} of "
             f"{ap['total_free']:.2f} free stranded), largest placeable "
@@ -3530,8 +3753,26 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             f"{len(plan['skipped'])} skipped; "
             f"{plan.get('reason', 'improving')}), nothing moved; GET "
             f"/elastic: {len(el['gangs'])} gangs, {el['resizes_total']} "
-            f"resizes (host numbers)")
+            f"resizes; POST /rightsize/plan round trip {rz_plan_ms:.1f} ms: "
+            f"{len(rz_plan['resizes'])} resizes, {len(rz_plan['moves'])} "
+            f"moves, {len(rz_plan.get('elastic', []))} elastic grows, "
+            f"chip-equivalents {rz_plan['chip_equivalents']}, nothing "
+            f"moved, resized or applied ({bound_between} pods bound and "
+            f"{gone_between} gone meanwhile) (host numbers)")
         lap("planes")
+
+        out["replay"] = _replay_phase(traces[0], node.base)
+        rp = out["replay"]
+        log(f"5i: the leader's decision trace after the first "
+            f"{PLACE_REPLAY_PODS} background pods ({rp['entries']} "
+            f"entries, {rp['inputs']} inputs, {rp['span_s']:.2f} s of the "
+            f"service's clock) replayed through replay_trace on "
+            f"{PLACE_SHARDS} cell-routed shards at a {PLACE_REPLAY_TICK_S} "
+            f"s tick in {rp['replay_s']:.2f} s; topcli --replay-diff "
+            f"--shard-equiv exited {rp['rc']} in {rp['diff_s']:.2f} s: "
+            f"{rp['counts']}; the extra pods in the recording: "
+            f"{json.dumps(rp['extra'])} (host numbers)")
+        lap("replay")
 
         # the follower registry holds what the leader holds
         frc = RegistryClient("127.0.0.1", follow_port)
@@ -3621,7 +3862,7 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         out["tenant_env"] = envs
         pair = node.run([(n, seed, ports[n], PLACE_REQUEST)
                          for n, seed in PLACE_TENANTS], PLACE_PAIR_S, True,
-                        pod_envs=envs)
+                        pod_envs=envs, meet=True)
         for name, rec in pair.items():
             _check_tenant(name, rec, True, adam_per_step, layers)
         out["visible_devices"] = {n: r["visible"] for n, r in pair.items()}
@@ -3870,7 +4111,7 @@ def _doctor(root: str, base: str, registry: str, scheduler: str) -> dict:
           f"5i: the doctor exited {proc.returncode}: "
           + "; ".join(line for line in lines if " fail " in line)
           + f" {proc.stderr[-2000:]}")
-    for name in ("chip", "ha", "autopilot", "elastic"):
+    for name in ("chip", "ha", "autopilot", "rightsize", "elastic"):
         check(any(line.split()[:2] == [name, "ok"] for line in lines),
               f"5i: the doctor's {name} check: {lines}")
     return {"seconds": time.monotonic() - t0, "lines": lines}
@@ -4493,7 +4734,13 @@ def quota_phase(dev, adam_per_step: int, layers: int) -> dict:
     measured headroom), its share while lent (the quota stepping on a
     cadence), the revocation inside the lender's first demand when it
     trains again, and its share after. Launches: exactly the LM step's
-    per step of either client."""
+    per step of either client.
+
+    Then 5l-rightsize on the same proxy, scheduler and clients
+    (:func:`_rightsize_run`): both clients pause between chain calls
+    while 5l-quota's counts are read and the counts go to 0, the quota
+    is detached, and they go on as 5l-rightsize's tenants; its counts
+    are read once both have stopped."""
     import numpy as np
 
     from kubeshare_tpu_torch.autopilot import ElasticQuota
@@ -4504,20 +4751,36 @@ def quota_phase(dev, adam_per_step: int, layers: int) -> dict:
     from kubeshare_tpu_torch.isolation.proxy import ChipProxy
     from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
     from kubeshare_tpu_torch.models import transformer
+    from kubeshare_tpu_torch.obs.blame import BlameGraph
+    from kubeshare_tpu_torch.obs.ledger import ChipTimeLedger
+    from kubeshare_tpu_torch.topology.discovery import (FakeTopology,
+                                                        discover_chips)
     from kubeshare_tpu_torch.utils.tree import tree_leaves
 
     t_phase = time.monotonic()
     lender, borrower = QUOTA_LENDER[0], QUOTA_BORROWER[0]
-    sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS)
+    # the card as 5l-rightsize's engine books it; the scheduler feeds a
+    # chip-time ledger and a blame graph under its id from the start
+    chip = (discover_chips("cuda") if dev.type == "cuda"
+            else FakeTopology(hosts=1, mesh=(1,)).chips())[0]
+    ledger = ChipTimeLedger()
+    sched = TokenScheduler(WINDOW_MS, BASE_QUOTA_MS, MIN_QUOTA_MS,
+                           chip=chip.chip_id, ledger=ledger,
+                           blame=BlameGraph(ledger))
     proxy = ChipProxy(device=dev, scheduler=sched)
     proxy.serve()
     quota = ElasticQuota().attach("card", sched)
     revokes0 = quota_mod._REVOKES.value("lender-demand")
     # the counts go to 0 once both clients have compiled
     ready = threading.Barrier(3, timeout=300, action=_reset_counts)
-    a_idle, a_resume, stop = (threading.Event() for _ in range(3))
+    # 5l-quota ends and 5l-rightsize starts at this barrier's two waits
+    handover = threading.Barrier(3, timeout=300)
+    a_idle, a_resume, stop, hand, idle = (threading.Event()
+                                          for _ in range(5))
     steps = {lender: 0, borrower: 0}
     losses: dict = {lender: [], borrower: []}
+    # per chain call: (its end, monotonic s; wall s a step; steps)
+    walls: dict = {lender: [], borrower: []}
     errors: dict = {}
 
     def client(name: str, request: float, limit: float, seed: int) -> None:
@@ -4529,12 +4792,16 @@ def quota_phase(dev, adam_per_step: int, layers: int) -> dict:
                 loop = c.compile_loop(LM_SPEC, carry, *batch)
                 ready.wait()
 
-                def chain():
+                def chain(n=QUOTA_CHAIN):
                     nonlocal carry
-                    carry, loss = loop.chain(QUOTA_CHAIN, carry, *batch)
+                    t0 = time.monotonic()
+                    carry, loss = loop.chain(n, carry, *batch)
                     steps[name] += loop.last_n
                     losses[name].append(float(c.get(loss)))
                     c.free(loss)
+                    t1 = time.monotonic()
+                    walls[name].append((t1, (t1 - t0) / loop.last_n,
+                                        loop.last_n))
 
                 if name == lender:
                     t_end = time.monotonic() + QUOTA_WARM_S
@@ -4542,14 +4809,24 @@ def quota_phase(dev, adam_per_step: int, layers: int) -> dict:
                         chain()
                     a_idle.set()
                     check(a_resume.wait(300), "5l-quota: no resume")
+                paused = False
                 while not stop.is_set():
-                    chain()
+                    if hand.is_set() and not paused:
+                        paused = True
+                        handover.wait()     # 5l-quota's counts are read
+                        handover.wait()     # 5l-rightsize starts
+                    if name == lender and idle.is_set():
+                        chain(1)
+                        time.sleep(RZ_THINK_S)
+                    else:
+                        chain(RZ_CHAIN if paused else QUOTA_CHAIN)
                 leaves = tree_leaves(c.get_tree(carry))
                 check(all(np.isfinite(x).all() for x in leaves),
                       f"5l-quota {name}: carry not finite")
         except BaseException:
             errors[name] = traceback.format_exc()
             ready.abort()
+            handover.abort()
             a_idle.set()
 
     threads = [threading.Thread(target=client, args=(n, rq, lm, seed),
@@ -4612,14 +4889,30 @@ def quota_phase(dev, adam_per_step: int, layers: int) -> dict:
         _wait_for(lambda: at_hook, "5l-quota: the lender's demand", 60)
         time.sleep(QUOTA_SETTLE_S)
         out["after"] = _quota_reading(sched, proxy, steps, QUOTA_READ_S)
+        # both clients pause between chain calls: 5l-quota's launches and
+        # steps end here, 5l-rightsize's start from 0
+        hand.set()
+        handover.wait()
+        launches = _counts()
+        quota_steps = dict(steps)
+        _reset_counts()
+        # the quota lends nothing now (checked below); detached, it no
+        # longer sees the scheduler's demand
+        sched.on_demand = None
+        idle.set()
+        handover.wait()
+        out["rightsize"] = _rightsize_run(
+            dev, chip, sched, proxy, steps, walls, ledger)
         stop.set()
         for t in threads:
             t.join(timeout=300)
             check(not t.is_alive(), f"5l-quota: {t.name} did not finish")
-        launches = _counts()
+        rz_launches = _counts()
     finally:
         stop.set()
         a_resume.set()
+        hand.set()
+        handover.abort()
         cadence_stop.set()
         proxy.close()
     check(not errors, f"5l-quota: the clients failed: {errors}")
@@ -4655,17 +4948,191 @@ def quota_phase(dev, adam_per_step: int, layers: int) -> dict:
           f"5l-quota: revocations {quota.revocations} ({revoked} "
           f"lender-demand), credits {snap['chips']}")
     per_step = _launches_per_step(adam_per_step, layers)
-    n = steps[lender] + steps[borrower]
+    n = quota_steps[lender] + quota_steps[borrower]
     want = {k: v * n for k, v in per_step.items()}
     check(launches == want,
           f"5l-quota: launches {launches}, expected {want} for {n} steps")
+    rz = out["rightsize"]
+    rz_steps = {k: steps[k] - quota_steps[k] for k in steps}
+    n = sum(rz_steps.values())
+    want = {k: v * n for k, v in per_step.items()}
+    check(rz_launches == want,
+          f"5l-rightsize: launches {rz_launches}, expected {want} for "
+          f"{n} steps")
+    rz.update(steps=rz_steps, launches=rz_launches)
     for name, ls in losses.items():
         check(ls and all(math.isfinite(x) for x in ls),
               f"5l-quota {name}: losses {ls[:3]}")
     out.update(share=share, reclaimed_ms=snap["reclaimed_ms"],
                revocations=quota.revocations, at_hook=at_hook,
-               steps=steps, launches=launches, cadence_steps=len(steps_seen),
-               seconds=time.monotonic() - t_phase)
+               steps=quota_steps, launches=launches,
+               cadence_steps=len(steps_seen),
+               seconds=time.monotonic() - t_phase - rz["seconds"])
+    return out
+
+
+def _rightsize_run(dev, chip, sched, proxy, steps: dict, walls: dict,
+                   ledger) -> dict:
+    """5l-rightsize, on 5l-quota's proxy, native-core scheduler and
+    clients, the lender now idle (one step, then RZ_THINK_S): a
+    ``Dispatcher`` over an engine holding the card as one chip books
+    both tenants at their requests; a ``Rightsizer`` actuates that chip
+    through the card's scheduler. Over the "before" reading (its
+    observation window) the scheduler's ledger shows the lender's grants
+    mostly idle, and the borrower's chain calls are its step-time SLO's
+    samples, the bound set from its own device step time read over the
+    same window. One ``cycle()`` must grow the borrower and shrink the
+    lender; the engine's bookings must then equal the effective shares
+    read back from the native core, and the scheduler's record of what
+    it pushed there, and the borrower's window share must rise past its
+    old limit. A second apply whose last member cannot fit rolls the
+    first back, on the engine and in the core. The journal holds both
+    batches."""
+    from kubeshare_tpu_torch import constants as C
+    from kubeshare_tpu_torch.obs.slo import SloEvaluator
+    from kubeshare_tpu_torch.rightsize import (RightsizeConfig, Rightsizer,
+                                               default_tenant,
+                                               tenant_demand)
+    from kubeshare_tpu_torch.scheduler import SchedulerEngine
+    from kubeshare_tpu_torch.scheduler.dispatcher import Dispatcher
+
+    t_phase = time.monotonic()
+    lender, borrower = QUOTA_LENDER[0], QUOTA_BORROWER[0]
+    grower = default_tenant(borrower)
+    eng = SchedulerEngine()
+    eng.add_node(chip.host, [chip])
+    disp = Dispatcher(eng)
+    for name, request, limit in (QUOTA_LENDER, QUOTA_BORROWER):
+        ns, _, pod = name.partition("/")
+        disp.submit(ns, pod, {C.POD_TPU_REQUEST: str(request),
+                              C.POD_TPU_LIMIT: str(limit)})
+    disp.step()
+
+    def booked() -> dict:
+        with disp.lock:
+            return {k: p.bookings[0][1] for k, p in eng.pod_status.items()
+                    if p.bookings and p.bookings[0][0] == chip.chip_id}
+
+    check(booked() == {lender: QUOTA_LENDER[1], borrower: QUOTA_BORROWER[1]},
+          f"5l-rightsize: the engine booked {booked()}")
+    slo = SloEvaluator(clock=time.monotonic)
+    journal = os.path.join(tempfile.mkdtemp(prefix="smoke-rz-"),
+                           "rightsize.jsonl")
+    cfg = RightsizeConfig(window_s=RZ_WINDOW_S)
+    rz = Rightsizer(disp, slo=slo, ledger=ledger,
+                    schedulers={chip.chip_id: sched}, cfg=cfg,
+                    journal_path=journal)
+    out: dict = {"chip": chip.chip_id, "config_cut": {
+        "window_s": RZ_WINDOW_S}}
+    time.sleep(RZ_SETTLE_S)
+    t0 = time.monotonic()
+    out["before"] = _quota_reading(sched, proxy, steps, RZ_WINDOW_S)
+    now = time.monotonic()
+    r = out["before"]
+    exec_ms = r["borrower_exec_share"] * 1000.0 / max(
+        r["borrower_steps_per_sec"], 1e-9)
+    bound_ms = exec_ms / RZ_SLO_SHARE
+    objective = f"step-time-p90<={bound_ms:.3f}ms"
+    slo.declare(grower, objective)
+    samples = [(t, wall) for t, wall, _n in list(walls[borrower])
+               if t0 <= t <= now]
+    for t, wall in samples:
+        slo.record(grower, "step-time", value_s=wall, now=t)
+    slo.evaluate(now)
+    demand = tenant_demand(ledger, now - RZ_WINDOW_S, now, now)
+    out["slo"] = {"objective": objective, "device_ms_a_step": exec_ms,
+                  "samples": len(samples),
+                  "bad": sum(1 for _t, w in samples
+                             if w * 1e3 > bound_ms),
+                  "state": slo.state(now)["tenants"].get(grower)}
+    out["demand"] = demand
+    cyc = rz.cycle(now=now)
+    resizes = {r["pod"]: r for r in cyc["resizes"]}
+    out["cycle"] = {k: cyc[k] for k in ("resizes", "moves", "skipped",
+                                        "applied", "failed",
+                                        "rolled_back")}
+    out["tenants"] = cyc["tenants"]
+    check({(k, r["direction"]) for k, r in resizes.items()}
+          == {(borrower, "grow"), (lender, "shrink")}
+          and resizes[borrower]["reason"] in ("burn-rate", "slo-firing")
+          and resizes[lender]["reason"] == "sustained-idle"
+          and not cyc["moves"] and not cyc["failed"]
+          and len(cyc["applied"]) == 2,
+          f"5l-rightsize: the cycle {json.dumps(out['cycle'])}, SLO "
+          f"{json.dumps(out['slo'])}, demand {json.dumps(demand)}")
+    after = booked()
+    # the share the native core enforces, read back from it, and the
+    # scheduler's record of what it pushed there
+    eff = {k: sched.core.effective(k) for k in (lender, borrower)}
+    pushed = {k: sched.effective(k) for k in (lender, borrower)}
+    out["booked"], out["effective"], out["pushed"] = after, eff, pushed
+    for k, rec in resizes.items():
+        check(abs(after[k] - rec["to"]) <= 1e-9
+              and abs(eff[k][0] - after[k]) <= 1e-9
+              and abs(eff[k][1] - max(rec["to"], rec["from"])) <= 1e-9
+              and eff[k] == pushed[k],
+              f"5l-rightsize: {k} booked {after[k]}, the core's effective "
+              f"{eff[k]}, pushed {pushed[k]}, resized {rec['from']} -> "
+              f"{rec['to']}")
+    check(sched.shares() == {lender: QUOTA_LENDER[1:],
+                             borrower: QUOTA_BORROWER[1:]},
+          f"5l-rightsize: base shares moved: {sched.shares()}")
+    time.sleep(RZ_SETTLE_S)
+    out["after"] = _quota_reading(sched, proxy, steps, RZ_READ_S)
+    share = {k: out[k]["window_share"][borrower]
+             for k in ("before", "after")}
+    check(share["before"] <= RZ_SHARE_OVER * QUOTA_BORROWER[2]
+          and share["after"] <= RZ_SHARE_OVER * eff[borrower][1],
+          f"5l-rightsize: the borrower's window share {share} over its "
+          f"limit {QUOTA_BORROWER[2]} then {eff[borrower][1]}")
+    check(share["after"] > max(QUOTA_BORROWER[2],
+                               RZ_SHARE_GROWN * share["before"]),
+          f"5l-rightsize: the borrower's window share {share}: not above "
+          f"its old limit {QUOTA_BORROWER[2]} and {RZ_SHARE_GROWN}x its "
+          f"share before once grown")
+    # a batch whose last member cannot fit: the lender's shrink lands on
+    # the engine and the card's core, then comes back off both
+    x, g = after[lender], after[borrower]
+    bad = {"resizes": [
+        {"pod": lender, "tenant": default_tenant(lender),
+         "chip": chip.chip_id, "from": x, "to": round(x / 2, 6),
+         "direction": "shrink", "reason": "smoke", "mode": "rebook",
+         "gang": ""},
+        {"pod": borrower, "tenant": grower, "chip": chip.chip_id,
+         "from": g, "to": 1.0, "direction": "grow", "reason": "smoke",
+         "mode": "rebook", "gang": ""}], "moves": []}
+    res = rz.apply(bad)
+    back = booked()
+    eff_back = {k: sched.core.effective(k) for k in (lender, borrower)}
+    pushed_back = {k: sched.effective(k) for k in (lender, borrower)}
+    out["rollback"] = {"failed": [(f["pod"], f["error"])
+                                  for f in res["failed"]],
+                       "rolled_back": [f["pod"] for f in res["rolled_back"]],
+                       "booked": back, "effective": eff_back}
+    check([f["pod"] for f in res["failed"]] == [borrower]
+          and [f["pod"] for f in res["rolled_back"]] == [lender]
+          and not res["applied"] and back == after
+          and abs(eff_back[lender][0] - x) <= 1e-9
+          and eff_back[borrower] == eff[borrower]
+          and eff_back == pushed_back,
+          f"5l-rightsize: the failed batch {json.dumps(out['rollback'])}")
+    with open(journal) as f:
+        events = [json.loads(line) for line in f]
+    shutil.rmtree(os.path.dirname(journal), ignore_errors=True)
+    out["journal"] = [(e["event"], e.get("pod", e.get("applied", "")))
+                      for e in events]
+    check([e["event"] for e in events] == [
+        "batch_begin", "resize_done", "resize_done", "batch_end",
+        "batch_begin", "resize_done", "resize_rolled_back", "batch_end"]
+          and events[3]["applied"] == 2 and events[7]["applied"] == 0
+          and {e["pod"] for e in events[1:3]} == {lender, borrower},
+          f"5l-rightsize: the journal {out['journal']}")
+    check(rz.applied_total == 2 and rz.rolled_back_total == 1,
+          f"5l-rightsize: applied {rz.applied_total}, rolled back "
+          f"{rz.rolled_back_total}")
+    violations = ledger.check()
+    check(violations == [], f"5l-rightsize: the ledger: {violations}")
+    out.update(share=share, seconds=time.monotonic() - t_phase)
     return out
 
 
@@ -4957,6 +5424,10 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=0,
                         help="as a tenant, train exactly this many steps")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--peers", default="",
+                        help="as a tenant, the other tenants' records "
+                             "(comma-separated): train --seconds past the "
+                             "last one's warm-up")
     parser.add_argument("--gang-member", default="",
                         help="run the transformer's CLI with the arguments "
                              "after '--' as a gang member, writing its "
@@ -4996,7 +5467,8 @@ def main(argv=None) -> int:
               f"({e}); run from the root of a checkout", file=sys.stderr)
         return 2
     if args.tenant:
-        return tenant(args.tenant, args.seconds, args.seed, False)
+        return tenant(args.tenant, args.seconds, args.seed, False,
+                      peers=tuple(filter(None, args.peers.split(","))))
     if args.gang_member:
         return gang_member(args.gang_member, member_args)
     if args.elastic_member:
@@ -5357,9 +5829,39 @@ def main(argv=None) -> int:
         f"device-ms; steps {quota['steps']}; launches {quota['launches']}; "
         f"{quota['seconds']:.1f} s")
     phases["quota"] = quota
+    rzr = phases["rightsize"] = quota.pop("rightsize")
+    for k in ("before", "after"):
+        r = rzr[k]
+        log(f"5l-rightsize {k}: borrower window share "
+            f"{r['window_share'][QUOTA_BORROWER[0]]:.4f} (lender "
+            f"{r['window_share'][QUOTA_LENDER[0]]:.4f}), device share "
+            f"{r['borrower_exec_share']:.4f}, "
+            f"{r['borrower_steps_per_sec']:.3f} steps/s over "
+            f"{r['seconds']:.2f} s")
+    sl = rzr["slo"]
+    lend = rzr["demand"].get(QUOTA_LENDER[0].partition("/")[0], {})
+    log(f"5l-rightsize: {QUOTA_BORROWER[0]} against {sl['objective']} "
+        f"(its device step {sl['device_ms_a_step']:.3f} ms / "
+        f"{RZ_SLO_SHARE}): {sl['bad']} of {sl['samples']} chain calls "
+        f"over it, {json.dumps(sl['state'])}; {QUOTA_LENDER[0]} granted "
+        f"{lend.get('granted_s', 0.0):.3f} s of the {RZ_WINDOW_S} s window, "
+        f"idle {lend.get('idle_frac', 0.0):.4f} of it; one cycle: "
+        + "; ".join(f"{x['pod']} {x['direction']} {x['from']} -> "
+                    f"{x['to']} ({x['reason']})"
+                    for x in rzr["cycle"]["resizes"])
+        + f"; applied {len(rzr['cycle']['applied'])}, moves "
+        f"{len(rzr['cycle']['moves'])}; booked {rzr['booked']} = the "
+        f"effective (request, limit) read back from the native core "
+        f"{rzr['effective']} = the scheduler's record of what it pushed")
+    rb = rzr["rollback"]
+    log(f"5l-rightsize: a batch whose last member cannot fit: failed "
+        f"{rb['failed']}, rolled back {rb['rolled_back']}; booked "
+        f"{rb['booked']}, read back from the core {rb['effective']}; journal "
+        f"{rzr['journal']}; steps {rzr['steps']}; launches "
+        f"{rzr['launches']}; {rzr['seconds']:.1f} s")
     for k in launches:
-        launches[k] += quota["launches"][k]
-    mark("5l-quota")
+        launches[k] += quota["launches"][k] + rzr["launches"][k]
+    mark("5l-quota, 5l-rightsize")
 
     # then the paths of processes that count their own launches and check
     # correctness alone, side by side: the sweep through a node, 5k's

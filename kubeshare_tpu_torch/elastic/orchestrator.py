@@ -80,6 +80,14 @@ class ElasticConfig:
     max_moves: int = 16
 
 
+def _home(d, key: str):
+    """The dispatcher whose engine books *key*: *d* itself, or on a
+    sharded plane the owning shard (*d* when no shard holds it)."""
+    owner = getattr(d, "_engine_owner", None)
+    shard = owner(key) if owner is not None else None
+    return d if shard is None else shard
+
+
 class _FlipError(RuntimeError):
     """A flip-stage verification failed; the caller rolls back."""
 
@@ -309,7 +317,15 @@ class ElasticOrchestrator:
         the dispatcher lock (the ``resize_request`` in-place mutation
         idiom). Raises :class:`_FlipError` with everything rolled back
         when the cluster changed under the pause. Returns the new
-        ``TPU_VISIBLE_CHIPS`` layout."""
+        ``TPU_VISIBLE_CHIPS`` layout.
+
+        On a sharded plane each member is re-homed in the engine of the
+        shard that books it (the fleet façade has no port pools, groups
+        or ``alloc_gen``), a target chip outside that shard rolls the
+        flip back, and the gang sync and wake-up go through the plane's
+        ``_sync_gang_fleet`` and the owning shards' conditions. The JAX
+        flip reaches for ``_sync_gang`` and ``_cond`` on the plane and
+        rolls back there."""
         from .. import constants as C
 
         eng = d.engine
@@ -318,6 +334,7 @@ class ElasticOrchestrator:
         def _rollback():
             for (pod, old_booking, old_node, old_port, old_cells,
                  old_chips, old_mem, new_port) in reversed(applied):
+                ports = _home(d, pod.key).engine.ports
                 chip, req, mem = pod.bookings[0]
                 cell = eng.leaf_cells.get(chip)
                 if cell is not None:
@@ -326,15 +343,15 @@ class ElasticOrchestrator:
                 if back is not None:
                     reserve_resource(back, old_booking[1], old_booking[2])
                 if new_port:
-                    if pod.node_name in eng.ports:
-                        eng.ports[pod.node_name].unmask(
+                    if pod.node_name in ports:
+                        ports[pod.node_name].unmask(
                             new_port - C.POD_MANAGER_PORT_START)
                     # the forward path freed the old node's slot when
                     # it claimed the new one — take it back, or the
                     # restored pod.port aliases a free slot the engine
                     # can hand to another pod
-                    if old_port and old_node in eng.ports:
-                        eng.ports[old_node].mask(
+                    if old_port and old_node in ports:
+                        ports[old_node].mask(
                             old_port - C.POD_MANAGER_PORT_START)
                 pod.bookings[0] = old_booking
                 pod.cells = old_cells
@@ -343,15 +360,19 @@ class ElasticOrchestrator:
                 pod.node_name = old_node
                 pod.port = old_port
 
+        conds: dict = {}      # the dispatchers whose waiters to wake
         try:
             for mv in plan["moves"]:
-                pod = eng.pod_status.get(mv["pod"])
-                src = eng.leaf_cells.get(mv["from_chip"])
-                dst = eng.leaf_cells.get(mv["to_chip"])
+                home = _home(d, mv["pod"])
+                conds[id(home)] = home
+                own = home.engine
+                pod = own.pod_status.get(mv["pod"])
+                src = own.leaf_cells.get(mv["from_chip"])
+                dst = own.leaf_cells.get(mv["to_chip"])
                 if (pod is None or len(pod.bookings) != 1
                         or pod.bookings[0][0] != mv["from_chip"]
                         or src is None or dst is None or not dst.healthy
-                        or dst.node in eng.health_veto):
+                        or dst.node in own.health_veto):
                     raise _FlipError(
                         f"{mv['pod']}: membership or target changed "
                         "under the pause")
@@ -369,7 +390,7 @@ class ElasticOrchestrator:
                 if dst.node != pod.node_name and pod.port:
                     # the manager port is node-local: release the old
                     # node's slot, claim one on the destination
-                    pool = eng.ports.get(dst.node)
+                    pool = own.ports.get(dst.node)
                     offset = -1 if pool is None \
                         else pool.find_next_and_set()
                     if offset < 0:
@@ -385,7 +406,7 @@ class ElasticOrchestrator:
                 pod.chip_ids = [dst.chip_id]
                 pod.memory = new_mem
                 if new_port:
-                    eng.ports[old[2]].unmask(
+                    own.ports[old[2]].unmask(
                         old[3] - C.POD_MANAGER_PORT_START)
                     pod.port = new_port
                 pod.node_name = dst.node
@@ -394,13 +415,19 @@ class ElasticOrchestrator:
             if members:
                 # the gang's placement plan (if any survived this
                 # long) described the old chips — drop it, the
-                # evict-path way
-                group = eng.group_of(members[0])
-                group.plan = None
-                group.plan_taken = {}
-                group.plan_stale_gen = -1
-                eng.alloc_gen += 1
-                d._sync_gang(members[0])
+                # evict-path way (on every engine booking a member)
+                firsts = {}
+                for p in members:
+                    home = _home(d, p.key)
+                    firsts.setdefault(id(home), (home.engine, p))
+                for own, first in firsts.values():
+                    group = own.group_of(first)
+                    group.plan = None
+                    group.plan_taken = {}
+                    group.plan_stale_gen = -1
+                    own.alloc_gen += 1
+                sync = getattr(d, "_sync_gang_fleet", None) or d._sync_gang
+                sync(members[0])
                 self._republish(d, [mv["pod"] for mv in plan["moves"]])
             chips = sorted({p.bookings[0][0] for p in members})
             coords = [getattr(eng.leaf_cells.get(c), "coords", ()) or ()
@@ -411,29 +438,33 @@ class ElasticOrchestrator:
             # placement before it propagates — the caller only decides
             # how to report, never how to untear
             _rollback()
-            d._cond.notify_all()
+            for home in conds.values():
+                home._cond.notify_all()
             raise
-        d._cond.notify_all()
+        for home in conds.values():
+            home._cond.notify_all()
         return carve_env(chips, coords)
 
     @staticmethod
     def _republish(d, keys: list[str]) -> None:
         """Best-effort binding re-publication for moved members (the
         journal's flip record is authoritative; a publish failure is
-        diagnosable, not fatal — same stance as resize_request)."""
-        if d.registry is None:
-            return
+        diagnosable, not fatal — same stance as resize_request). On a
+        sharded plane each goes through the shard that books it."""
         from ..scheduler.dispatcher import _binding_of
         from ..telemetry.aggregator import publish_binding
 
         for key in keys:
-            pod = d.engine.pod_status.get(key)
+            home = _home(d, key)
+            if home.registry is None:
+                continue
+            pod = home.engine.pod_status.get(key)
             if pod is None or not pod.needs_tpu:
                 continue
             try:
-                publish_binding(d.registry, pod,
-                                _binding_of(pod, d.engine),
-                                fence=d._fence())
+                publish_binding(home.registry, pod,
+                                _binding_of(pod, home.engine),
+                                fence=home._fence())
             except Exception as e:
                 log.warning("elastic: re-publish of %s failed: %s",
                             key, e)

@@ -142,6 +142,17 @@ int ts_set_effective(void* h, const char* name, double request, double limit) {
   return 0;
 }
 
+// Read a client's effective share back as the core holds it: what
+// ts_poll enforces, set by ts_add_client or the last ts_set_effective.
+int ts_get_effective(void* h, const char* name, double* request_out,
+                     double* limit_out) {
+  Client* c = find(static_cast<Scheduler*>(h), name);
+  if (!c) return -2;
+  *request_out = c->request;
+  *limit_out = c->limit;
+  return 0;
+}
+
 int ts_remove_client(void* h, const char* name) {
   auto* s = static_cast<Scheduler*>(h);
   if (!s->clients.count(name)) return -1;

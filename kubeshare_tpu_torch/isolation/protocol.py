@@ -112,6 +112,13 @@ def dump_array_parts(arr) -> list:
     return [hdr.getvalue(), data]
 
 
+def dump_array(arr) -> bytes:
+    """numpy array → .npy bytes in one contiguous buffer (the join of
+    :func:`dump_array_parts`, one payload copy), for callers that need
+    random byte access."""
+    return b"".join(dump_array_parts(arr))
+
+
 def slice_buffers(parts, offset: int, length: int) -> list:
     """Byte range ``[offset, offset+length)`` of a stream of buffers, as
     views: the chunked transfers slice header and payload as one blob."""

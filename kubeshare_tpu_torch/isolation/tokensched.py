@@ -184,6 +184,12 @@ class PyTokenCore:
         c.request = request
         c.limit = limit
 
+    def effective(self, name: str) -> tuple[float, float]:
+        """The ``(request, limit)`` the core enforces for ``name``, read
+        back from its client record. Raises KeyError for an unknown one."""
+        c = self._clients[name]
+        return c.request, c.limit
+
     def window_usage(self, name: str, now_ms: float) -> float:
         return self._clients[name].window_usage(now_ms, self.window_ms)
 
@@ -224,6 +230,8 @@ def _bind_native(lib: ctypes.CDLL) -> None:
         getattr(lib, fn).argtypes = args
     lib.ts_window_usage.restype = db
     lib.ts_window_usage.argtypes = [vp, cp, db]
+    lib.ts_get_effective.restype = ctypes.c_int
+    lib.ts_get_effective.argtypes = [vp, cp, dbp, dbp]
 
 
 class NativeTokenCore:
@@ -294,6 +302,14 @@ class NativeTokenCore:
             raise ValueError(f"bad request/limit: {request}/{limit}")
         if rc == -2:
             raise KeyError(name)
+
+    def effective(self, name: str) -> tuple[float, float]:
+        request, limit = ctypes.c_double(), ctypes.c_double()
+        if self._lib.ts_get_effective(self._handle(), name.encode(),
+                                      ctypes.byref(request),
+                                      ctypes.byref(limit)) != 0:
+            raise KeyError(name)
+        return request.value, limit.value
 
     def window_usage(self, name: str, now_ms: float) -> float:
         u = self._lib.ts_window_usage(self._handle(), name.encode(), now_ms)

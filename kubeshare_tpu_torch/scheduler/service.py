@@ -32,10 +32,11 @@ API (JSON):
   pause percentiles, cooldowns (doc/elastic.md; detached as above)
 - ``POST /elastic/resize``  {"gang","target_chips"{,"reason"}} → 200
   applied or noop, 409 refused / rolled back / detached
-- ``GET  /rightsize`` answers ``{"attached": false, "enabled": false}``
-  and its POSTs (``/rightsize/plan``, ``/rightsize/apply``) 409: the
-  port has no rightsizer yet, and the JAX service answers so when it is
-  detached
+- ``GET  /rightsize`` SLO-driven capacity rightsizer state: per-tenant
+  burn vs budget, current/proposed shares, chip-equivalents
+  (doc/autopilot.md, Rightsizing; detached as above)
+- ``POST /rightsize/plan``   dry-run: emit a resize plan, touch nothing
+- ``POST /rightsize/apply``  plan + execute one cycle (409 when detached)
 - ``GET  /serving``   serving front-door join view: per-tenant queues,
   admit/shed totals, batch stats (doc/serving.md; ``{"attached":
   false}`` when no front door is wired)
@@ -55,6 +56,9 @@ API (JSON):
   takeover history, frozen state, replication lag (doc/ha.md;
   ``attached: false`` when this service is not in an election)
 - ``GET  /decisions`` decision-recorder summary (doc/replay.md)
+- ``GET  /decisions/trace`` the recorder's whole ring as a decision trace
+  (JSONL, what ``replay.replay_trace`` and ``topcli --replay-diff``
+  read); the port's own: the JAX service serves only the summary
 - ``GET  /evictions`` outstanding preemption eviction requests
 - ``GET  /healthz``
 
@@ -86,29 +90,6 @@ from .healthwatch import HealthWatch
 from .labels import LabelError
 
 log = get_logger("schedsvc")
-
-#: the JAX service's planes the port has not ported yet (ROADMAP.md,
-#: queue 1), each with what it needs and the queue item that ports it
-UNPORTED = {
-    "rightsize": "the capacity rightsizer (rightsize/), not ported yet: "
-                 "ROADMAP queue 1 item 6",
-}
-
-#: the JAX CLI's flags of those planes: any use of one exits 2 naming
-#: its plane. ``--elastic-grow`` acts only through the rightsizer.
-UNPORTED_FLAGS = {
-    "--rightsize": "rightsize", "--rightsize-journal": "rightsize",
-    "--elastic-grow": "rightsize",
-}
-
-
-#: POST endpoints of the rightsizer, never attached, and the JAX
-#: service's 409 body for them
-DETACHED_POSTS = {
-    "/rightsize/plan": "rightsizer not attached",
-    "/rightsize/apply": "rightsizer not attached",
-}
-
 
 class SchedulerService:
     def __init__(self, engine: SchedulerEngine,
@@ -193,9 +174,10 @@ class SchedulerService:
         self.standby = None
         self._ha_thread: threading.Thread | None = None
         self._ha_stop = threading.Event()
-        # the autopilot and elastic planes: None until attached, and
-        # their GETs answer detached
+        # the autopilot, rightsize and elastic planes: None until
+        # attached, and their GETs answer detached
         self.autopilot = None
+        self.rightsizer = None
         self.elastic = None
 
     def start_remote_write(self, instance: str | None = None,
@@ -227,6 +209,13 @@ class SchedulerService:
         ``self.dispatcher`` (doc/autopilot.md); exposes it on
         ``/autopilot``."""
         self.autopilot = autopilot
+        return self
+
+    def attach_rightsize(self, rightsizer) -> "SchedulerService":
+        """Wire a :class:`~..rightsize.Rightsizer` built over
+        ``self.dispatcher`` (doc/autopilot.md, Rightsizing); exposes it
+        on ``/rightsize``."""
+        self.rightsizer = rightsizer
         return self
 
     def attach_elastic(self, orchestrator) -> "SchedulerService":
@@ -320,9 +309,8 @@ class SchedulerService:
 
     @staticmethod
     def detached_state() -> dict:
-        """The JAX service's body for a detached plane (``GET
-        /rightsize`` always, ``/autopilot`` and ``/elastic`` until
-        attached)."""
+        """The body of a detached plane's GET (``/autopilot``,
+        ``/rightsize``, ``/elastic``)."""
         return {"attached": False, "enabled": False}
 
     def autopilot_state(self) -> dict:
@@ -330,6 +318,12 @@ class SchedulerService:
         if self.autopilot is None:
             return self.detached_state()
         return self.autopilot.snapshot()
+
+    def rightsize_state(self) -> dict:
+        """``GET /rightsize`` body; cheap when no rightsizer is wired."""
+        if self.rightsizer is None:
+            return self.detached_state()
+        return self.rightsizer.snapshot()
 
     def elastic_state(self) -> dict:
         """``GET /elastic`` body; cheap when no orchestrator is wired."""
@@ -407,6 +401,13 @@ class SchedulerService:
         """``GET /decisions`` body: decision-recorder summary — ring
         fill, per-kind counts, recent tail (doc/replay.md)."""
         return self.decisions.state()
+
+    def decisions_trace(self) -> str:
+        """``GET /decisions/trace`` body: the recorder's ring as a
+        decision trace (``obs.decisions.trace_jsonl``)."""
+        from ..obs.decisions import trace_jsonl
+
+        return trace_jsonl(self.decisions)
 
     def ha_state(self) -> dict:
         """``GET /ha`` body: leadership role, lease epoch, takeover
@@ -547,11 +548,14 @@ class SchedulerService:
             def do_GET(self):
                 if self.path == "/healthz":
                     return self._reply(200, {"ok": True})
-                if self.path == "/metrics":
-                    body = svc.render_metrics().encode()
+                if self.path in ("/metrics", "/decisions/trace"):
+                    trace = self.path == "/decisions/trace"
+                    body = (svc.decisions_trace() if trace
+                            else svc.render_metrics()).encode()
                     self.send_response(200)
                     self.send_header("Content-Type",
-                                     "text/plain; version=0.0.4")
+                                     "application/x-ndjson" if trace
+                                     else "text/plain; version=0.0.4")
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()
                     self.wfile.write(body)
@@ -565,7 +569,7 @@ class SchedulerService:
                 if self.path == "/elastic":
                     return self._reply(200, svc.elastic_state())
                 if self.path == "/rightsize":
-                    return self._reply(200, svc.detached_state())
+                    return self._reply(200, svc.rightsize_state())
                 if self.path == "/serving":
                     return self._reply(200, svc.serving_state())
                 if self.path == "/slo":
@@ -621,6 +625,17 @@ class SchedulerService:
                             return self._reply(
                                 409, {"error": "autopilot not attached"})
                         return self._reply(200, svc.autopilot.cycle())
+                    if self.path == "/rightsize/plan":
+                        if svc.rightsizer is None:
+                            return self._reply(
+                                409, {"error": "rightsizer not attached"})
+                        return self._reply(
+                            200, {"plan": svc.rightsizer.plan()})
+                    if self.path == "/rightsize/apply":
+                        if svc.rightsizer is None:
+                            return self._reply(
+                                409, {"error": "rightsizer not attached"})
+                        return self._reply(200, svc.rightsizer.cycle())
                     if self.path == "/elastic/resize":
                         if svc.elastic is None:
                             return self._reply(
@@ -631,9 +646,6 @@ class SchedulerService:
                         code = (200 if out.get("outcome")
                                 in ("applied", "noop") else 409)
                         return self._reply(code, out)
-                    if self.path in DETACHED_POSTS:
-                        return self._reply(
-                            409, {"error": DETACHED_POSTS[self.path]})
                 except (LabelError, Unschedulable) as e:
                     return self._reply(409, {"error": str(e)})
                 except Exception as e:
@@ -694,7 +706,7 @@ def main(argv=None) -> None:
     """The service CLI. It prints ``READY <port>`` once it serves, with
     its signal handlers already in place (``utils.ready_until_signal``;
     the JAX CLI installs them after its ``READY``), and stops on SIGTERM
-    or SIGINT. Each flag of a plane the port lacks exits 2, naming it."""
+    or SIGINT."""
     import argparse
 
     from ..topology.cellconfig import load_config
@@ -749,6 +761,13 @@ def main(argv=None) -> None:
     parser.add_argument("--autopilot-journal", default="",
                         help="JSONL move journal path (crash-safe batch "
                              "recovery); empty = no journal")
+    parser.add_argument("--rightsize", action="store_true",
+                        help="attach the SLO-driven capacity rightsizer: "
+                             "/rightsize snapshot + plan/apply endpoints "
+                             "(doc/autopilot.md, Rightsizing)")
+    parser.add_argument("--rightsize-journal", default="",
+                        help="JSONL resize journal path; empty = no "
+                             "journal")
     parser.add_argument("--elastic", action="store_true",
                         help="attach the elastic SPMD training plane: "
                              "live gang sub-mesh grow/shrink on "
@@ -758,6 +777,11 @@ def main(argv=None) -> None:
                         help="elastic resize JSONL journal path (the "
                              "crash-recovery commit log); empty = no "
                              "journal")
+    parser.add_argument("--elastic-grow", action="store_true",
+                        help="with --rightsize and --elastic: let the "
+                             "rightsizer propose whole-chip gang grows "
+                             "through the elastic plane (off by "
+                             "default)")
     parser.add_argument("--flight-dump-dir", default="",
                         help="persist flight-recorder black-box dumps as "
                              "JSONL files here (in-memory only when empty)")
@@ -801,15 +825,7 @@ def main(argv=None) -> None:
     parser.add_argument("--ha-resync-period", type=float, default=None,
                         help="standby warm-resync period in seconds "
                              "(default: the lease TTL)")
-    for flag, plane in UNPORTED_FLAGS.items():
-        parser.add_argument(flag, nargs="?", const="", default=None,
-                            help=f"refused: needs {UNPORTED[plane]}")
     args = parser.parse_args(argv)
-    refused = [(flag, plane) for flag, plane in UNPORTED_FLAGS.items()
-               if getattr(args, flag[2:].replace("-", "_")) is not None]
-    if refused:
-        flag, plane = refused[0]
-        parser.exit(2, f"{parser.prog}: {flag} needs {UNPORTED[plane]}\n")
 
     if args.flight_dump_dir:
         obs_flight.default_recorder().set_dump_dir(args.flight_dump_dir)
@@ -831,16 +847,18 @@ def main(argv=None) -> None:
                      if args.health else None),
         max_pending=args.max_pending or None,
         shards=args.shards, shard_route=args.shard_route)
+    planner = rebalancer = None
     cooldowns = None
-    if args.autopilot or args.elastic:
+    if args.autopilot or args.rightsize or args.elastic:
         # the cooldown rail is SHARED: a pod the autopilot just moved
-        # must not be elastically re-homed at once, and vice versa — one
-        # ledger backs both planes
+        # must not be immediately resized or elastically re-homed, and
+        # vice versa — one ledger (and one planner / one journaled
+        # rebalancer) backs all three planes
         from ..autopilot import CooldownLedger
 
         cooldowns = CooldownLedger()
-    if args.autopilot:
-        from ..autopilot import Autopilot, Planner, Rebalancer
+    if args.autopilot or args.rightsize:
+        from ..autopilot import Planner, Rebalancer
 
         planner = Planner(svc.dispatcher, budget=args.autopilot_budget,
                           cooldowns=cooldowns)
@@ -848,6 +866,9 @@ def main(argv=None) -> None:
                                 journal_path=(args.autopilot_journal
                                               or None),
                                 gang_coordinator=svc.gangcoord)
+    if args.autopilot:
+        from ..autopilot import Autopilot
+
         svc.attach_autopilot(Autopilot(
             svc.dispatcher, planner=planner, rebalancer=rebalancer))
     if args.elastic:
@@ -857,6 +878,17 @@ def main(argv=None) -> None:
             svc.dispatcher, gang_coordinator=svc.gangcoord,
             cooldowns=cooldowns,
             journal_path=(args.elastic_journal or None)))
+    if args.rightsize:
+        from ..rightsize import RightsizeConfig, Rightsizer
+
+        cfg = RightsizeConfig(
+            elastic_grow=bool(args.elastic_grow and args.elastic))
+        svc.attach_rightsize(Rightsizer(
+            svc.dispatcher, slo=svc.slo, ledger=svc.ledger,
+            blame=svc.blame, planner=planner, rebalancer=rebalancer,
+            gang_coordinator=svc.gangcoord, cfg=cfg,
+            cooldowns=cooldowns, elastic=svc.elastic,
+            journal_path=(args.rightsize_journal or None)))
     if args.preempt:
         from ..preempt import PreemptionPolicy
 

@@ -163,3 +163,11 @@ def simulate_serving(n_requests: int = 400, tenants: int = 4,
         out["slo_firing"] = ["%s:%s" % (t, o) for t, o in slo.firing()]
     return out
 
+
+def latency_quantile(values: List[float], q: float) -> float:
+    """The *q* quantile of *values* by nearest rank (0.0 when empty)."""
+    if not values:
+        return 0.0
+    s = sorted(values)
+    idx = min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))
+    return s[idx]

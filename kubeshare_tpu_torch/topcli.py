@@ -1,8 +1,6 @@
 """``kubeshare-top``: live fleet view from the telemetry registry.
 
-The port's copy of ``kubeshare_tpu/topcli.py``, every view but
-``--replay-diff``: that one needs the replay plane (``replay/``), which
-the port has not ported yet, and exits 2 naming it.
+The port's copy of ``kubeshare_tpu/topcli.py``.
 
 The reference has no operator console — fleet state lives across
 Prometheus queries and ``kubectl describe`` (``pkg/collector``,
@@ -1340,17 +1338,52 @@ def _critpath_main(args) -> int:
     return 0 if traces else 2
 
 
-#: what ``--replay-diff`` needs, in the form of the service's ``UNPORTED``
-REPLAY_UNPORTED = ("the replay plane (replay/), not ported yet: ROADMAP "
-                   "queue 1 item 6")
-
-
 def _replay_diff_main(args) -> int:
-    """``--replay-diff`` needs the replay plane's ``decision_diff``: the
-    port refuses it, naming the plane."""
-    print(f"kubeshare-top: --replay-diff needs {REPLAY_UNPORTED}",
-          file=sys.stderr)
-    return 2
+    """Offline decision-diff render: either a saved diff report (the
+    ``decision_diff`` JSON ``bench_replay`` and ``trigger_on_diff``
+    emit) or a pair of decision traces to diff on the spot."""
+    from .obs.decisions import parse_trace_jsonl
+    from .replay import decision_diff, render_diff
+
+    try:
+        with open(args.replay_diff) as fh:
+            text = fh.read()
+    except OSError as e:
+        print(f"kubeshare-top: --replay-diff: {e}", file=sys.stderr)
+        return 2
+    try:
+        first = text.lstrip().splitlines()[0] if text.strip() else ""
+        doc = json.loads(first) if first.startswith("{") else None
+    except ValueError:
+        doc = None
+    if doc is not None and doc.get("kind") == "header":
+        # a decision trace, not a diff — needs the counterpart trace
+        if not args.against:
+            print("kubeshare-top: --replay-diff got a decision trace; "
+                  "pass the candidate trace via --against FILE",
+                  file=sys.stderr)
+            return 2
+        try:
+            with open(args.against) as fh:
+                other = fh.read()
+        except OSError as e:
+            print(f"kubeshare-top: --against: {e}", file=sys.stderr)
+            return 2
+        diff = decision_diff(parse_trace_jsonl(text)["entries"],
+                             parse_trace_jsonl(other)["entries"],
+                             shard_equivalence=args.shard_equiv)
+    else:
+        try:
+            diff = json.loads(text)
+        except ValueError as e:
+            print(f"kubeshare-top: --replay-diff: not a diff report or "
+                  f"decision trace: {e}", file=sys.stderr)
+            return 2
+    if args.json:
+        print(json.dumps(diff))
+    else:
+        print(render_diff(diff))
+    return 0 if diff.get("identical") else 1
 
 
 def _opportunistic(priority: str) -> bool:

@@ -7,7 +7,10 @@ Needs one CUDA card and runs from anywhere in a checkout. It builds the
 kernels, then runs ``chip_smoke.quota_phase`` (a proxy with the native
 token scheduler and an ``ElasticQuota``: an idle lender's headroom lent to
 a borrower pinned at its limit, both training the full-width flash LM, and
-revoked inside the lender's next demand) and ``chip_smoke.elastic_phase``
+revoked inside the lender's next demand; then 5l-rightsize on the same
+proxy and clients: a ``Rightsizer`` grows the borrower, which misses its
+step-time objective, and shrinks the lender, now holding its grants
+idle, through the card's scheduler) and ``chip_smoke.elastic_phase``
 (four gloo ranks on the card: the flash LM resized 2 -> 4 -> 1 ranks
 mid-run by an ``ElasticOrchestrator``, held to the unresized run, then a
 checkpoint restate onto one rank). Every check is the smoke's. Prints one
@@ -52,7 +55,9 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda}
     result["quota"] = cs.quota_phase(torch.device("cuda", 0), adam,
                                      transformer.LAYERS)
+    result["rightsize"] = result["quota"].pop("rightsize")
     cs.log(f"5l-quota: {json.dumps(result['quota'], default=str)}")
+    cs.log(f"5l-rightsize: {json.dumps(result['rightsize'], default=str)}")
     result["elastic"] = cs.elastic_phase(ROOT, adam, transformer.LAYERS)
     cs.log(f"5l-elastic: {json.dumps(result['elastic'], default=str)}")
     if args.out:

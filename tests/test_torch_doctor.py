@@ -6,8 +6,9 @@ scheduler of each package, built by the same calls: the same checks
 answer with the same status and exit code (exact), and dead endpoints
 fail the same 16 checks. Its chip check probes the card with torch and
 fails here, with no card, rather than skip or report the CPU. topcli
-renders each view the JAX topcli renders over the same fleet and pods;
-``--replay-diff`` exits 2 naming the replay plane. The launcher's and
+renders each view the JAX topcli renders over the same fleet and pods,
+and ``--replay-diff`` renders a trace pair or a saved diff report as the
+JAX one does, with its exit codes. The launcher's and
 the proxy's CLIs remote-write to a live port registry and mark their
 instances stale on a clean stop.
 
@@ -239,12 +240,55 @@ def test_each_topcli_view_renders_as_jax_does(stacks, capsys, view):
             out.splitlines()[0].split()[:1] == jout.splitlines()[0].split()[:1])
 
 
-def test_topcli_refuses_replay_diff_naming_the_plane(tmp_path, capsys):
-    trace = tmp_path / "t.jsonl"
-    trace.write_text("{}\n")
-    rc, _, err = run(topcli.main, ["--replay-diff", str(trace)], capsys)
-    assert rc == 2
-    assert "replay plane (replay/)" in err and "ROADMAP" in err
+def test_topcli_replay_diff_on_a_trace_pair_and_a_saved_report(
+        tmp_path, capsys):
+    """Traces the port recorded and replayed with a nudged scorer: the
+    pair diffs with exit 1 and a trace against itself with exit 0; a
+    saved ``decision_diff`` report renders without ``--against``, exit 1
+    when it holds a diff and 0 when it does not. The JAX topcli prints
+    the same on the same files."""
+    from kubeshare_tpu_torch.replay import (decision_diff, record_trace,
+                                            replay_trace)
+    from kubeshare_tpu_torch.sim.simulator import churn_events
+
+    class Nudged(SchedulerEngine):
+        def score(self, pod, node):
+            s = super().score(pod, node)
+            return s + 50.0 if node.endswith("-0") else s
+
+    by_host: dict = {}
+    for c in FakeTopology(hosts=4, mesh=(2, 2)).chips():
+        by_host.setdefault(c.host, []).append(c.to_labels())
+    rec = record_trace(churn_events(30, seed=3), by_host, seed=11,
+                       tick_s=0.25)
+    rep = replay_trace(decisions.trace_jsonl(rec), tick_s=0.25,
+                       engine_factory=lambda clk: Nudged(clock=clk))
+    files = {}
+    for name, text in (
+            ("rec", decisions.trace_jsonl(rec)),
+            ("rep", decisions.trace_jsonl(rep)),
+            ("diff", json.dumps(decision_diff(rec.entries(),
+                                              rep.entries()))),
+            ("same", json.dumps(decision_diff(rec.entries(),
+                                              rec.entries())))):
+        files[name] = tmp_path / name
+        files[name].write_text(text)
+    for argv, want in (
+            ([files["rec"], "--against", files["rep"]], 1),
+            ([files["rec"], "--against", files["rec"]], 0),
+            ([files["diff"]], 1), ([files["diff"], "--json"], 1),
+            ([files["same"]], 0)):
+        argv = ["--replay-diff", *map(str, argv)]
+        rc, out, err = run(topcli.main, argv, capsys)
+        assert (rc, out, err) == run(jtopcli.main, argv, capsys), argv
+        assert rc == want, argv
+        if "--json" in argv:
+            doc = json.loads(out)
+            assert doc["moved"] and not doc["identical"]
+        elif want:
+            assert "decision replay diff" in out and " -> " in out
+        else:
+            assert "bit-identical" in out
 
 
 def test_topcli_exits_2_on_an_unreachable_registry(capsys):

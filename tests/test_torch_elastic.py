@@ -5,8 +5,10 @@ service's attached ``/elastic`` with its doctor check and topcli view,
 and the data plane — ``restate`` and ``ElasticTrainer`` on 4 gloo ranks
 (``utils.virtualcpu.RankPool``) against JAX's on 4 virtual CPU devices.
 
-Mirrors ``tests/test_elastic.py`` (its rightsizer and chaos cases wait
-for those modules). Control-plane results are compared exactly: both
+Mirrors ``tests/test_elastic.py`` (its chaos case is in
+``tests/test_torch_chaos.py``), and pins one divergence on purpose: on a
+sharded plane the port's flip applies where the JAX flip rolls back.
+Control-plane results are compared exactly: both
 sides run on one fake clock, and journal records are compared without
 their times. Data-plane tolerances: tinymlp losses and params within
 rtol 1e-4, atol 1e-5 of JAX's (JAX's own test's), with ``optax.adam``
@@ -33,6 +35,7 @@ import pytest
 from kubeshare_tpu import constants as JC
 from kubeshare_tpu import doctor as jdoctor
 from kubeshare_tpu import elastic as jelastic
+from kubeshare_tpu import rightsize as jrightsize
 from kubeshare_tpu import topcli as jtopcli
 from kubeshare_tpu.autopilot import CooldownLedger as JLedger
 from kubeshare_tpu.autopilot import Planner as JPlanner
@@ -43,11 +46,13 @@ from kubeshare_tpu.obs import flight as jflight
 from kubeshare_tpu.scheduler import dispatcher as jdispatcher
 from kubeshare_tpu.scheduler import engine as jengine
 from kubeshare_tpu.scheduler import service as jservice
+from kubeshare_tpu.scheduler import shard as jshard
 from kubeshare_tpu.telemetry import registry as jregistry
 from kubeshare_tpu.topology import cell as jcell
 from kubeshare_tpu.topology import discovery as jdiscovery
 from kubeshare_tpu_torch import constants as C
-from kubeshare_tpu_torch import doctor, elastic, topcli
+from kubeshare_tpu_torch import doctor, elastic, rightsize, topcli
+from kubeshare_tpu_torch.chaos import invariants
 from kubeshare_tpu_torch.autopilot import CooldownLedger, Planner
 from kubeshare_tpu_torch.elastic import sim
 from kubeshare_tpu_torch.gang import coordinator
@@ -56,6 +61,7 @@ from kubeshare_tpu_torch.obs import flight
 from kubeshare_tpu_torch.scheduler import dispatcher
 from kubeshare_tpu_torch.scheduler import engine
 from kubeshare_tpu_torch.scheduler import service
+from kubeshare_tpu_torch.scheduler import shard
 from kubeshare_tpu_torch.telemetry import registry
 from kubeshare_tpu_torch.topology import cell
 from kubeshare_tpu_torch.topology import discovery
@@ -68,13 +74,13 @@ PORT = types.SimpleNamespace(
     coordinator=coordinator, decisions=decisions, flight=flight,
     dispatcher=dispatcher, engine=engine, service=service,
     registry=registry, cell=cell, discovery=discovery, doctor=doctor,
-    topcli=topcli)
+    topcli=topcli, rz=rightsize, shard=shard)
 JAX = types.SimpleNamespace(
     C=JC, el=jelastic, sim=jsim, Ledger=JLedger, Planner=JPlanner,
     coordinator=jcoordinator, decisions=jdecisions, flight=jflight,
     dispatcher=jdispatcher, engine=jengine, service=jservice,
     registry=jregistry, cell=jcell, discovery=jdiscovery, doctor=jdoctor,
-    topcli=jtopcli)
+    topcli=jtopcli, rz=jrightsize, shard=jshard)
 SIDES = (PORT, JAX)
 GANG = "ns/ring"
 
@@ -431,6 +437,108 @@ def test_a_disabled_plane_is_inert_and_its_stream_unchanged(tmp_path):
     assert out["outcome"] == "disabled"
     assert inert == (True, False, 0) and recorded == 1
     assert snap["enabled"] is False
+
+
+def test_an_elastic_flip_on_a_sharded_plane_applies_where_jax_rolls_back():
+    """A divergence on purpose. On a 2-shard cell-route plane the port's
+    flip re-homes each member in its shard's engine, publishes the
+    gang's whole membership through ``_sync_gang_fleet`` and wakes the
+    owning shard: the grow applies, the gang coordinator holds the new
+    chips and the cross-shard invariants stay clean. The JAX flip reaches
+    for the plane's ``_sync_gang``/``_cond``, which a sharded dispatcher
+    lacks, and rolls the gang back whole."""
+    def drive(side):
+        clk = FakeClock()
+        by_host: dict = {}
+        for chip in side.discovery.FakeTopology(hosts=2,
+                                                mesh=(2, 2)).chips():
+            by_host.setdefault(chip.host, []).append(chip)
+        disp = side.shard.make_dispatcher(by_host, shards=2, route="cell",
+                                          clock=clk)
+        gc = side.coordinator.GangTokenCoordinator(clock=clk)
+        disp.attach_gang_coordinator(gc)
+        bind_gang(side, disp)
+        before = gang_state(disp)
+        out = make_orch(side, disp, clk, gangcoord=gc).resize(
+            GANG, 4, now=clk.t)
+        after = gang_state(disp)
+        with disp.lock:
+            found = invariants.check_cross_shard(
+                [sh.engine for sh in disp.shards], set())
+        held = sorted({b[0][0] for k, (_n, b, _p, _i) in after.items()
+                       if gc.gang_for(b[0][0], k) == GANG})
+        return out, before, after, found, held
+
+    got, want = drive(PORT), drive(JAX)
+    out, before, after, found, held = got
+    assert out["outcome"] == "applied" and out["to_chips"] == 4
+    chips = {b[0][0] for _node, b, _port, _ids in after.values()}
+    assert len(chips) == 4 and held == sorted(chips)
+    assert len({port for _n, _b, port, _i in after.values()}) == 4
+    assert found == []
+    jout, jbefore, jafter, jfound, _ = want
+    assert jout["outcome"] == "rolled_back" and "_cond" in jout["reason"]
+    assert jafter == jbefore == before and jfound == []
+    assert out["moves"] == jout["moves"]
+
+
+class _FakeSlo:
+    def __init__(self):
+        self.tenants: dict = {}
+
+    def burn(self, tenant, fast=3.0, slow=3.0):
+        self.tenants[tenant] = [{"objective": "grant-wait-p99<=500ms",
+                                 "burn_fast": fast, "burn_slow": slow,
+                                 "firing": True, "budget_remaining": 0.1}]
+
+    def state(self, now=None):
+        return {"tenants": dict(self.tenants)}
+
+
+class _RecordingElastic:
+    def __init__(self):
+        self.calls: list = []
+
+    def resize(self, gang, target, reason=""):
+        self.calls.append((gang, target, reason))
+        return {"gang": gang, "outcome": "applied"}
+
+
+@pytest.mark.parametrize("grow", [False, True], ids=["off", "on"])
+def test_the_rightsizers_elastic_grow_matches_jax(grow):
+    """A hot gang tenant: with ``elastic_grow`` off the plan has no
+    ``elastic`` key and still grows the gang's token share; with it on
+    the plan proposes one more chip and apply hands it to the elastic
+    plane."""
+    def drive(side):
+        clk = FakeClock()
+        disp = make_disp(side, clock=clk)
+        gc = side.coordinator.GangTokenCoordinator(clock=clk)
+        disp.attach_gang_coordinator(gc)
+        dec = side.decisions.DecisionRecorder(clock=clk, seed=1)
+        disp.attach_decisions(dec)
+        gang = bind_gang(side, disp)
+        slo = _FakeSlo()
+        slo.burn("ns")
+        rec = _RecordingElastic()
+        rz = side.rz.Rightsizer(
+            disp, slo=slo, gang_coordinator=gc, clock=clk,
+            cfg=side.rz.RightsizeConfig(elastic_grow=grow), elastic=rec)
+        plan = rz.plan(clk.t)
+        result = rz.apply({"resizes": [], "moves": [],
+                           "elastic": plan.get("elastic", [])})
+        return gang, plan, result, rec.calls, dict(dec.counts())
+
+    gang, plan, result, calls, _counts = both(drive)
+    assert any(r["gang"] == gang for r in plan["resizes"])
+    if not grow:
+        assert "elastic" not in plan and calls == []
+        return
+    (prop,) = plan["elastic"]
+    assert prop["gang"] == gang and prop["reason"] == "slo-firing"
+    assert (prop["from_chips"], prop["to_chips"]) == (2, 3)
+    assert calls == [(gang, 3, "rightsize-grow")]
+    assert result["elastic"] == [{"gang": gang, "outcome": "applied"}]
 
 
 @pytest.mark.parametrize("leg", ["elastic", "static", "bare"])

@@ -411,3 +411,23 @@ def test_put_abort_races_connection_drop():
             c2.close()
     finally:
         p.close()
+
+
+@pytest.mark.parametrize("arr", [
+    np.float32(1.5), np.zeros((0, 3), np.float32),
+    np.arange(12, dtype=np.int64).reshape(3, 4),
+    np.asfortranarray(np.arange(6, dtype=np.float64).reshape(2, 3)),
+    np.arange(10, dtype=np.int16)[::2], np.array([True, False])],
+    ids=["scalar", "empty", "int64", "fortran", "strided", "bool"])
+def test_dump_array_is_the_jax_bytes(arr):
+    """``dump_array`` joins ``dump_array_parts``: the JAX package's .npy
+    bytes, 0-d kept 0-d, and it loads back to the same array."""
+    blob = protocol.dump_array(arr)
+    assert isinstance(blob, bytes)
+    assert blob == jprotocol.dump_array(arr)
+    assert blob == b"".join(bytes(p) for p in protocol.dump_array_parts(arr))
+    back = protocol.load_array(blob)
+    assert back.shape == np.shape(arr) and back.dtype == np.asarray(arr).dtype
+    np.testing.assert_array_equal(back, arr)
+    with pytest.raises(ValueError, match="object arrays"):
+        protocol.dump_array(np.array([object()]))

@@ -101,6 +101,17 @@ def test_port_sources_exist():
         assert (ROOT / f"kubeshare_tpu_torch/csrc/{kernel}.cu").exists()
 
 
+def test_every_jax_module_has_a_counterpart():
+    """Each ``.py`` of ``kubeshare_tpu/`` has its counterpart at the same
+    path under ``kubeshare_tpu_torch/``."""
+    jax_root = ROOT / "kubeshare_tpu"
+    missing = sorted(
+        p.relative_to(jax_root).as_posix() for p in jax_root.rglob("*.py")
+        if not (ROOT / "kubeshare_tpu_torch"
+                / p.relative_to(jax_root)).exists())
+    assert missing == []
+
+
 def test_shim_imports_only_the_ports_attach():
     """The shim runs in every process of the node: it may import the
     standard library and ``kubeshare_tpu_torch.attach``, nothing else."""

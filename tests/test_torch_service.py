@@ -2,8 +2,8 @@
 requests give the same codes and bodies, each service over its own
 package's registry, in process. Then the service CLI: it serves, pushes
 its metrics to the registry, stops on SIGTERM right after ``READY`` with
-rc 0, runs sharded and in a leader election, and refuses each flag of a
-plane the port has not ported.
+rc 0, runs sharded and in a leader election, and attaches the
+rightsizer with each of its flags.
 
 Mirrors ``tests/test_sim_service.py``'s service cases and the service
 parts of ``test_healthwatch.py``, ``test_decisions.py`` and
@@ -36,8 +36,7 @@ from kubeshare_tpu_torch.obs import decisions as dec
 from kubeshare_tpu_torch.preempt import PreemptionPolicy
 from kubeshare_tpu_torch.scheduler import SchedulerEngine
 from kubeshare_tpu_torch.scheduler.bridge import ServiceClient
-from kubeshare_tpu_torch.scheduler.service import (
-    UNPORTED, UNPORTED_FLAGS, SchedulerService)
+from kubeshare_tpu_torch.scheduler.service import SchedulerService
 from kubeshare_tpu_torch.scheduler.service import main as service_main
 from kubeshare_tpu_torch.telemetry import TelemetryRegistry
 from kubeshare_tpu_torch.topology.discovery import FakeTopology
@@ -170,6 +169,51 @@ def test_a_gang_waits_for_its_sibling_then_parks_alike(pair):
     assert same(pair, "GET", "/gangs")[1]["count"] == 0
     inv = same(pair, "GET", "/invariants")[1]
     assert inv["ok"] and inv["parked"] == 1 and inv["pending"] == 1
+
+
+def test_the_service_serves_its_decision_trace():
+    """The port's own ``GET /decisions/trace``: the recorder's ring as a
+    decision trace that ``replay_trace`` re-drives (the JAX service serves
+    only the ``/decisions`` summary). A sharded service books its fleet
+    before it attaches the recorder, so its trace opens with the whole
+    fleet; the single-lock one syncs after, in both packages, and its
+    fleet entry is empty."""
+    from kubeshare_tpu_torch.replay import decision_diff, replay_trace
+
+    svc = serve(SchedulerEngine, TelemetryRegistry, FakeTopology,
+                SchedulerService, hosts=2, shards=2, shard_route="cell")
+    try:
+        for name, req in (("a", "0.5"), ("b", "0.5"), ("c", "1")):
+            labels = shared(req, "1" if req == "1" else "1.0")
+            assert call(svc, "POST", "/schedule", pod(name, labels))[0] \
+                == 200
+        assert call(svc, "DELETE", "/pods/ns/b")[0] == 200
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{svc.port}/decisions/trace",
+                timeout=10) as r:
+            assert r.headers["Content-Type"] == "application/x-ndjson"
+            text = r.read().decode()
+        assert text == dec.trace_jsonl(svc.decisions)
+    finally:
+        svc.close()
+    parsed = dec.parse_trace_jsonl(text)
+    entries = parsed["entries"]
+    assert parsed["header"]["dropped"] == 0
+    assert entries[0]["kind"] == "fleet" and len(entries[0]["nodes"]) == 2
+    kinds = [e["kind"] for e in entries]
+    assert kinds.count("submit") == 3 and kinds.count("delete") == 1
+    # the service's clock is the host's: replay from the fleet's instant
+    t0 = entries[0]["t"]
+    for e in entries:
+        e["t"] = round(e["t"] - t0, 6)
+    # a tick well under the requests' spacing, as the service steps at
+    # each request
+    rep = replay_trace({"header": parsed["header"], "entries": entries},
+                       tick_s=0.0002,
+                       config={"shards": 2, "shard_route": "cell"})
+    diff = decision_diff(entries, rep.entries(), shard_equivalence=True)
+    assert diff["pods"] == {"recorded": 3, "replayed": 3}
+    assert diff["identical"], diff
 
 
 def test_resync_and_replay_answer_alike(pair):
@@ -399,26 +443,50 @@ def test_the_shard_and_ha_flags_start_a_service_answering_ha_and_state(
 @pytest.mark.parametrize("flag", [
     ["--rightsize"], ["--rightsize-journal", "r.jsonl"], ["--elastic-grow"]],
     ids=lambda f: f[0])
-def test_an_unported_planes_flag_exits_2_naming_it(flag):
-    plane = UNPORTED_FLAGS[flag[0]]
-    proc = _spawn(["--registry-port", "1", "--port", "0", *flag])
-    out, err = proc.communicate(timeout=30)
-    assert proc.returncode == 2
-    assert f"{flag[0]} needs {UNPORTED[plane]}" in err and "ROADMAP" in err
-    # only the rightsizer is left, item 6; --elastic-grow acts only
-    # through it, so it names that plane
-    assert plane == "rightsize"
-    assert "rightsizer" in err and "ROADMAP queue 1 item 6" in err
-    assert "READY" not in out
+def test_the_service_cli_attaches_the_rightsizer_with_each_flag(
+        flag, tmp_path):
+    """Each of the rightsizer's three flags starts the service, beside
+    ``--rightsize`` (the other two act only through it): ``GET
+    /rightsize`` answers attached, ``POST /rightsize/plan`` 200 and
+    ``POST /rightsize/apply`` runs a cycle, as the JAX service does
+    once a rightsizer is attached."""
+    if flag[0] == "--rightsize-journal":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    extra = ["--elastic"] if flag[0] == "--elastic-grow" else []
+    args = sorted({"--rightsize", *flag[:1]}) + flag[1:] + extra
+    reg = TelemetryRegistry()
+    reg.serve(port=0)
+    proc = _spawn(["--registry-port", str(reg.port), "--port", "0",
+                   "--host", "127.0.0.1", "--no-remote-write", *args])
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY "), proc.stderr.read()
+        client = ServiceClient(f"http://127.0.0.1:{line.split()[1]}")
+        code, state = client._call("GET", "/rightsize")
+        assert code == 200 and state["attached"] and state["enabled"]
+        assert state["cycles"] == 0
+        assert state["config"]["elastic_grow"] is (
+            flag[0] == "--elastic-grow")
+        code, out = client._call("POST", "/rightsize/plan", {})
+        assert code == 200 and out["plan"]["resizes"] == []
+        assert ("elastic" in out["plan"]) is (flag[0] == "--elastic-grow")
+        code, out = client._call("POST", "/rightsize/apply", {})
+        assert code == 200 and out["applied"] == []
+        assert client._call("GET", "/rightsize")[1]["cycles"] == 1
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=20)
+        reg.close()
+    assert rc == 0
 
 
 def test_every_unported_plane_flag_of_the_reference_cli_is_refused():
-    """Each flag of the JAX CLI is either served by the port or in
-    UNPORTED_FLAGS: none is accepted and ignored."""
+    """Each flag of the JAX CLI is served by the port: the set of flags
+    the port refuses is now empty, and none is accepted and ignored."""
     import kubeshare_tpu.scheduler.service as jservice
     flags = set(re.findall(r'add_argument\("(--[a-z-]+)"',
                            inspect.getsource(jservice.main)))
     ported = set(re.findall(r'add_argument\("(--[a-z-]+)"',
                             inspect.getsource(service_main)))
-    assert flags - ported <= set(UNPORTED_FLAGS)
-    assert set(UNPORTED_FLAGS) <= flags
+    assert flags <= ported
+    assert {"--rightsize", "--rightsize-journal", "--elastic-grow"} <= flags

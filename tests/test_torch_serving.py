@@ -557,3 +557,15 @@ def test_local_servable_takes_a_torch_function():
     servable = LocalServable(lambda t: torch.relu(t) * 2.0, batch_size=4)
     x = np.array([[-1.0, 2.0]], dtype=np.float32)
     np.testing.assert_array_equal(servable.execute(x), [[0.0, 4.0]])
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.9, 0.99, 1.0])
+def test_latency_quantile_matches_jax(q):
+    from kubeshare_tpu.serving.simulate import latency_quantile as jquant
+    from kubeshare_tpu_torch.serving.simulate import latency_quantile
+
+    rng = random.Random(5)
+    for values in ([], [3.0], [rng.expovariate(20.0) for _ in range(7)],
+                   [rng.uniform(0, 1) for _ in range(1000)], [2, 1, 2]):
+        assert latency_quantile(values, q) == jquant(values, q)
+    assert latency_quantile([], q) == 0.0

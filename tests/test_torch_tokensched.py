@@ -96,6 +96,29 @@ def test_a_failed_native_build_raises_with_the_compilers_output(
     assert isinstance(make_core(native=False), PyTokenCore)
 
 
+@pytest.mark.parametrize("native_core", [False, True])
+def test_the_core_reads_its_effective_share_back(native_core):
+    """The port's cores read back the share they enforce (the JAX cores
+    have no such read): the registered one, then each accepted
+    ``set_effective``; a refused one leaves it, an unknown name raises.
+    The scheduler's record of what it pushed agrees."""
+    sched = TokenScheduler(WINDOW, BASE, MIN, native=native_core)
+    core = sched.core
+    sched.add_client("a", 0.25, 0.5)
+    assert core.effective("a") == (0.25, 0.5)
+    assert sched.set_effective("a", 0.35, 0.35)
+    assert core.effective("a") == sched.effective("a") == (0.35, 0.35)
+    with pytest.raises(ValueError):
+        sched.set_effective("a", 0.6, 0.5)
+    assert core.effective("a") == sched.effective("a") == (0.35, 0.35)
+    with pytest.raises(KeyError):
+        core.effective("b")
+    sched.remove_client("a")
+    with pytest.raises(KeyError):
+        core.effective("a")
+    sched.close()
+
+
 # --- one core, against the JAX core of the same kind -------------------------
 
 def test_single_client_grant_and_quota(pair):

@@ -17,7 +17,9 @@
 // visible (q, k) pairs, 0.27 us of bf16 tensor-core work. At long context
 // (1, 8192, 8, 32) the operations bound it: 34 G of them, 35 us. The
 // backward passes are bound the same way, with three (dQ) and four (dK/dV)
-// products a pair instead of two.
+// products a pair instead of two. At head dim 128 the bytes and the
+// operations grow fourfold: (8, 256, 8, 128) moves 21 MB in the forward,
+// 6.3 us, and (1, 8192, 8, 128) is 137 G operations, 139 us.
 //
 // The bf16 kernels share one design:
 // - one block of 4 warps per (b*h row, 64-row tile); each warp owns 16 rows
@@ -99,10 +101,11 @@
 //   hq / group (`_kv_row_map`).
 // Each pass has one writer per output, as the TPU kernels: dQ is not folded
 // into the dK/dV pass with atomics, whose order would change the sums from
-// run to run. The fp32 kernels' block has kTile = 64 threads, one per query
-// row (forward, dQ) or key row (dK/dV). k/v (or q/dO) tiles of 64 rows are
-// staged in shared memory as fp32 and read by every thread of the block at
-// once (broadcast).
+// run to run. The fp32 kernels' block has kTile = 64 rows of threads, one
+// thread a query row (forward, dQ) or key row (dK/dV) up to head dim 32,
+// D / 16 from 64. k/v (or q/dO) tiles of 64 rows are staged in shared
+// memory as fp32 and read by every thread of the block at once
+// (broadcast).
 //
 // Tiles: the kernel's tile is its own (64 x 64), not the caller's
 // block_q/block_k, which are checked by the wrapper exactly as the JAX
@@ -125,10 +128,32 @@
 // The backward passes rebuild P from the forward's lse with their own fp32
 // score formula, so forward and backward agree to fp32 rounding.
 //
-// Head dims 8 and 32: 32 at the transformer's full width, 8 in its small
-// preset. Other head dims are refused (cudaErrorInvalidValue); a model that
-// needs one adds its case to run() (at 64 the fp32 dK/dV pass would hold
-// 4 x 64 fp32 values a thread and spill).
+// Head dims 8, 32, 64 and 128: 32 at the transformer's full width, 8 in
+// its small preset, 64 (GPT-2) and 128 (Llama, Mistral) at init(dim=512)
+// and init(dim=1024). This file builds the library of 8 and 32;
+// flash_attention_wide.cu builds it again with KST_FLASH_WIDE defined, a
+// library of 64 and 128, so that two nvcc processes share the compile
+// (ops/flash_attention.py loads the library of the head dim it is given).
+// Other head dims are refused (cudaErrorInvalidValue); a model that needs
+// one adds it to a run_dims list in run(). What the wide ones change:
+// - shared memory is dynamic in every kernel: one 64-row bf16 tile is
+//   9,216 B at 64 and 17,408 B at 128, so the forward's 5 tiles, dQ's 7
+//   and dK/dV's 8 pass the 48 KB a function gets by default; the launch
+//   raises the function's limit first (launch_kernel), once per device;
+// - registers: up to head dim 32 the dQ and dK/dV warps hold their rows'
+//   A operands (Q and dO, or K and V) as fragments for the whole loop;
+//   from 64 they read them from shared memory at each use (holds_a,
+//   mma_abt_s), or dK/dV at 128 would hold 2 x 32 fragment registers
+//   beside its 2 x 64 fp32 accumulators. dK/dV's next fp32 dO tile, read
+//   ahead in registers up to 32 (D / 2 values a thread), is staged from 64
+//   in shared memory by cp.async (stage_f32_tile; plain loads when its
+//   rows are not 16-byte aligned) and split after the compute. ptxas
+//   still spills a little in dQ and dK/dV at 128 (the smoke logs each
+//   function's registers and spill bytes);
+// - the fp32 kernels give a row several threads from 64 (row_threads: one
+//   per 16 dims, each holding its slice), the dot products summed over the
+//   row's threads by shuffles; one thread a row would hold 2 x 128 fp32
+//   values in dK/dV and spill.
 //
 // Built without --use_fast_math and with --fmad=false (ops/build.py): expf
 // and logf are the accurate library versions, the bf16 kernels' fused
@@ -145,6 +170,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -169,6 +196,7 @@ struct Args {
   void *dq, *dk, *dv;
   Strides sq, sk, sv, sdo;
   Shape sh;
+  int do_async;  // dO rows 16-byte aligned (dK/dV stages them by cp.async)
 };
 
 // `_live_fwd` for any rows: does one of q rows [q0, q1] see one of keys
@@ -191,14 +219,47 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, const Shape& sh) {
   return qpos >= kpos && (sh.window <= 0 || qpos - kpos < sh.window);
 }
 
-// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
-// strided tensor, as fp32 times `mul`, into a shared tile; rows past n are 0.
+// threads a query (or key) row of the fp32 kernels: one up to head dim 32,
+// which holds the whole row's D (or 2 D) accumulators; from 64 one per 16
+// dims, each holding its slice, the dot products summed over the row's
+// threads by shuffles (one thread would hold 2 x 128 fp32 values and spill)
 template <int D>
+__host__ __device__ constexpr int row_threads() {
+  return D >= 64 ? D / 16 : 1;
+}
+
+// dynamic shared memory: every kernel carves its tiles from here (past
+// 48 KB only after the launch raises the function's limit)
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
+// the lanes of this thread's row group, T consecutive lanes of a warp
+template <int T>
+__device__ __forceinline__ unsigned row_mask() {
+  if constexpr (T == 1) {
+    return 1u << (threadIdx.x % 32);
+  } else {
+    return ((1u << T) - 1) << ((threadIdx.x % 32) & ~(T - 1));
+  }
+}
+
+// x summed over the row group's T lanes (butterfly: every lane gets the
+// same sum, bit for bit)
+template <int T>
+__device__ __forceinline__ float row_sum(float x, unsigned mask) {
+#pragma unroll
+  for (int o = T / 2; o > 0; o /= 2) x += __shfl_xor_sync(mask, x, o);
+  return x;
+}
+
+// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
+// strided tensor, as fp32 times `mul`, into a shared tile by the block's
+// NT threads; rows past n are 0.
+template <int D, int NT>
 __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
                                           const float* base, Strides st,
                                           int bi, int hh, int row0, int n,
                                           float mul) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kTile) {
+  for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int pos = row0 + r;
     float x = 0.f;
@@ -211,11 +272,11 @@ __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
 
 // A shared tile into rows [row0, row0 + kTile) of head hh of batch bi of a
 // dense (b, n, heads, D) tensor.
-template <int D>
+template <int D, int NT>
 __device__ __forceinline__ void store_tile(float* base, float (*src)[D + 1],
                                            int bi, int hh, int heads,
                                            int row0, int n) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kTile) {
+  for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int pos = row0 + r;
     if (pos < n) {
@@ -232,28 +293,39 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// Forward, fp32 inputs: one block per (b*h row, q tile), looping over the k
-// tiles.
+// bytes of dynamic shared memory of the fp32 kernels: two (kTile x D)
+// tiles, and for dK/dV the q rows' lse and D
 template <int D>
-__global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
-  __shared__ float ks[kTile][D + 1];
-  __shared__ float vs[kTile][D + 1];
+constexpr int f32_smem(bool rows) {
+  return (2 * kTile * (D + 1) + (rows ? 2 * kTile : 0)) * 4;
+}
+
+// Forward, fp32 inputs: one block per (b*h row, q tile), looping over the k
+// tiles. Each query row has row_threads<D>() threads, each owning DP dims.
+template <int D>
+__global__ void __launch_bounds__(kTile * row_threads<D>())
+    flash_fwd_kernel(Args a) {
+  constexpr int T = row_threads<D>(), DP = D / T, NT = kTile * T;
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem_raw);
+  float (*vs)[D + 1] = ks + kTile;
   const Shape& sh = a.sh;
   const int row = blockIdx.x;  // bi * h + hq
   const int qt = blockIdx.y;
   const int bi = row / sh.h, hq = row % sh.h, hkv = hq / sh.group;
-  const int qpos = qt * kTile + threadIdx.x;
+  const int r = threadIdx.x / T, d0 = (threadIdx.x % T) * DP;
+  const unsigned mask = row_mask<T>();
+  const int qpos = qt * kTile + r;
   const bool valid = qpos < sh.s_q;
 
   // the q tile (scaled in fp32) goes through shared memory, so its loads
-  // are coalesced; each thread then keeps its own row
-  load_tile<D>(ks, static_cast<const float*>(a.q), a.sq, bi, hq, qt * kTile,
-                  sh.s_q, sh.scale);
+  // are coalesced; each thread then keeps its own row (slice)
+  load_tile<D, NT>(ks, static_cast<const float*>(a.q), a.sq, bi, hq,
+                   qt * kTile, sh.s_q, sh.scale);
   __syncthreads();
-  float qr[D], acc[D];
+  float qr[DP], acc[DP];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = ks[threadIdx.x][d];
+  for (int d = 0; d < DP; ++d) {
+    qr[d] = ks[r][d0 + d];
     acc[d] = 0.f;
   }
   float m = kMask, l = 0.f;
@@ -262,12 +334,12 @@ __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     if (!tile_live(qt, kt, sh)) continue;  // the same for the whole block
     __syncthreads();  // every reader of the previous tile is done
-    load_tile<D>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
-                    kt * kTile, sh.s_kv, 1.f);
-    load_tile<D>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
-                    kt * kTile, sh.s_kv, 1.f);
+    load_tile<D, NT>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
+                     kt * kTile, sh.s_kv, 1.f);
+    load_tile<D, NT>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
+                     kt * kTile, sh.s_kv, 1.f);
     __syncthreads();
-    if (!valid) continue;
+    if (!valid) continue;  // the same for the row's threads
     for (int c = 0; c < kTile; c += kChunk) {
       float p[kChunk];
       float cmax = kMask;
@@ -276,7 +348,7 @@ __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
         const int kpos = kt * kTile + c + j;
         float s = kMask;
         if (kpos < sh.s_kv && visible(qpos, kpos, sh)) {
-          s = dot<D>(qr, ks[c + j]);
+          s = row_sum<T>(dot<DP>(qr, &ks[c + j][d0]), mask);
         }
         p[j] = s;
         cmax = fmaxf(cmax, s);
@@ -291,10 +363,10 @@ __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
       }
       l = l * alpha + psum;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DP; ++d) {
         float x = acc[d] * alpha;
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) x += p[j] * vs[c + j][d];
+        for (int j = 0; j < kChunk; ++j) x += p[j] * vs[c + j][d0 + d];
         acc[d] = x;
       }
       m = m_new;
@@ -304,34 +376,38 @@ __global__ void __launch_bounds__(kTile) flash_fwd_kernel(Args a) {
   const float den = l > 0.f ? l : 1.f;
   __syncthreads();
 #pragma unroll
-  for (int d = 0; d < D; ++d) ks[threadIdx.x][d] = acc[d] / den;
-  if (valid) a.lse[(long long)row * sh.s_q + qpos] = m + logf(den);
+  for (int d = 0; d < DP; ++d) ks[r][d0 + d] = acc[d] / den;
+  if (valid && d0 == 0) a.lse[(long long)row * sh.s_q + qpos] = m + logf(den);
   __syncthreads();
-  store_tile<D>(a.o, ks, bi, hq, sh.h, qt * kTile, sh.s_q);
+  store_tile<D, NT>(a.o, ks, bi, hq, sh.h, qt * kTile, sh.s_q);
 }
 
 // dQ, fp32 inputs: one block per (b*h row, q tile), looping over the k
 // tiles. dS = P * (dO . V^T - D); dQ = scale * dS . K.
 template <int D>
-__global__ void __launch_bounds__(kTile) flash_dq_kernel(Args a) {
-  __shared__ float ks[kTile][D + 1];
-  __shared__ float vs[kTile][D + 1];
+__global__ void __launch_bounds__(kTile * row_threads<D>())
+    flash_dq_kernel(Args a) {
+  constexpr int T = row_threads<D>(), DP = D / T, NT = kTile * T;
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem_raw);
+  float (*vs)[D + 1] = ks + kTile;
   const Shape& sh = a.sh;
   const int row = blockIdx.x;
   const int qt = blockIdx.y;
   const int bi = row / sh.h, hq = row % sh.h, hkv = hq / sh.group;
-  const int qpos = qt * kTile + threadIdx.x;
+  const int r = threadIdx.x / T, d0 = (threadIdx.x % T) * DP;
+  const unsigned mask = row_mask<T>();
+  const int qpos = qt * kTile + r;
   const bool valid = qpos < sh.s_q;
 
-  load_tile<D>(ks, static_cast<const float*>(a.q), a.sq, bi, hq, qt * kTile,
-                  sh.s_q, sh.scale);
-  load_tile<D>(vs, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
+  load_tile<D, NT>(ks, static_cast<const float*>(a.q), a.sq, bi, hq,
+                   qt * kTile, sh.s_q, sh.scale);
+  load_tile<D, NT>(vs, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
   __syncthreads();
-  float qr[D], dor[D], acc[D];
+  float qr[DP], dor[DP], acc[DP];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = ks[threadIdx.x][d];
-    dor[d] = vs[threadIdx.x][d];
+  for (int d = 0; d < DP; ++d) {
+    qr[d] = ks[r][d0 + d];
+    dor[d] = vs[r][d0 + d];
     acc[d] = 0.f;
   }
   const long long rix = (long long)row * sh.s_q + qpos;
@@ -342,57 +418,63 @@ __global__ void __launch_bounds__(kTile) flash_dq_kernel(Args a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     if (!tile_live(qt, kt, sh)) continue;
     __syncthreads();
-    load_tile<D>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
-                    kt * kTile, sh.s_kv, 1.f);
-    load_tile<D>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
-                    kt * kTile, sh.s_kv, 1.f);
+    load_tile<D, NT>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
+                     kt * kTile, sh.s_kv, 1.f);
+    load_tile<D, NT>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
+                     kt * kTile, sh.s_kv, 1.f);
     __syncthreads();
     if (!valid) continue;
     for (int j = 0; j < kTile; ++j) {
       const int kpos = kt * kTile + j;
       // a masked score gives P = exp(MASK - L) = 0 and dS = 0: skipped
       if (kpos >= sh.s_kv || !visible(qpos, kpos, sh)) continue;
-      const float p = expf(dot<D>(qr, ks[j]) - lse);
-      const float ds = p * (dot<D>(dor, vs[j]) - dcap);
+      const float p =
+          expf(row_sum<T>(dot<DP>(qr, &ks[j][d0]), mask) - lse);
+      const float ds =
+          p * (row_sum<T>(dot<DP>(dor, &vs[j][d0]), mask) - dcap);
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] += ds * ks[j][d];
+      for (int d = 0; d < DP; ++d) acc[d] += ds * ks[j][d0 + d];
     }
   }
 
   __syncthreads();
 #pragma unroll
-  for (int d = 0; d < D; ++d) ks[threadIdx.x][d] = sh.scale * acc[d];
+  for (int d = 0; d < DP; ++d) ks[r][d0 + d] = sh.scale * acc[d];
   __syncthreads();
-  store_tile<D>(static_cast<float*>(a.dq), ks, bi, hq, sh.h, qt * kTile,
-                   sh.s_q);
+  store_tile<D, NT>(static_cast<float*>(a.dq), ks, bi, hq, sh.h, qt * kTile,
+                    sh.s_q);
 }
 
 // dK/dV, fp32 inputs: one block per (b*hk row, k tile), looping over the
 // kv head's group of q heads x q tiles. dV = P^T . dO; dK = dS^T . Qs (Qs
 // pre-scaled).
 template <int D>
-__global__ void __launch_bounds__(kTile) flash_dkv_kernel(Args a) {
-  __shared__ float qs[kTile][D + 1];
-  __shared__ float dos[kTile][D + 1];
-  __shared__ float ls[kTile];
-  __shared__ float dcs[kTile];
+__global__ void __launch_bounds__(kTile * row_threads<D>())
+    flash_dkv_kernel(Args a) {
+  constexpr int T = row_threads<D>(), DP = D / T, NT = kTile * T;
+  float (*qs)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem_raw);
+  float (*dos)[D + 1] = qs + kTile;
+  float* ls = reinterpret_cast<float*>(dos + kTile);
+  float* dcs = ls + kTile;
   const Shape& sh = a.sh;
   const int row = blockIdx.x;  // bi * hk + hkv
   const int kt = blockIdx.y;
   const int bi = row / sh.hk, hkv = row % sh.hk;
-  const int kpos = kt * kTile + threadIdx.x;
+  const int r = threadIdx.x / T, d0 = (threadIdx.x % T) * DP;
+  const unsigned mask = row_mask<T>();
+  const int kpos = kt * kTile + r;
   const bool valid = kpos < sh.s_kv;
 
-  load_tile<D>(qs, static_cast<const float*>(a.k), a.sk, bi, hkv, kt * kTile,
-                  sh.s_kv, 1.f);
-  load_tile<D>(dos, static_cast<const float*>(a.v), a.sv, bi, hkv,
-                  kt * kTile, sh.s_kv, 1.f);
+  load_tile<D, NT>(qs, static_cast<const float*>(a.k), a.sk, bi, hkv,
+                   kt * kTile, sh.s_kv, 1.f);
+  load_tile<D, NT>(dos, static_cast<const float*>(a.v), a.sv, bi, hkv,
+                   kt * kTile, sh.s_kv, 1.f);
   __syncthreads();
-  float kr[D], vr[D], dk[D], dv[D];
+  float kr[DP], vr[DP], dk[DP], dv[DP];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = qs[threadIdx.x][d];
-    vr[d] = dos[threadIdx.x][d];
+  for (int d = 0; d < DP; ++d) {
+    kr[d] = qs[r][d0 + d];
+    vr[d] = dos[r][d0 + d];
     dk[d] = 0.f;
     dv[d] = 0.f;
   }
@@ -403,10 +485,10 @@ __global__ void __launch_bounds__(kTile) flash_dkv_kernel(Args a) {
     const int qt = t % n_qt;
     if (!tile_live(qt, kt, sh)) continue;
     __syncthreads();
-    load_tile<D>(qs, static_cast<const float*>(a.q), a.sq, bi, hq,
-                    qt * kTile, sh.s_q, sh.scale);
-    load_tile<D>(dos, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
-    {
+    load_tile<D, NT>(qs, static_cast<const float*>(a.q), a.sq, bi, hq,
+                     qt * kTile, sh.s_q, sh.scale);
+    load_tile<D, NT>(dos, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
+    if (threadIdx.x < kTile) {
       const int pos = qt * kTile + threadIdx.x;
       const long long rix = ((long long)bi * sh.h + hq) * sh.s_q + pos;
       ls[threadIdx.x] = pos < sh.s_q ? a.lse_in[rix] : 0.f;
@@ -417,26 +499,28 @@ __global__ void __launch_bounds__(kTile) flash_dkv_kernel(Args a) {
     for (int i = 0; i < kTile; ++i) {
       const int qpos = qt * kTile + i;
       if (qpos >= sh.s_q || !visible(qpos, kpos, sh)) continue;
-      const float p = expf(dot<D>(qs[i], kr) - ls[i]);
+      const float p =
+          expf(row_sum<T>(dot<DP>(&qs[i][d0], kr), mask) - ls[i]);
 #pragma unroll
-      for (int d = 0; d < D; ++d) dv[d] += p * dos[i][d];
-      const float ds = p * (dot<D>(dos[i], vr) - dcs[i]);
+      for (int d = 0; d < DP; ++d) dv[d] += p * dos[i][d0 + d];
+      const float ds =
+          p * (row_sum<T>(dot<DP>(&dos[i][d0], vr), mask) - dcs[i]);
 #pragma unroll
-      for (int d = 0; d < D; ++d) dk[d] += ds * qs[i][d];
+      for (int d = 0; d < DP; ++d) dk[d] += ds * qs[i][d0 + d];
     }
   }
 
   __syncthreads();
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qs[threadIdx.x][d] = dk[d];
-    dos[threadIdx.x][d] = dv[d];
+  for (int d = 0; d < DP; ++d) {
+    qs[r][d0 + d] = dk[d];
+    dos[r][d0 + d] = dv[d];
   }
   __syncthreads();
-  store_tile<D>(static_cast<float*>(a.dk), qs, bi, hkv, sh.hk, kt * kTile,
-                   sh.s_kv);
-  store_tile<D>(static_cast<float*>(a.dv), dos, bi, hkv, sh.hk, kt * kTile,
-                   sh.s_kv);
+  store_tile<D, NT>(static_cast<float*>(a.dk), qs, bi, hkv, sh.hk,
+                    kt * kTile, sh.s_kv);
+  store_tile<D, NT>(static_cast<float*>(a.dv), dos, bi, hkv, sh.hk,
+                    kt * kTile, sh.s_kv);
 }
 
 // --- bf16 kernels on the tensor cores ----------------------------------------
@@ -466,6 +550,44 @@ __host__ __device__ constexpr int depth_steps() {
 template <int D>
 __host__ __device__ constexpr int tile_share() {
   return kTile * D / kMmaThreads;
+}
+
+// a two-stage ring of shared tiles of n elements from p: ring[i] is stage
+// i's (plain pointer arithmetic, where an array of two pointers indexed
+// by the loop's stage would go to local memory)
+template <typename T>
+struct Ring {
+  T* p;
+  int n;
+  __device__ __forceinline__ T* operator[](int i) const { return p + i * n; }
+};
+
+// elements of one bf16 shared tile (kTile rows of smem_row<D>())
+template <int D>
+__host__ __device__ constexpr int tile_elems() {
+  return kTile * smem_row<D>();
+}
+
+// Do the dQ and dK/dV warps hold their rows' A operands (Q and dO, or K
+// and V) in registers for the whole loop? Up to head dim 32; from 64 they
+// read them from shared memory at each use: held, dK/dV at 128 would keep
+// 2 x 32 fragment registers beside 2 x 64 fp32 accumulators and spill.
+template <int D>
+__host__ __device__ constexpr bool holds_a() {
+  return D <= 32;
+}
+
+// bytes of dynamic shared memory of the bf16 kernels, by pass: the
+// forward's q tile and k/v rings (5 tiles); dQ's q, dO hi/lo and k/v rings
+// (7); dK/dV's k, v and q, dO hi/lo rings (8), the q rows' lse and D (two
+// stages), and from head dim 64 the next q tile's fp32 dO, staged by
+// cp.async while the current one is computed
+template <int D>
+constexpr int mma_smem(int pass) {
+  const int tile = tile_elems<D>() * 2;
+  if (pass == 0) return 5 * tile;
+  if (pass == 1) return 7 * tile;
+  return 8 * tile + 4 * kTile * 4 + (holds_a<D>() ? 0 : kTile * D * 4);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -663,6 +785,70 @@ __device__ __forceinline__ void store_split_tile(
   }
 }
 
+// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
+// fp32 strided tensor straight into two shared tiles, hi = bf16(x) and lo
+// = bf16(x - hi), with no whole share in registers (the wide head dims);
+// rows past n are zero
+template <int D, int kRow>
+__device__ __forceinline__ void load_split_tile(bf16* hi, bf16* lo,
+                                                const float* base,
+                                                Strides st, int bi, int hh,
+                                                int row0, int n) {
+  for (int idx = threadIdx.x; idx < kTile * D; idx += kMmaThreads) {
+    const int pos = row0 + idx / D;
+    const float x = pos < n ? base[bi * st.b + (long long)pos * st.s +
+                                   hh * st.h + idx % D]
+                            : 0.f;
+    const int at = (idx / D) * kRow + idx % D;
+    const bf16 h = __float2bfloat16_rn(x);
+    hi[at] = h;
+    lo[at] = __float2bfloat16_rn(x - __bfloat162float(h));
+  }
+}
+
+// Rows [row0, row0 + kTile) of an fp32 strided tensor into a dense shared
+// staging tile (kTile x D floats), 16 bytes (4 values) a copy: by cp.async
+// when `async` (every row 16-byte aligned), else by plain loads. A thread
+// copies pieces threadIdx.x + i kMmaThreads, and split_staged splits the
+// same pieces, so it needs no barrier between the two
+template <int D>
+__device__ __forceinline__ void stage_f32_tile(float* stg, const float* base,
+                                               Strides st, int bi, int hh,
+                                               int row0, int n, bool async) {
+  constexpr int kPieces = D / 4;  // 16-byte pieces of a row
+  for (int idx = threadIdx.x; idx < kTile * kPieces; idx += kMmaThreads) {
+    const int r = idx / kPieces, c = (idx % kPieces) * 4;
+    const int pos = row0 + r;
+    const bool valid = pos < n;
+    const float* src = base + bi * st.b + (long long)(valid ? pos : 0) * st.s +
+                       hh * st.h + c;
+    float* d = stg + r * D + c;
+    if (async) {
+      cp_async16(d, src, valid);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = valid ? src[e] : 0.f;
+    }
+  }
+}
+
+// the pieces of the staging tile this thread copied (stage_f32_tile), split
+// into the hi and lo shared tiles of kRow-element rows
+template <int D, int kRow>
+__device__ __forceinline__ void split_staged(bf16* hi, bf16* lo,
+                                             const float* stg) {
+  constexpr int kPieces = D / 4;
+  for (int idx = threadIdx.x; idx < kTile * kPieces; idx += kMmaThreads) {
+    const int r = idx / kPieces, c = (idx % kPieces) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(stg + r * D + c);
+    uint32_t h[2], l[2];
+    split_bf16(x.x, x.y, h[0], l[0]);
+    split_bf16(x.z, x.w, h[1], l[1]);
+    *reinterpret_cast<uint2*>(hi + r * kRow + c) = make_uint2(h[0], h[1]);
+    *reinterpret_cast<uint2*>(lo + r * kRow + c) = make_uint2(l[0], l[1]);
+  }
+}
+
 // The lse (times log2 e) and D of q rows [q0, q0 + kTile) of q head hq
 // into shared memory, one thread a value; rows past s_q are 0
 __device__ __forceinline__ void load_rows(float* ls, float* dcs,
@@ -727,6 +913,44 @@ __device__ __forceinline__ void mma_abt(
         mma_bf16(acc[j + 1], a[s], x[2], x[3]);
       }
     }
+  }
+}
+
+// acc (16 x 64) += A . B^T as mma_abt, the 16 rows x D of A read from a
+// shared tile of kRow-element rows (`a`, the first row) at each depth step
+// instead of held (head dims 64 and up); the same products in the same
+// order
+template <int D, int kRow>
+__device__ __forceinline__ void mma_abt_s(float (&acc)[kNs][4],
+                                          const bf16* a, const bf16* b,
+                                          int lane) {
+  static_assert(D % 16 == 0, "from shared memory: depth steps of 16");
+  const bf16* ar = a + (lane % 16) * kRow + (lane / 16) * 8;
+#pragma unroll
+  for (int s = 0; s < D / 16; ++s) {
+    uint32_t f[4];
+    ldsm_x4(f, ar + 16 * s);
+#pragma unroll
+    for (int j = 0; j < kNs; j += 2) {
+      uint32_t x[4];  // n tiles j, j+1 at depth 16s..16s+15
+      ldsm_x4(x, b + (8 * j + lane % 8 + (lane / 16) * 8) * kRow + 16 * s +
+                     ((lane / 8) % 2) * 8);
+      mma_bf16(acc[j], f, x[0], x[1]);
+      mma_bf16(acc[j + 1], f, x[2], x[3]);
+    }
+  }
+}
+
+// mma_abt with A held in registers (`f`, holds_a) or read from the shared
+// rows `a`
+template <int D, int kRow>
+__device__ __forceinline__ void mma_abt_a(
+    float (&acc)[kNs][4], const uint32_t (&f)[depth_steps<D>()][4],
+    const bf16* a, const bf16* b, int lane) {
+  if constexpr (holds_a<D>()) {
+    mma_abt<D, kRow>(acc, f, b, lane);
+  } else {
+    mma_abt_s<D, kRow>(acc, a, b, lane);
   }
 }
 
@@ -805,9 +1029,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
   constexpr int kRow = smem_row<D>();
   constexpr int kNo = D / 8;  // n tiles of O (8 dims each)
-  __shared__ __align__(16) bf16 qs[kTile * kRow];
-  __shared__ __align__(16) bf16 ks[2][kTile * kRow];
-  __shared__ __align__(16) bf16 vs[2][kTile * kRow];
+  constexpr int kT = tile_elems<D>();
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  const Ring<bf16> ks{qs + kT, kT}, vs{qs + 3 * kT, kT};
 
   const Shape& sh = a.sh;
   const int row = blockIdx.x;  // bi * h + hq
@@ -939,10 +1163,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
   constexpr int kRow = smem_row<D>();
   constexpr int kSteps = depth_steps<D>();
-  __shared__ __align__(16) bf16 qs[kTile * kRow];
-  __shared__ __align__(16) bf16 dos[2][kTile * kRow];  // dO: hi, lo
-  __shared__ __align__(16) bf16 ks[2][kTile * kRow];
-  __shared__ __align__(16) bf16 vs[2][kTile * kRow];
+  constexpr int kT = tile_elems<D>();
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  const Ring<bf16> dos{qs + kT, kT};  // dO: hi, lo
+  const Ring<bf16> ks{qs + 3 * kT, kT}, vs{qs + 5 * kT, kT};
 
   const Shape& sh = a.sh;
   const int row = blockIdx.x;  // bi * h + hq
@@ -966,10 +1190,13 @@ __global__ void __launch_bounds__(kMmaThreads)
                                     sh.s_kv);
   }
   cp_async_commit();
-  {
+  if constexpr (holds_a<D>()) {
     float x[tile_share<D>()];
     load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_first, sh.s_q);
     store_split_tile<D, kRow>(dos[0], dos[1], x);
+  } else {
+    load_split_tile<D, kRow>(dos[0], dos[1], a.dout, a.sdo, bi, hq, q_first,
+                             sh.s_q);
   }
   // this thread's rows qpos0 and qpos0 + 8: lse (times log2 e) and D
   float lse2[2], dc[2];
@@ -982,7 +1209,11 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 
   float acc[D / 8][4] = {};
-  uint32_t qf[kSteps][4], dof[2][kSteps][4];  // Q; dO hi, lo
+  // Q; dO hi, lo: held (holds_a) or read from qs and dos at each use
+  uint32_t qf[kSteps][4], dof[2][kSteps][4];
+  const bf16* q_rows = qs + warp * 16 * kRow;
+  const bf16* do_rows[2] = {dos[0] + warp * 16 * kRow,
+                            dos[1] + warp * 16 * kRow};
   const float scale2 = sh.scale * kLog2e;
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
@@ -998,25 +1229,25 @@ __global__ void __launch_bounds__(kMmaThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kt_lo) {  // this warp's 16 q rows of Q and dO, once
-      load_a<D, kRow>(qf, qs + warp * 16 * kRow, lane);
-      load_a<D, kRow>(dof[0], dos[0] + warp * 16 * kRow, lane);
-      load_a<D, kRow>(dof[1], dos[1] + warp * 16 * kRow, lane);
+    if (holds_a<D>() && kt == kt_lo) {  // this warp's Q and dO, once
+      load_a<D, kRow>(qf, q_rows, lane);
+      load_a<D, kRow>(dof[0], do_rows[0], lane);
+      load_a<D, kRow>(dof[1], do_rows[1], lane);
     }
     const int k_first = kt * kTile;
     if (band_meets(w_first, w_first + 15, k_first, k_first + kTile - 1,
                    sh)) {  // warp-uniform
       // S = Q.K^T, then P = 2^(S scale2 - lse2): 16 q rows x 64 keys
       float p[kNs][4] = {};
-      mma_abt<D, kRow>(p, qf, ks[stage], lane);
+      mma_abt_a<D, kRow>(p, qf, q_rows, ks[stage], lane);
       if (!pairs_full(w_first, w_first + 15, k_first, k_first + kTile - 1,
                       sh)) {
         mask_tile(p, w_first, k_first, true, sh, lane);
       }
       // dP = (dO_lo + dO_hi).V^T
       float ds[kNs][4] = {};
-      mma_abt<D, kRow>(ds, dof[1], vs[stage], lane);
-      mma_abt<D, kRow>(ds, dof[0], vs[stage], lane);
+      mma_abt_a<D, kRow>(ds, dof[1], do_rows[1], vs[stage], lane);
+      mma_abt_a<D, kRow>(ds, dof[0], do_rows[0], vs[stage], lane);
 #pragma unroll
       for (int j = 0; j < kNs; ++j) {
 #pragma unroll
@@ -1053,13 +1284,16 @@ __global__ void __launch_bounds__(kMmaThreads)
   static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
   constexpr int kRow = smem_row<D>();
   constexpr int kSteps = depth_steps<D>();
-  __shared__ __align__(16) bf16 ks[kTile * kRow];
-  __shared__ __align__(16) bf16 vs[kTile * kRow];
-  __shared__ __align__(16) bf16 qs[2][kTile * kRow];
-  __shared__ __align__(16) bf16 doh[2][kTile * kRow];  // dO: hi
-  __shared__ __align__(16) bf16 dol[2][kTile * kRow];  // and lo
-  __shared__ __align__(16) float ls[2][kTile];   // the q rows' lse log2 e
-  __shared__ __align__(16) float dcs[2][kTile];  // and D
+  constexpr int kT = tile_elems<D>();
+  constexpr bool kHold = holds_a<D>();
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kT;
+  const Ring<bf16> qs{ks + 2 * kT, kT};
+  const Ring<bf16> doh{ks + 4 * kT, kT}, dol{ks + 6 * kT, kT};  // dO hi, lo
+  float* rows = reinterpret_cast<float*>(ks + 8 * kT);
+  const Ring<float> ls{rows, kTile};               // the q rows' lse log2 e
+  const Ring<float> dcs{rows + 2 * kTile, kTile};  // and D
+  float* stg = rows + 4 * kTile;  // the next dO tile (wide head dims)
 
   const Shape& sh = a.sh;
   const int row = blockIdx.x;  // bi * hk + hkv
@@ -1084,20 +1318,29 @@ __global__ void __launch_bounds__(kMmaThreads)
                                   bi, hkv, k_first, sh.s_kv);
   load_bf16_tile<D, kRow, kAsync>(vs, static_cast<const bf16*>(a.v), a.sv,
                                   bi, hkv, k_first, sh.s_kv);
-  // the q tile's dO goes through registers: read ahead, split into shared
-  // memory once the tile before it is computed
-  float x[tile_share<D>()];
+  // the q tile's dO is read ahead and split into shared memory once the
+  // tile before it is computed: through registers up to head dim 32,
+  // through the fp32 staging tile from 64
+  float x[kHold ? tile_share<D>() : 1];
   if (n_it > 0) {
     load_bf16_tile<D, kRow, kAsync>(qs[0], q, a.sq, bi, hq0, qt_lo * kTile,
                                     sh.s_q);
     load_rows(ls[0], dcs[0], a, bi, hq0, qt_lo * kTile);
-    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq0, qt_lo * kTile, sh.s_q);
-    store_split_tile<D, kRow>(doh[0], dol[0], x);
+    if constexpr (kHold) {
+      load_f32_tile<D>(x, a.dout, a.sdo, bi, hq0, qt_lo * kTile, sh.s_q);
+      store_split_tile<D, kRow>(doh[0], dol[0], x);
+    } else {
+      load_split_tile<D, kRow>(doh[0], dol[0], a.dout, a.sdo, bi, hq0,
+                               qt_lo * kTile, sh.s_q);
+    }
   }
   cp_async_commit();
 
   float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  // K and V: held (holds_a) or read from ks and vs at each use
   uint32_t kf[kSteps][4], vf[kSteps][4];
+  const bf16* k_rows = ks + warp * 16 * kRow;
+  const bf16* v_rows = vs + warp * 16 * kRow;
   const float scale2 = sh.scale * kLog2e;
 
   for (int it = 0; it < n_it; ++it) {
@@ -1109,17 +1352,23 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int q_next = (qt_lo + (it + 1) % n_live) * kTile;
       load_bf16_tile<D, kRow, kAsync>(qs[stage ^ 1], q, a.sq, bi, hq,
                                       q_next, sh.s_q);
+      if constexpr (!kHold) {
+        stage_f32_tile<D>(stg, a.dout, a.sdo, bi, hq, q_next, sh.s_q,
+                          a.do_async);
+      }
       cp_async_commit();
       load_rows(ls[stage ^ 1], dcs[stage ^ 1], a, bi, hq, q_next);
-      load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_next, sh.s_q);
+      if constexpr (kHold) {
+        load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_next, sh.s_q);
+      }
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {  // this warp's 16 keys of K and V, once
-      load_a<D, kRow>(kf, ks + warp * 16 * kRow, lane);
-      load_a<D, kRow>(vf, vs + warp * 16 * kRow, lane);
+    if (kHold && it == 0) {  // this warp's 16 keys of K and V, once
+      load_a<D, kRow>(kf, k_rows, lane);
+      load_a<D, kRow>(vf, v_rows, lane);
     }
     if (w_first < sh.s_kv &&
         band_meets(q_first, q_first + kTile - 1, w_first, w_first + 15,
@@ -1127,7 +1376,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       // S^T = K.Q^T, then P^T = 2^(S^T scale2 - lse2), the lse by column:
       // 16 keys x 64 q
       float p[kNs][4] = {};
-      mma_abt<D, kRow>(p, kf, qs[stage], lane);
+      mma_abt_a<D, kRow>(p, kf, k_rows, qs[stage], lane);
       if (!pairs_full(q_first, q_first + kTile - 1, w_first, w_first + 15,
                       sh)) {
         mask_tile(p, w_first, q_first, false, sh, lane);
@@ -1148,8 +1397,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       mma_xb<D, kRow, true>(dv, p, doh[stage], dol[stage], lane);
       // dP^T = V.(dO_lo + dO_hi)^T, then dS^T = P^T (dP^T - D), D by column
       float ds[kNs][4] = {};
-      mma_abt<D, kRow>(ds, vf, dol[stage], lane);
-      mma_abt<D, kRow>(ds, vf, doh[stage], lane);
+      mma_abt_a<D, kRow>(ds, vf, v_rows, dol[stage], lane);
+      mma_abt_a<D, kRow>(ds, vf, v_rows, doh[stage], lane);
 #pragma unroll
       for (int j = 0; j < kNs; ++j) {
         const float2 d2 =
@@ -1162,7 +1411,14 @@ __global__ void __launch_bounds__(kMmaThreads)
       // dK += (dS_hi + dS_lo)^T.Q, scaled at the end
       mma_xb<D, kRow, false>(dk, ds, qs[stage], nullptr, lane);
     }
-    if (more) store_split_tile<D, kRow>(doh[stage ^ 1], dol[stage ^ 1], x);
+    if (more) {
+      if constexpr (kHold) {
+        store_split_tile<D, kRow>(doh[stage ^ 1], dol[stage ^ 1], x);
+      } else {
+        cp_async_wait<0>();  // this thread's staged pieces have landed
+        split_staged<D, kRow>(doh[stage ^ 1], dol[stage ^ 1], stg);
+      }
+    }
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -1189,46 +1445,87 @@ bool rows_aligned(const Args& a) {
   return true;
 }
 
+// and every fp32 dO row (dK/dV's staging from head dim 64)
+bool dout_aligned(const Args& a) {
+  return reinterpret_cast<uintptr_t>(a.dout) % 16 == 0 && a.sdo.b % 4 == 0 &&
+         a.sdo.s % 4 == 0 && a.sdo.h % 4 == 0;
+}
+
 enum Pass { kFwd, kDq, kDkv };
+
+// Launch kernel K with `bytes` of dynamic shared memory. Past the 48 KB a
+// function gets by default, its limit is raised first, once per device; a
+// failed raise returns its error and nothing is launched.
+template <void (*K)(Args)>
+int launch_kernel(dim3 grid, int threads, int bytes, const Args& a,
+                  cudaStream_t stream) {
+  static std::atomic<unsigned long long> raised{0};  // a bit per device
+  if (bytes > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned long long bit = 1ull << (dev % 64);
+    if (!(raised.load() & bit)) {
+      err = cudaFuncSetAttribute(
+          K, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      raised.fetch_or(bit);
+    }
+  }
+  K<<<grid, threads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // bf16 inputs launch the tensor-core kernels (the cp.async instantiation
 // when every q, k and v row is 16-byte aligned), fp32 the CUDA-core ones
 template <int D>
-int launch(Pass pass, const Args& a, bool bf16_in, cudaStream_t stream) {
+int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
+  Args a = args;
   const Shape& sh = a.sh;
   const dim3 q_grid(sh.b * sh.h, (sh.s_q + kTile - 1) / kTile);
   const dim3 k_grid(sh.b * sh.hk, (sh.s_kv + kTile - 1) / kTile);
   const bool al = bf16_in && rows_aligned(a);
+  const int f32_threads = kTile * row_threads<D>();
   switch (pass) {
     case kFwd:
       if (!bf16_in) {
-        flash_fwd_kernel<D><<<q_grid, kTile, 0, stream>>>(a);
-      } else if (al) {
-        flash_fwd_mma_kernel<D, true><<<q_grid, kMmaThreads, 0, stream>>>(a);
-      } else {
-        flash_fwd_mma_kernel<D, false><<<q_grid, kMmaThreads, 0, stream>>>(a);
+        return launch_kernel<flash_fwd_kernel<D>>(q_grid, f32_threads,
+                                                  f32_smem<D>(false), a,
+                                                  stream);
       }
-      break;
+      if (al) {
+        return launch_kernel<flash_fwd_mma_kernel<D, true>>(
+            q_grid, kMmaThreads, mma_smem<D>(0), a, stream);
+      }
+      return launch_kernel<flash_fwd_mma_kernel<D, false>>(
+          q_grid, kMmaThreads, mma_smem<D>(0), a, stream);
     case kDq:
       if (!bf16_in) {
-        flash_dq_kernel<D><<<q_grid, kTile, 0, stream>>>(a);
-      } else if (al) {
-        flash_dq_mma_kernel<D, true><<<q_grid, kMmaThreads, 0, stream>>>(a);
-      } else {
-        flash_dq_mma_kernel<D, false><<<q_grid, kMmaThreads, 0, stream>>>(a);
+        return launch_kernel<flash_dq_kernel<D>>(q_grid, f32_threads,
+                                                 f32_smem<D>(false), a,
+                                                 stream);
       }
-      break;
+      if (al) {
+        return launch_kernel<flash_dq_mma_kernel<D, true>>(
+            q_grid, kMmaThreads, mma_smem<D>(1), a, stream);
+      }
+      return launch_kernel<flash_dq_mma_kernel<D, false>>(
+          q_grid, kMmaThreads, mma_smem<D>(1), a, stream);
     case kDkv:
       if (!bf16_in) {
-        flash_dkv_kernel<D><<<k_grid, kTile, 0, stream>>>(a);
-      } else if (al) {
-        flash_dkv_mma_kernel<D, true><<<k_grid, kMmaThreads, 0, stream>>>(a);
-      } else {
-        flash_dkv_mma_kernel<D, false><<<k_grid, kMmaThreads, 0, stream>>>(a);
+        return launch_kernel<flash_dkv_kernel<D>>(k_grid, f32_threads,
+                                                  f32_smem<D>(true), a,
+                                                  stream);
       }
-      break;
+      a.do_async = dout_aligned(a);
+      if (al) {
+        return launch_kernel<flash_dkv_mma_kernel<D, true>>(
+            k_grid, kMmaThreads, mma_smem<D>(2), a, stream);
+      }
+      return launch_kernel<flash_dkv_mma_kernel<D, false>>(
+          k_grid, kMmaThreads, mma_smem<D>(2), a, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // strides: 12 values, (b, s, h) of q, k, v and dO in that order
@@ -1243,17 +1540,26 @@ Args make_args(const long long* strides, int b, int h, int hk, int s_q,
   return a;
 }
 
+// launch<D> for the head dim d among Ds; others are refused
+template <int... Ds>
+int run_dims(Pass pass, const Args& a, int is_bf16, int d,
+             cudaStream_t s) {
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  ((d == Ds ? (rc = launch<Ds>(pass, a, is_bf16, s), true) : false) || ...);
+  return rc;
+}
+
 int run(Pass pass, const Args& a, int is_bf16, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.sh.b <= 0 || a.sh.s_q <= 0 || a.sh.s_kv <= 0) return 0;
   if (a.sh.hk <= 0 || a.sh.h % a.sh.hk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (d) {
-    case 8: return launch<8>(pass, a, is_bf16, s);
-    case 32: return launch<32>(pass, a, is_bf16, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#ifdef KST_FLASH_WIDE
+  return run_dims<64, 128>(pass, a, is_bf16, d, s);
+#else
+  return run_dims<8, 32>(pass, a, is_bf16, d, s);
+#endif
 }
 
 }  // namespace

@@ -134,13 +134,16 @@ class RemoteExecutable:
         self._out_def = out_def
         self.out_meta = out_meta
 
-    def __call__(self, *args):
-        return self.call_async(*args).result()
+    def __call__(self, *args, donate: bool = False):
+        return self.call_async(*args, donate=donate).result()
 
-    def call_async(self, *args) -> RemoteFuture:
+    def call_async(self, *args, donate: bool = False) -> RemoteFuture:
         """Dispatch without waiting: the uploads happen now, the execute
         rides the pipelined connection, and the future resolves to the
-        output tree; the uploads are freed when it resolves."""
+        output tree; the uploads are freed when it resolves. ``donate``
+        donates every argument, uploads included: a successful run frees
+        them on the proxy (an output that is one of them keeps its
+        storage), a failed one frees nothing but the uploads."""
         leaves, in_def = tree_flatten(args)
         if in_def != self._in_def:
             raise ValueError("arguments differ in structure from the "
@@ -158,8 +161,9 @@ class RemoteExecutable:
                     buf = client.put(leaf)
                     bufs.append(buf)
                     uploaded.append(buf)
-            fut = client.execute_async(self._exec_id,
-                                       [b.handle for b in bufs])
+            handles = [b.handle for b in bufs]
+            fut = client.execute_async(self._exec_id, handles,
+                                       donate=handles if donate else ())
         except Exception:
             client._free_quietly(uploaded)
             raise
@@ -167,7 +171,10 @@ class RemoteExecutable:
         def resolve():
             try:
                 handles = fut.result()
-            finally:
+            except Exception:
+                client._free_quietly(uploaded)
+                raise
+            if not donate:
                 client._free_quietly(uploaded)
             return tree_unflatten(self._out_def,
                                   _remote(handles, self.out_meta))
@@ -582,15 +589,18 @@ class ProxyClient:
         transport_span()
         return RemoteFuture(lambda: unwrap(reply))
 
-    def execute_async(self, exec_id: int, handles: list[int]
+    def execute_async(self, exec_id: int, handles: list[int], donate=()
                       ) -> RemoteFuture:
         """Run a compiled saved program on the handles without waiting;
-        the future resolves to the output handles. On a pipelined
+        the future resolves to the output handles. The ``donate`` handles
+        are freed on the proxy once the run succeeds. On a pipelined
         connection many dispatches ride the wire at once; the proxy runs a
         session's requests in submission order."""
-        return self._dispatch({"op": "execute", "name": self.name,
-                               "exec_id": exec_id, "args": list(handles)},
-                              lambda reply: list(reply["handles"]))
+        msg = {"op": "execute", "name": self.name, "exec_id": exec_id,
+               "args": list(handles)}
+        if donate:
+            msg["donate"] = [int(h) for h in donate]
+        return self._dispatch(msg, lambda reply: list(reply["handles"]))
 
     def flush(self) -> None:
         """Send any corked requests now."""

@@ -1618,13 +1618,15 @@ class ChipProxy:
         """One run of a saved program, one token-gated burst. Its outputs
         are charged before the run; one that is an input (an in-place
         update returned) keeps that input's storage and charge. The
-        argument handles stay valid, and a failed run refunds the
-        charge."""
-        if (int(req.get("repeat", 1)) != 1 or req.get("chain_steps")
-                or req.get("donate")):
+        argument handles stay valid but the donated ones (``donate``),
+        which a successful run forgets with their charge, as the JAX
+        proxy frees them; a storage an output still holds keeps its
+        charge under the output's handle. A failed run refunds the charge
+        and frees nothing."""
+        if int(req.get("repeat", 1)) != 1 or req.get("chain_steps"):
             raise ValueError("a saved program runs once a call and keeps "
-                             "its arguments; repeat, chain_steps and "
-                             "donate are for loop programs")
+                             "its arguments but the donated ones; repeat "
+                             "and chain_steps are for loop programs")
         args = self._args(sess, exe, req)
         versions = self._versions(sess, args)
         self._charge(sess, exe.out_nbytes)
@@ -1651,6 +1653,8 @@ class ChipProxy:
         self._update_cost_model(exe, 1, sess.exec_ms_total - exec_ms_before)
         handles = self._store(sess, outs, exe.out_nbytes)
         self._journal_run(sess, args, versions, outs)
+        for handle in req.get("donate", ()):
+            self._forget_buffer(sess, int(handle))
         return {"ok": True, "handles": handles, "repeat": 1}
 
     def _execute_chain(self, sess: _Session, exe: _Executable, args: list,

@@ -6,15 +6,16 @@ into a shared library with a plain C interface and loaded with
 seconds rather than minutes.
 
 Libraries are built at first use into ``kubeshare_tpu_torch/_build/`` (an
-ignored directory) and rebuilt when their source is newer. Nothing is
-built at import: the CPU tests import every module on a machine with no
-``nvcc``.
+ignored directory) and rebuilt when their source, or a source it
+includes, is newer. Nothing is built at import: the CPU tests import every
+module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,10 +53,20 @@ def _paths(name: str) -> tuple[str, str]:
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
+def _sources(src: str) -> list[str]:
+    """``src`` and the files of ``csrc/`` it includes (``#include
+    "..."``; one level: flash_attention_wide.cu includes
+    flash_attention.cu)."""
+    with open(src) as f:
+        names = re.findall(r'^#include "([^"]+)"', f.read(), re.M)
+    return [src] + [os.path.join(SRC_DIR, n) for n in names]
+
+
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
     return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+            or os.path.getmtime(lib) < max(map(os.path.getmtime,
+                                               _sources(src))))
 
 
 def build(name: str) -> str:

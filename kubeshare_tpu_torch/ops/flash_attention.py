@@ -51,9 +51,15 @@ from .fused_adam import OP_LIBRARY, OP_NAMESPACE
 BLOCK_Q = 128
 BLOCK_K = 128
 
-#: head dims the kernels are built for: 32 at the transformer's full
-#: width, 8 in its small preset
-HEAD_DIMS = (8, 32)
+#: the kernel library of each head dim the kernels are built for: 32 at
+#: the transformer's full width, 8 in its small preset, 64 (GPT-2's) and
+#: 128 (Llama's, Mistral's) at ``init(dim=512)`` and ``init(dim=1024)``
+#: under its 8 heads; the wide two are a library of their own
+#: (``csrc/flash_attention_wide.cu``), so that the halves build in parallel
+LIBRARY_OF_HEAD_DIM = {8: "flash_attention", 32: "flash_attention",
+                       64: "flash_attention_wide",
+                       128: "flash_attention_wide"}
+HEAD_DIMS = tuple(LIBRARY_OF_HEAD_DIM)
 
 #: kernel vs plain version on the card, (atol, rtol) by output dtype. fp32
 #: outputs (O, lse, fp32 grads) differ by summation order and expf/logf in
@@ -172,28 +178,32 @@ def flash_dkv_reference(q, k, v, dout, lse, dcap, causal=True, window=None,
 
 # --- kernels -----------------------------------------------------------------
 
-_fns = None
+_fns: dict = {}
 
 
-def _kernel_fns():
-    """The library's three entry points with their C signatures (once)."""
-    global _fns
-    if _fns is None:
+def _kernel_fns(head_dim: int) -> dict:
+    """The three entry points, with their C signatures, of the library
+    built for ``head_dim`` (once a library)."""
+    name = LIBRARY_OF_HEAD_DIM[head_dim]
+    fns = _fns.get(name)
+    if fns is None:
         from .build import load
 
-        lib = load("flash_attention")
+        lib = load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [ptr, i32] + [i32] * 8 + [f32, ptr]
-        for name, n_ptrs in (("kst_flash_fwd", 5), ("kst_flash_dq", 7),
-                             ("kst_flash_dkv", 8)):
-            fn = getattr(lib, name)
+        for entry, n_ptrs in (("kst_flash_fwd", 5), ("kst_flash_dq", 7),
+                              ("kst_flash_dkv", 8)):
+            fn = getattr(lib, entry)
             fn.restype = i32
             fn.argtypes = [ptr] * n_ptrs + tail
         lib.kst_error_string.restype = ctypes.c_char_p
         lib.kst_error_string.argtypes = [i32]
-        _fns = {"fwd": lib.kst_flash_fwd, "dq": lib.kst_flash_dq,
-                "dkv": lib.kst_flash_dkv, "error": lib.kst_error_string}
-    return _fns
+        fns = _fns[name] = {"fwd": lib.kst_flash_fwd,
+                            "dq": lib.kst_flash_dq,
+                            "dkv": lib.kst_flash_dkv,
+                            "error": lib.kst_error_string}
+    return fns
 
 
 def _dense_head_dim(x: torch.Tensor) -> torch.Tensor:
@@ -223,8 +233,8 @@ def _launch(name, pointers, tensors, q, k, causal, window, scale):
     """Launch one pass on q's device and current stream; ``tensors`` are
     q, k, v and (for the backward) dO, whose (b, s, h) strides the kernel
     takes."""
-    fns = _kernel_fns()
     b, s_q, h, d = q.shape
+    fns = _kernel_fns(d)
     s_kv, hk = k.shape[1], k.shape[2]
     strides = [st for x in tensors for st in x.stride()[:3]]
     strides += [0] * (12 - len(strides))

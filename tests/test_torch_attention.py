@@ -148,13 +148,27 @@ FLASH_CASES = [
     (True, 5, 4, 16, 16),
     (True, 5, 2, 8, 16),
 ]
+# the wide head dims the kernels take on the card (GPT-2's 64, Llama's
+# 128), each case (causal, window, kv heads, block_q, block_k, head dim)
+FLASH_WIDE_CASES = [
+    (True, None, 2, 16, 16, 64),
+    (True, 5, 2, 8, 16, 64),
+    (True, None, 2, 16, 16, 128),
+    (False, None, 4, 16, 16, 128),
+    (True, 5, 2, 8, 16, 128),
+]
 
 
-@pytest.mark.parametrize("causal,window,hk,bq,bk", FLASH_CASES)
-def test_flash_matches_jax(causal, window, hk, bq, bk):
+@pytest.mark.parametrize(
+    "causal,window,hk,bq,bk,d",
+    [c + (8,) for c in FLASH_CASES] + FLASH_WIDE_CASES,
+    ids=["-".join(map(str, c[:5])) + ("" if c[5] == 8 else f"-d{c[5]}")
+         for c in [c + (8,) for c in FLASH_CASES] + FLASH_WIDE_CASES])
+def test_flash_matches_jax(causal, window, hk, bq, bk, d):
     """Forward at 1e-5; q, k, v gradients of a weighted sum at 1e-4,
-    through the port's autograd against jax.grad."""
-    q, k, v = _inputs(hk=hk, seed=hk + bq)
+    through the port's autograd against jax.grad; head dim 8 and the wide
+    ones."""
+    q, k, v = _inputs(hk=hk, d=d, seed=hk + bq)
     w = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
     kw = dict(causal=causal, window=window, block_q=bq, block_k=bk)
 
@@ -177,7 +191,18 @@ def test_flash_matches_jax(causal, window, hk, bq, bk):
 
 def test_flash_lse_matches_jax():
     """A loss that uses both outputs: the lse cotangent folds into D."""
-    q, k, v = _inputs(hk=2, seed=11)
+    _check_flash_lse_against_jax(8)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_lse_matches_jax_at_wide_head_dims(d):
+    """As :func:`test_flash_lse_matches_jax`, at GPT-2's and Llama's head
+    dims."""
+    _check_flash_lse_against_jax(d)
+
+
+def _check_flash_lse_against_jax(d):
+    q, k, v = _inputs(hk=2, d=d, seed=11)
     w = np.random.default_rng(12).standard_normal(q.shape).astype(np.float32)
     kw = dict(block_q=16, block_k=16)
 
@@ -257,13 +282,25 @@ def test_flash_launches_nothing_on_cpu():
 def test_flash_plain_passes_agree_with_autograd_of_dense():
     """The three plain passes alone (no autograd wiring) against torch's
     own autograd of the dense reference, with GQA and a window."""
+    _check_plain_passes_against_dense(8)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_plain_passes_agree_with_autograd_of_dense_at_wide_head_dims(
+        d):
+    """As :func:`test_flash_plain_passes_agree_with_autograd_of_dense`, at
+    head dims 64 and 128."""
+    _check_plain_passes_against_dense(d)
+
+
+def _check_plain_passes_against_dense(d):
     q, k, v = (torch.tensor(a, requires_grad=True) for a in
-               _inputs(hk=2, seed=21))
+               _inputs(hk=2, d=d, seed=21))
     g = torch.from_numpy(np.random.default_rng(22).standard_normal(
         q.shape).astype(np.float32))
     dense = tattn.dot_product_attention(q, k, v, window=7)
     (dense * g).sum().backward()
-    scale = 1.0 / np.sqrt(8)
+    scale = 1.0 / np.sqrt(d)
     with torch.no_grad():
         o, lse = tflash.flash_fwd_reference(q, k, v, True, 7, scale)
         dcap = (g * o).sum(-1).transpose(1, 2)
@@ -362,8 +399,11 @@ def _share_outside_bf16_tol(got, want):
 
 
 @pytest.mark.parametrize("shape,hk,window", [((1, 256, 8, 32), 8, None),
-                                             ((1, 256, 8, 32), 2, 100)],
-                         ids=["main-path", "gqa-window"])
+                                             ((1, 256, 8, 32), 2, 100),
+                                             ((1, 128, 4, 128), 4, None),
+                                             ((1, 128, 4, 128), 2, 50)],
+                         ids=["main-path", "gqa-window", "head-dim-128",
+                              "head-dim-128-gqa-window"])
 def test_mma_backward_arithmetic_holds_bf16_tolerance(shape, hk, window):
     """The kernels' split products keep dQ, dK and dV (in bf16) within
     KERNEL_TOL of the fp32 plain versions: one bf16 ulp."""

@@ -139,7 +139,9 @@ ZOO = {"cifar10": (cifar10, {}, "loss_fn"), "resnet18": (resnet, {}, "loss_fn"),
        "resnet50": (resnet, {"blocks_per_stage": resnet.RESNET50_BLOCKS},
                     "loss_fn"),
        "vgg16": (vgg, {}, "loss_fn"), "lstm": (lstm, {}, "loss_fn"),
-       "moe_lm": (transformer, {"n_experts": 4}, "flash_loss_fn")}
+       "moe_lm": (transformer, {"n_experts": 4}, "flash_loss_fn"),
+       "lm_hd64": (transformer, {"dim": 512}, "flash_loss_fn"),
+       "lm_hd128": (transformer, {"dim": 1024}, "flash_loss_fn")}
 
 
 @pytest.mark.parametrize("name", list(ZOO))
@@ -263,6 +265,17 @@ FLASH_SHAPES = [
     (1, 80, 2, 2, 32, torch.bfloat16, False, None, "dense"),
     (1, 200, 4, 4, 32, torch.bfloat16, True, 70, "dense"),  # ragged, window
     (1, 200, 4, 2, 32, torch.bfloat16, True, 70, "unaligned"),
+    # the wide head dims: GPT-2's 64 and Llama's 128, every instance (bf16
+    # with cp.async and with plain loads, fp32)
+    (8, 256, 8, 8, 64, torch.bfloat16, True, None, "dense"),
+    (8, 256, 8, 2, 64, torch.bfloat16, True, 100, "fused"),
+    (1, 200, 4, 2, 64, torch.bfloat16, True, 70, "unaligned"),
+    (2, 80, 8, 8, 64, torch.float32, True, None, "dense"),
+    (8, 256, 8, 8, 128, torch.bfloat16, True, None, "dense"),
+    (8, 256, 8, 2, 128, torch.bfloat16, True, None, "unaligned"),
+    (1, 200, 4, 2, 128, torch.bfloat16, True, 70, "dense"),
+    (1, 80, 2, 2, 128, torch.bfloat16, False, None, "fused"),
+    (2, 80, 8, 8, 128, torch.float32, True, 7, "dense"),
 ]
 
 
@@ -396,10 +409,19 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
 
 
 def test_flash_refuses_what_the_kernels_do_not_take(cuda):
-    for d in (16, 64, 128):
+    """Head dims outside HEAD_DIMS raise on the card (no fallback to the
+    plain version); 64 and 128 run their kernels."""
+    for d in (16, 256):
         q, k, v = _qkv(cuda, 1, 32, 2, 2, d, torch.float32)
         with pytest.raises(ValueError, match="head dims"):
             tfl.flash_attention(q, k, v)
+    for d in (64, 128):
+        q, k, v = _qkv(cuda, 1, 32, 2, 2, d, torch.float32)
+        before = tfl.launches["fwd"]
+        o = tfl.flash_attention(q, k, v)
+        assert tfl.launches["fwd"] == before + 1
+        _assert_kernel_close(o, tfl.flash_fwd_reference(
+            q, k, v, True, None, d ** -0.5)[0])
     q, k, v = _qkv(cuda, 1, 32, 2, 2, 32, torch.float16)
     with pytest.raises(TypeError):
         tfl.flash_attention(q, k, v)

@@ -36,7 +36,7 @@ from kubeshare_tpu.ops.fused_adam import fused_adam as jax_fused_adam
 from kubeshare_tpu_torch import attach, convert
 from kubeshare_tpu_torch import constants as C
 from kubeshare_tpu_torch.isolation import exported
-from kubeshare_tpu_torch.isolation.client import ProxyClient
+from kubeshare_tpu_torch.isolation.client import ProxyClient, RemoteBuffer
 from kubeshare_tpu_torch.isolation.proxy import IDLE_RELEASE_MS, ChipProxy
 from kubeshare_tpu_torch.isolation.tokensched import TokenScheduler
 from kubeshare_tpu_torch.models import common
@@ -725,6 +725,95 @@ def test_outputs_that_alias_inputs_are_charged_once(proxy):
         c.close()
 
 
+def _donate_sequence(c) -> tuple[list, list]:
+    """tests/test_proxy.py's charge-and-donate sequence on a client of
+    either package, then a donated upload and a donated put buffer: the
+    ``hbm_used`` after each call, the values, and whether each donated
+    handle still reads."""
+    x = np.ones((8, 8), np.float32)
+    bx = c.put(x)
+    used = [c.usage()["hbm_used"]]
+    exe = c.compile(lambda a: a * 2.0, bx)
+    out = exe(bx)
+    used.append(c.usage()["hbm_used"])
+    out2 = exe(out, donate=True)              # frees `out` after success
+    used.append(c.usage()["hbm_used"])
+    out3 = exe(x * 3.0, donate=True)          # an upload, donated
+    used.append(c.usage()["hbm_used"])
+    out4 = exe(bx, donate=True)               # a put buffer, donated
+    used.append(c.usage()["hbm_used"])
+    gone = []
+    for buf in (out, bx):
+        try:
+            c.get(buf)
+            gone.append(False)
+        except RuntimeError:
+            gone.append(True)
+    return used + gone, [c.get(b) for b in (out2, out3, out4)]
+
+
+def test_donate_frees_as_the_jax_proxy_does(proxy):
+    """``RemoteExecutable(..., donate=True)`` on a saved program: the same
+    ``hbm_used`` after every call as the JAX proxy's executable, the same
+    values, and the donated handles gone on both."""
+    from kubeshare_tpu.isolation.client import ProxyClient as JaxClient
+    from kubeshare_tpu.isolation.proxy import ChipProxy as JaxProxy
+    from kubeshare_tpu.isolation.tokensched import \
+        TokenScheduler as JaxScheduler
+
+    jp = JaxProxy(scheduler=JaxScheduler(500.0, 30.0, 5.0))
+    jp.serve()
+    try:
+        with JaxClient("127.0.0.1", jp.port, "c", 0.5, 1.0) as c:
+            want = _donate_sequence(c)
+    finally:
+        jp.close()
+    c = ProxyClient("127.0.0.1", proxy.port, "c", 0.5, 1.0)
+    try:
+        got = _donate_sequence(c)
+    finally:
+        c.close()
+    assert got[0] == want[0]
+    assert want[0][-2:] == [True, True]
+    for g, w in zip(got[1], want[1]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_a_donated_input_an_output_aliases_keeps_its_storage(proxy):
+    """The in-place Adam step donated whole: its outputs p, m, v and the
+    count are its inputs' storages, so forgetting the donated handles
+    drops only g's charge; the outputs stay valid. A failed run donates
+    nothing."""
+    c = ProxyClient("127.0.0.1", proxy.port, "donor", 0.5, 1.0,
+                    memory=1 << 20)
+    try:
+        args = [c.put(x) for x in _adam_inputs()]
+        exe = c.compile(_adam_and_factories, *args)
+        state_bytes = 3 * 48 + 4                 # p, m, v and the count
+        p, m, v, count, total = exe(*args, donate=True)
+        sess = proxy._sessions["donor"]
+        assert not set(a.handle for a in args) & set(sess.buffers)
+        acct = proxy.hbm_accounting()["donor"]
+        assert acct["balanced"]
+        assert acct["hbm_used"] == state_bytes + 4      # g freed, total in
+        want = _adam_and_factories(*_adam_inputs())
+        for got, ref in zip((p, m, v), want[:3]):
+            np.testing.assert_array_equal(c.get(got), ref.numpy())
+        assert float(c.get(total)) == pytest.approx(float(want[4]))
+        # a call that fails (an argument of the wrong shape) donates and
+        # frees nothing
+        bad = c.put(np.zeros((2, 2), np.float32))
+        with pytest.raises(RuntimeError):
+            exe(bad, m, v, count, count, donate=True)
+        assert proxy.hbm_accounting()["donor"]["hbm_used"] == \
+            state_bytes + 4 + 16
+        assert {p.handle, m.handle, bad.handle} <= set(sess.buffers)
+        c.free(p, m, v, count, total, bad)
+        assert proxy.hbm_accounting()["donor"]["hbm_used"] == 0
+    finally:
+        c.close()
+
+
 def test_a_failed_run_frees_its_uploads_and_keeps_its_arguments(proxy):
     """A program that fails on the proxy (a matrix that is not positive
     definite, which no trace can see; an index out of range no longer
@@ -792,14 +881,27 @@ def test_a_lockstep_tenant_keeps_its_token_between_steps(proxy,
 @pytest.mark.parametrize("field", [{"repeat": 4}, {"chain_steps": 8},
                                    {"donate": [0]}])
 def test_a_saved_program_refuses_the_loop_fields(proxy, field):
-    """Repeats, chains and donation are a loop program's; a saved program
-    asked for one is refused before it runs, its argument kept."""
+    """Repeats and chains are a loop program's; a saved program asked for
+    one is refused before it runs, its argument kept. Donation is not
+    (the JAX proxy's saved programs take it): the run frees the donated
+    argument and its charge."""
     c = ProxyClient("127.0.0.1", proxy.port, "loopish", 0.5, 1.0)
     try:
         x = c.put(np.arange(4, dtype=np.float32))
         exe = c.compile(lambda t: t + 1.0, x)
         req = {k: ([x.handle] if k == "donate" else v)
                for k, v in field.items()}
+        if "donate" in req:
+            used = c.usage()["hbm_used"]
+            reply, _ = c._conn.call({"op": "execute", "name": "loopish",
+                                     "exec_id": exe._exec_id,
+                                     "args": [x.handle], **req})
+            assert x.handle not in proxy._sessions["loopish"].buffers
+            assert c.usage()["hbm_used"] == used     # x freed, y charged
+            np.testing.assert_array_equal(
+                c.get(RemoteBuffer(reply["handles"][0], (4,), "float32")),
+                np.arange(1, 5))
+            return
         with pytest.raises(RuntimeError, match="keeps its arguments"):
             c._conn.call({"op": "execute", "name": "loopish",
                           "exec_id": exe._exec_id, "args": [x.handle],

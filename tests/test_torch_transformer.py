@@ -159,6 +159,47 @@ def test_transformer_knobs_fp32_match_jax(monkeypatch):
                   grad_atol=1e-6, firm_at=1e-4)
 
 
+@pytest.mark.parametrize("dim", [512, 1024], ids=["head-dim-64",
+                                                  "head-dim-128"])
+def test_transformer_wide_head_dims_fp32_match_jax(monkeypatch, dim):
+    """The LM at ``init(dim=512)`` and ``init(dim=1024)``: 8 heads of 64
+    (GPT-2's) and of 128 (Llama's), the widths the flash kernels take on
+    the card beside 8 and 32; 1 layer, seq 32, vocab 64, fp32 activations.
+    The JAX params carried over, logits, loss and every grad against the
+    JAX LM with its flash kernel (interpret mode), held as the fp32 test
+    holds them: sums that differ only in order."""
+    sizes = dict(seq_len=32, vocab=64, dim=dim, layers=1)
+    monkeypatch.setattr(jtrans, "DTYPE", jnp.float32)
+    monkeypatch.setattr(ttrans, "DTYPE", torch.float32)
+    params = jax.tree_util.tree_map(np.asarray, jtrans.init(
+        jax.random.key(3, impl="rbg"), **sizes))
+    assert params["blocks"][0]["attn"]["qkv"].shape == (dim, 3 * dim)
+    batch = common.synthetic_token_batch(5, 2, 32, 64)
+    jattn = partial(jax_flash, block_q=16, block_k=16)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jb = tuple(jnp.asarray(a) for a in batch)
+    jlogits = jtrans.apply(jp, jb[0], attn_fn=jattn)
+    jloss, jgrads = jax.value_and_grad(
+        partial(jtrans.loss_fn, attn_fn=jattn))(jp, jb)
+
+    tattn = partial(flash_attention, block_q=16, block_k=16)
+    tp = common.to_device(convert.params_from_jax(params), "cpu")
+    tb = common.to_device(batch, "cpu")
+    tlogits = ttrans.apply(tp, tb[0], attn_fn=tattn)
+    tloss, tgrads = common.value_and_grad(
+        partial(ttrans.loss_fn, attn_fn=tattn), tp, tb)
+    np.testing.assert_allclose(tlogits.detach().numpy(),
+                               np.asarray(jlogits), rtol=0, atol=1e-5)
+    assert float(tloss) == pytest.approx(float(jloss), rel=1e-6)
+    jg = jax.tree_util.tree_leaves(jgrads)
+    tg = tree_leaves(tgrads)
+    assert len(tg) == len(jg)
+    for a, b in zip(jg, tg):
+        assert tuple(b.shape) == a.shape
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-6)
+
+
 @pytest.mark.parametrize("window", [None, 8])
 def test_dense_and_flash_give_the_same_loss(monkeypatch, window):
     monkeypatch.setattr(ttrans, "DTYPE", torch.float32)

@@ -46,7 +46,11 @@ failing the run (non-zero exit, no result line) when it fails:
       together ahead of the runs (``--go``: imports, the attach and the
       CUDA context, then a wait), one client file holding every gated
       one, and each run trains once all are ready and the run before it
-      is done. Each pair's first tenant
+      is done. A gated tenant's warm-up ends once its gate has been
+      granted the token again after its first step (the stride scheduler
+      has then taken back the start-up's charge, or the other tenant
+      reached its window cap), and a pair's tenants train 20 s past the
+      later warm-up of the two. Each pair's first tenant
       must hold its requested share of the token in the pair's common
       window (and over its life and of the steps, in the even pair), the
       pair's steps must come in runs of one tenant, and the two tenants'
@@ -247,9 +251,20 @@ FLASH_REPLACES = {"fwd": "kubeshare_tpu/ops/flash_attention.py:80",
                   "dq": "kubeshare_tpu/ops/flash_attention.py:223",
                   "dkv": "kubeshare_tpu/ops/flash_attention.py:256"}
 FLASH_SOURCE = "kubeshare_tpu_torch/csrc/flash_attention.cu"
-# the bf16 flash kernels, which must run on the tensor cores
-FLASH_MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
-                     "flash_dkv_mma_kernel")
+# the bf16 backward's prologue at head dims 64 and 128 replaces no TPU
+# kernel: it computes D where the JAX backward leaves it to XLA (this
+# line), and splits dO for the two passes
+FLASH_PREP_SOURCE = "kubeshare_tpu_torch/csrc/flash_backward_wide.cuh"
+FLASH_PREP_REPLACES = "kubeshare_tpu/ops/flash_attention.py:318"
+# the bf16 flash kernels, which must run on the tensor cores: on mma.sync
+# (HMMA in the SASS) the forward at every head dim and dQ and dK/dV at 8
+# and 32, by head dim; on wgmma (HGMMA) dQ and dK/dV at 64 and 128, with no
+# spill; each a function with cp.async or TMA and one with plain loads
+FLASH_MMA_KERNELS = {"flash_fwd_mma_kernel": (8, 32, 64, 128),
+                     "flash_dq_mma_kernel": (8, 32),
+                     "flash_dkv_mma_kernel": (8, 32)}
+FLASH_WGMMA_KERNELS = {"flash_dq_wgmma_kernel": (64, 128),
+                       "flash_dkv_wgmma_kernel": (64, 128)}
 # the libraries built from csrc, one nvcc each (flash attention's wide head
 # dims, 64 and 128, a library of their own: the two halves build in
 # parallel)
@@ -296,9 +311,14 @@ LM_SPEC = {"program": "train_step", "model": "transformer",
                          "b2": 0.999, "eps": 1e-8}}
 # the gate pair (phase 5e): a tenant's untimed first steps, and how long
 # each run trains after them — alone (ungated, then gated) and as a pair.
-# The pair's 20 s stay: at 14 s the uneven pair's common window read 9.8 s
-# on an H100 and its first tenant held 0.1728 of the token there (0.15 at
-# the least), the stride still repaying its start-up's charge
+# A gated tenant's warm-up also lasts until its gate is granted the token
+# again after its first step: that step holds the token through CUDA
+# start-up (seconds), which the stride scheduler charges at 1/request and
+# takes back from the lower request before it grants it again (unless the
+# other tenant reaches its window cap first). Read from the fifth step,
+# the uneven pair's window opened with 0.56-4.26 s of the other tenant's
+# holding still owed, and its first tenant held 0.12 of the token in the
+# window's first half, 0.26 in its second (PERF.md §6)
 TENANT_WARMUP_STEPS = 5
 # how long past its own warm-up a tenant waits for its peers' (--peers)
 TENANT_MEET_WAIT_S = 60.0
@@ -1053,8 +1073,8 @@ def _flash_inputs(dev, rng, b, s, h, hk, d, dtype, layout="dense"):
         make = lambda heads: randn(b, s, heads, d).to(dtype)
         return make(h), make(hk), make(hk), dout
     pad = 1 if layout == "unaligned" else 0
-    # dO strided too (the wide head dims' dK/dV stage it by cp.async only
-    # when its rows are 16-byte aligned)
+    # dO strided too (the 8/32 passes read it with its strides; at the
+    # wide head dims the prologue does, and the passes read its parts)
     dout = randn(b, s, h * d + pad)[..., :h * d].reshape(b, s, h, d)
     qkv = randn(b, s, (h + 2 * hk) * d + pad).to(dtype)
     q = qkv[..., :h * d].reshape(b, s, h, d)
@@ -1155,7 +1175,7 @@ def flash_check(dev, rng) -> dict:
              (1, 200, 4, d_wide), 4, bf16, True, 70, "dense", True)]
     cases.append(("head dim 128, seq 2048, gqa hk=2, window 1024",
                   (1, 2048, 8, 128), 2, bf16, True, 1024, "dense", True))
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "prep": 0.0}
     by_dim = {dd: dict(worst) for dd in fl.HEAD_DIMS}
     for label, shape, hk, dtype, causal, window, layout, bwd in cases:
         b, s, h, d = shape
@@ -1171,9 +1191,21 @@ def flash_check(dev, rng) -> dict:
         if bwd:
             dcap = (dout * ro).sum(-1).transpose(1, 2)
             args = (q, k, v, dout, rlse, dcap, causal, window, scale)
-            dk, dv = fl.flash_dkv(*args)
+            extra = ()
+            if fl._takes_split(q):
+                # the prologue: dO's parts and flags exactly, D in fp32;
+                # the passes read those parts
+                split, lo_live, dc = fl.flash_prep(dout, ro, None)
+                rsplit, rlive, rdc = fl.flash_prep_reference(dout, ro)
+                check(torch.equal(split, rsplit)
+                      and torch.equal(lo_live, rlive),
+                      f"flash prep ({label}): dO's parts or their flags "
+                      "differ from the plain version's")
+                pairs.append(("prep", "D", dc, rdc))
+                extra = (split, lo_live)
+            dk, dv = fl.flash_dkv(*args, *extra)
             rdk, rdv = fl.flash_dkv_reference(*args)
-            pairs += [("dq", "dQ", fl.flash_dq(*args),
+            pairs += [("dq", "dQ", fl.flash_dq(*args, *extra),
                        fl.flash_dq_reference(*args)),
                       ("dkv", "dK", dk, rdk), ("dkv", "dV", dv, rdv)]
         torch.cuda.synchronize()
@@ -1191,40 +1223,48 @@ def flash_check(dev, rng) -> dict:
 
 def flash_autograd_check(dev, rng) -> dict:
     """``flash_attention`` through autograd on bf16 q/k/v, strided views
-    of one fused tensor at the main path's shape: the kernel forward's lse
-    and O feed the two backward kernels. Held against the plain versions
-    on the same inputs: O to the fp32 tolerance, dQ, dK and dV to the bf16
-    one. Returns the max abs error of each."""
+    of one fused tensor at the main path's shape and at the wide head dims'
+    (WIDE_SHAPES, where the backward's prologue feeds the passes; dO there
+    the gradient of a bf16 cast, as the LM gives it): the kernel forward's
+    lse and O feed the backward kernels. Held against the plain versions on
+    the same inputs: O to the fp32 tolerance, dQ, dK and dV to the bf16
+    one. Returns the max abs error of each, worst over the shapes."""
     import torch
 
     from kubeshare_tpu_torch.ops import flash_attention as fl
 
-    b, s, h, d = FLASH_SHAPE
-    scale = 1.0 / math.sqrt(d)
-    fused = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
-        "float32")).to(dev, torch.bfloat16)
-    w = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
-        "float32")).to(dev)
-    views = lambda x: [x[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
-                       for i in range(3)]
-    f = fused.clone().requires_grad_(True)
-    o = fl.flash_attention(*views(f))
-    (o * w).sum().backward()
-    q, k, v = views(fused)
-    ro, rlse = fl.flash_fwd_reference(q, k, v, True, None, scale)
-    dcap = (w * ro).sum(-1).transpose(1, 2)
-    args = (q, k, v, w, rlse, dcap, True, None, scale)
-    rdk, rdv = fl.flash_dkv_reference(*args)
-    torch.cuda.synchronize()
-    label = "bf16 autograd (strided)"
-    errs = {}
-    for name, got, want in (("O", o.detach(), ro),
-                            *zip(("dQ", "dK", "dV"), views(f.grad),
-                                 (fl.flash_dq_reference(*args), rdk, rdv))):
-        errs[name] = _check_flash_close("autograd", label, name, got,
-                                        want)[0]
-    log(f"  flash {label} {FLASH_SHAPE}: ok, max abs err "
-        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    errs: dict = {}
+    for shape in (FLASH_SHAPE,) + WIDE_SHAPES:
+        b, s, h, d = shape
+        scale = 1.0 / math.sqrt(d)
+        fused = torch.from_numpy(rng.standard_normal(
+            (b, s, 3 * h * d)).astype("float32")).to(dev, torch.bfloat16)
+        w = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+            "float32")).to(dev)
+        if shape != FLASH_SHAPE:
+            w = w.to(torch.bfloat16).float()
+        views = lambda x: [x[..., i * h * d:(i + 1) * h * d].reshape(
+            b, s, h, d) for i in range(3)]
+        f = fused.clone().requires_grad_(True)
+        o = fl.flash_attention(*views(f))
+        (o * w).sum().backward()
+        q, k, v = views(fused)
+        ro, rlse = fl.flash_fwd_reference(q, k, v, True, None, scale)
+        dcap = (w * ro).sum(-1).transpose(1, 2)
+        args = (q, k, v, w, rlse, dcap, True, None, scale)
+        rdk, rdv = fl.flash_dkv_reference(*args)
+        torch.cuda.synchronize()
+        label = "bf16 autograd (strided)"
+        here = {}
+        for name, got, want in (("O", o.detach(), ro),
+                                *zip(("dQ", "dK", "dV"), views(f.grad),
+                                     (fl.flash_dq_reference(*args), rdk,
+                                      rdv))):
+            here[name] = _check_flash_close("autograd", label, name, got,
+                                            want)[0]
+            errs[name] = max(errs.get(name, 0.0), here[name])
+        log(f"  flash {label} {shape}: ok, max abs err "
+            + ", ".join(f"{n} {e:.2e}" for n, e in here.items()))
     return errs
 
 
@@ -1239,24 +1279,33 @@ def _visible_pairs(s: int, causal: bool, window) -> int:
     return int(np.minimum(seen, window).sum() if window else seen.sum())
 
 
-def flash_bounds(shape, in_bytes: int, causal=True, window=None) -> dict:
+def flash_bounds(shape, in_bytes: int, causal=True, window=None,
+                 lo_rows=None) -> dict:
     """Least time of each pass: each input read once and each output
     written once over the memory rate, against the visible pairs'
-    operations over the inputs' peak (bf16 tensor cores or fp32)."""
+    operations over the inputs' peak (bf16 tensor cores or fp32). dQ and
+    dK/dV read dO in fp32, but on the wide bf16 route (``lo_rows`` given)
+    they read its bf16 hi part and its lo part only in the ``lo_rows`` q
+    rows (over every b*h row) of the tiles the prologue flagged: the fp32
+    read is the prologue's. "prep" is that prologue: dO and O in fp32
+    read, dO's two bf16 parts and D written (its few operations a value
+    weigh nothing beside its bytes)."""
     b, s, h, d = shape
     pairs = b * h * _visible_pairs(s, causal, window)
     q = b * s * h * d * in_bytes
     kv = 2 * q                       # k and v, hk = h on the main path
     o32 = b * s * h * d * 4          # O, or dO, in fp32
     row = b * h * s * 4              # lse or D
+    do = o32 if lo_rows is None else (b * s * h + lo_rows) * d * 2
     moved = {"fwd": q + kv + o32 + row,
-             "dq": q + kv + o32 + 2 * row + q,
-             "dkv": q + kv + o32 + 2 * row + kv}
+             "dq": q + kv + do + 2 * row + q,
+             "dkv": q + kv + do + 2 * row + kv,
+             "prep": 2 * o32 + b * s * h * d * 2 * 2 + row}
     peak = PEAK_BF16_FLOPS if in_bytes == 2 else PEAK_FP32_FLOPS
     out = {}
     for name, nbytes in moved.items():
         byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        op_ms = FLASH_OPS_PER_PAIR_DIM[name] * d * pairs / peak * 1e3
+        op_ms = FLASH_OPS_PER_PAIR_DIM.get(name, 0) * d * pairs / peak * 1e3
         out[name] = {"bound_ms": max(byte_ms, op_ms),
                      "bound_by": "bytes" if byte_ms >= op_ms
                      else "operations",
@@ -1268,7 +1317,11 @@ def flash_timing(dev, rng, shape, iters: int, plain: bool) -> dict:
     """The three kernels at ``shape`` (bf16, causal) beside their plain
     versions (when ``plain``) and ``scaled_dot_product_attention`` with
     ``is_causal=True``: its forward against ours, its backward (dQ, dK and
-    dV in one call) against each of ours, and forward+backward."""
+    dV in one call) against each of ours, and forward+backward. dO is the
+    gradient of a bf16 cast, as the LM gives it. At head dims 64 and 128
+    the backward's prologue runs once first and the two passes take its
+    dO parts (its own time under "prep"); the whole backward, prologue or
+    D included, under "bwd_ms"."""
     import torch
     import torch.nn.functional as F
 
@@ -1276,17 +1329,43 @@ def flash_timing(dev, rng, shape, iters: int, plain: bool) -> dict:
 
     b, s, h, d = shape
     q, k, v, dout = _flash_inputs(dev, rng, b, s, h, h, d, torch.bfloat16)
+    dout = dout.to(torch.bfloat16).float()
     scale = 1.0 / math.sqrt(d)
     o, lse = fl.flash_fwd(q, k, v, True, None, scale)
-    dcap = (dout * o).sum(-1).transpose(1, 2).contiguous()
-    bwd = (q, k, v, dout, lse, dcap, True, None, scale)
     fns = {"fwd": (partial(fl.flash_fwd, q, k, v, True, None, scale),
                    partial(fl.flash_fwd_reference, q, k, v, True, None,
-                           scale)),
-           "dq": (partial(fl.flash_dq, *bwd),
-                  partial(fl.flash_dq_reference, *bwd)),
-           "dkv": (partial(fl.flash_dkv, *bwd),
-                   partial(fl.flash_dkv_reference, *bwd))}
+                           scale))}
+    if fl._takes_split(q):
+        split, lo_live, dcap = fl.flash_prep(dout, o, None)
+        extra = (split, lo_live)
+        fns["prep"] = (partial(fl.flash_prep, dout, o, None),
+                       partial(fl.flash_prep_reference, dout, o, None))
+        # the q rows of the flagged tiles, whose lo part the passes read
+        tile = fl.PREP_TILE
+        rows = (s - tile * torch.arange(lo_live.shape[1],
+                                        device=dev)).clamp(max=tile)
+        lo_rows = int((lo_live.bool() * rows).sum())
+    else:
+        dcap = (dout * o).sum(-1).transpose(1, 2).contiguous()
+        extra, lo_rows = (), None
+    bwd = (q, k, v, dout, lse, dcap, True, None, scale)
+    fns["dq"] = (partial(fl.flash_dq, *bwd, *extra),
+                 partial(fl.flash_dq_reference, *bwd))
+    fns["dkv"] = (partial(fl.flash_dkv, *bwd, *extra),
+                  partial(fl.flash_dkv_reference, *bwd))
+
+    def whole_bwd():
+        """What the autograd backward launches: the prologue (or torch's
+        D) and the two passes."""
+        if extra:
+            sp, live, dc = fl.flash_prep(dout, o, None)
+            tail = (sp, live)
+        else:
+            dc, tail = (dout * o).sum(-1).transpose(1, 2).contiguous(), ()
+        a = (q, k, v, dout, lse, dc, True, None, scale, *tail)
+        fl.flash_dq(*a)
+        fl.flash_dkv(*a)
+
     # the library's own (b, h, s, d) layout, made once outside the timing
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
@@ -1316,40 +1395,59 @@ def flash_timing(dev, rng, shape, iters: int, plain: bool) -> dict:
                      "plain_ms": min(runs["plain"]) if plain else None,
                      "host_ms": host_time_ms(kernel, 4 * iters),
                      "runs_ms": runs}
+    res["bwd_ms"] = min(cuda_time_ms(whole_bwd, iters, flush)
+                        for _ in range(2))
     lib_ms = {name: min(cuda_time_ms(fn, iters, flush) for _ in range(2))
               for name, fn in lib.items()}
     res["library_host_ms"] = {name: host_time_ms(fn, 4 * iters)
                               for name, fn in lib.items()}
-    bounds = flash_bounds(shape, 2)
+    bounds = flash_bounds(shape, 2, lo_rows=lo_rows)
     for name in fns:
         res[name].update(bounds[name])
-        res[name]["library_ms"] = lib_ms["fwd" if name == "fwd" else "bwd"]
+        res[name]["library_ms"] = (None if name == "prep" else
+                                   lib_ms["fwd" if name == "fwd" else "bwd"])
+        res[name]["bound_share"] = res[name]["bound_ms"] / res[name]["ms"]
     res["library_ms"] = lib_ms
     res["kernel_fwd_bwd_ms"] = sum(res[n]["ms"] for n in fns)
+    # SDPA's backward computes its own D: the whole backward is the fair
+    # comparison, the two passes alone stand beside it
+    res["bwd_over_sdpa"] = res["bwd_ms"] / lib_ms["bwd"]
+    res["passes_over_sdpa"] = ((res["dq"]["ms"] + res["dkv"]["ms"])
+                               / lib_ms["bwd"])
     return res
 
 
 def flash_wide_timing(dev, rng) -> dict:
     """:func:`flash_timing` at the wide head dims: WIDE_SHAPES beside the
     plain versions, LONG_WIDE_SHAPE without them; each pass logged with its
-    bound and SDPA's time. Keyed by shape."""
+    bound, its share of it and SDPA's time, and dQ + dK/dV against SDPA's
+    backward. Keyed by shape."""
     res = {}
     for shape in WIDE_SHAPES + (LONG_WIDE_SHAPE,):
         wide_long = shape == LONG_WIDE_SHAPE
         r = res[str(shape)] = flash_timing(dev, rng, shape,
                                            5 if wide_long else 50,
                                            plain=not wide_long)
-        for name in ("fwd", "dq", "dkv"):
+        for name in ("fwd", "prep", "dq", "dkv"):
             x = r[name]
             plain = ("" if x["plain_ms"] is None
                      else f", plain {x['plain_ms']:.4f} ms")
+            lib = ("" if x["library_ms"] is None else
+                   f", sdpa {'forward' if name == 'fwd' else 'backward'} "
+                   f"{x['library_ms']:.4f} ms")
             log(f"flash {name} at {shape} bf16 causal: kernel "
-                f"{x['ms']:.4f} ms{plain}, sdpa "
-                f"{'forward' if name == 'fwd' else 'backward'} "
-                f"{x['library_ms']:.4f} ms, bound {x['bound_ms']:.5f} ms "
-                f"({x['bound_by']}); host ms a call {x['host_ms']:.4f}")
-        log(f"flash fwd+dq+dkv at {shape} {r['kernel_fwd_bwd_ms']:.4f} ms, "
-            f"sdpa forward+backward {r['library_ms']['fwd_bwd']:.4f} ms")
+                f"{x['ms']:.4f} ms{plain}{lib}, bound {x['bound_ms']:.5f} ms "
+                f"({x['bound_by']}), {100 * x['bound_share']:.1f}% of it; "
+                f"host ms a call {x['host_ms']:.4f}")
+        log(f"flash backward at {shape}, the prologue included "
+            f"{r['bwd_ms']:.4f} ms = {r['bwd_over_sdpa']:.3f}x sdpa "
+            f"backward {r['library_ms']['bwd']:.4f} ms; dq+dkv alone "
+            f"{r['dq']['ms'] + r['dkv']['ms']:.4f} ms = "
+            f"{r['passes_over_sdpa']:.3f}x; fwd+prep+dq+dkv "
+            f"{r['kernel_fwd_bwd_ms']:.4f} ms, sdpa forward+backward "
+            f"{r['library_ms']['fwd_bwd']:.4f} ms; sdpa host ms a call "
+            f"forward {r['library_host_ms']['fwd']:.4f}, backward "
+            f"{r['library_host_ms']['bwd']:.4f}")
     return res
 
 
@@ -1430,9 +1528,10 @@ def ptxas_summary(text: str) -> dict:
 
 
 def sass_mma_counts(names) -> dict:
-    """Tensor-core instructions (HMMA) in each kernel function of the
-    built libraries ``names``, read from their SASS with the toolkit's
-    cuobjdump."""
+    """Tensor-core instructions in each kernel function of the built
+    libraries ``names``, read from their SASS with the toolkit's
+    cuobjdump: ``{function: {"HMMA": n, "HGMMA": m}}`` (mma.sync and
+    wgmma)."""
     from kubeshare_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -1445,10 +1544,29 @@ def sass_mma_counts(names) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = _kernel_name(line.split("Function :")[1].strip())
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HMMA", "HGMMA"):
+                counts[fn][op] += op in line
     return counts
+
+
+def check_flash_sass(mma: dict, ptxas: dict) -> None:
+    """Each bf16 flash kernel on the tensor cores it was written for:
+    HMMA in every FLASH_MMA_KERNELS function, HGMMA and 0 spill bytes in
+    every FLASH_WGMMA_KERNELS one and in the backward's prologue; a
+    function for each head dim and load route (two each)."""
+    for table, op in ((FLASH_MMA_KERNELS, "HMMA"),
+                      (FLASH_WGMMA_KERNELS, "HGMMA")):
+        for name, dims in table.items():
+            found = {k: n[op] for k, n in mma.items()
+                     if k.startswith(name + "I")}
+            check(len(found) == 2 * len(dims) and all(found.values()),
+                  f"{name} lacks {op} instructions or functions: {found}")
+    for fn, r in ptxas.items():
+        if fn.startswith(tuple(FLASH_WGMMA_KERNELS) + ("flash_prep_kernel",)):
+            check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+                  f"{fn} spills: {r}")
 
 
 def _counts() -> dict:
@@ -1488,8 +1606,10 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
     training loop, metered only if the shim attached it. The full-width
     transformer with flash attention on ``cuda`` if this process has a
     card (under proxy attach it has none: on ``cpu``, its compiled step
-    running on the proxy), the loss read every step; after
-    TENANT_WARMUP_STEPS steps it trains ``seconds`` more (or, with
+    running on the proxy), the loss read every step; after its warm-up
+    (TENANT_WARMUP_STEPS steps, and, if gated, until its gate has been
+    granted the token again after the first step: the record's ``warm``
+    is the warm-up's last step) it trains ``seconds`` more (or, with
     ``steps``, exactly that many steps in all). With ``peers``, the other
     tenants' record paths, it writes its warm-up end beside its own record
     (``<out_path>.warm``) and trains ``seconds`` past the latest warm-up
@@ -1523,8 +1643,10 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
     ends, losses, gate = [], [], []
     started = time.monotonic()
     stop_at = None
+    warm = None
     first_proxy = None
     waiting = [p + ".warm" for p in peers]
+    renews = GATE_TOTALS.index("renews")
     while (len(ends) < steps if steps
            else stop_at is None or ends[-1] < stop_at or waiting):
         params, state, loss = step(params, state, batch)
@@ -1536,7 +1658,9 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
                 _wait_go(out_path, go)
         totals = attach.gate_stats()
         gate.append([totals[k] for k in GATE_TOTALS] if totals else None)
-        if len(ends) == TENANT_WARMUP_STEPS:
+        if warm is None and len(ends) >= TENANT_WARMUP_STEPS and (
+                gate[-1] is None or gate[-1][renews] > gate[0][renews]):
+            warm = len(ends) - 1
             stop_at = ends[-1] + seconds
             if peers:
                 with open(out_path + ".warm.tmp", "w") as f:
@@ -1547,11 +1671,12 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
                 with open(path) as f:
                     stop_at = max(stop_at, float(f.read()) + seconds)
                 waiting.remove(path)
-            if ends[-1] > ends[TENANT_WARMUP_STEPS - 1] + TENANT_MEET_WAIT_S:
+            if ends[-1] > ends[warm] + TENANT_MEET_WAIT_S:
                 waiting = []
     with open(out_path + ".tmp", "w") as f:
         json.dump({"attach": attach.active_mode(), "ends": ends,
                    "started": started,
+                   "warm": TENANT_WARMUP_STEPS - 1 if warm is None else warm,
                    # the first step end after the go file: 1 when the
                    # first step ran before the wait (compiled, with go)
                    "go_index": int(bool(go and compiled)),
@@ -1829,7 +1954,8 @@ def _check_losses(name: str, losses: list) -> None:
 
 
 def _launches_per_step(adam_per_step: int, layers: int) -> dict:
-    return {"fused_adam": adam_per_step,
+    """A step of the LM at its full width (head dim 32): no prologue."""
+    return {"fused_adam": adam_per_step, "flash_prep": 0,
             **{f"flash_{k}": layers for k in ("fwd", "dq", "dkv")}}
 
 
@@ -1859,8 +1985,13 @@ def _charged_ms(rec: dict, start: float, end: float) -> float:
     return float(np.mean(samples)) if samples else float("nan")
 
 
+def _warm(rec: dict) -> int:
+    """The index of a tenant's last warm-up step (see :func:`tenant`)."""
+    return rec.get("warm", TENANT_WARMUP_STEPS - 1)
+
+
 def _solo_rate(rec: dict) -> float:
-    ends = rec["ends"][TENANT_WARMUP_STEPS - 1:]
+    ends = rec["ends"][_warm(rec):]
     return (len(ends) - 1) / (ends[-1] - ends[0])
 
 
@@ -1872,7 +2003,7 @@ def _gate_per_step(rec: dict, i0: int, i1: int) -> dict:
 
 
 def _solo_gate_per_step(rec: dict) -> dict:
-    return _gate_per_step(rec, TENANT_WARMUP_STEPS - 1, len(rec["ends"]) - 1)
+    return _gate_per_step(rec, _warm(rec), len(rec["ends"]) - 1)
 
 
 def _mean_run(pair: dict, start: float, end: float) -> float:
@@ -1887,7 +2018,7 @@ def _mean_run(pair: dict, start: float, end: float) -> float:
 def pair_reading(pair: dict, entries) -> dict:
     """One pair's numbers over its common window: both past warm-up,
     until the first one stops (checked by :func:`check_pair`)."""
-    start = max(r["ends"][TENANT_WARMUP_STEPS - 1] for r in pair.values())
+    start = max(r["ends"][_warm(r)] for r in pair.values())
     end = min(r["ends"][-1] for r in pair.values())
     window_s = end - start
     check(window_s >= GATE_MIN_WINDOW_S,
@@ -1925,6 +2056,7 @@ def pair_reading(pair: dict, entries) -> dict:
             for n, (_, i1) in span.items()}
     return {
         "requests": {a: req_a, b: req_b},
+        "warm_up_steps": {n: _warm(r) + 1 for n, r in pair.items()},
         "window_s": window_s,
         "steps_in_window": steps,
         "steps_per_sec": rates,
@@ -2034,7 +2166,7 @@ def gate_phase(root: str, adam_per_step: int, layers: int,
         spawned = [node.spawn([(n, seed, ports.get(n, 0), req)
                                for n, seed, req in tenants],
                               GATE_SOLO_S if step in solo else GATE_PAIR_S,
-                              step != "ungated",
+                              step != "ungated", meet=step not in solo,
                               go=os.path.join(node.base, f"go-{i}"))
                    for i, (step, tenants) in enumerate(runs)]
         others = start_others() if start_others is not None else []
@@ -2091,7 +2223,7 @@ def gate_phase(root: str, adam_per_step: int, layers: int,
         # the gated exclusive runs' own charge per window, and their
         # gates' totals per step
         "solo_charged_ms_per_window": [
-            _charged_ms(r, r["ends"][TENANT_WARMUP_STEPS - 1], r["ends"][-1])
+            _charged_ms(r, r["ends"][_warm(r)], r["ends"][-1])
             for r in solo_gated],
         "solo_gate_per_step": [_solo_gate_per_step(r) for r in solo_gated],
         "pairs": pairs,
@@ -4519,7 +4651,7 @@ def _trace_summary(trace_dir: str, steps: int) -> dict:
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     tags = {"fused_adam": "adam_multi_tensor_kernel",
             "flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
-            "flash_dkv": "flash_dkv_"}
+            "flash_dkv": "flash_dkv_", "flash_prep": "flash_prep_"}
     return {"device_ms": sum(e.get("dur", 0.0) for e in device) / 1e3
             / steps,
             "kernels": len(kernels) / steps,
@@ -4691,12 +4823,15 @@ def _check_zoo_launches(label: str, rec: dict) -> None:
     exclusive and profiled runs) and those its trace shows a step: every
     step one Adam launch a table, and the LM's one of each flash pass a
     layer."""
-    mod, _, _ = _zoo_model(label)
+    mod, init_fn, _ = _zoo_model(label)
     got, ran = rec["launches"], rec["steps_run"]
     want = {"fused_adam": rec["adam_per_step"] * ran}
     if mod.__name__.endswith(".transformer"):
+        # the backward's prologue at head dims 64 and 128 (bf16 runs)
+        wide = (init_fn.keywords.get("dim", mod.DIM) // mod.HEADS
+                in WIDE_HEAD_DIMS)
         want.update({f"flash_{k}": mod.LAYERS * ran
-                     for k in ("fwd", "dq", "dkv")})
+                     for k in ("fwd", "dq", "dkv") + ("prep",) * wide})
     for kernel in got:
         check(got[kernel] == want.get(kernel, 0),
               f"5j {label}: {got[kernel]} {kernel} launches, expected "
@@ -5103,7 +5238,8 @@ def gang_phase(root: str, local: dict, adam_per_step: int,
                           f"5k {label} rank {rank}: final loss "
                           f"{rec['final_loss']} against one process's "
                           f"{one_loss}")
-                    want = {"fused_adam": adam_per_step * ran}
+                    want = {"fused_adam": adam_per_step * ran,
+                            "flash_prep": 0}
                     per = GANG_FLASH_PER_LAYER[label][rank] * layers * ran
                     want.update({f"flash_{k}": per
                                  for k in ("fwd", "dq", "dkv")})
@@ -5981,14 +6117,10 @@ def main(argv=None) -> int:
                                              for n in FLASH_LIBRARIES))
     log_ptxas(out["ptxas"])
     mma = sass_mma_counts(FLASH_LIBRARIES)
-    for name in FLASH_MMA_KERNELS:
-        # one function per head dim and cp.async or plain loads
-        found = {k: n for k, n in mma.items() if k.startswith(name + "I")}
-        check(len(found) == 2 * len(fl.HEAD_DIMS) and all(found.values()),
-              f"{name} lacks tensor-core instructions: {mma}")
-    out["sass_hmma"] = mma
-    log("sass: HMMA instructions by kernel: " + ", ".join(
-        f"{k} {n}" for k, n in sorted(mma.items())))
+    check_flash_sass(mma, out["ptxas"])
+    out["sass_mma"] = mma
+    log("sass: HMMA / HGMMA instructions by kernel: " + ", ".join(
+        f"{k} {n['HMMA']} / {n['HGMMA']}" for k, n in sorted(mma.items())))
 
     rng = np.random.default_rng(0)
     log("kernel check (kernel vs plain, atol "
@@ -6024,7 +6156,9 @@ def main(argv=None) -> int:
             f"({r['bound_by']}); host ms a call: kernel {r['host_ms']:.4f}, "
             f"sdpa {flash['library_host_ms'][lib]:.4f}")
     log(f"flash dq+dkv {flash['dq']['ms'] + flash['dkv']['ms']:.4f} ms, "
-        f"sdpa backward {flash['library_ms']['bwd']:.4f} ms")
+        f"with torch's D {flash['bwd_ms']:.4f} ms = "
+        f"{flash['bwd_over_sdpa']:.3f}x sdpa backward "
+        f"{flash['library_ms']['bwd']:.4f} ms")
     log(f"flash fwd+dq+dkv {flash['kernel_fwd_bwd_ms']:.4f} ms, sdpa "
         f"forward+backward {flash['library_ms']['fwd_bwd']:.4f} ms")
     out["flash"] = dict(flash, max_abs_err=flash_err)
@@ -6453,6 +6587,15 @@ def main(argv=None) -> int:
             "max_abs_err": flash_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the wide backward's prologue, at the LM's shape at dim 1024
+    r = out["flash_wide"][str(WIDE_SHAPES[-1])]["prep"]
+    kernels.append({
+        "name": "flash_attention_prep", "route": "cuda",
+        "source": FLASH_PREP_SOURCE, "replaces": FLASH_PREP_REPLACES,
+        "launches": launches["flash_prep"],
+        "max_abs_err": flash_err["prep"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None})
     log("seconds by stretch: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"seconds: {out['seconds']:.1f}")

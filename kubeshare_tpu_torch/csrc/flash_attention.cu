@@ -137,19 +137,15 @@
 // Other head dims are refused (cudaErrorInvalidValue); a model that needs
 // one adds it to a run_dims list in run(). What the wide ones change:
 // - shared memory is dynamic in every kernel: one 64-row bf16 tile is
-//   9,216 B at 64 and 17,408 B at 128, so the forward's 5 tiles, dQ's 7
-//   and dK/dV's 8 pass the 48 KB a function gets by default; the launch
-//   raises the function's limit first (launch_kernel), once per device;
-// - registers: up to head dim 32 the dQ and dK/dV warps hold their rows'
-//   A operands (Q and dO, or K and V) as fragments for the whole loop;
-//   from 64 they read them from shared memory at each use (holds_a,
-//   mma_abt_s), or dK/dV at 128 would hold 2 x 32 fragment registers
-//   beside its 2 x 64 fp32 accumulators. dK/dV's next fp32 dO tile, read
-//   ahead in registers up to 32 (D / 2 values a thread), is staged from 64
-//   in shared memory by cp.async (stage_f32_tile; plain loads when its
-//   rows are not 16-byte aligned) and split after the compute. ptxas
-//   still spills a little in dQ and dK/dV at 128 (the smoke logs each
-//   function's registers and spill bytes);
+//   9,216 B at 64 and 17,408 B at 128, so the forward's 5 tiles pass at
+//   128 the 48 KB a function gets by default; the launch raises the
+//   function's limit first (launch_kernel), once per device;
+// - the bf16 dQ and dK/dV passes at 64 and 128 are not this file's
+//   mma.sync kernels but flash_backward_wide.cuh's, on wgmma and TMA
+//   (launch() sends them there when KST_FLASH_WIDE is defined), so the
+//   mma.sync passes take head dims up to 32 only: each warp holds its
+//   rows' A operands (Q and dO, or K and V) as fragments for the whole
+//   loop, and dK/dV reads its next fp32 dO tile ahead in registers;
 // - the fp32 kernels give a row several threads from 64 (row_threads: one
 //   per 16 dims, each holding its slice), the dot products summed over the
 //   row's threads by shuffles; one thread a row would hold 2 x 128 fp32
@@ -196,7 +192,10 @@ struct Args {
   void *dq, *dk, *dv;
   Strides sq, sk, sv, sdo;
   Shape sh;
-  int do_async;  // dO rows 16-byte aligned (dK/dV stages them by cp.async)
+  // the wide bf16 backward (flash_backward_wide.cuh): dO's bf16 parts,
+  // dense, and which (b*h row, 64-row q tile) has a nonzero lo part
+  const void *do_hi, *do_lo;
+  const int* lo_live;
 };
 
 // `_live_fwd` for any rows: does one of q rows [q0, q1] see one of keys
@@ -568,26 +567,16 @@ __host__ __device__ constexpr int tile_elems() {
   return kTile * smem_row<D>();
 }
 
-// Do the dQ and dK/dV warps hold their rows' A operands (Q and dO, or K
-// and V) in registers for the whole loop? Up to head dim 32; from 64 they
-// read them from shared memory at each use: held, dK/dV at 128 would keep
-// 2 x 32 fragment registers beside 2 x 64 fp32 accumulators and spill.
-template <int D>
-__host__ __device__ constexpr bool holds_a() {
-  return D <= 32;
-}
-
 // bytes of dynamic shared memory of the bf16 kernels, by pass: the
 // forward's q tile and k/v rings (5 tiles); dQ's q, dO hi/lo and k/v rings
-// (7); dK/dV's k, v and q, dO hi/lo rings (8), the q rows' lse and D (two
-// stages), and from head dim 64 the next q tile's fp32 dO, staged by
-// cp.async while the current one is computed
+// (7); dK/dV's k, v and q, dO hi/lo rings (8) and the q rows' lse and D
+// (two stages)
 template <int D>
 constexpr int mma_smem(int pass) {
   const int tile = tile_elems<D>() * 2;
   if (pass == 0) return 5 * tile;
   if (pass == 1) return 7 * tile;
-  return 8 * tile + 4 * kTile * 4 + (holds_a<D>() ? 0 : kTile * D * 4);
+  return 8 * tile + 4 * kTile * 4;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -785,70 +774,6 @@ __device__ __forceinline__ void store_split_tile(
   }
 }
 
-// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
-// fp32 strided tensor straight into two shared tiles, hi = bf16(x) and lo
-// = bf16(x - hi), with no whole share in registers (the wide head dims);
-// rows past n are zero
-template <int D, int kRow>
-__device__ __forceinline__ void load_split_tile(bf16* hi, bf16* lo,
-                                                const float* base,
-                                                Strides st, int bi, int hh,
-                                                int row0, int n) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kMmaThreads) {
-    const int pos = row0 + idx / D;
-    const float x = pos < n ? base[bi * st.b + (long long)pos * st.s +
-                                   hh * st.h + idx % D]
-                            : 0.f;
-    const int at = (idx / D) * kRow + idx % D;
-    const bf16 h = __float2bfloat16_rn(x);
-    hi[at] = h;
-    lo[at] = __float2bfloat16_rn(x - __bfloat162float(h));
-  }
-}
-
-// Rows [row0, row0 + kTile) of an fp32 strided tensor into a dense shared
-// staging tile (kTile x D floats), 16 bytes (4 values) a copy: by cp.async
-// when `async` (every row 16-byte aligned), else by plain loads. A thread
-// copies pieces threadIdx.x + i kMmaThreads, and split_staged splits the
-// same pieces, so it needs no barrier between the two
-template <int D>
-__device__ __forceinline__ void stage_f32_tile(float* stg, const float* base,
-                                               Strides st, int bi, int hh,
-                                               int row0, int n, bool async) {
-  constexpr int kPieces = D / 4;  // 16-byte pieces of a row
-  for (int idx = threadIdx.x; idx < kTile * kPieces; idx += kMmaThreads) {
-    const int r = idx / kPieces, c = (idx % kPieces) * 4;
-    const int pos = row0 + r;
-    const bool valid = pos < n;
-    const float* src = base + bi * st.b + (long long)(valid ? pos : 0) * st.s +
-                       hh * st.h + c;
-    float* d = stg + r * D + c;
-    if (async) {
-      cp_async16(d, src, valid);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) d[e] = valid ? src[e] : 0.f;
-    }
-  }
-}
-
-// the pieces of the staging tile this thread copied (stage_f32_tile), split
-// into the hi and lo shared tiles of kRow-element rows
-template <int D, int kRow>
-__device__ __forceinline__ void split_staged(bf16* hi, bf16* lo,
-                                             const float* stg) {
-  constexpr int kPieces = D / 4;
-  for (int idx = threadIdx.x; idx < kTile * kPieces; idx += kMmaThreads) {
-    const int r = idx / kPieces, c = (idx % kPieces) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(stg + r * D + c);
-    uint32_t h[2], l[2];
-    split_bf16(x.x, x.y, h[0], l[0]);
-    split_bf16(x.z, x.w, h[1], l[1]);
-    *reinterpret_cast<uint2*>(hi + r * kRow + c) = make_uint2(h[0], h[1]);
-    *reinterpret_cast<uint2*>(lo + r * kRow + c) = make_uint2(l[0], l[1]);
-  }
-}
-
 // The lse (times log2 e) and D of q rows [q0, q0 + kTile) of q head hq
 // into shared memory, one thread a value; rows past s_q are 0
 __device__ __forceinline__ void load_rows(float* ls, float* dcs,
@@ -913,44 +838,6 @@ __device__ __forceinline__ void mma_abt(
         mma_bf16(acc[j + 1], a[s], x[2], x[3]);
       }
     }
-  }
-}
-
-// acc (16 x 64) += A . B^T as mma_abt, the 16 rows x D of A read from a
-// shared tile of kRow-element rows (`a`, the first row) at each depth step
-// instead of held (head dims 64 and up); the same products in the same
-// order
-template <int D, int kRow>
-__device__ __forceinline__ void mma_abt_s(float (&acc)[kNs][4],
-                                          const bf16* a, const bf16* b,
-                                          int lane) {
-  static_assert(D % 16 == 0, "from shared memory: depth steps of 16");
-  const bf16* ar = a + (lane % 16) * kRow + (lane / 16) * 8;
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-    uint32_t f[4];
-    ldsm_x4(f, ar + 16 * s);
-#pragma unroll
-    for (int j = 0; j < kNs; j += 2) {
-      uint32_t x[4];  // n tiles j, j+1 at depth 16s..16s+15
-      ldsm_x4(x, b + (8 * j + lane % 8 + (lane / 16) * 8) * kRow + 16 * s +
-                     ((lane / 8) % 2) * 8);
-      mma_bf16(acc[j], f, x[0], x[1]);
-      mma_bf16(acc[j + 1], f, x[2], x[3]);
-    }
-  }
-}
-
-// mma_abt with A held in registers (`f`, holds_a) or read from the shared
-// rows `a`
-template <int D, int kRow>
-__device__ __forceinline__ void mma_abt_a(
-    float (&acc)[kNs][4], const uint32_t (&f)[depth_steps<D>()][4],
-    const bf16* a, const bf16* b, int lane) {
-  if constexpr (holds_a<D>()) {
-    mma_abt<D, kRow>(acc, f, b, lane);
-  } else {
-    mma_abt_s<D, kRow>(acc, a, b, lane);
   }
 }
 
@@ -1160,7 +1047,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 template <int D, bool kAsync>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_dq_mma_kernel(Args a) {
-  static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
+  static_assert(D == 8 || D == 16 || D == 32,
+                "head dims 8 to 32 (from 64: flash_backward_wide.cuh)");
   constexpr int kRow = smem_row<D>();
   constexpr int kSteps = depth_steps<D>();
   constexpr int kT = tile_elems<D>();
@@ -1190,13 +1078,10 @@ __global__ void __launch_bounds__(kMmaThreads)
                                     sh.s_kv);
   }
   cp_async_commit();
-  if constexpr (holds_a<D>()) {
+  {
     float x[tile_share<D>()];
     load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_first, sh.s_q);
     store_split_tile<D, kRow>(dos[0], dos[1], x);
-  } else {
-    load_split_tile<D, kRow>(dos[0], dos[1], a.dout, a.sdo, bi, hq, q_first,
-                             sh.s_q);
   }
   // this thread's rows qpos0 and qpos0 + 8: lse (times log2 e) and D
   float lse2[2], dc[2];
@@ -1209,7 +1094,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 
   float acc[D / 8][4] = {};
-  // Q; dO hi, lo: held (holds_a) or read from qs and dos at each use
+  // Q; dO hi, lo: held for the whole loop
   uint32_t qf[kSteps][4], dof[2][kSteps][4];
   const bf16* q_rows = qs + warp * 16 * kRow;
   const bf16* do_rows[2] = {dos[0] + warp * 16 * kRow,
@@ -1229,7 +1114,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (holds_a<D>() && kt == kt_lo) {  // this warp's Q and dO, once
+    if (kt == kt_lo) {  // this warp's Q and dO, once
       load_a<D, kRow>(qf, q_rows, lane);
       load_a<D, kRow>(dof[0], do_rows[0], lane);
       load_a<D, kRow>(dof[1], do_rows[1], lane);
@@ -1239,15 +1124,15 @@ __global__ void __launch_bounds__(kMmaThreads)
                    sh)) {  // warp-uniform
       // S = Q.K^T, then P = 2^(S scale2 - lse2): 16 q rows x 64 keys
       float p[kNs][4] = {};
-      mma_abt_a<D, kRow>(p, qf, q_rows, ks[stage], lane);
+      mma_abt<D, kRow>(p, qf, ks[stage], lane);
       if (!pairs_full(w_first, w_first + 15, k_first, k_first + kTile - 1,
                       sh)) {
         mask_tile(p, w_first, k_first, true, sh, lane);
       }
       // dP = (dO_lo + dO_hi).V^T
       float ds[kNs][4] = {};
-      mma_abt_a<D, kRow>(ds, dof[1], do_rows[1], vs[stage], lane);
-      mma_abt_a<D, kRow>(ds, dof[0], do_rows[0], vs[stage], lane);
+      mma_abt<D, kRow>(ds, dof[1], vs[stage], lane);
+      mma_abt<D, kRow>(ds, dof[0], vs[stage], lane);
 #pragma unroll
       for (int j = 0; j < kNs; ++j) {
 #pragma unroll
@@ -1281,11 +1166,11 @@ __global__ void __launch_bounds__(kMmaThreads)
 template <int D, bool kAsync>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_dkv_mma_kernel(Args a) {
-  static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
+  static_assert(D == 8 || D == 16 || D == 32,
+                "head dims 8 to 32 (from 64: flash_backward_wide.cuh)");
   constexpr int kRow = smem_row<D>();
   constexpr int kSteps = depth_steps<D>();
   constexpr int kT = tile_elems<D>();
-  constexpr bool kHold = holds_a<D>();
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + kT;
   const Ring<bf16> qs{ks + 2 * kT, kT};
@@ -1293,7 +1178,6 @@ __global__ void __launch_bounds__(kMmaThreads)
   float* rows = reinterpret_cast<float*>(ks + 8 * kT);
   const Ring<float> ls{rows, kTile};               // the q rows' lse log2 e
   const Ring<float> dcs{rows + 2 * kTile, kTile};  // and D
-  float* stg = rows + 4 * kTile;  // the next dO tile (wide head dims)
 
   const Shape& sh = a.sh;
   const int row = blockIdx.x;  // bi * hk + hkv
@@ -1318,26 +1202,20 @@ __global__ void __launch_bounds__(kMmaThreads)
                                   bi, hkv, k_first, sh.s_kv);
   load_bf16_tile<D, kRow, kAsync>(vs, static_cast<const bf16*>(a.v), a.sv,
                                   bi, hkv, k_first, sh.s_kv);
-  // the q tile's dO is read ahead and split into shared memory once the
-  // tile before it is computed: through registers up to head dim 32,
-  // through the fp32 staging tile from 64
-  float x[kHold ? tile_share<D>() : 1];
+  // the q tile's dO is read ahead in registers and split into shared
+  // memory once the tile before it is computed
+  float x[tile_share<D>()];
   if (n_it > 0) {
     load_bf16_tile<D, kRow, kAsync>(qs[0], q, a.sq, bi, hq0, qt_lo * kTile,
                                     sh.s_q);
     load_rows(ls[0], dcs[0], a, bi, hq0, qt_lo * kTile);
-    if constexpr (kHold) {
-      load_f32_tile<D>(x, a.dout, a.sdo, bi, hq0, qt_lo * kTile, sh.s_q);
-      store_split_tile<D, kRow>(doh[0], dol[0], x);
-    } else {
-      load_split_tile<D, kRow>(doh[0], dol[0], a.dout, a.sdo, bi, hq0,
-                               qt_lo * kTile, sh.s_q);
-    }
+    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq0, qt_lo * kTile, sh.s_q);
+    store_split_tile<D, kRow>(doh[0], dol[0], x);
   }
   cp_async_commit();
 
   float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  // K and V: held (holds_a) or read from ks and vs at each use
+  // K and V: held for the whole loop
   uint32_t kf[kSteps][4], vf[kSteps][4];
   const bf16* k_rows = ks + warp * 16 * kRow;
   const bf16* v_rows = vs + warp * 16 * kRow;
@@ -1352,21 +1230,15 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int q_next = (qt_lo + (it + 1) % n_live) * kTile;
       load_bf16_tile<D, kRow, kAsync>(qs[stage ^ 1], q, a.sq, bi, hq,
                                       q_next, sh.s_q);
-      if constexpr (!kHold) {
-        stage_f32_tile<D>(stg, a.dout, a.sdo, bi, hq, q_next, sh.s_q,
-                          a.do_async);
-      }
       cp_async_commit();
       load_rows(ls[stage ^ 1], dcs[stage ^ 1], a, bi, hq, q_next);
-      if constexpr (kHold) {
-        load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_next, sh.s_q);
-      }
+      load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_next, sh.s_q);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kHold && it == 0) {  // this warp's 16 keys of K and V, once
+    if (it == 0) {  // this warp's 16 keys of K and V, once
       load_a<D, kRow>(kf, k_rows, lane);
       load_a<D, kRow>(vf, v_rows, lane);
     }
@@ -1376,7 +1248,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       // S^T = K.Q^T, then P^T = 2^(S^T scale2 - lse2), the lse by column:
       // 16 keys x 64 q
       float p[kNs][4] = {};
-      mma_abt_a<D, kRow>(p, kf, k_rows, qs[stage], lane);
+      mma_abt<D, kRow>(p, kf, qs[stage], lane);
       if (!pairs_full(q_first, q_first + kTile - 1, w_first, w_first + 15,
                       sh)) {
         mask_tile(p, w_first, q_first, false, sh, lane);
@@ -1397,8 +1269,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       mma_xb<D, kRow, true>(dv, p, doh[stage], dol[stage], lane);
       // dP^T = V.(dO_lo + dO_hi)^T, then dS^T = P^T (dP^T - D), D by column
       float ds[kNs][4] = {};
-      mma_abt_a<D, kRow>(ds, vf, v_rows, dol[stage], lane);
-      mma_abt_a<D, kRow>(ds, vf, v_rows, doh[stage], lane);
+      mma_abt<D, kRow>(ds, vf, dol[stage], lane);
+      mma_abt<D, kRow>(ds, vf, doh[stage], lane);
 #pragma unroll
       for (int j = 0; j < kNs; ++j) {
         const float2 d2 =
@@ -1411,14 +1283,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       // dK += (dS_hi + dS_lo)^T.Q, scaled at the end
       mma_xb<D, kRow, false>(dk, ds, qs[stage], nullptr, lane);
     }
-    if (more) {
-      if constexpr (kHold) {
-        store_split_tile<D, kRow>(doh[stage ^ 1], dol[stage ^ 1], x);
-      } else {
-        cp_async_wait<0>();  // this thread's staged pieces have landed
-        split_staged<D, kRow>(doh[stage ^ 1], dol[stage ^ 1], stg);
-      }
-    }
+    if (more) store_split_tile<D, kRow>(doh[stage ^ 1], dol[stage ^ 1], x);
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -1445,13 +1310,13 @@ bool rows_aligned(const Args& a) {
   return true;
 }
 
-// and every fp32 dO row (dK/dV's staging from head dim 64)
-bool dout_aligned(const Args& a) {
-  return reinterpret_cast<uintptr_t>(a.dout) % 16 == 0 && a.sdo.b % 4 == 0 &&
-         a.sdo.s % 4 == 0 && a.sdo.h % 4 == 0;
-}
-
 enum Pass { kFwd, kDq, kDkv };
+
+#ifdef KST_FLASH_WIDE
+// the wide bf16 backward passes (flash_backward_wide.cuh)
+template <int D>
+int launch_wide_bwd(Pass pass, const Args& a, cudaStream_t stream);
+#endif
 
 // Launch kernel K with `bytes` of dynamic shared memory. Past the 48 KB a
 // function gets by default, its limit is raised first, once per device; a
@@ -1505,25 +1370,32 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
                                                  f32_smem<D>(false), a,
                                                  stream);
       }
+#ifdef KST_FLASH_WIDE
+      return launch_wide_bwd<D>(kDq, a, stream);
+#else
       if (al) {
         return launch_kernel<flash_dq_mma_kernel<D, true>>(
             q_grid, kMmaThreads, mma_smem<D>(1), a, stream);
       }
       return launch_kernel<flash_dq_mma_kernel<D, false>>(
           q_grid, kMmaThreads, mma_smem<D>(1), a, stream);
+#endif
     case kDkv:
       if (!bf16_in) {
         return launch_kernel<flash_dkv_kernel<D>>(k_grid, f32_threads,
                                                   f32_smem<D>(true), a,
                                                   stream);
       }
-      a.do_async = dout_aligned(a);
+#ifdef KST_FLASH_WIDE
+      return launch_wide_bwd<D>(kDkv, a, stream);
+#else
       if (al) {
         return launch_kernel<flash_dkv_mma_kernel<D, true>>(
             k_grid, kMmaThreads, mma_smem<D>(2), a, stream);
       }
       return launch_kernel<flash_dkv_mma_kernel<D, false>>(
           k_grid, kMmaThreads, mma_smem<D>(2), a, stream);
+#endif
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1570,7 +1442,9 @@ extern "C" {
 // cudaGetLastError(). q, k, v are (b, s, heads, d) in bf16 (is_bf16 = 1) or
 // fp32 (is_bf16 = 0), strided as `strides` says with a dense head dim; dO is
 // fp32, strided; lse and dcap are dense fp32 (b*h, s_q); O is dense fp32
-// (b, s_q, h, d); dQ, dK, dV are dense, in the inputs' type.
+// (b, s_q, h, d); dQ, dK, dV are dense, in the inputs' type. The bf16
+// backward at head dims 64 and 128 reads dO as kst_flash_prep leaves it
+// instead (do_hi, do_lo, lo_live; null elsewhere).
 
 int kst_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, const long long* strides, int is_bf16, int b,
@@ -1589,7 +1463,8 @@ int kst_flash_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* dcap,
                  void* dq, const long long* strides, int is_bf16, int b, int h,
                  int hk, int s_q, int s_kv, int d, int causal, int window,
-                 float scale, void* stream) {
+                 float scale, void* stream, const void* do_hi,
+                 const void* do_lo, const void* lo_live) {
   Args a = make_args(strides, b, h, hk, s_q, s_kv, causal, window, scale);
   a.q = q;
   a.k = k;
@@ -1598,6 +1473,9 @@ int kst_flash_dq(const void* q, const void* k, const void* v,
   a.lse_in = static_cast<const float*>(lse);
   a.dcap = static_cast<const float*>(dcap);
   a.dq = dq;
+  a.do_hi = do_hi;
+  a.do_lo = do_lo;
+  a.lo_live = static_cast<const int*>(lo_live);
   return run(kDq, a, is_bf16, d, stream);
 }
 
@@ -1605,7 +1483,8 @@ int kst_flash_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* dcap,
                   void* dk, void* dv, const long long* strides, int is_bf16,
                   int b, int h, int hk, int s_q, int s_kv, int d, int causal,
-                  int window, float scale, void* stream) {
+                  int window, float scale, void* stream, const void* do_hi,
+                  const void* do_lo, const void* lo_live) {
   Args a = make_args(strides, b, h, hk, s_q, s_kv, causal, window, scale);
   a.q = q;
   a.k = k;
@@ -1615,10 +1494,18 @@ int kst_flash_dkv(const void* q, const void* k, const void* v,
   a.dcap = static_cast<const float*>(dcap);
   a.dk = dk;
   a.dv = dv;
+  a.do_hi = do_hi;
+  a.do_lo = do_lo;
+  a.lo_live = static_cast<const int*>(lo_live);
   return run(kDkv, a, is_bf16, d, stream);
 }
 
+// an entry point's error code as text (from 20000: a failed
+// cuTensorMapEncodeTiled, its CUresult added)
 const char* kst_error_string(int err) {
+  if (err >= 20000) {
+    return "cuTensorMapEncodeTiled failed (CUresult: the code less 20000)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -34,6 +34,14 @@ matrix products. The bf16 kernels take each fp32 operand of a product
 (P, dS, dO) as two bf16 parts, bf16(x) and bf16(x − bf16(x)), so it keeps
 ~16 bits: O stays inside the fp32 tolerance, dQ, dK and dV inside one
 bf16 ulp (``csrc`` says which products are split).
+
+The bf16 backward at head dims 64 and 128 (``csrc/flash_backward_wide.cuh``)
+has a prologue, a fourth op (``flash_prep``) that replaces the plain torch
+D = rowsum(dO ∘ O) − g_lse: in one pass over dO and O it writes D, dO's two
+bf16 parts and which 64-row q tiles have a nonzero lo part. ``flash_dq``
+and ``flash_dkv`` take the parts and flags as two optional trailing
+arguments, which their CUDA implementations require there (a ValueError
+without them); the plain versions read dO itself and ignore both.
 """
 
 from __future__ import annotations
@@ -60,6 +68,10 @@ LIBRARY_OF_HEAD_DIM = {8: "flash_attention", 32: "flash_attention",
                        64: "flash_attention_wide",
                        128: "flash_attention_wide"}
 HEAD_DIMS = tuple(LIBRARY_OF_HEAD_DIM)
+#: the head dims whose bf16 backward reads dO through the prologue
+WIDE_HEAD_DIMS = (64, 128)
+#: q rows a prologue flag covers (the kernels' tile)
+PREP_TILE = 64
 
 #: kernel vs plain version on the card, (atol, rtol) by output dtype. fp32
 #: outputs (O, lse, fp32 grads) differ by summation order and expf/logf in
@@ -69,8 +81,9 @@ HEAD_DIMS = tuple(LIBRARY_OF_HEAD_DIM)
 #: (at the bottom of a binade), and rtol 2^-7 allows one such flip.
 KERNEL_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 2 ** -7)}
 
-#: kernel launches by pass (plain-version calls on the CPU add nothing)
-launches = {"fwd": 0, "dq": 0, "dkv": 0}
+#: kernel launches by pass, the prologue's as "prep" (plain-version calls
+#: on the CPU add nothing)
+launches = {"fwd": 0, "dq": 0, "dkv": 0, "prep": 0}
 _launch_lock = threading.Lock()
 
 
@@ -160,6 +173,28 @@ def flash_dq_reference(q, k, v, dout, lse, dcap, causal=True, window=None,
     return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)).to(q.dtype)
 
 
+def flash_prep_reference(dout, o, g_lse=None):
+    """Plain prologue of the backward at head dims 64 and 128: ``(split,
+    lo_live, dcap)``. ``split`` is dO's bf16 parts, hi = bf16(dO) and lo =
+    bf16(dO − hi), as one (2, b, s_q, h, d) tensor; ``lo_live`` int32
+    (b·h, ⌈s_q / 64⌉), 1 where a 64-row q tile's lo part holds a nonzero
+    value; ``dcap`` D = rowsum(dO ∘ O) − g_lse, dense fp32 (b, h, s_q).
+    ``g_lse`` is the lse output's cotangent, (b, s_q, h), or None."""
+    dout = dout.float()
+    hi = dout.to(torch.bfloat16)
+    lo = (dout - hi.float()).to(torch.bfloat16)
+    b, s_q, h, _ = dout.shape
+    n_qt = -(-s_q // PREP_TILE)
+    nz = (lo != 0).any(-1).transpose(1, 2).to(torch.int32)   # (b, h, s_q)
+    nz = torch.nn.functional.pad(nz, (0, n_qt * PREP_TILE - s_q))
+    lo_live = nz.reshape(b * h, n_qt, PREP_TILE).amax(-1)
+    dcap = (dout * o).sum(-1)
+    if g_lse is not None:
+        dcap = dcap - g_lse.float()
+    return (torch.stack((hi, lo)), lo_live.contiguous(),
+            dcap.transpose(1, 2).contiguous())
+
+
 def flash_dkv_reference(q, k, v, dout, lse, dcap, causal=True, window=None,
                         scale=None):
     """Plain ``(dK, dV)``: dV = Pᵀ·dO and dK = dSᵀ·Qs, summed over each kv
@@ -182,8 +217,9 @@ _fns: dict = {}
 
 
 def _kernel_fns(head_dim: int) -> dict:
-    """The three entry points, with their C signatures, of the library
-    built for ``head_dim`` (once a library)."""
+    """The entry points, with their C signatures, of the library built
+    for ``head_dim`` (once a library): the three passes, and the wide
+    library's prologue."""
     name = LIBRARY_OF_HEAD_DIM[head_dim]
     fns = _fns.get(name)
     if fns is None:
@@ -192,17 +228,24 @@ def _kernel_fns(head_dim: int) -> dict:
         lib = load(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [ptr, i32] + [i32] * 8 + [f32, ptr]
-        for entry, n_ptrs in (("kst_flash_fwd", 5), ("kst_flash_dq", 7),
-                              ("kst_flash_dkv", 8)):
+        # dq and dkv end with dO's parts and flags (null off the wide bf16
+        # route)
+        for entry, n_ptrs, extra in (("kst_flash_fwd", 5, 0),
+                                     ("kst_flash_dq", 7, 3),
+                                     ("kst_flash_dkv", 8, 3)):
             fn = getattr(lib, entry)
             fn.restype = i32
-            fn.argtypes = [ptr] * n_ptrs + tail
+            fn.argtypes = [ptr] * n_ptrs + tail + [ptr] * extra
         lib.kst_error_string.restype = ctypes.c_char_p
         lib.kst_error_string.argtypes = [i32]
         fns = _fns[name] = {"fwd": lib.kst_flash_fwd,
                             "dq": lib.kst_flash_dq,
                             "dkv": lib.kst_flash_dkv,
                             "error": lib.kst_error_string}
+        if head_dim in WIDE_HEAD_DIMS:
+            fn = fns["prep"] = lib.kst_flash_prep
+            fn.restype = i32
+            fn.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
     return fns
 
 
@@ -229,10 +272,17 @@ def _check_cuda(q, k, v):
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
 
 
-def _launch(name, pointers, tensors, q, k, causal, window, scale):
+def _raise_on(fns, name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
+                           f"{fns['error'](rc).decode()} ({rc})")
+
+
+def _launch(name, pointers, tensors, q, k, causal, window, scale,
+            split=()):
     """Launch one pass on q's device and current stream; ``tensors`` are
     q, k, v and (for the backward) dO, whose (b, s, h) strides the kernel
-    takes."""
+    takes; ``split`` the backward's pointers to dO's parts and flags."""
     b, s_q, h, d = q.shape
     fns = _kernel_fns(d)
     s_kv, hk = k.shape[1], k.shape[2]
@@ -241,11 +291,66 @@ def _launch(name, pointers, tensors, q, k, causal, window, scale):
     arr = (ctypes.c_longlong * 12)(*strides)
     rc = launch_on(q.device, lambda stream: fns[name](
         *pointers, arr, int(q.dtype == torch.bfloat16), b, h, hk, s_q, s_kv,
-        d, int(causal), int(window or 0), scale, stream))
-    if rc != 0:
-        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
-                           f"{fns['error'](rc).decode()} ({rc})")
+        d, int(causal), int(window or 0), scale, stream, *split))
+    _raise_on(fns, name, rc)
     _count_launch(name)
+
+
+def _launch_prep(dout, o, g_lse, split, lo_live, dcap) -> None:
+    """The prologue on dout's device and current stream; ``g_lse`` may be
+    None."""
+    b, s_q, h, d = dout.shape
+    fns = _kernel_fns(d)
+    arr = (ctypes.c_longlong * 3)(*dout.stride()[:3])
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = launch_on(dout.device, lambda stream: fns["prep"](
+        dout.data_ptr(), arr, ptr(o), ptr(g_lse), split[0].data_ptr(),
+        split[1].data_ptr(), lo_live.data_ptr(), ptr(dcap), b, h, s_q, d,
+        stream))
+    _raise_on(fns, "prep", rc)
+    _count_launch("prep")
+
+
+def _takes_split(q) -> bool:
+    """Does q's backward read dO through the prologue (bf16 at head dims
+    64 and 128)?"""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in WIDE_HEAD_DIMS
+
+
+def _prep_outputs(dout):
+    b, s_q, h, _ = dout.shape
+    return (dout.new_empty((2, *dout.shape), dtype=torch.bfloat16),
+            dout.new_empty((b * h, -(-s_q // PREP_TILE)), dtype=torch.int32),
+            dout.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+_NO_SPLIT = (None, None, None)
+
+
+def _split_pointers(q, dout, dout_split, lo_live):
+    """The dO parts and flags a wide bf16 backward pass reads, as
+    ``flash_prep`` left them, checked: ``(pointers, tensors to keep)``;
+    empty elsewhere. The pass requires them there."""
+    if not _takes_split(q):
+        return _NO_SPLIT, ()
+    shape = dout.shape
+    if (dout_split is None or lo_live is None
+            or dout_split.dtype != torch.bfloat16
+            or lo_live.dtype != torch.int32
+            or dout_split.shape[1:] != shape or dout_split.shape[0] != 2
+            or lo_live.numel() != shape[0] * shape[2] * -(-shape[1]
+                                                          // PREP_TILE)
+            or not (dout_split.is_contiguous() and lo_live.is_contiguous())
+            or dout_split.get_device() != q.get_device()
+            or lo_live.get_device() != q.get_device()):
+        raise ValueError("bf16 at head dims 64 and 128 the pass needs "
+                         "dout_split, flash_prep's dense bf16 (2, "
+                         f"{', '.join(map(str, shape))}) parts, and "
+                         "lo_live, its int32 (b*h, ceil(s_q / 64)) flags, "
+                         "on q's device")
+    hi = dout_split.data_ptr()
+    return ((hi, hi + dout_split.numel(), lo_live.data_ptr()),
+            (dout_split, lo_live))
 
 
 def _device_kind(q) -> str:
@@ -282,29 +387,57 @@ def _backward_inputs(q, k, v, dout, lse, dcap):
     return q, k, v, dout, lse.float().contiguous(), dcap.float().contiguous()
 
 
-def _flash_dq_cuda(q, k, v, dout, lse, dcap, causal, window, scale):
+def _flash_dq_cuda(q, k, v, dout, lse, dcap, causal, window, scale,
+                   dout_split=None, lo_live=None):
     _check_cuda(q, k, v)
     q, k, v, dout, lse, dcap = _backward_inputs(q, k, v, dout, lse, dcap)
+    split, _keep = _split_pointers(q, dout, dout_split, lo_live)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
         _launch("dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(),
                        dq.data_ptr()),
-                (q, k, v, dout), q, k, causal, window, scale)
+                (q, k, v, dout), q, k, causal, window, scale, split)
     return dq
 
 
-def _flash_dkv_cuda(q, k, v, dout, lse, dcap, causal, window, scale):
+def _flash_dkv_cuda(q, k, v, dout, lse, dcap, causal, window, scale,
+                    dout_split=None, lo_live=None):
     _check_cuda(q, k, v)
     q, k, v, dout, lse, dcap = _backward_inputs(q, k, v, dout, lse, dcap)
+    split, _keep = _split_pointers(q, dout, dout_split, lo_live)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel():
         _launch("dkv", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(),
                         dk.data_ptr(), dv.data_ptr()),
-                (q, k, v, dout), q, k, causal, window, scale)
+                (q, k, v, dout), q, k, causal, window, scale, split)
     return dk, dv
+
+
+def _flash_prep_cuda(dout, o, g_lse):
+    if dout.shape[-1] not in WIDE_HEAD_DIMS:
+        raise ValueError(f"the flash prologue takes head dims "
+                         f"{WIDE_HEAD_DIMS}, got {dout.shape[-1]}")
+    for name, x in (("o", o), ("g_lse", g_lse)):
+        if x is not None and x.device != dout.device:
+            raise ValueError(f"{name} is on {x.device}, dout on "
+                             f"{dout.device}")
+    if o.shape != dout.shape:
+        raise ValueError(f"o must be {tuple(dout.shape)}, got "
+                         f"{tuple(o.shape)}")
+    if g_lse is not None and g_lse.shape != dout.shape[:3]:
+        raise ValueError(f"g_lse must be {tuple(dout.shape[:3])}, got "
+                         f"{tuple(g_lse.shape)}")
+    dout = _dense_head_dim(dout.float())
+    o = o.float().contiguous()
+    if g_lse is not None:
+        g_lse = g_lse.float().contiguous()
+    split, lo_live, dcap = _prep_outputs(dout)
+    if dout.numel():
+        _launch_prep(dout, o, g_lse, split, lo_live, dcap)
+    return split, lo_live, dcap
 
 
 # --- the custom ops ------------------------------------------------------------
@@ -314,10 +447,14 @@ OP_LIBRARY.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
                   "SymInt? window, float scale) -> (Tensor, Tensor)")
 OP_LIBRARY.define("flash_dq(Tensor q, Tensor k, Tensor v, Tensor dout, "
                   "Tensor lse, Tensor dcap, bool causal, SymInt? window, "
-                  "float scale) -> Tensor")
+                  "float scale, Tensor? dout_split=None, "
+                  "Tensor? lo_live=None) -> Tensor")
 OP_LIBRARY.define("flash_dkv(Tensor q, Tensor k, Tensor v, Tensor dout, "
                   "Tensor lse, Tensor dcap, bool causal, SymInt? window, "
-                  "float scale) -> (Tensor, Tensor)")
+                  "float scale, Tensor? dout_split=None, "
+                  "Tensor? lo_live=None) -> (Tensor, Tensor)")
+OP_LIBRARY.define("flash_prep(Tensor dout, Tensor o, Tensor? g_lse) -> "
+                  "(Tensor, Tensor, Tensor)")
 
 
 def _flash_fwd_cpu(q, k, v, causal, window, scale):
@@ -331,17 +468,24 @@ def _flash_fwd_cpu(q, k, v, causal, window, scale):
     return o.contiguous(), lse.contiguous()
 
 
-def _flash_dq_cpu(q, k, v, dout, lse, dcap, causal, window, scale):
-    """dQ pass, in q's dtype."""
+def _flash_dq_cpu(q, k, v, dout, lse, dcap, causal, window, scale,
+                  dout_split=None, lo_live=None):
+    """dQ pass, in q's dtype (the plain version reads dO itself)."""
     return flash_dq_reference(q, k, v, dout, lse, dcap, causal, window,
                               scale).contiguous()
 
 
-def _flash_dkv_cpu(q, k, v, dout, lse, dcap, causal, window, scale):
+def _flash_dkv_cpu(q, k, v, dout, lse, dcap, causal, window, scale,
+                   dout_split=None, lo_live=None):
     """dK/dV pass, kv-sized, in k's and v's dtypes."""
     dk, dv = flash_dkv_reference(q, k, v, dout, lse, dcap, causal, window,
                                  scale)
     return dk.contiguous(), dv.contiguous()
+
+
+def _flash_prep_cpu(dout, o, g_lse):
+    """The backward's prologue: dO's parts, their flags and D."""
+    return flash_prep_reference(dout, o, g_lse)
 
 
 def _flash_fwd_fake(q, k, v, causal, window, scale):
@@ -351,20 +495,29 @@ def _flash_fwd_fake(q, k, v, causal, window, scale):
             q.new_empty((b, h, s_q), dtype=torch.float32))
 
 
-def _flash_dq_fake(q, k, v, dout, lse, dcap, causal, window, scale):
+def _flash_dq_fake(q, k, v, dout, lse, dcap, causal, window, scale,
+                   dout_split=None, lo_live=None):
     _refuse_meta(q, k, v, dout, lse, dcap)
     return q.new_empty(q.shape)
 
 
-def _flash_dkv_fake(q, k, v, dout, lse, dcap, causal, window, scale):
+def _flash_dkv_fake(q, k, v, dout, lse, dcap, causal, window, scale,
+                    dout_split=None, lo_live=None):
     _refuse_meta(q, k, v, dout, lse, dcap)
     return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_prep_fake(dout, o, g_lse):
+    _refuse_meta(dout, o)
+    return _prep_outputs(dout)
 
 
 for _name, _cpu, _cuda, _fake in (
         ("flash_fwd", _flash_fwd_cpu, _flash_fwd_cuda, _flash_fwd_fake),
         ("flash_dq", _flash_dq_cpu, _flash_dq_cuda, _flash_dq_fake),
-        ("flash_dkv", _flash_dkv_cpu, _flash_dkv_cuda, _flash_dkv_fake)):
+        ("flash_dkv", _flash_dkv_cpu, _flash_dkv_cuda, _flash_dkv_fake),
+        ("flash_prep", _flash_prep_cpu, _flash_prep_cuda,
+         _flash_prep_fake)):
     OP_LIBRARY.impl(_name, _cpu, "CPU")
     OP_LIBRARY.impl(_name, _cuda, "CUDA")
     torch.library.register_fake(f"{OP_NAMESPACE}::{_name}", _fake,
@@ -373,6 +526,7 @@ for _name, _cpu, _cuda, _fake in (
 flash_fwd = torch.ops.kubeshare_tpu_torch.flash_fwd.default
 flash_dq = torch.ops.kubeshare_tpu_torch.flash_dq.default
 flash_dkv = torch.ops.kubeshare_tpu_torch.flash_dkv.default
+flash_prep = torch.ops.kubeshare_tpu_torch.flash_prep.default
 
 
 def _check(q, k, v, causal, block_q, block_k, window):
@@ -387,6 +541,11 @@ def _check(q, k, v, causal, block_q, block_k, window):
 def _flash_bwd(ctx, g, g_lse):
     q, k, v, o, lse = ctx.saved_tensors
     causal, window, scale = ctx.cfg
+    if _takes_split(q):
+        # the prologue: D, dO's bf16 parts and their flags in one pass
+        split, lo_live, dcap = flash_prep(g, o, g_lse)
+        bwd = (q, k, v, g, lse, dcap, causal, window, scale, split, lo_live)
+        return (flash_dq(*bwd), *flash_dkv(*bwd))
     # D_i = rowsum(dO ∘ O) in plain torch, as the JAX code leaves it to
     # XLA; an lse cotangent folds in as D − g_lse (dS = P ∘ (dP − D +
     # g_lse)). Made dense (b, h, s_q) once, so neither pass copies it.

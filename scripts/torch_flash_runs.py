@@ -7,13 +7,16 @@ alone.
 Needs one CUDA card and runs from anywhere in a checkout. It builds the
 kernels (one ``nvcc`` per source, all started together) and prints each
 flash kernel function's registers and spill bytes from the ``-Xptxas -v``
-report and its tensor-core (HMMA) instructions from the SASS; then runs
-the smoke's checks of the flash kernels against their plain versions at
+report and its tensor-core instructions from the SASS (HMMA for mma.sync,
+HGMMA for wgmma; ``chip_smoke.check_flash_sass`` holds each function to
+its kind, and the wgmma backward and its prologue to 0 spill bytes); then
+runs the smoke's checks of the flash kernels against their plain versions at
 every head dim the kernels take (``chip_smoke.flash_check``,
 ``flash_autograd_check``, ``lse_cotangent_check``) and, unless
-``--no-timing``, times the three passes beside their plain versions, SDPA
-and their bounds at the LM's shape (8, 256, 8, 32), at head dims 64 and
-128 (``chip_smoke.WIDE_SHAPES``) and at long context
+``--no-timing``, times the three passes (and, at head dims 64 and 128, the
+backward's prologue) beside their plain versions, SDPA and their bounds at
+the LM's shape (8, 256, 8, 32), at head dims 64 and 128
+(``chip_smoke.WIDE_SHAPES``) and at long context
 (``LONG_SHAPE``, ``LONG_WIDE_SHAPE``). Every check is the smoke's. Prints
 one JSON object as its last line.
 """
@@ -45,7 +48,6 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    from kubeshare_tpu_torch.ops import flash_attention as fl
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,13 +64,10 @@ def main(argv=None) -> int:
     result["ptxas"] = cs.ptxas_summary("\n".join(
         builds[n][1] for n in cs.FLASH_LIBRARIES))
     cs.log_ptxas(result["ptxas"])
-    mma = result["sass_hmma"] = cs.sass_mma_counts(cs.FLASH_LIBRARIES)
-    cs.log("sass: HMMA instructions by kernel: " + ", ".join(
-        f"{k} {n}" for k, n in sorted(mma.items())))
-    for name in cs.FLASH_MMA_KERNELS:
-        found = {k: n for k, n in mma.items() if k.startswith(name + "I")}
-        cs.check(len(found) == 2 * len(fl.HEAD_DIMS) and all(found.values()),
-                 f"{name} lacks tensor-core instructions: {mma}")
+    mma = result["sass_mma"] = cs.sass_mma_counts(cs.FLASH_LIBRARIES)
+    cs.log("sass: HMMA / HGMMA instructions by kernel: " + ", ".join(
+        f"{k} {n['HMMA']} / {n['HGMMA']}" for k, n in sorted(mma.items())))
+    cs.check_flash_sass(mma, result["ptxas"])
 
     rng = np.random.default_rng(0)
     result["max_abs_err"] = cs.flash_check(dev, rng)

@@ -40,11 +40,13 @@ import time
 
 
 #: the port's kernels and a substring of their CUDA function names (each
-#: flash pass names both of its kernels: flash_<pass>_mma_kernel for bf16
-#: inputs, flash_<pass>_kernel for fp32)
+#: flash pass names all of its kernels: flash_<pass>_mma_kernel for bf16
+#: inputs, flash_<pass>_wgmma_kernel for the bf16 backward at head dims 64
+#: and 128, after its prologue flash_prep_kernel, flash_<pass>_kernel for
+#: fp32)
 KERNEL_TAGS = {"fused_adam": "adam_multi_tensor_kernel",
                "flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
-               "flash_dkv": "flash_dkv_"}
+               "flash_dkv": "flash_dkv_", "flash_prep": "flash_prep_"}
 
 
 def _self_device_us(evt) -> float:

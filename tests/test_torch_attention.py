@@ -276,7 +276,7 @@ def test_flash_launches_nothing_on_cpu():
     tflash.reset_launches()
     q, k, v = (torch.tensor(a, requires_grad=True) for a in _inputs())
     tflash.flash_attention(q, k, v, block_q=16, block_k=16).sum().backward()
-    assert tflash.launches == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert tflash.launches == {"fwd": 0, "dq": 0, "dkv": 0, "prep": 0}
 
 
 def test_flash_plain_passes_agree_with_autograd_of_dense():
@@ -343,40 +343,68 @@ def _bf16_parts(x):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
+def _lo_live_rows(do_lo):
+    """(b, h, s_q) bool: does the 64-row q tile of each row hold a
+    nonzero dO lo part (the prologue's flags, row by row)?"""
+    b, s, h, _ = do_lo.shape
+    n = -(-s // tflash.PREP_TILE)
+    nz = (do_lo != 0).any(-1).transpose(1, 2).to(torch.int32)
+    nz = torch.nn.functional.pad(nz, (0, n * tflash.PREP_TILE - s))
+    tiles = nz.reshape(b, h, n, tflash.PREP_TILE).amax(-1)
+    return tiles.repeat_interleave(tflash.PREP_TILE, -1)[..., :s].bool()
+
+
 def _emulated_mma_backward(q, k, v, dout, lse, dcap, causal, window, scale,
-                           split_ds=True):
+                           split_ds=True, wide=False, skip_zero_lo=True):
     """``(dQ, dK, dV)`` with the arithmetic of the bf16 backward kernels
     (``csrc/flash_attention.cu``) in torch: every product takes
     bf16-exact operands and sums in fp32; P, dS and dO go in as two bf16
     parts each (dV drops P_lo·dO_lo); the scale multiplies dQ and dK at the
-    end. ``split_ds=False`` rounds dS to bf16 once instead."""
+    end. ``split_ds=False`` rounds dS to bf16 once instead. ``wide``: the
+    arithmetic of the wgmma kernels at head dims 64 and 128
+    (``csrc/flash_backward_wide.cuh``): dO's lo products (dP's dO_lo·Vᵀ,
+    dV's P_hi·dO_lo) come last, and (``skip_zero_lo``) are left out for
+    the q rows of a 64-row tile whose lo part is all zero."""
     group = q.shape[2] // k.shape[2]
     sc, qf, kf = tflash._masked_scores(q, k, causal, window, 1.0)
     p = torch.where(sc > tattn.MASK_VALUE / 2,
                     torch.exp(sc * scale - lse[..., None]), 0.0)
     vf = v.float().repeat_interleave(group, dim=2)
     do_hi, do_lo = _bf16_parts(dout.float())
-    dp = sum(torch.einsum("bqhd,bkhd->bhqk", part, vf)
-             for part in (do_lo, do_hi))
+    dp_lo, dp_hi = (torch.einsum("bqhd,bkhd->bhqk", part, vf)
+                    for part in (do_lo, do_hi))
+    p_hi, p_lo = _bf16_parts(p)
+    if not wide:
+        dp = sum((dp_lo, dp_hi))
+        dv_terms = [(p_lo, do_hi), (p_hi, do_lo), (p_hi, do_hi)]
+    else:
+        dp = sum((dp_hi, dp_lo))
+        dv_terms = [(p_lo, do_hi), (p_hi, do_hi), (p_hi, do_lo)]
+        if skip_zero_lo:
+            live = _lo_live_rows(do_lo)[..., None]      # (b, h, s_q, 1)
+            dp = torch.where(live, dp, sum((dp_hi,)))
+            if live.any():
+                dv_terms[2] = (torch.where(live, p_hi, 0.0), do_lo)
+            else:
+                del dv_terms[2]
     ds = p * (dp - dcap[..., None])
     ds_parts = _bf16_parts(ds) if split_ds else (ds.to(torch.bfloat16).float(),)
     dq = scale * sum(torch.einsum("bhqk,bkhd->bqhd", part, kf)
                      for part in ds_parts)
     dk = scale * sum(torch.einsum("bhqk,bqhd->bkhd", part, qf)
                      for part in ds_parts)
-    p_hi, p_lo = _bf16_parts(p)
-    dv = sum(torch.einsum("bhqk,bqhd->bkhd", a, b)
-             for a, b in ((p_lo, do_hi), (p_hi, do_lo), (p_hi, do_hi)))
+    dv = sum(torch.einsum("bhqk,bqhd->bkhd", a, b) for a, b in dv_terms)
     b, s_kv, hk, d = k.shape
     kv_sized = lambda x: x.reshape(b, s_kv, hk, group, d).sum(dim=3).to(
         torch.bfloat16)
     return dq.to(torch.bfloat16), kv_sized(dk), kv_sized(dv)
 
 
-def _bf16_backward_case(shape, hk, window, seed=0):
-    """bf16 q, k, v and fp32 dO (not bf16-exact) at ``shape``, causal, with
-    the plain forward's lse and D: the backward's arguments and its plain
-    (dQ, dK, dV)."""
+def _bf16_backward_case(shape, hk, window, seed=0, exact_dout=False):
+    """bf16 q, k, v and fp32 dO (not bf16-exact, unless
+    ``exact_dout``: then the gradient of a bf16 cast, as on every main
+    path) at ``shape``, causal, with the plain forward's lse and D: the
+    backward's arguments and its plain (dQ, dK, dV)."""
     b, s, h, d = shape
     rng = np.random.default_rng(seed)
     randn = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
@@ -384,6 +412,8 @@ def _bf16_backward_case(shape, hk, window, seed=0):
     q = randn(b, s, h, d).to(torch.bfloat16)
     k, v = (randn(b, s, hk, d).to(torch.bfloat16) for _ in range(2))
     dout = randn(b, s, h, d)
+    if exact_dout:
+        dout = dout.to(torch.bfloat16).float()
     scale = 1.0 / np.sqrt(d)
     o, lse = tflash.flash_fwd_reference(q, k, v, True, window, scale)
     args = (q, k, v, dout, lse, (dout * o).sum(-1).transpose(1, 2), True,
@@ -398,18 +428,27 @@ def _share_outside_bf16_tol(got, want):
     return float((err > atol + rtol * want.float().abs()).float().mean())
 
 
-@pytest.mark.parametrize("shape,hk,window", [((1, 256, 8, 32), 8, None),
-                                             ((1, 256, 8, 32), 2, 100),
-                                             ((1, 128, 4, 128), 4, None),
-                                             ((1, 128, 4, 128), 2, 50)],
-                         ids=["main-path", "gqa-window", "head-dim-128",
-                              "head-dim-128-gqa-window"])
-def test_mma_backward_arithmetic_holds_bf16_tolerance(shape, hk, window):
+@pytest.mark.parametrize(
+    "shape,hk,window,exact_dout",
+    [((1, 256, 8, 32), 8, None, False), ((1, 256, 8, 32), 2, 100, False),
+     ((1, 128, 4, 128), 4, None, False), ((1, 128, 4, 128), 2, 50, False),
+     ((1, 128, 4, 64), 4, None, False), ((1, 128, 4, 64), 2, 50, False),
+     ((1, 128, 4, 64), 2, 50, True), ((1, 128, 4, 128), 4, None, True)],
+    ids=["main-path", "gqa-window", "head-dim-128",
+         "head-dim-128-gqa-window", "head-dim-64", "head-dim-64-gqa-window",
+         "head-dim-64-gqa-window-bf16-exact-dout",
+         "head-dim-128-bf16-exact-dout"])
+def test_mma_backward_arithmetic_holds_bf16_tolerance(shape, hk, window,
+                                                      exact_dout):
     """The kernels' split products keep dQ, dK and dV (in bf16) within
-    KERNEL_TOL of the fp32 plain versions: one bf16 ulp."""
-    args, want = _bf16_backward_case(shape, hk, window)
+    KERNEL_TOL of the fp32 plain versions: one bf16 ulp. At head dims 64
+    and 128 with the wide kernels' arithmetic: dO's lo products last, and
+    skipped for all-zero lo tiles."""
+    args, want = _bf16_backward_case(shape, hk, window,
+                                     exact_dout=exact_dout)
     atol, rtol = tflash.KERNEL_TOL[torch.bfloat16]
-    for got, ref in zip(_emulated_mma_backward(*args), want):
+    wide = shape[-1] in tflash.WIDE_HEAD_DIMS
+    for got, ref in zip(_emulated_mma_backward(*args, wide=wide), want):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=rtol)
@@ -423,3 +462,136 @@ def test_unsplit_ds_breaks_the_bf16_tolerance():
     got = _emulated_mma_backward(*args, split_ds=False)
     dq, dk, dv = (_share_outside_bf16_tol(g, w) for g, w in zip(got, want))
     assert dq > 0.01 and dk > 0.01 and dv == 0.0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_skipping_zero_lo_products_keeps_the_bits(d):
+    """Where dO is exact in bf16 (every main path: the gradient of a bf16
+    cast) its lo part is 0, the prologue flags no tile, and leaving out the
+    lo products gives dQ, dK and dV bit for bit those of adding them: each
+    adds exactly 0."""
+    args, _ = _bf16_backward_case((1, 192, 4, d), 2, None, seed=3,
+                                  exact_dout=True)
+    _, lo_live, _ = tflash.flash_prep_reference(args[3], torch.zeros(
+        args[3].shape), None)
+    assert lo_live.shape == (4, 3) and int(lo_live.sum()) == 0
+    for skipped, full in zip(
+            _emulated_mma_backward(*args, wide=True),
+            _emulated_mma_backward(*args, wide=True, skip_zero_lo=False)):
+        assert torch.equal(skipped, full)
+
+
+@pytest.mark.parametrize("with_g_lse", [False, True])
+def test_flash_prep_plain_matches_jax_d(with_g_lse):
+    """The prologue's plain version against the JAX backward's own D
+    (``kubeshare_tpu/ops/flash_attention.py`` ``_flash_bwd``: rowsum(dO ∘
+    O) − g_lse over its folded rows) on the same numpy inputs; its hi and
+    lo parts against JAX's bf16 casts; its flags against the lo parts,
+    tile by tile (s_q = 80: a ragged second tile)."""
+    from kubeshare_tpu.ops.flash_attention import _fold
+
+    b, s, h, d = 2, 80, 4, 64
+    rng = np.random.default_rng(41)
+    dout = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    dout[:, :64, 1] = dout[:, :64, 1].astype(jnp.bfloat16).astype(np.float32)
+    o = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    g_lse = (rng.standard_normal((b, s, h)).astype(np.float32)
+             if with_g_lse else None)
+    # the JAX backward's D, as its lines compute it
+    want = (_fold(jnp.asarray(dout)) * _fold(jnp.asarray(o))).sum(
+        -1, keepdims=True)
+    if with_g_lse:
+        want = want - (jnp.asarray(g_lse).transpose(0, 2, 1)
+                       .reshape(b * h, s, 1))
+    split, lo_live, dcap = tflash.flash_prep_reference(
+        torch.from_numpy(dout), torch.from_numpy(o),
+        None if g_lse is None else torch.from_numpy(g_lse))
+    assert dcap.shape == (b, h, s) and dcap.is_contiguous()
+    _close(dcap.reshape(b * h, s, 1), np.asarray(want), 1e-5)
+    jhi = jnp.asarray(dout).astype(jnp.bfloat16)
+    jlo = (jnp.asarray(dout) - jhi.astype(jnp.float32)).astype(jnp.bfloat16)
+    assert split.shape == (2, b, s, h, d) and split.dtype == torch.bfloat16
+    for got, ref in zip(split, (jhi, jlo)):
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(ref.astype(jnp.float32)))
+    nz = np.asarray(jlo != 0).any(-1)                    # (b, s, h)
+    tiles = [nz[:, :64].any(1), nz[:, 64:].any(1)]       # (b, h) each
+    want_live = np.stack(tiles, -1).reshape(b * h, 2).astype(np.int32)
+    np.testing.assert_array_equal(lo_live.numpy(), want_live)
+    # head 1's first tile is exact in bf16 in both batches: only it is off
+    assert want_live[1::h, 0].sum() == 0 and want_live.sum() == 2 * b * h - b
+
+
+def test_flash_prep_op_passes_opcheck():
+    """The prologue as a custom op: schema, fake shapes and the CPU
+    implementation agree (torch.library.opcheck)."""
+    rng = np.random.default_rng(43)
+    dout, o = (torch.from_numpy(rng.standard_normal((1, 70, 2, 128))
+                                .astype(np.float32)) for _ in range(2))
+    g_lse = torch.from_numpy(rng.standard_normal((1, 70, 2)).astype(
+        np.float32))
+    for args in ((dout, o, None), (dout, o, g_lse)):
+        torch.library.opcheck(tflash.flash_prep, args)
+    split, lo_live, dcap = tflash.flash_prep(dout, o, g_lse)
+    assert lo_live.shape == (2, 2) and lo_live.dtype == torch.int32
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_reads_do_through_the_prologue_at_wide_head_dims(
+        monkeypatch, d):
+    """bf16 at head dims 64 and 128: the backward calls the prologue once
+    and hands its D, parts and flags to both passes; the gradients are the
+    plain versions' on the same inputs (the CPU passes read dO itself)."""
+    seen = {}
+    for name in ("flash_prep", "flash_dq", "flash_dkv"):
+        def record(*args, _name=name, _real=getattr(tflash, name)):
+            seen.setdefault(_name, []).append(args)
+            return _real(*args)
+        monkeypatch.setattr(tflash, name, record)
+    q, k, v = (torch.tensor(a).to(torch.bfloat16).requires_grad_(True)
+               for a in _inputs(hk=2, d=d, seed=33))
+    w = torch.from_numpy(np.random.default_rng(34).standard_normal(
+        q.shape).astype(np.float32))
+    o, lse = tflash.flash_attention_lse(q, k, v, block_q=16, block_k=16)
+    ((o * w).sum() + torch.sin(lse).sum()).backward()
+    (prep,) = seen["flash_prep"]
+    split, lo_live, dcap = tflash.flash_prep_reference(*prep)
+    for name in ("flash_dq", "flash_dkv"):
+        (args,) = seen[name]
+        assert torch.equal(args[5], dcap) and torch.equal(args[9], split)
+        assert torch.equal(args[10], lo_live)
+    scale = 1.0 / np.sqrt(d)
+    with torch.no_grad():
+        ro, rlse = tflash.flash_fwd_reference(q, k, v, True, None, scale)
+        want_dcap = ((w * ro).sum(-1) - torch.cos(rlse.transpose(1, 2))
+                     ).transpose(1, 2)
+        args = (q, k, v, w, rlse, want_dcap, True, None, scale)
+        want = (tflash.flash_dq_reference(*args),
+                *tflash.flash_dkv_reference(*args))
+    for t, ref in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_wide_passes_require_the_prologue_parts(d):
+    """The CUDA passes' check of dO's parts, run on CPU tensors: bf16 at
+    head dims 64 and 128 a pass given dO alone, or parts that do not fit,
+    raises (no prologue launched on its own); head dim 32 and fp32 take
+    none; the prologue's own outputs pass."""
+    rng = np.random.default_rng(44)
+    b, s, h = 1, 70, 2
+    q = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+    dout, o = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                .astype(np.float32)) for _ in range(2))
+    split, lo_live, _ = tflash.flash_prep_reference(dout, o)
+    for parts in ((None, None), (split, None), (None, lo_live),
+                  (split[:, :, :64].contiguous(), lo_live),
+                  (split, lo_live.to(torch.int64)),
+                  (split.float(), lo_live)):
+        with pytest.raises(ValueError, match="dout_split"):
+            tflash._split_pointers(q, dout, *parts)
+    pointers, keep = tflash._split_pointers(q, dout, split, lo_live)
+    assert pointers[1] - pointers[0] == split.numel() and len(keep) == 2
+    for other in (q[..., :32], q.float()):
+        assert tflash._split_pointers(other, dout[..., :other.shape[-1]],
+                                      None, None) == (tflash._NO_SPLIT, ())

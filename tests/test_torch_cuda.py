@@ -301,17 +301,19 @@ def test_flash_kernels_match_plain_on_card(cuda, b, s, h, hk, d, dtype,
     _assert_kernel_close(o, ro)
     _assert_kernel_close(lse, rlse)
     dcap = (dout * ro).sum(-1).transpose(1, 2)
-    dq = tfl.flash_dq(q, k, v, dout, rlse, dcap, causal, window, scale)
-    dk, dv = tfl.flash_dkv(q, k, v, dout, rlse, dcap, causal, window, scale)
-    rdq = tfl.flash_dq_reference(q, k, v, dout, rlse, dcap, causal, window,
-                                 scale)
-    rdk, rdv = tfl.flash_dkv_reference(q, k, v, dout, rlse, dcap, causal,
-                                       window, scale)
+    bwd = (q, k, v, dout, rlse, dcap, causal, window, scale)
+    # the wide bf16 passes read dO's parts and flags from the prologue
+    wide = dtype == torch.bfloat16 and d in tfl.WIDE_HEAD_DIMS
+    extra = tfl.flash_prep(dout, ro, None)[:2] if wide else ()
+    dq = tfl.flash_dq(*bwd, *extra)
+    dk, dv = tfl.flash_dkv(*bwd, *extra)
+    rdq = tfl.flash_dq_reference(*bwd)
+    rdk, rdv = tfl.flash_dkv_reference(*bwd)
     torch.cuda.synchronize()
     for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
         _assert_kernel_close(got, want)
     assert {n: tfl.launches[n] - before[n] for n in before} == \
-        {"fwd": 1, "dq": 1, "dkv": 1}
+        {"fwd": 1, "dq": 1, "dkv": 1, "prep": int(wide)}
 
 
 def test_flash_fwd_long_sequence_on_card(cuda):
@@ -341,7 +343,7 @@ def test_flash_bf16_autograd_on_card_matches_plain(cuda):
     o = tfl.flash_attention(*views(f))
     (o * w).sum().backward()
     assert {n: tfl.launches[n] - before[n] for n in before} == \
-        {"fwd": 1, "dq": 1, "dkv": 1}
+        {"fwd": 1, "dq": 1, "dkv": 1, "prep": 0}
     q, k, v = views(fused)
     scale = d ** -0.5
     ro, rlse = tfl.flash_fwd_reference(q, k, v, True, None, scale)
@@ -427,6 +429,122 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda):
         tfl.flash_attention(q, k, v)
 
 
+# the wide bf16 backward (csrc/flash_backward_wide.cuh): (b, s, h, hk, d,
+# window, layout, dO exact in bf16); "unaligned" views take the plain-load
+# instance, the rest TMA
+WIDE_BWD_CASES = [
+    (8, 256, 8, 8, 64, None, "dense", True),      # the LM at dim 512
+    (8, 256, 8, 8, 128, None, "dense", True),     # the LM at dim 1024
+    (8, 256, 8, 8, 64, None, "dense", False),     # a nonzero lo part
+    (8, 256, 8, 8, 128, None, "fused", False),
+    (8, 256, 8, 2, 128, None, "dense", True),     # GQA
+    (8, 256, 8, 2, 64, 100, "fused", False),      # GQA, window
+    (8, 256, 8, 8, 128, 128, "dense", True),      # window
+    (2, 80, 8, 8, 128, None, "dense", False),     # ragged
+    (1, 200, 4, 2, 64, 70, "dense", True),
+    (1, 200, 4, 2, 128, 70, "unaligned", False),  # plain loads
+    (8, 256, 8, 2, 64, None, "unaligned", True),
+    (1, 2048, 8, 2, 128, 1024, "dense", True),    # seq 2048
+]
+
+
+@pytest.mark.parametrize("b,s,h,hk,d,window,layout,exact", WIDE_BWD_CASES)
+def test_wide_backward_matches_plain_on_card(cuda, b, s, h, hk, d, window,
+                                             layout, exact):
+    """The bf16 backward at head dims 64 and 128 through autograd, with a
+    nonzero lse cotangent: the prologue's D, parts and flags (against its
+    plain version: parts and flags exactly, D at the fp32 tolerance), then
+    dQ, dK and dV against the plain passes at KERNEL_TOL, dO exact in bf16
+    (the lo products skipped) or not. One launch of each pass."""
+    if layout == "dense":
+        q, k, v = _qkv(cuda, b, s, h, hk, d, torch.bfloat16)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        inputs, grads = leaves, lambda: [x.grad for x in leaves]
+    else:
+        # views of one leaf, as mha_apply gives them (rows 16-byte aligned
+        # or, with the pad, not)
+        q, k, v = _fused_qkv(cuda, b, s, h, hk, d, torch.bfloat16,
+                             pad=int(layout == "unaligned"))
+        fused = q._base.clone().requires_grad_(True)
+        cut = (0, h * d, (h + hk) * d, (h + 2 * hk) * d)
+        views = lambda x: [x[..., cut[i]:cut[i + 1]].reshape(
+            b, s, heads, d) for i, heads in enumerate((h, hk, hk))]
+        inputs, grads = views(fused), lambda: views(fused.grad)
+        assert not inputs[0].is_contiguous()
+    g = torch.randn(b, s, h, d, device=cuda)
+    if exact:
+        g = g.to(torch.bfloat16).float()
+    g_lse = torch.randn(b, s, h, device=cuda)
+    before = dict(tfl.launches)
+    # blocks of 8 divide every case's length (the kernels tile on their own)
+    o, lse = tfl.flash_attention_lse(*inputs, block_q=8, block_k=8,
+                                     window=window)
+    ((o * g).sum() + (lse * g_lse).sum()).backward()
+    torch.cuda.synchronize()
+    assert {n: tfl.launches[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1, "prep": 1}
+    scale = 1.0 / np.sqrt(d)
+    split, lo_live, dcap = tfl.flash_prep(g, o.detach(), g_lse)
+    rsplit, rlive, rdcap = tfl.flash_prep_reference(g, o.detach(), g_lse)
+    assert torch.equal(split, rsplit) and torch.equal(lo_live, rlive)
+    assert int(lo_live.sum()) == (0 if exact else lo_live.numel())
+    _assert_kernel_close(dcap, rdcap)
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, True, window, scale)
+    want_dcap = ((g * ro).sum(-1) - g_lse).transpose(1, 2)
+    args = (q, k, v, g, rlse, want_dcap, True, window, scale)
+    want = (tfl.flash_dq_reference(*args), *tfl.flash_dkv_reference(*args))
+    for got, ref in zip(grads(), want):
+        _assert_kernel_close(got, ref)
+
+
+def test_wide_backward_runs_the_wgmma_kernels_on_card(cuda):
+    """bf16 at head dims 64 and 128 runs the wgmma passes and the
+    prologue, and no mma.sync backward kernel, read from the profiler's
+    kernel names (warmed up first, as the dtype test does)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for d in tfl.WIDE_HEAD_DIMS:
+        q, k, v = (t.requires_grad_(True) for t in
+                   _qkv(cuda, 2, 128, 4, 2, d, torch.bfloat16))
+        tfl.flash_attention(q, k, v).sum().backward()
+        names: set = set()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=2, repeat=1),
+                     on_trace_ready=lambda p: names.update(
+                         e.key for e in p.key_averages()
+                         if "flash_" in e.key)) as prof:
+            for _ in range(3):
+                tfl.flash_attention(q, k, v).sum().backward()
+                torch.cuda.synchronize()
+                prof.step()
+        ran = {n.split("<")[0].split("::")[-1] for n in names}
+        assert ran == {"flash_fwd_mma_kernel", "flash_prep_kernel",
+                       "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"}, \
+            names
+
+
+def test_wide_backward_refuses_parts_that_do_not_fit(cuda):
+    """dO's parts and flags given to a pass are checked, and a pass given
+    dO alone refuses; nothing launches the prologue on its own or falls
+    back to the plain version."""
+    q, k, v = _qkv(cuda, 1, 64, 2, 2, 64, torch.bfloat16)
+    dout = torch.randn(1, 64, 2, 64, device=cuda)
+    o, lse = tfl.flash_fwd(q, k, v, True, None, 0.125)
+    split, lo_live, dcap = tfl.flash_prep(dout, o, None)
+    bwd = (q, k, v, dout, lse, dcap, True, None, 0.125)
+    before = dict(tfl.launches)
+    for call in (tfl.flash_dq, tfl.flash_dkv):
+        with pytest.raises(ValueError, match="dout_split"):
+            call(*bwd)
+        with pytest.raises(ValueError, match="dout_split"):
+            call(*bwd, split, None)
+    assert tfl.launches == before
+    with pytest.raises(ValueError, match="dout_split"):
+        tfl.flash_dq(*bwd, split[:, :, :32].contiguous(), lo_live)
+    with pytest.raises(ValueError, match="dout_split"):
+        tfl.flash_dkv(*bwd, split, lo_live.to(torch.int64))
+
+
 # --- the kernels as custom ops, and an exported train step ------------------
 
 def test_custom_ops_on_card_equal_their_plain_versions(cuda):
@@ -448,7 +566,7 @@ def test_custom_ops_on_card_equal_their_plain_versions(cuda):
     for got, want in zip(ops.flash_dkv(*bwd), tfl.flash_dkv_reference(*bwd)):
         _assert_kernel_close(got, want)
     assert {n: tfl.launches[n] - before[n] for n in before} == \
-        {"fwd": 1, "dq": 1, "dkv": 1}
+        {"fwd": 1, "dq": 1, "dkv": 1, "prep": 0}
     rng = np.random.default_rng(5)
     shapes = [(3136, 256), (256,), (8, 128)]
     host = [[rng.normal(size=s).astype(np.float32) for s in shapes]
@@ -943,7 +1061,7 @@ def test_flash_lse_cotangent_on_card_matches_plain(cuda, causal):
     ((o * g).sum() + (lse * g_lse).sum()).backward()
     torch.cuda.synchronize()
     assert {n: tfl.launches[n] - before[n] for n in before} == \
-        {"fwd": 1, "dq": 1, "dkv": 1}
+        {"fwd": 1, "dq": 1, "dkv": 1, "prep": 0}
     scale = 1.0 / math.sqrt(d)
     ro, rlse = tfl.flash_fwd_reference(q, k, v, causal, None, scale)
     dcap = ((g * ro).sum(-1) - g_lse).transpose(1, 2)

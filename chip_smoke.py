@@ -9,8 +9,8 @@ failing the run (non-zero exit, no result line) when it fails:
 1. the card's name and power limit (``nvidia-smi``), torch/CUDA versions;
 2. the build of every hand-written kernel from ``kubeshare_tpu_torch/csrc``,
    one ``nvcc`` per source, all started together, and the tensor-core
-   instructions (HMMA) of the bf16 flash kernels (forward, dQ, dK/dV)
-   counted in their SASS;
+   instructions of the bf16 flash kernels (forward, dQ, dK/dV; HMMA at
+   head dims 8 and 32, HGMMA at 64 and 128) counted in their SASS;
 3. each kernel held against its plain PyTorch version on the card, at the
    shapes the main path gives it (fused Adam also over the whole mnist
    and transformer trees in one multi-tensor launch; flash attention also
@@ -257,13 +257,14 @@ FLASH_SOURCE = "kubeshare_tpu_torch/csrc/flash_attention.cu"
 FLASH_PREP_SOURCE = "kubeshare_tpu_torch/csrc/flash_backward_wide.cuh"
 FLASH_PREP_REPLACES = "kubeshare_tpu/ops/flash_attention.py:318"
 # the bf16 flash kernels, which must run on the tensor cores: on mma.sync
-# (HMMA in the SASS) the forward at every head dim and dQ and dK/dV at 8
-# and 32, by head dim; on wgmma (HGMMA) dQ and dK/dV at 64 and 128, with no
-# spill; each a function with cp.async or TMA and one with plain loads
-FLASH_MMA_KERNELS = {"flash_fwd_mma_kernel": (8, 32, 64, 128),
+# (HMMA in the SASS) the three passes at head dims 8 and 32; on wgmma
+# (HGMMA) the three at 64 and 128, with no spill; each a function with
+# cp.async or TMA and one with plain loads, by head dim
+FLASH_MMA_KERNELS = {"flash_fwd_mma_kernel": (8, 32),
                      "flash_dq_mma_kernel": (8, 32),
                      "flash_dkv_mma_kernel": (8, 32)}
-FLASH_WGMMA_KERNELS = {"flash_dq_wgmma_kernel": (64, 128),
+FLASH_WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": (64, 128),
+                       "flash_dq_wgmma_kernel": (64, 128),
                        "flash_dkv_wgmma_kernel": (64, 128)}
 # the libraries built from csrc, one nvcc each (flash attention's wide head
 # dims, 64 and 128, a library of their own: the two halves build in

@@ -2,12 +2,15 @@
 //
 // Replaces the three Pallas TPU kernels of kubeshare_tpu/ops/flash_attention.py
 // behind one custom_vjp. Each pass has a tensor-core kernel for bf16 inputs
-// (the transformer's main path) and a CUDA-core kernel for fp32 inputs:
-// - flash_fwd_mma_kernel, flash_fwd_kernel
+// (the transformer's main path) and a CUDA-core kernel for fp32 inputs; the
+// bf16 ones are this file's mma.sync kernels at head dims 8 and 32, and
+// Hopper's own wgmma kernels at 64 and 128 (flash_forward_wide.cuh,
+// flash_backward_wide.cuh):
+// - flash_fwd_mma_kernel, flash_fwd_wgmma_kernel, flash_fwd_kernel
 //                     <- `_kernel`          (launched by `_flash_fwd`)
-// - flash_dq_mma_kernel, flash_dq_kernel
+// - flash_dq_mma_kernel, flash_dq_wgmma_kernel, flash_dq_kernel
 //                     <- `_bwd_dq_kernel`   (launched by `_flash_bwd`)
-// - flash_dkv_mma_kernel, flash_dkv_kernel
+// - flash_dkv_mma_kernel, flash_dkv_wgmma_kernel, flash_dkv_kernel
 //                     <- `_bwd_dkv_kernel`  (launched by `_flash_bwd`)
 //
 // What bounds them on the card: bytes. At the transformer's shape (q, k, v
@@ -21,7 +24,7 @@
 // operations grow fourfold: (8, 256, 8, 128) moves 21 MB in the forward,
 // 6.3 us, and (1, 8192, 8, 128) is 137 G operations, 139 us.
 //
-// The bf16 kernels share one design:
+// The mma.sync kernels (bf16 at head dims 8 and 32) share one design:
 // - one block of 4 warps per (b*h row, 64-row tile); each warp owns 16 rows
 //   of the tile (q rows for the forward and dQ, keys for dK/dV), held in
 //   registers as mma fragments (ldmatrix) for the whole loop, and skips a
@@ -53,7 +56,10 @@
 // and an operand rounded to bf16 once costs 2^-9 of each term. An fp32
 // operand x therefore goes in as two bf16 parts, hi = bf16(x) and lo =
 // bf16(x - hi), one mma.sync each; hi + lo keeps ~16 bits of x:
-// - P, whenever it is an A operand: the forward's O = P.V and dV = P^T.dO;
+// - P, whenever it is an A operand: the forward's O = P.V and dV = P^T.dO
+//   (the wgmma kernels at 64 and 128 keep this split; rounded once, P
+//   puts 3-5% of O outside even the bf16 tolerance, see
+//   flash_forward_wide.cuh);
 // - dS, an A operand of dQ = dS.K and dK = dS^T.Q. These sums cancel
 //   heavily (without an lse cotangent every row of dS sums to 0), so one
 //   rounding of dS moves 6.5% of dQ's and 4.4% of dK's bf16 outputs by
@@ -136,12 +142,12 @@
 // (ops/flash_attention.py loads the library of the head dim it is given).
 // Other head dims are refused (cudaErrorInvalidValue); a model that needs
 // one adds it to a run_dims list in run(). What the wide ones change:
-// - shared memory is dynamic in every kernel: one 64-row bf16 tile is
-//   9,216 B at 64 and 17,408 B at 128, so the forward's 5 tiles pass at
-//   128 the 48 KB a function gets by default; the launch raises the
-//   function's limit first (launch_kernel), once per device;
-// - the bf16 dQ and dK/dV passes at 64 and 128 are not this file's
-//   mma.sync kernels but flash_backward_wide.cuh's, on wgmma and TMA
+// - shared memory is dynamic in every kernel; past the 48 KB a function
+//   gets by default the launch raises the function's limit first
+//   (launch_kernel, launch_wide), once per device;
+// - the three bf16 passes at 64 and 128 are not this file's mma.sync
+//   kernels but Hopper's own, on wgmma, TMA and setmaxnreg: the forward
+//   flash_forward_wide.cuh's, dQ and dK/dV flash_backward_wide.cuh's
 //   (launch() sends them there when KST_FLASH_WIDE is defined), so the
 //   mma.sync passes take head dims up to 32 only: each warp holds its
 //   rows' A operands (Q and dO, or K and V) as fragments for the whole
@@ -158,10 +164,12 @@
 // kernels are held to their plain versions with a tolerance
 // (ops/flash_attention.py says which).
 //
-// Tried on the card for the forward and not kept: 8-warp blocks of 128 q
-// rows (slower at the main shape, no faster at seq 8192), and splitting a
-// block's k tiles between two groups of 4 warps with a merge at the end (a
-// little faster at the main shape, slower at seq 8192).
+// Tried on the card for the mma.sync forward (then at every head dim) and
+// not kept: 8-warp blocks of 128 q rows (slower at the main shape, no
+// faster at seq 8192), and splitting a block's k tiles between two groups
+// of 4 warps with a merge at the end (a little faster at the main shape,
+// slower at seq 8192). flash_forward_wide.cuh says what was tried for the
+// wgmma forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -913,7 +921,8 @@ __device__ __forceinline__ void store_row_bf16(bf16* out,
 template <int D, bool kAsync>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(Args a) {
-  static_assert(D == 8 || D % 16 == 0, "head dim 8 or a multiple of 16");
+  static_assert(D == 8 || D == 16 || D == 32,
+                "head dims 8 to 32 (from 64: flash_forward_wide.cuh)");
   constexpr int kRow = smem_row<D>();
   constexpr int kNo = D / 8;  // n tiles of O (8 dims each)
   constexpr int kT = tile_elems<D>();
@@ -1313,7 +1322,10 @@ bool rows_aligned(const Args& a) {
 enum Pass { kFwd, kDq, kDkv };
 
 #ifdef KST_FLASH_WIDE
-// the wide bf16 backward passes (flash_backward_wide.cuh)
+// the wide bf16 forward (flash_forward_wide.cuh) and backward passes
+// (flash_backward_wide.cuh)
+template <int D>
+int launch_wide_fwd(const Args& a, cudaStream_t stream);
 template <int D>
 int launch_wide_bwd(Pass pass, const Args& a, cudaStream_t stream);
 #endif
@@ -1349,7 +1361,8 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
   const Shape& sh = a.sh;
   const dim3 q_grid(sh.b * sh.h, (sh.s_q + kTile - 1) / kTile);
   const dim3 k_grid(sh.b * sh.hk, (sh.s_kv + kTile - 1) / kTile);
-  const bool al = bf16_in && rows_aligned(a);
+  // (the wide library's bf16 passes choose their own load route)
+  [[maybe_unused]] const bool al = bf16_in && rows_aligned(a);
   const int f32_threads = kTile * row_threads<D>();
   switch (pass) {
     case kFwd:
@@ -1358,12 +1371,16 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
                                                   f32_smem<D>(false), a,
                                                   stream);
       }
+#ifdef KST_FLASH_WIDE
+      return launch_wide_fwd<D>(a, stream);
+#else
       if (al) {
         return launch_kernel<flash_fwd_mma_kernel<D, true>>(
             q_grid, kMmaThreads, mma_smem<D>(0), a, stream);
       }
       return launch_kernel<flash_fwd_mma_kernel<D, false>>(
           q_grid, kMmaThreads, mma_smem<D>(0), a, stream);
+#endif
     case kDq:
       if (!bf16_in) {
         return launch_kernel<flash_dq_kernel<D>>(q_grid, f32_threads,

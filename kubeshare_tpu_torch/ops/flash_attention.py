@@ -5,7 +5,10 @@ Counterpart of ``kubeshare_tpu/ops/flash_attention.py``. Its three Pallas
 kernels become ``csrc/flash_attention.cu``: the forward (``_kernel``), dQ
 (``_bwd_dq_kernel``) and dK/dV (``_bwd_dkv_kernel``); the note at the top
 of that file says how the TPU grid translates, what bounds the kernels on
-an H100 (bytes) and what the designs do about it. Two
+an H100 (bytes) and what the designs do about it. In bf16 at head dims 64
+and 128 the passes are Hopper's own (wgmma, TMA): the forward in
+``csrc/flash_forward_wide.cuh``, dQ and dK/dV in
+``csrc/flash_backward_wide.cuh``. Two
 ``torch.autograd.Function``s stand in for the ``custom_vjp``s ``_flash`` and
 ``_flash_lse``.
 

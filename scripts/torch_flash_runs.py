@@ -9,7 +9,7 @@ kernels (one ``nvcc`` per source, all started together) and prints each
 flash kernel function's registers and spill bytes from the ``-Xptxas -v``
 report and its tensor-core instructions from the SASS (HMMA for mma.sync,
 HGMMA for wgmma; ``chip_smoke.check_flash_sass`` holds each function to
-its kind, and the wgmma backward and its prologue to 0 spill bytes); then
+its kind, and the wgmma passes and the prologue to 0 spill bytes); then
 runs the smoke's checks of the flash kernels against their plain versions at
 every head dim the kernels take (``chip_smoke.flash_check``,
 ``flash_autograd_check``, ``lse_cotangent_check``) and, unless

@@ -41,9 +41,9 @@ import time
 
 #: the port's kernels and a substring of their CUDA function names (each
 #: flash pass names all of its kernels: flash_<pass>_mma_kernel for bf16
-#: inputs, flash_<pass>_wgmma_kernel for the bf16 backward at head dims 64
-#: and 128, after its prologue flash_prep_kernel, flash_<pass>_kernel for
-#: fp32)
+#: inputs at head dims 8 and 32, flash_<pass>_wgmma_kernel for bf16 at 64
+#: and 128, where the backward runs its prologue flash_prep_kernel first,
+#: flash_<pass>_kernel for fp32)
 KERNEL_TAGS = {"fused_adam": "adam_multi_tensor_kernel",
                "flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
                "flash_dkv": "flash_dkv_", "flash_prep": "flash_prep_"}

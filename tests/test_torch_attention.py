@@ -481,6 +481,96 @@ def test_skipping_zero_lo_products_keeps_the_bits(d):
         assert torch.equal(skipped, full)
 
 
+# --- the wide bf16 forward kernel's arithmetic -------------------------------
+
+def _emulated_wide_forward(q, k, v, causal, window, scale, split_p=True,
+                           tile=64):
+    """``(O, lse)`` with the arithmetic of the wgmma forward at head dims
+    64 and 128 (``csrc/flash_forward_wide.cuh``) in torch: S = Q·Kᵀ of
+    bf16-exact operands summed in fp32; the online softmax over key tiles
+    of ``tile``, the scale folded into the exponent (p = 2^(s·scale2 −
+    m·scale2), one fused multiply-add a score), alpha and p 0 below
+    MASK/2; O rescaled, then O += P_lo·V and O += P_hi·V, bf16-exact
+    products summed in fp32. ``split_p=False`` rounds P to bf16 once
+    instead, as FlashAttention-3 does."""
+    half = tattn.MASK_VALUE / 2
+    scale2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    fma = lambda x, y, z: (x.double() * y.double() + z.double()).float()
+    sc, _, _ = tflash._masked_scores(q, k, causal, window, 1.0)
+    vf = v.float().repeat_interleave(q.shape[2] // v.shape[2], dim=2)
+    b, s_q, h, d = q.shape
+    m = torch.full((b, h, s_q), tattn.MASK_VALUE)
+    l = torch.zeros((b, h, s_q))
+    o = torch.zeros((b, h, s_q, d))
+    for k0 in range(0, k.shape[1], tile):
+        s = sc[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1))
+        ms = m_new * scale2
+        alpha = torch.where(m > half, torch.exp2(fma(m, scale2, -ms)), 0.0)
+        p = torch.where(s > half, torch.exp2(fma(s, scale2, -ms[..., None])),
+                        0.0)
+        m, l = m_new, l * alpha + p.sum(-1)
+        o = o * alpha[..., None]
+        parts = _bf16_parts(p) if split_p else (p.to(torch.bfloat16).float(),)
+        for part in parts[::-1]:                       # lo, then hi
+            o = o + torch.einsum("bhqk,bkhd->bhqd", part,
+                                 vf[:, k0:k0 + tile])
+    den = torch.where(l > 0.0, l, torch.ones_like(l))
+    lse = torch.where(m > half, m * scale, tattn.MASK_VALUE) + torch.log(den)
+    return (o / den[..., None]).permute(0, 2, 1, 3), lse
+
+
+def _bf16_forward_case(b, s_q, s_kv, h, hk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    randn = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(torch.bfloat16)
+    return randn(b, s_q, h, d), randn(b, s_kv, hk, d), randn(b, s_kv, hk, d)
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,h,hk,d,causal,window",
+    [(2, 256, 256, 8, 2, 64, True, None), (1, 256, 256, 8, 2, 128, True,
+                                          None),
+     (1, 256, 256, 8, 8, 64, True, 100), (1, 200, 200, 8, 2, 128, True, 70),
+     (1, 200, 200, 4, 4, 64, True, None), (1, 160, 200, 8, 2, 128, False,
+                                           None),
+     (1, 130, 96, 4, 2, 64, False, None)],
+    ids=["hd64-gqa", "hd128-gqa", "hd64-window", "hd128-ragged-gqa-window",
+         "hd64-ragged", "hd128-sq-ne-skv-gqa", "hd64-sq-ne-skv-ragged"])
+def test_wide_forward_arithmetic_holds_kernel_tolerance(b, s_q, s_kv, h, hk,
+                                                        d, causal, window):
+    """The wgmma forward's split P keeps O and the lse within KERNEL_TOL
+    (fp32) of the plain forward: GQA, windows, ragged lengths and s_q ≠
+    s_kv, key tiles of 64."""
+    q, k, v = _bf16_forward_case(b, s_q, s_kv, h, hk, d)
+    scale = 1.0 / np.sqrt(d)
+    want = tflash.flash_fwd_reference(q, k, v, causal, window, scale)
+    got = _emulated_wide_forward(q, k, v, causal, window, scale)
+    atol, rtol = tflash.KERNEL_TOL[torch.float32]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_unsplit_p_breaks_the_forward_tolerance(d):
+    """Why the forward splits P: rounded to bf16 once, P moves more than 1%
+    of O outside even the bf16 tolerance (O's own is fp32, tighter) at
+    (1, 256, 4, d) causal, where the hi/lo split moves none outside the
+    fp32 one."""
+    q, k, v = _bf16_forward_case(1, 256, 256, 4, 4, d, seed=1)
+    scale = 1.0 / np.sqrt(d)
+    want, _ = tflash.flash_fwd_reference(q, k, v, True, None, scale)
+    unsplit, _ = _emulated_wide_forward(q, k, v, True, None, scale,
+                                        split_p=False)
+    split, _ = _emulated_wide_forward(q, k, v, True, None, scale)
+    atol, rtol = tflash.KERNEL_TOL[torch.float32]
+    outside_f32 = float(((split - want).abs()
+                         > atol + rtol * want.abs()).float().mean())
+    assert _share_outside_bf16_tol(unsplit, want) > 0.01
+    assert outside_f32 == 0.0
+
+
 @pytest.mark.parametrize("with_g_lse", [False, True])
 def test_flash_prep_plain_matches_jax_d(with_g_lse):
     """The prologue's plain version against the JAX backward's own D

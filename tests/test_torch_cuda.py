@@ -498,9 +498,9 @@ def test_wide_backward_matches_plain_on_card(cuda, b, s, h, hk, d, window,
 
 
 def test_wide_backward_runs_the_wgmma_kernels_on_card(cuda):
-    """bf16 at head dims 64 and 128 runs the wgmma passes and the
-    prologue, and no mma.sync backward kernel, read from the profiler's
-    kernel names (warmed up first, as the dtype test does)."""
+    """bf16 at head dims 64 and 128 runs the wgmma forward, backward
+    passes and the prologue, and no mma.sync kernel, read from the
+    profiler's kernel names (warmed up first, as the dtype test does)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for d in tfl.WIDE_HEAD_DIMS:
@@ -518,9 +518,52 @@ def test_wide_backward_runs_the_wgmma_kernels_on_card(cuda):
                 torch.cuda.synchronize()
                 prof.step()
         ran = {n.split("<")[0].split("::")[-1] for n in names}
-        assert ran == {"flash_fwd_mma_kernel", "flash_prep_kernel",
+        assert ran == {"flash_fwd_wgmma_kernel", "flash_prep_kernel",
                        "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"}, \
             names
+
+
+# the wide bf16 forward (csrc/flash_forward_wide.cuh): (b, s_q, s_kv, h,
+# hk, d, causal, window, layout); "unaligned" views take the plain-load
+# instance, the rest TMA
+WIDE_FWD_CASES = [
+    (8, 256, 256, 8, 8, 64, True, None, "dense"),     # the LM at dim 512
+    (8, 256, 256, 8, 8, 128, True, None, "dense"),    # the LM at dim 1024
+    (8, 256, 256, 8, 2, 128, True, 128, "fused"),     # GQA, window
+    (8, 256, 256, 8, 2, 64, True, 100, "unaligned"),  # plain loads
+    (1, 200, 200, 4, 2, 128, True, 70, "unaligned"),  # ragged
+    (2, 200, 200, 8, 8, 64, True, None, "dense"),
+    (2, 50, 50, 4, 1, 128, True, None, "dense"),      # one consumer's rows
+    (1, 160, 200, 8, 2, 128, False, None, "dense"),   # s_q != s_kv
+    (2, 130, 96, 4, 2, 64, False, None, "dense"),
+    (1, 2048, 2048, 8, 2, 128, True, 1024, "dense"),  # seq 2048
+]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h,hk,d,causal,window,layout",
+                         WIDE_FWD_CASES)
+def test_wide_forward_matches_plain_on_card(cuda, b, s_q, s_kv, h, hk, d,
+                                            causal, window, layout):
+    """The bf16 forward at head dims 64 and 128, O and the lse against the
+    plain forward at KERNEL_TOL, on TMA and on plain loads: ragged lengths
+    (not a multiple of the block's 128 rows), s_q != s_kv, GQA and
+    windows. One launch."""
+    if layout == "dense":
+        q = _qkv(cuda, b, s_q, h, hk, d, torch.bfloat16)[0]
+        _, k, v = _qkv(cuda, b, s_kv, h, hk, d, torch.bfloat16, seed=1)
+    else:
+        q, k, v = _fused_qkv(cuda, b, s_q, h, hk, d, torch.bfloat16,
+                             pad=int(layout == "unaligned"))
+        assert not q.is_contiguous()
+    scale = 1.0 / np.sqrt(d)
+    before = dict(tfl.launches)
+    o, lse = tfl.flash_fwd(q, k, v, causal, window, scale)
+    ro, rlse = tfl.flash_fwd_reference(q, k, v, causal, window, scale)
+    torch.cuda.synchronize()
+    assert {n: tfl.launches[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 0, "dkv": 0, "prep": 0}
+    _assert_kernel_close(o, ro)
+    _assert_kernel_close(lse, rlse)
 
 
 def test_wide_backward_refuses_parts_that_do_not_fit(cuda):

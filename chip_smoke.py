@@ -8,18 +8,21 @@ failing the run (non-zero exit, no result line) when it fails:
 
 1. the card's name and power limit (``nvidia-smi``), torch/CUDA versions;
 2. the build of every hand-written kernel from ``kubeshare_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together, and the tensor-core
-   instructions of the bf16 flash kernels (forward, dQ, dK/dV; HMMA at
-   head dims 8 and 32, HGMMA at 64 and 128) counted in their SASS;
+   one ``nvcc`` per source (four), all started together, and the
+   tensor-core instructions of the bf16 flash kernels (forward, dQ, dK/dV;
+   HMMA at the instances 8, 16 and 32, HGMMA at 64, 128 and 256) counted
+   in their SASS;
 3. each kernel held against its plain PyTorch version on the card, at the
    shapes the main path gives it (fused Adam also over the whole mnist
    and transformer trees in one multi-tensor launch; flash attention also
    through autograd in bf16, where its forward's lse feeds the backward
-   kernels, and at every head dim it takes: 8, 32, 64 and 128), then
-   timed beside its plain version, one PyTorch library call computing the
-   same function, and its bound (flash attention also at head dims 64 and
-   128 and at seq 8192, off the LM's main path); each flash kernel
-   function's registers and spill bytes from the ``-Xptxas -v`` report;
+   kernels, at every instance width it is built for, 8, 16, 32, 64, 128
+   and 256, and at head dims it pads to an instance, 20, 80, 96 and 200),
+   then timed beside its plain version, one PyTorch library call
+   computing the same function, and its bound (flash attention also at
+   head dims 8, 16, 64, 80, 96, 128 and 256 and at seq 8192, off the LM's
+   main path); each flash kernel function's registers and spill bytes
+   from the ``-Xptxas -v`` report;
 4. small-input checks of whole train steps, card against CPU: mnist, and
    the transformer with flash attention;
 5. the main paths, each with every kernel's launch count set to 0 just
@@ -41,8 +44,8 @@ failing the run (non-zero exit, no result line) when it fails:
       port's ``sitecustomize`` shim with a pod's env. It trains the
       full-width transformer with flash attention. In turn: one tenant
       alone ungated (``KUBESHARE_TPU_ATTACH=off``), alone gated at request
-      1.0, two side by side at request 0.5, alone gated, two at requests
-      0.25 and 0.75, alone gated, alone ungated. Every run's tenants start
+      1.0, two side by side at request 0.5, two at requests 0.25 and
+      0.75, alone ungated. Every run's tenants start
       together ahead of the runs (``--go``: imports, the attach and the
       CUDA context, then a wait), one client file holding every gated
       one, and each run trains once all are ready and the run before it
@@ -116,7 +119,9 @@ failing the run (non-zero exit, no result line) when it fails:
    j. the zoo — the JAX package's other workload models at full width
       (``ZOO``: cifar10, ResNet-18, the ResNet-50-class depth, VGG-16,
       the LSTM LM, the mixture-of-experts LM with flash attention, and the
-      dense LM at ``dim`` 512 and 1024, 8 heads of 64 and of 128): for
+      dense LM at ``dim`` 512, 1024, 128 and 640, 8 heads of 64, 128, 16
+      and 80, and at ``dim`` 2048, Gemma-2B's 8 heads of 256, 2 layers):
+      for
       each, one fp32 train step on the card against the CPU, the Adam
       kernel against its plain version over the whole tree (2 launches a
       step for ResNet-18, 3 for the ResNet-50 class), an exclusive run
@@ -190,7 +195,8 @@ failing the run (non-zero exit, no result line) when it fails:
    before 5l-quota, and 5k's five gangs start together;
 6. the outputs of the main paths: finite, of the expected shapes.
 
-The second-to-last line is the kernels' JSON record; the last line is
+The second-to-last line is the kernels' JSON record (each flash pass also
+by instance width, ``instances``); the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --tenant out.json [--compiled] [--seconds S]
@@ -251,26 +257,32 @@ FLASH_REPLACES = {"fwd": "kubeshare_tpu/ops/flash_attention.py:80",
                   "dq": "kubeshare_tpu/ops/flash_attention.py:223",
                   "dkv": "kubeshare_tpu/ops/flash_attention.py:256"}
 FLASH_SOURCE = "kubeshare_tpu_torch/csrc/flash_attention.cu"
-# the bf16 backward's prologue at head dims 64 and 128 replaces no TPU
-# kernel: it computes D where the JAX backward leaves it to XLA (this
-# line), and splits dO for the two passes
+# the bf16 backward's prologue from head dim 33 (the instances 64, 128
+# and 256) replaces no TPU kernel: it computes D where the JAX backward
+# leaves it to XLA (this line), and splits dO for the two passes
 FLASH_PREP_SOURCE = "kubeshare_tpu_torch/csrc/flash_backward_wide.cuh"
 FLASH_PREP_REPLACES = "kubeshare_tpu/ops/flash_attention.py:318"
 # the bf16 flash kernels, which must run on the tensor cores: on mma.sync
-# (HMMA in the SASS) the three passes at head dims 8 and 32; on wgmma
-# (HGMMA) the three at 64 and 128, with no spill; each a function with
-# cp.async or TMA and one with plain loads, by head dim
-FLASH_MMA_KERNELS = {"flash_fwd_mma_kernel": (8, 32),
-                     "flash_dq_mma_kernel": (8, 32),
-                     "flash_dkv_mma_kernel": (8, 32)}
-FLASH_WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": (64, 128),
-                       "flash_dq_wgmma_kernel": (64, 128),
-                       "flash_dkv_wgmma_kernel": (64, 128)}
-# the libraries built from csrc, one nvcc each (flash attention's wide head
-# dims, 64 and 128, a library of their own: the two halves build in
-# parallel)
-KERNELS = ("fused_adam", "flash_attention", "flash_attention_wide")
-FLASH_LIBRARIES = ("flash_attention", "flash_attention_wide")
+# (HMMA in the SASS) the three passes at the instances 8, 16 and 32; on
+# wgmma (HGMMA) the three at 64, 128 and 256, with no spill; each a
+# function with cp.async or TMA and one with plain loads, by instance
+FLASH_MMA_KERNELS = {"flash_fwd_mma_kernel": (8, 16, 32),
+                     "flash_dq_mma_kernel": (8, 16, 32),
+                     "flash_dkv_mma_kernel": (8, 16, 32)}
+FLASH_WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": (64, 128, 256),
+                       "flash_dq_wgmma_kernel": (64, 128, 256),
+                       "flash_dkv_wgmma_kernel": (64, 128, 256)}
+# the libraries built from csrc, one nvcc each (flash attention's wgmma
+# instances 64 and 128 a library of their own, 256 another: the three
+# build in parallel)
+KERNELS = ("fused_adam", "flash_attention", "flash_attention_wide",
+           "flash_attention_256")
+FLASH_LIBRARIES = ("flash_attention", "flash_attention_wide",
+                   "flash_attention_256")
+# the bf16 forward of the wgmma instances (64, 128, 256); their dQ, dK/dV
+# and prologue are FLASH_PREP_SOURCE's, the mma.sync instances' passes
+# FLASH_SOURCE's
+FLASH_FWD_WIDE_SOURCE = "kubeshare_tpu_torch/csrc/flash_forward_wide.cuh"
 # Published H100 SXM peaks (data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores, bf16 FLOP/s of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -293,6 +305,15 @@ LONG_SHAPE = (1, 8192, 8, 32)
 WIDE_HEAD_DIMS = (64, 128)
 WIDE_SHAPES = tuple((8, 256, 8, d) for d in WIDE_HEAD_DIMS)
 LONG_WIDE_SHAPE = (1, 8192, 8, 128)
+# the other instances and padded head dims, timed at the same batch and
+# length: 8 (the small preset) and 16 (dim 128), 80 (Phi-2's) and 96
+# (Phi-3-mini's) on the instance 128, and 256 (Gemma's)
+OTHER_SHAPES = tuple((8, 256, 8, d) for d in (8, 16, 80, 96, 256))
+# flash_check's widths besides 32's cases: the instances 16, 64, 128 and
+# 256 at every case of the wide dims, and head dims the kernels pad to an
+# instance (20 on 32, 80 and 96 on 128, 200 on 256)
+CHECK_INSTANCES = (16, 64, 128, 256)
+CHECK_PADDED = (20, 80, 96, 200)
 # operations per visible (q, k) pair and head-dim element: the forward's
 # two products (S = QK^T, PV), dQ's three (S, dP = dO V^T, dS K) and
 # dK/dV's four (S, P^T dO, dP, dS^T Q), two operations (multiply, add) each
@@ -459,7 +480,14 @@ ZOO = (("cifar10", "cifar10", {}, "loss_fn"),
        # the dense LM at GPT-2's head dim (8 x 64) and at Llama's (8 x 128,
        # ~59 M params): the flash kernels' wide instances on the main path
        ("lm_hd64", "transformer", {"dim": 512}, "flash_loss_fn"),
-       ("lm_hd128", "transformer", {"dim": 1024}, "flash_loss_fn"))
+       ("lm_hd128", "transformer", {"dim": 1024}, "flash_loss_fn"),
+       # at head dim 16 (dim 128), Phi-2's 80 (dim 640, on the instance
+       # 128) and Gemma-2B's 256 (its hidden 2048, 8 heads; 2 of its 18
+       # layers, vocab 4,096, seq 256)
+       ("lm_hd16", "transformer", {"dim": 128}, "flash_loss_fn"),
+       ("lm_hd80", "transformer", {"dim": 640}, "flash_loss_fn"),
+       ("lm_hd256", "transformer", {"dim": 2048, "layers": 2},
+        "flash_loss_fn"))
 # 5j-lm: the LM at head dim 128 with Mistral's attention knobs (a group of
 # 4 q heads a kv head, RoPE, a sliding window), read at import, so in a
 # process of its own (``--lm-member``) started with LM_MEMBER_ENV
@@ -1114,11 +1142,14 @@ def flash_check(dev, rng) -> dict:
     of the fused qkv product, rows 16-byte aligned or not), GQA, a window,
     non-causal, fp32 inputs, head dim 8 (the small preset), ragged
     lengths, and the forward at seq 2048 (many k tiles, heaviest q tiles
-    launched first); the same at head dims 64 and 128, and forward and
-    backward at seq 2048 with head dim 128, GQA and a window. The backward
-    passes take the plain forward's lse and D, so each kernel is held
-    alone. Returns each kernel's worst max abs error, over every case and
-    by head dim (``by_head_dim``)."""
+    launched first); the same at the instances 16, 64, 128 and 256, and
+    forward and backward at seq 2048 with head dim 128, GQA and a window;
+    256 with one kv head (Gemma-2B's); the padded head dims 20, 80, 96 and
+    200 dense, strided (aligned and not), fp32, and ragged with GQA and a
+    window. The backward passes take the plain forward's lse and D, so
+    each kernel is held alone. Returns each kernel's worst max abs error,
+    over every case, by head dim (``by_head_dim``) and by the instance it
+    ran on (``by_instance``)."""
     import torch
 
     from kubeshare_tpu_torch.ops import flash_attention as fl
@@ -1151,9 +1182,10 @@ def flash_check(dev, rng) -> dict:
               "dense", True),
              ("seq 2048", (1, 2048, 8, 32), 8, bf16, True, None, "dense",
               False)]
-    # the wide head dims, GPT-2's 64 and Llama's 128, as the LM at
-    # init(dim=512 / 1024) gives them: every case above but head dim 8's
-    for d_wide in WIDE_HEAD_DIMS:
+    # the instances 16, 64 (GPT-2's), 128 (Llama's) and 256 (Gemma's), as
+    # the LM at init(dim=128 / 512 / 1024 / 2048) gives them: every case
+    # above but head dim 8's
+    for d_wide in CHECK_INSTANCES:
         shape = (8, 256, 8, d_wide)
         cases += [
             (f"head dim {d_wide}", shape, 8, bf16, True, None, "dense",
@@ -1176,8 +1208,26 @@ def flash_check(dev, rng) -> dict:
              (1, 200, 4, d_wide), 4, bf16, True, 70, "dense", True)]
     cases.append(("head dim 128, seq 2048, gqa hk=2, window 1024",
                   (1, 2048, 8, 128), 2, bf16, True, 1024, "dense", True))
+    # Gemma-2B's attention: 8 q heads of 256 on one kv head
+    cases.append(("head dim 256, gqa hk=1", (8, 256, 8, 256), 1, bf16, True,
+                  None, "dense", True))
+    # head dims between the instances, read and written at their true width
+    # (rows of 20 are not 16-byte aligned: plain loads, also "fused")
+    for d_pad in CHECK_PADDED:
+        shape = (8, 256, 8, d_pad)
+        cases += [
+            (f"head dim {d_pad}", shape, 8, bf16, True, None, "dense", True),
+            (f"head dim {d_pad} (strided)", shape, 8, bf16, True, None,
+             "fused", True),
+            (f"head dim {d_pad}, strided, rows not 16-byte aligned", shape,
+             8, bf16, True, None, "unaligned", True),
+            (f"head dim {d_pad}, fp32 inputs", shape, 8, f32, True, None,
+             "dense", True),
+            (f"head dim {d_pad}, ragged s=200, gqa hk=2, window 70",
+             (1, 200, 4, d_pad), 2, bf16, True, 70, "dense", True)]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "prep": 0.0}
-    by_dim = {dd: dict(worst) for dd in fl.HEAD_DIMS}
+    by_dim: dict = {}
+    by_instance: dict = {}
     for label, shape, hk, dtype, causal, window, layout, bwd in cases:
         b, s, h, d = shape
         scale = 1.0 / math.sqrt(d)
@@ -1211,22 +1261,26 @@ def flash_check(dev, rng) -> dict:
                       ("dkv", "dK", dk, rdk), ("dkv", "dV", dv, rdv)]
         torch.cuda.synchronize()
         parts = []
+        inst = fl.instance_head_dim(d)
         for kernel, name, got, want in pairs:
             abs_err, rel_err = _check_flash_close(kernel, label, name, got,
                                                   want)
             worst[kernel] = max(worst[kernel], abs_err)
-            by_dim[d][kernel] = max(by_dim[d][kernel], abs_err)
+            for table, key in ((by_dim, d), (by_instance, inst)):
+                row = table.setdefault(key, {})
+                row[kernel] = max(row.get(kernel, 0.0), abs_err)
             parts.append(f"{name} {abs_err:.2e}/{rel_err:.2e}")
-        log(f"  flash {label} ({dtype}, {shape}, hk={hk}): ok, max abs/rel "
-            "err " + ", ".join(parts))
-    return dict(worst, by_head_dim=by_dim)
+        log(f"  flash {label} ({dtype}, {shape}, hk={hk}, instance {inst}): "
+            "ok, max abs/rel err " + ", ".join(parts))
+    return dict(worst, by_head_dim=by_dim, by_instance=by_instance)
 
 
 def flash_autograd_check(dev, rng) -> dict:
     """``flash_attention`` through autograd on bf16 q/k/v, strided views
     of one fused tensor at the main path's shape and at the wide head dims'
-    (WIDE_SHAPES, where the backward's prologue feeds the passes; dO there
-    the gradient of a bf16 cast, as the LM gives it): the kernel forward's
+    (WIDE_SHAPES, Phi-2's 80 and Gemma's 256, where the backward's prologue
+    feeds the passes; dO there the gradient of a bf16 cast, as the LM gives
+    it): the kernel forward's
     lse and O feed the backward kernels. Held against the plain versions on
     the same inputs: O to the fp32 tolerance, dQ, dK and dV to the bf16
     one. Returns the max abs error of each, worst over the shapes."""
@@ -1235,7 +1289,8 @@ def flash_autograd_check(dev, rng) -> dict:
     from kubeshare_tpu_torch.ops import flash_attention as fl
 
     errs: dict = {}
-    for shape in (FLASH_SHAPE,) + WIDE_SHAPES:
+    for shape in (FLASH_SHAPE,) + WIDE_SHAPES + ((8, 256, 8, 80),
+                                                 (8, 256, 8, 256)):
         b, s, h, d = shape
         scale = 1.0 / math.sqrt(d)
         fused = torch.from_numpy(rng.standard_normal(
@@ -1419,17 +1474,25 @@ def flash_timing(dev, rng, shape, iters: int, plain: bool) -> dict:
 
 
 def flash_wide_timing(dev, rng) -> dict:
-    """:func:`flash_timing` at the wide head dims: WIDE_SHAPES beside the
-    plain versions, LONG_WIDE_SHAPE without them; each pass logged with its
-    bound, its share of it and SDPA's time, and dQ + dK/dV against SDPA's
-    backward. Keyed by shape."""
+    """:func:`flash_timing` at the head dims besides 32: WIDE_SHAPES and
+    OTHER_SHAPES, beside the plain versions at the instance widths (a
+    padded head dim's bounds count its true width), LONG_WIDE_SHAPE
+    without them; each pass logged with its bound, its share of it and
+    SDPA's time, and dQ + dK/dV against SDPA's backward. Keyed by
+    shape."""
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
     res = {}
-    for shape in WIDE_SHAPES + (LONG_WIDE_SHAPE,):
+    for shape in WIDE_SHAPES + OTHER_SHAPES + (LONG_WIDE_SHAPE,):
         wide_long = shape == LONG_WIDE_SHAPE
-        r = res[str(shape)] = flash_timing(dev, rng, shape,
-                                           5 if wide_long else 50,
-                                           plain=not wide_long)
+        # the plain versions beside the instances only (80 and 96 run on
+        # 128's kernels; their plain versions cost the smoke seconds)
+        r = res[str(shape)] = flash_timing(
+            dev, rng, shape, 5 if wide_long else 50,
+            plain=not wide_long and shape[-1] in fl.INSTANCES)
         for name in ("fwd", "prep", "dq", "dkv"):
+            if name not in r:      # no prologue below the instance 64
+                continue
             x = r[name]
             plain = ("" if x["plain_ms"] is None
                      else f", plain {x['plain_ms']:.4f} ms")
@@ -1440,7 +1503,8 @@ def flash_wide_timing(dev, rng) -> dict:
                 f"{x['ms']:.4f} ms{plain}{lib}, bound {x['bound_ms']:.5f} ms "
                 f"({x['bound_by']}), {100 * x['bound_share']:.1f}% of it; "
                 f"host ms a call {x['host_ms']:.4f}")
-        log(f"flash backward at {shape}, the prologue included "
+        log(f"flash backward at {shape}, the prologue (or torch's D) "
+            f"included "
             f"{r['bwd_ms']:.4f} ms = {r['bwd_over_sdpa']:.3f}x sdpa "
             f"backward {r['library_ms']['bwd']:.4f} ms; dq+dkv alone "
             f"{r['dq']['ms'] + r['dkv']['ms']:.4f} ms = "
@@ -1450,6 +1514,33 @@ def flash_wide_timing(dev, rng) -> dict:
             f"forward {r['library_host_ms']['fwd']:.4f}, backward "
             f"{r['library_host_ms']['bwd']:.4f}")
     return res
+
+
+def instance_rows(name: str, flash: dict, wide: dict, err: dict,
+                  launches: dict) -> list:
+    """The kernels line's rows of one flash pass by instance width: each
+    instance's source, its launches on the main paths this process and
+    5j-lm's counted by instance (``launches``, "pass/instance"; the tenant,
+    gang and elastic processes run the LM at 32 and count by pass only),
+    its max abs error in :func:`flash_check` and its times at (8, 256, 8,
+    instance) from :func:`flash_timing` (``flash`` at 32, ``wide``
+    elsewhere)."""
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
+    rows = []
+    for inst in fl.WIDE_HEAD_DIMS if name == "prep" else fl.INSTANCES:
+        r = flash if inst == 32 else wide[str((8, 256, 8, inst))]
+        r = r[name]
+        source = (FLASH_SOURCE if inst < 64 else
+                  FLASH_FWD_WIDE_SOURCE if name == "fwd" else
+                  FLASH_PREP_SOURCE)
+        rows.append({
+            "head_dim": inst, "route": "cuda", "source": source,
+            "launches": launches.get(f"{name}/{inst}", 0),
+            "max_abs_err": err["by_instance"][inst][name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return rows
 
 
 def log_ptxas(report: dict) -> None:
@@ -1570,10 +1661,24 @@ def check_flash_sass(mma: dict, ptxas: dict) -> None:
                   f"{fn} spills: {r}")
 
 
+# flash launches by "pass/instance" on the main paths this process drove:
+# each read of the counts (_counts), which follows a main path's run, adds
+# the launches since the last read or reset; a reset, which comes before a
+# main path, drops those since the last read (a check's)
+INSTANCE_LAUNCHES: dict = {}
+_instance_seen: dict = {}
+
+
 def _counts() -> dict:
     from kubeshare_tpu_torch.ops import flash_attention as fl
     from kubeshare_tpu_torch.ops import fused_adam as fa
 
+    for (name, inst), n in list(fl.instance_launches.items()):
+        key = f"{name}/{inst}"
+        new = n - _instance_seen.get(key, 0)
+        if new:
+            INSTANCE_LAUNCHES[key] = INSTANCE_LAUNCHES.get(key, 0) + new
+        _instance_seen[key] = n
     return {"fused_adam": fa.launches,
             **{f"flash_{k}": n for k, n in fl.launches.items()}}
 
@@ -1584,6 +1689,7 @@ def _reset_counts() -> None:
 
     fa.reset_launches()
     fl.reset_launches()
+    _instance_seen.clear()
 
 
 # --- phase 5e: the gate pair ---------------------------------------------------
@@ -2137,10 +2243,11 @@ def gate_phase(root: str, adam_per_step: int, layers: int,
     # the gated runs in order, (pair kind, None) or ("gated", steps/s), to
     # set each pair beside the gated exclusive runs around it
     gated_order = []
-    # the pairs between gated exclusive runs, the whole bracketed by
-    # ungated ones: the host's drift shows in each pair of them
-    plan = ("ungated", "gated", "even", "gated", "uneven", "gated",
-            "ungated")
+    # the pairs after a gated exclusive run, the whole bracketed by
+    # ungated ones: the host's drift shows in the pair of them (the gated
+    # runs that stood between the two pairs and after them were cut for
+    # the smoke's length)
+    plan = ("ungated", "gated", "even", "uneven", "ungated")
     try:
         first = start_first() if start_first is not None else []
         ready = node.start()
@@ -2209,8 +2316,12 @@ def gate_phase(root: str, adam_per_step: int, layers: int,
     ungated = float(np.mean(solo["ungated"]))
     for i, (kind, _) in enumerate(gated_order):
         if kind in pairs:
-            # the gated exclusive runs just before and after the pair
-            beside = (gated_order[i - 1][1] + gated_order[i + 1][1]) / 2
+            # the nearest gated exclusive runs before and after the pair
+            near = [next((r for k, r in side if k == "gated"), None)
+                    for side in (gated_order[i - 1::-1],
+                                 gated_order[i + 1:])]
+            near = [r for r in near if r is not None]
+            beside = sum(near) / len(near)
             reading = pairs[kind]
             reading["aggregate_over_ungated"] = (
                 reading["aggregate_steps_per_sec"] / ungated)
@@ -4823,15 +4934,20 @@ def _check_zoo_launches(label: str, rec: dict) -> None:
     """A zoo run's launches (``rec["launches"]``, counted over its
     exclusive and profiled runs) and those its trace shows a step: every
     step one Adam launch a table, and the LM's one of each flash pass a
-    layer."""
+    layer (the entry's own ``layers``)."""
+    from kubeshare_tpu_torch.ops import flash_attention as fl
+
     mod, init_fn, _ = _zoo_model(label)
     got, ran = rec["launches"], rec["steps_run"]
     want = {"fused_adam": rec["adam_per_step"] * ran}
     if mod.__name__.endswith(".transformer"):
-        # the backward's prologue at head dims 64 and 128 (bf16 runs)
-        wide = (init_fn.keywords.get("dim", mod.DIM) // mod.HEADS
-                in WIDE_HEAD_DIMS)
-        want.update({f"flash_{k}": mod.LAYERS * ran
+        kw = init_fn.keywords
+        layers = kw.get("layers", mod.LAYERS)
+        # the backward's prologue on the instances 64, 128 and 256 (bf16
+        # runs)
+        wide = (fl.instance_head_dim(kw.get("dim", mod.DIM) // mod.HEADS)
+                in fl.WIDE_HEAD_DIMS)
+        want.update({f"flash_{k}": layers * ran
                      for k in ("fwd", "dq", "dkv") + ("prep",) * wide})
     for kernel in got:
         check(got[kernel] == want.get(kernel, 0),
@@ -4884,6 +5000,7 @@ def lm_member(out_path: str) -> int:
         _reset_counts()
         rec.update(zoo_run(dev, label, trace_dir))
         rec["launches"] = _counts()
+        rec["instance_launches"] = dict(INSTANCE_LAUNCHES)
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     with open(out_path, "w") as f:
@@ -6579,6 +6696,11 @@ def main(argv=None) -> int:
         "max_abs_err": max_err, "ms": adam["ms"],
         "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
         "bound_by": adam["bound_by"], "library_ms": adam["library_ms"]}]
+    # each flash pass at the LM's shape, with every instance it has
+    # (instance_rows)
+    inst_launches = dict(INSTANCE_LAUNCHES)
+    for key, n in lm.get("instance_launches", {}).items():
+        inst_launches[key] = inst_launches.get(key, 0) + n
     for name in ("fwd", "dq", "dkv"):
         r = flash[name]
         kernels.append({
@@ -6587,7 +6709,9 @@ def main(argv=None) -> int:
             "launches": launches[f"flash_{name}"],
             "max_abs_err": flash_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "instances": instance_rows(name, flash, out["flash_wide"],
+                                       flash_err, inst_launches)})
     # the wide backward's prologue, at the LM's shape at dim 1024
     r = out["flash_wide"][str(WIDE_SHAPES[-1])]["prep"]
     kernels.append({
@@ -6596,7 +6720,9 @@ def main(argv=None) -> int:
         "launches": launches["flash_prep"],
         "max_abs_err": flash_err["prep"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None})
+        "bound_by": r["bound_by"], "library_ms": None,
+        "instances": instance_rows("prep", flash, out["flash_wide"],
+                                   flash_err, inst_launches)})
     log("seconds by stretch: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"seconds: {out['seconds']:.1f}")

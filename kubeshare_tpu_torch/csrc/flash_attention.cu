@@ -3,8 +3,8 @@
 // Replaces the three Pallas TPU kernels of kubeshare_tpu/ops/flash_attention.py
 // behind one custom_vjp. Each pass has a tensor-core kernel for bf16 inputs
 // (the transformer's main path) and a CUDA-core kernel for fp32 inputs; the
-// bf16 ones are this file's mma.sync kernels at head dims 8 and 32, and
-// Hopper's own wgmma kernels at 64 and 128 (flash_forward_wide.cuh,
+// bf16 ones are this file's mma.sync kernels at head dims up to 32, and
+// Hopper's own wgmma kernels from 33 to 256 (flash_forward_wide.cuh,
 // flash_backward_wide.cuh):
 // - flash_fwd_mma_kernel, flash_fwd_wgmma_kernel, flash_fwd_kernel
 //                     <- `_kernel`          (launched by `_flash_fwd`)
@@ -24,7 +24,7 @@
 // operations grow fourfold: (8, 256, 8, 128) moves 21 MB in the forward,
 // 6.3 us, and (1, 8192, 8, 128) is 137 G operations, 139 us.
 //
-// The mma.sync kernels (bf16 at head dims 8 and 32) share one design:
+// The mma.sync kernels (bf16 at head dims up to 32) share one design:
 // - one block of 4 warps per (b*h row, 64-row tile); each warp owns 16 rows
 //   of the tile (q rows for the forward and dQ, keys for dK/dV), held in
 //   registers as mma fragments (ldmatrix) for the whole loop, and skips a
@@ -134,28 +134,41 @@
 // The backward passes rebuild P from the forward's lse with their own fp32
 // score formula, so forward and backward agree to fp32 rounding.
 //
-// Head dims 8, 32, 64 and 128: 32 at the transformer's full width, 8 in
-// its small preset, 64 (GPT-2) and 128 (Llama, Mistral) at init(dim=512)
-// and init(dim=1024). This file builds the library of 8 and 32;
-// flash_attention_wide.cu builds it again with KST_FLASH_WIDE defined, a
-// library of 64 and 128, so that two nvcc processes share the compile
-// (ops/flash_attention.py loads the library of the head dim it is given).
-// Other head dims are refused (cudaErrorInvalidValue); a model that needs
-// one adds it to a run_dims list in run(). What the wide ones change:
+// Head dims: any d from 1 to 256, as the JAX kernel takes any. The kernels
+// are built for the instance widths 8, 16, 32, 64, 128 and 256, and d runs
+// on the narrowest instance D >= d (ops/flash_attention.py
+// `instance_head_dim`), given the true d (Shape::d): every load reads the
+// columns from d on as 0 (a cp.async piece that d cuts copies its part and
+// zero-fills the rest; TMA's tensor maps have d as their innermost extent,
+// so a box past it is zero-filled, and still counts its whole bytes on the
+// barrier), zero columns add exactly 0 to every product, and every store
+// writes the columns below d of a dense row of d. The scale is the one
+// passed in, from the true d. 32 is the transformer's full width, 8 its
+// small preset, 16, 64 (GPT-2), 128 (Llama, Mistral) and 256 (Gemma)
+// init(dim=128), 512, 1024 and 2048 under its 8 heads; Phi-2's 80 and
+// Phi-3-mini's 96 run on 128. This file builds the library of 8, 16 and
+// 32; flash_attention_wide.cu builds it again with KST_FLASH_WIDE defined,
+// a library of 64 and 128, and flash_attention_256.cu with KST_FLASH_256,
+// a library of 256, so that three nvcc processes share the compile
+// (ops/flash_attention.py loads the library of the instance). What the
+// wide ones change:
 // - shared memory is dynamic in every kernel; past the 48 KB a function
 //   gets by default the launch raises the function's limit first
 //   (launch_kernel, launch_wide), once per device;
-// - the three bf16 passes at 64 and 128 are not this file's mma.sync
-//   kernels but Hopper's own, on wgmma, TMA and setmaxnreg: the forward
+// - the three bf16 passes from 64 are not this file's mma.sync kernels but
+//   Hopper's own, on wgmma, TMA and setmaxnreg: the forward
 //   flash_forward_wide.cuh's, dQ and dK/dV flash_backward_wide.cuh's
-//   (launch() sends them there when KST_FLASH_WIDE is defined), so the
-//   mma.sync passes take head dims up to 32 only: each warp holds its
-//   rows' A operands (Q and dO, or K and V) as fragments for the whole
-//   loop, and dK/dV reads its next fp32 dO tile ahead in registers;
+//   (launch() sends them there in those two libraries), so the mma.sync
+//   passes take head dims up to 32 only: each warp holds its rows' A
+//   operands (Q and dO, or K and V) as fragments for the whole loop, and
+//   dK/dV reads its next fp32 dO tile ahead in registers;
 // - the fp32 kernels give a row several threads from 64 (row_threads: one
 //   per 16 dims, each holding its slice), the dot products summed over the
 //   row's threads by shuffles; one thread a row would hold 2 x 128 fp32
-//   values in dK/dV and spill.
+//   values in dK/dV and spill. At 256 that is 1,024 threads a block, 64
+//   registers a thread, and all three spill (dK/dV, holding 4 x 16 values
+//   a thread, the most): these kernels are off the main path and kept
+//   simple.
 //
 // Built without --use_fast_math and with --fmad=false (ops/build.py): expf
 // and logf are the accurate library versions, the bf16 kernels' fused
@@ -191,6 +204,7 @@ struct Shape {
   int b, h, hk, group, s_q, s_kv;
   int causal, window;  // window 0: no band
   float scale;
+  int d;  // the true head dim: the instance's columns from d on read as 0
 };
 
 struct Args {
@@ -258,36 +272,36 @@ __device__ __forceinline__ float row_sum(float x, unsigned mask) {
   return x;
 }
 
-// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
-// strided tensor, as fp32 times `mul`, into a shared tile by the block's
-// NT threads; rows past n are 0.
+// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, dd)
+// strided tensor, as fp32 times `mul`, into a shared tile of D columns by
+// the block's NT threads; rows past n and columns from dd on are 0.
 template <int D, int NT>
 __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
                                           const float* base, Strides st,
                                           int bi, int hh, int row0, int n,
-                                          float mul) {
+                                          int dd, float mul) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int pos = row0 + r;
     float x = 0.f;
-    if (pos < n) {
+    if (pos < n && c < dd) {
       x = base[bi * st.b + pos * st.s + hh * st.h + c] * mul;
     }
     dst[r][c] = x;
   }
 }
 
-// A shared tile into rows [row0, row0 + kTile) of head hh of batch bi of a
-// dense (b, n, heads, D) tensor.
+// A shared tile's first dd columns into rows [row0, row0 + kTile) of head
+// hh of batch bi of a dense (b, n, heads, dd) tensor.
 template <int D, int NT>
 __device__ __forceinline__ void store_tile(float* base, float (*src)[D + 1],
                                            int bi, int hh, int heads,
-                                           int row0, int n) {
+                                           int row0, int n, int dd) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int pos = row0 + r;
-    if (pos < n) {
-      base[(((long long)bi * n + pos) * heads + hh) * D + c] = src[r][c];
+    if (pos < n && c < dd) {
+      base[(((long long)bi * n + pos) * heads + hh) * dd + c] = src[r][c];
     }
   }
 }
@@ -327,7 +341,7 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
   // the q tile (scaled in fp32) goes through shared memory, so its loads
   // are coalesced; each thread then keeps its own row (slice)
   load_tile<D, NT>(ks, static_cast<const float*>(a.q), a.sq, bi, hq,
-                   qt * kTile, sh.s_q, sh.scale);
+                   qt * kTile, sh.s_q, sh.d, sh.scale);
   __syncthreads();
   float qr[DP], acc[DP];
 #pragma unroll
@@ -342,9 +356,9 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
     if (!tile_live(qt, kt, sh)) continue;  // the same for the whole block
     __syncthreads();  // every reader of the previous tile is done
     load_tile<D, NT>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
-                     kt * kTile, sh.s_kv, 1.f);
+                     kt * kTile, sh.s_kv, sh.d, 1.f);
     load_tile<D, NT>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
-                     kt * kTile, sh.s_kv, 1.f);
+                     kt * kTile, sh.s_kv, sh.d, 1.f);
     __syncthreads();
     if (!valid) continue;  // the same for the row's threads
     for (int c = 0; c < kTile; c += kChunk) {
@@ -386,7 +400,7 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
   for (int d = 0; d < DP; ++d) ks[r][d0 + d] = acc[d] / den;
   if (valid && d0 == 0) a.lse[(long long)row * sh.s_q + qpos] = m + logf(den);
   __syncthreads();
-  store_tile<D, NT>(a.o, ks, bi, hq, sh.h, qt * kTile, sh.s_q);
+  store_tile<D, NT>(a.o, ks, bi, hq, sh.h, qt * kTile, sh.s_q, sh.d);
 }
 
 // dQ, fp32 inputs: one block per (b*h row, q tile), looping over the k
@@ -407,8 +421,9 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
   const bool valid = qpos < sh.s_q;
 
   load_tile<D, NT>(ks, static_cast<const float*>(a.q), a.sq, bi, hq,
-                   qt * kTile, sh.s_q, sh.scale);
-  load_tile<D, NT>(vs, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
+                   qt * kTile, sh.s_q, sh.d, sh.scale);
+  load_tile<D, NT>(vs, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, sh.d,
+                   1.f);
   __syncthreads();
   float qr[DP], dor[DP], acc[DP];
 #pragma unroll
@@ -426,9 +441,9 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
     if (!tile_live(qt, kt, sh)) continue;
     __syncthreads();
     load_tile<D, NT>(ks, static_cast<const float*>(a.k), a.sk, bi, hkv,
-                     kt * kTile, sh.s_kv, 1.f);
+                     kt * kTile, sh.s_kv, sh.d, 1.f);
     load_tile<D, NT>(vs, static_cast<const float*>(a.v), a.sv, bi, hkv,
-                     kt * kTile, sh.s_kv, 1.f);
+                     kt * kTile, sh.s_kv, sh.d, 1.f);
     __syncthreads();
     if (!valid) continue;
     for (int j = 0; j < kTile; ++j) {
@@ -449,7 +464,7 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
   for (int d = 0; d < DP; ++d) ks[r][d0 + d] = sh.scale * acc[d];
   __syncthreads();
   store_tile<D, NT>(static_cast<float*>(a.dq), ks, bi, hq, sh.h, qt * kTile,
-                    sh.s_q);
+                    sh.s_q, sh.d);
 }
 
 // dK/dV, fp32 inputs: one block per (b*hk row, k tile), looping over the
@@ -473,9 +488,9 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
   const bool valid = kpos < sh.s_kv;
 
   load_tile<D, NT>(qs, static_cast<const float*>(a.k), a.sk, bi, hkv,
-                   kt * kTile, sh.s_kv, 1.f);
+                   kt * kTile, sh.s_kv, sh.d, 1.f);
   load_tile<D, NT>(dos, static_cast<const float*>(a.v), a.sv, bi, hkv,
-                   kt * kTile, sh.s_kv, 1.f);
+                   kt * kTile, sh.s_kv, sh.d, 1.f);
   __syncthreads();
   float kr[DP], vr[DP], dk[DP], dv[DP];
 #pragma unroll
@@ -493,8 +508,9 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
     if (!tile_live(qt, kt, sh)) continue;
     __syncthreads();
     load_tile<D, NT>(qs, static_cast<const float*>(a.q), a.sq, bi, hq,
-                     qt * kTile, sh.s_q, sh.scale);
-    load_tile<D, NT>(dos, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, 1.f);
+                     qt * kTile, sh.s_q, sh.d, sh.scale);
+    load_tile<D, NT>(dos, a.dout, a.sdo, bi, hq, qt * kTile, sh.s_q, sh.d,
+                     1.f);
     if (threadIdx.x < kTile) {
       const int pos = qt * kTile + threadIdx.x;
       const long long rix = ((long long)bi * sh.h + hq) * sh.s_q + pos;
@@ -525,9 +541,9 @@ __global__ void __launch_bounds__(kTile * row_threads<D>())
   }
   __syncthreads();
   store_tile<D, NT>(static_cast<float*>(a.dk), qs, bi, hkv, sh.hk,
-                    kt * kTile, sh.s_kv);
+                    kt * kTile, sh.s_kv, sh.d);
   store_tile<D, NT>(static_cast<float*>(a.dv), dos, bi, hkv, sh.hk,
-                    kt * kTile, sh.s_kv);
+                    kt * kTile, sh.s_kv, sh.d);
 }
 
 // --- bf16 kernels on the tensor cores ----------------------------------------
@@ -591,12 +607,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid
+// 16 bytes global -> shared, asynchronous: the first `bytes` (0 to 16)
+// copied, the rest zero-filled
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
+                                           int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
@@ -724,46 +741,55 @@ __device__ __forceinline__ void live_run(int r0, int n_other, bool rows_are_q,
   while (hi + 1 < n_other && meets(hi + 1)) ++hi;
 }
 
-// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
-// bf16 strided tensor into a shared tile of kRow-element rows; rows past
-// n are zero. kAsync: 16-byte cp.async copies (rows 16-byte aligned),
-// else plain loads.
+// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, dd)
+// bf16 strided tensor into a shared tile of D columns in kRow-element rows;
+// rows past n and columns from dd on are zero. kAsync: 16-byte cp.async
+// copies (rows 16-byte aligned, and dd is D: launch() takes this route only
+// at the instance's own width, so no piece is cut), else plain loads.
 template <int D, int kRow, bool kAsync>
 __device__ __forceinline__ void load_bf16_tile(bf16* dst, const bf16* base,
                                                Strides st, int bi, int hh,
-                                               int row0, int n) {
+                                               int row0, int n, int dd) {
   constexpr int kPieces = D / 8;  // 16-byte pieces of a row
   for (int idx = threadIdx.x; idx < kTile * kPieces; idx += kMmaThreads) {
     const int r = idx / kPieces, c = (idx % kPieces) * 8;
     const int pos = row0 + r;
-    const bool valid = pos < n;
-    const bf16* src = base + bi * st.b + (long long)(valid ? pos : 0) * st.s +
-                      hh * st.h + c;
     bf16* d = dst + r * kRow + c;
     if constexpr (kAsync) {
-      cp_async16(d, src, valid);
+      const bool valid = pos < n;
+      const bf16* src = base + bi * st.b +
+                        (long long)(valid ? pos : 0) * st.s + hh * st.h + c;
+      cp_async16(d, src, valid ? 16 : 0);
     } else {
+      // elements of this piece that lie in the tensor: 0 to 8
+      const int live = pos < n ? min(max(dd - c, 0), 8) : 0;
+      const bf16* src = base + bi * st.b +
+                        (long long)(live ? pos : 0) * st.s + hh * st.h +
+                        (live ? c : 0);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = valid ? src[e] : __float2bfloat16(0.f);
+      for (int e = 0; e < 8; ++e) {
+        d[e] = e < live ? src[e] : __float2bfloat16(0.f);
+      }
     }
   }
 }
 
-// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, D)
+// Rows [row0, row0 + kTile) of head hh of batch bi of a (b, s, heads, dd)
 // fp32 strided tensor into registers: x[i] is element threadIdx.x + i *
-// kMmaThreads of the tile; rows past n are zero
+// kMmaThreads of the (kTile x D) tile; rows past n and columns from dd on
+// are zero
 template <int D>
 __device__ __forceinline__ void load_f32_tile(float (&x)[tile_share<D>()],
                                               const float* base, Strides st,
                                               int bi, int hh, int row0,
-                                              int n) {
+                                              int n, int dd) {
 #pragma unroll
   for (int i = 0; i < tile_share<D>(); ++i) {
     const int idx = threadIdx.x + i * kMmaThreads;
     const int pos = row0 + idx / D;
-    x[i] = pos < n ? base[bi * st.b + (long long)pos * st.s + hh * st.h +
-                          idx % D]
-                   : 0.f;
+    x[i] = pos < n && (dd >= D || idx % D < dd)
+               ? base[bi * st.b + (long long)pos * st.s + hh * st.h + idx % D]
+               : 0.f;
   }
 }
 
@@ -901,18 +927,55 @@ __device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
 }
 
 // One of this thread's two rows of a 16 x D accumulator (half 0: row
-// lane / 4, half 1: 8 below), times mul, as bf16 pairs into `out`, that
-// row's first element
+// lane / 4, half 1: 8 below), times mul, as bf16 into `out`, that row's
+// first element: its columns below dd. Where the row holds all D columns
+// and dd is even, as 4-byte pairs; else the columns below dd one by one.
+// The test is made once a row (a pair at a time it cost the wgmma passes
+// 1-3% at the LM's shapes).
 template <int D>
 __device__ __forceinline__ void store_row_bf16(bf16* out,
                                                 const float (&acc)[D / 8][4],
                                                 int half, float mul,
-                                                int lane) {
+                                                int lane, int dd) {
+  if (!(dd & 1) && dd >= D) {
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    *reinterpret_cast<__nv_bfloat162*>(out + 8 * nd + 2 * (lane % 4)) =
-        __floats2bfloat162_rn(mul * acc[nd][2 * half],
-                              mul * acc[nd][2 * half + 1]);
+    for (int nd = 0; nd < D / 8; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * nd + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(mul * acc[nd][2 * half],
+                                mul * acc[nd][2 * half + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int c = 8 * nd + 2 * (lane % 4);
+      if (c < dd) out[c] = __float2bfloat16_rn(mul * acc[nd][2 * half]);
+      if (c + 1 < dd) {
+        out[c + 1] = __float2bfloat16_rn(mul * acc[nd][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// x(nd), a float2, into columns 8 nd + 2 tq and the next of a fp32 row
+// (nd < N / 8): where the row holds all N columns and dd is even, as
+// 8-byte pairs; else the columns below dd one by one (the test once a
+// row, as store_row_bf16)
+template <int N, typename F>
+__device__ __forceinline__ void store_row_f32(float* row, int tq, int dd,
+                                              F x) {
+  if (!(dd & 1) && dd >= N) {
+#pragma unroll
+    for (int nd = 0; nd < N / 8; ++nd) {
+      *reinterpret_cast<float2*>(row + 8 * nd + 2 * tq) = x(nd);
+    }
+  } else {
+#pragma unroll
+    for (int nd = 0; nd < N / 8; ++nd) {
+      const int c = 8 * nd + 2 * tq;
+      const float2 v = x(nd);
+      if (c < dd) row[c] = v.x;
+      if (c + 1 < dd) row[c + 1] = v.y;
+    }
   }
 }
 
@@ -930,6 +993,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   const Ring<bf16> ks{qs + kT, kT}, vs{qs + 3 * kT, kT};
 
   const Shape& sh = a.sh;
+  // the true head dim: D itself on the cp.async route (launch() takes it
+  // only at the instance's own width), so its masks fold away
+  const int dd = kAsync ? D : sh.d;
   const int row = blockIdx.x;  // bi * h + hq
   const int q_first = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
   const int bi = row / sh.h, hq = row % sh.h, hkv = hq / sh.group;
@@ -945,12 +1011,13 @@ __global__ void __launch_bounds__(kMmaThreads)
   int kt_lo, kt_hi;
   live_run(q_first, (sh.s_kv + kTile - 1) / kTile, true, sh, kt_lo, kt_hi);
 
-  load_bf16_tile<D, kRow, kAsync>(qs, q, a.sq, bi, hq, q_first, sh.s_q);
+  load_bf16_tile<D, kRow, kAsync>(qs, q, a.sq, bi, hq, q_first, sh.s_q,
+                                  dd);
   if (kt_lo <= kt_hi) {
     load_bf16_tile<D, kRow, kAsync>(ks[0], k, a.sk, bi, hkv, kt_lo * kTile,
-                                    sh.s_kv);
+                                    sh.s_kv, dd);
     load_bf16_tile<D, kRow, kAsync>(vs[0], v, a.sv, bi, hkv, kt_lo * kTile,
-                                    sh.s_kv);
+                                    sh.s_kv, dd);
   }
   cp_async_commit();
 
@@ -964,9 +1031,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int stage = (kt - kt_lo) & 1;
     if (kt < kt_hi) {  // the next tile lands while this one is computed
       load_bf16_tile<D, kRow, kAsync>(ks[stage ^ 1], k, a.sk, bi, hkv,
-                                      (kt + 1) * kTile, sh.s_kv);
+                                      (kt + 1) * kTile, sh.s_kv, dd);
       load_bf16_tile<D, kRow, kAsync>(vs[stage ^ 1], v, a.sv, bi, hkv,
-                                      (kt + 1) * kTile, sh.s_kv);
+                                      (kt + 1) * kTile, sh.s_kv, dd);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1038,12 +1105,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int qpos = qpos0 + 8 * r;
     if (qpos >= sh.s_q) continue;
     const float den = l[r] > 0.f ? l[r] : 1.f;
-    float* orow = a.o + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * D;
-#pragma unroll
-    for (int nd = 0; nd < kNo; ++nd) {
-      *reinterpret_cast<float2*>(orow + 8 * nd + 2 * tq) =
-          make_float2(o[nd][2 * r] / den, o[nd][2 * r + 1] / den);
-    }
+    float* orow = a.o + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * dd;
+    store_row_f32<D>(orow, tq, dd, [&](int nd) {
+      return make_float2(o[nd][2 * r] / den, o[nd][2 * r + 1] / den);
+    });
     if (tq == 0) {  // lse = scale m + log l; an empty row: MASK + log 1
       a.lse[(long long)row * sh.s_q + qpos] =
           (m[r] > 0.5f * kMask ? m[r] * sh.scale : kMask) + logf(den);
@@ -1066,6 +1131,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   const Ring<bf16> ks{qs + 3 * kT, kT}, vs{qs + 5 * kT, kT};
 
   const Shape& sh = a.sh;
+  const int dd = kAsync ? D : sh.d;  // as in flash_fwd_mma_kernel
   const int row = blockIdx.x;  // bi * h + hq
   const int q_first = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
   const int bi = row / sh.h, hq = row % sh.h, hkv = hq / sh.group;
@@ -1079,17 +1145,17 @@ __global__ void __launch_bounds__(kMmaThreads)
   live_run(q_first, (sh.s_kv + kTile - 1) / kTile, true, sh, kt_lo, kt_hi);
 
   load_bf16_tile<D, kRow, kAsync>(qs, static_cast<const bf16*>(a.q), a.sq,
-                                  bi, hq, q_first, sh.s_q);
+                                  bi, hq, q_first, sh.s_q, dd);
   if (kt_lo <= kt_hi) {
     load_bf16_tile<D, kRow, kAsync>(ks[0], k, a.sk, bi, hkv, kt_lo * kTile,
-                                    sh.s_kv);
+                                    sh.s_kv, dd);
     load_bf16_tile<D, kRow, kAsync>(vs[0], v, a.sv, bi, hkv, kt_lo * kTile,
-                                    sh.s_kv);
+                                    sh.s_kv, dd);
   }
   cp_async_commit();
   {
     float x[tile_share<D>()];
-    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_first, sh.s_q);
+    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_first, sh.s_q, dd);
     store_split_tile<D, kRow>(dos[0], dos[1], x);
   }
   // this thread's rows qpos0 and qpos0 + 8: lse (times log2 e) and D
@@ -1114,9 +1180,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int stage = (kt - kt_lo) & 1;
     if (kt < kt_hi) {  // the next tile lands while this one is computed
       load_bf16_tile<D, kRow, kAsync>(ks[stage ^ 1], k, a.sk, bi, hkv,
-                                      (kt + 1) * kTile, sh.s_kv);
+                                      (kt + 1) * kTile, sh.s_kv, dd);
       load_bf16_tile<D, kRow, kAsync>(vs[stage ^ 1], v, a.sv, bi, hkv,
-                                      (kt + 1) * kTile, sh.s_kv);
+                                      (kt + 1) * kTile, sh.s_kv, dd);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1164,8 +1230,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int r = 0; r < 2; ++r) {
     const int qpos = qpos0 + 8 * r;
     if (qpos >= sh.s_q) continue;
-    store_row_bf16<D>(dq + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * D,
-                       acc, r, sh.scale, lane);
+    store_row_bf16<D>(
+        dq + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * dd, acc, r,
+        sh.scale, lane, dd);
   }
 }
 
@@ -1189,6 +1256,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   const Ring<float> dcs{rows + 2 * kTile, kTile};  // and D
 
   const Shape& sh = a.sh;
+  const int dd = kAsync ? D : sh.d;  // as in flash_fwd_mma_kernel
   const int row = blockIdx.x;  // bi * hk + hkv
   // causal: key tile 0 is seen by the most q tiles, and launches first
   const int k_first = blockIdx.y * kTile;
@@ -1208,17 +1276,17 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int hq0 = hkv * sh.group;
 
   load_bf16_tile<D, kRow, kAsync>(ks, static_cast<const bf16*>(a.k), a.sk,
-                                  bi, hkv, k_first, sh.s_kv);
+                                  bi, hkv, k_first, sh.s_kv, dd);
   load_bf16_tile<D, kRow, kAsync>(vs, static_cast<const bf16*>(a.v), a.sv,
-                                  bi, hkv, k_first, sh.s_kv);
+                                  bi, hkv, k_first, sh.s_kv, dd);
   // the q tile's dO is read ahead in registers and split into shared
   // memory once the tile before it is computed
   float x[tile_share<D>()];
   if (n_it > 0) {
     load_bf16_tile<D, kRow, kAsync>(qs[0], q, a.sq, bi, hq0, qt_lo * kTile,
-                                    sh.s_q);
+                                    sh.s_q, dd);
     load_rows(ls[0], dcs[0], a, bi, hq0, qt_lo * kTile);
-    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq0, qt_lo * kTile, sh.s_q);
+    load_f32_tile<D>(x, a.dout, a.sdo, bi, hq0, qt_lo * kTile, sh.s_q, dd);
     store_split_tile<D, kRow>(doh[0], dol[0], x);
   }
   cp_async_commit();
@@ -1238,10 +1306,10 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int hq = hq0 + (it + 1) / n_live;
       const int q_next = (qt_lo + (it + 1) % n_live) * kTile;
       load_bf16_tile<D, kRow, kAsync>(qs[stage ^ 1], q, a.sq, bi, hq,
-                                      q_next, sh.s_q);
+                                      q_next, sh.s_q, dd);
       cp_async_commit();
       load_rows(ls[stage ^ 1], dcs[stage ^ 1], a, bi, hq, q_next);
-      load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_next, sh.s_q);
+      load_f32_tile<D>(x, a.dout, a.sdo, bi, hq, q_next, sh.s_q, dd);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -1302,9 +1370,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int r = 0; r < 2; ++r) {
     const int kpos = kpos0 + 8 * r;
     if (kpos >= sh.s_kv) continue;
-    const long long at = (((long long)bi * sh.s_kv + kpos) * sh.hk + hkv) * D;
-    store_row_bf16<D>(dk_out + at, dk, r, sh.scale, lane);
-    store_row_bf16<D>(dv_out + at, dv, r, 1.f, lane);
+    const long long at =
+        (((long long)bi * sh.s_kv + kpos) * sh.hk + hkv) * dd;
+    store_row_bf16<D>(dk_out + at, dk, r, sh.scale, lane, dd);
+    store_row_bf16<D>(dv_out + at, dv, r, 1.f, lane, dd);
   }
 }
 
@@ -1321,7 +1390,12 @@ bool rows_aligned(const Args& a) {
 
 enum Pass { kFwd, kDq, kDkv };
 
-#ifdef KST_FLASH_WIDE
+// the libraries of the wgmma instances: 64 and 128, and 256
+#if defined(KST_FLASH_WIDE) || defined(KST_FLASH_256)
+#define KST_FLASH_WGMMA
+#endif
+
+#ifdef KST_FLASH_WGMMA
 // the wide bf16 forward (flash_forward_wide.cuh) and backward passes
 // (flash_backward_wide.cuh)
 template <int D>
@@ -1354,7 +1428,8 @@ int launch_kernel(dim3 grid, int threads, int bytes, const Args& a,
 }
 
 // bf16 inputs launch the tensor-core kernels (the cp.async instantiation
-// when every q, k and v row is 16-byte aligned), fp32 the CUDA-core ones
+// when every q, k and v row is 16-byte aligned and d is the instance's own
+// width, else plain loads), fp32 the CUDA-core ones
 template <int D>
 int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
   Args a = args;
@@ -1362,7 +1437,8 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
   const dim3 q_grid(sh.b * sh.h, (sh.s_q + kTile - 1) / kTile);
   const dim3 k_grid(sh.b * sh.hk, (sh.s_kv + kTile - 1) / kTile);
   // (the wide library's bf16 passes choose their own load route)
-  [[maybe_unused]] const bool al = bf16_in && rows_aligned(a);
+  [[maybe_unused]] const bool al =
+      bf16_in && rows_aligned(a) && a.sh.d == D;
   const int f32_threads = kTile * row_threads<D>();
   switch (pass) {
     case kFwd:
@@ -1371,7 +1447,7 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
                                                   f32_smem<D>(false), a,
                                                   stream);
       }
-#ifdef KST_FLASH_WIDE
+#ifdef KST_FLASH_WGMMA
       return launch_wide_fwd<D>(a, stream);
 #else
       if (al) {
@@ -1387,7 +1463,7 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
                                                  f32_smem<D>(false), a,
                                                  stream);
       }
-#ifdef KST_FLASH_WIDE
+#ifdef KST_FLASH_WGMMA
       return launch_wide_bwd<D>(kDq, a, stream);
 #else
       if (al) {
@@ -1403,7 +1479,7 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
                                                   f32_smem<D>(true), a,
                                                   stream);
       }
-#ifdef KST_FLASH_WIDE
+#ifdef KST_FLASH_WGMMA
       return launch_wide_bwd<D>(kDkv, a, stream);
 #else
       if (al) {
@@ -1419,22 +1495,26 @@ int launch(Pass pass, const Args& args, bool bf16_in, cudaStream_t stream) {
 
 // strides: 12 values, (b, s, h) of q, k, v and dO in that order
 Args make_args(const long long* strides, int b, int h, int hk, int s_q,
-               int s_kv, int causal, int window, float scale) {
+               int s_kv, int d, int causal, int window, float scale) {
   Args a = {};
   a.sq = {strides[0], strides[1], strides[2]};
   a.sk = {strides[3], strides[4], strides[5]};
   a.sv = {strides[6], strides[7], strides[8]};
   a.sdo = {strides[9], strides[10], strides[11]};
-  a.sh = {b, h, hk, hk > 0 ? h / hk : 0, s_q, s_kv, causal, window, scale};
+  a.sh = {b, h, hk, hk > 0 ? h / hk : 0, s_q, s_kv, causal, window, scale,
+          d};
   return a;
 }
 
-// launch<D> for the head dim d among Ds; others are refused
+// launch<D> on the narrowest instance D of Ds (ascending) that holds the
+// head dim d; past the widest, refused
 template <int... Ds>
 int run_dims(Pass pass, const Args& a, int is_bf16, int d,
              cudaStream_t s) {
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  ((d == Ds ? (rc = launch<Ds>(pass, a, is_bf16, s), true) : false) || ...);
+  ((d >= 1 && d <= Ds ? (rc = launch<Ds>(pass, a, is_bf16, s), true)
+                      : false) ||
+   ...);
   return rc;
 }
 
@@ -1444,10 +1524,12 @@ int run(Pass pass, const Args& a, int is_bf16, int d, void* stream) {
   if (a.sh.hk <= 0 || a.sh.h % a.sh.hk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#ifdef KST_FLASH_WIDE
+#if defined(KST_FLASH_256)
+  return run_dims<256>(pass, a, is_bf16, d, s);
+#elif defined(KST_FLASH_WIDE)
   return run_dims<64, 128>(pass, a, is_bf16, d, s);
 #else
-  return run_dims<8, 32>(pass, a, is_bf16, d, s);
+  return run_dims<8, 16, 32>(pass, a, is_bf16, d, s);
 #endif
 }
 
@@ -1459,15 +1541,18 @@ extern "C" {
 // cudaGetLastError(). q, k, v are (b, s, heads, d) in bf16 (is_bf16 = 1) or
 // fp32 (is_bf16 = 0), strided as `strides` says with a dense head dim; dO is
 // fp32, strided; lse and dcap are dense fp32 (b*h, s_q); O is dense fp32
-// (b, s_q, h, d); dQ, dK, dV are dense, in the inputs' type. The bf16
-// backward at head dims 64 and 128 reads dO as kst_flash_prep leaves it
-// instead (do_hi, do_lo, lo_live; null elsewhere).
+// (b, s_q, h, d); dQ, dK, dV are dense, in the inputs' type. d runs on the
+// library's narrowest instance that holds it (a d past its widest is
+// refused: cudaErrorInvalidValue). The bf16 backward of the wgmma
+// libraries reads dO as kst_flash_prep leaves it instead (do_hi, do_lo,
+// lo_live; null elsewhere).
 
 int kst_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, const long long* strides, int is_bf16, int b,
                   int h, int hk, int s_q, int s_kv, int d, int causal,
                   int window, float scale, void* stream) {
-  Args a = make_args(strides, b, h, hk, s_q, s_kv, causal, window, scale);
+  Args a = make_args(strides, b, h, hk, s_q, s_kv, d, causal, window,
+                     scale);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1482,7 +1567,8 @@ int kst_flash_dq(const void* q, const void* k, const void* v,
                  int hk, int s_q, int s_kv, int d, int causal, int window,
                  float scale, void* stream, const void* do_hi,
                  const void* do_lo, const void* lo_live) {
-  Args a = make_args(strides, b, h, hk, s_q, s_kv, causal, window, scale);
+  Args a = make_args(strides, b, h, hk, s_q, s_kv, d, causal, window,
+                     scale);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1502,7 +1588,8 @@ int kst_flash_dkv(const void* q, const void* k, const void* v,
                   int b, int h, int hk, int s_q, int s_kv, int d, int causal,
                   int window, float scale, void* stream, const void* do_hi,
                   const void* do_lo, const void* lo_live) {
-  Args a = make_args(strides, b, h, hk, s_q, s_kv, causal, window, scale);
+  Args a = make_args(strides, b, h, hk, s_q, s_kv, d, causal, window,
+                     scale);
   a.q = q;
   a.k = k;
   a.v = v;

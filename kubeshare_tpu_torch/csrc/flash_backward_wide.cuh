@@ -1,9 +1,10 @@
-// The bf16 flash backward at head dims 64 and 128, designed for Hopper
-// (sm_90a): wgmma for every product, TMA for the tiles, setmaxnreg for the
-// registers. Included by flash_attention_wide.cu after flash_attention.cu,
-// whose helpers (Args, Shape, the band and mask functions, split_bf16,
-// store_row_bf16) it shares; launch() there sends the wide bf16 dQ and
-// dK/dV passes here.
+// The bf16 flash backward at the instances 64, 128 and 256 (head dims 33
+// to 256), designed for Hopper (sm_90a): wgmma for every product, TMA for
+// the tiles, setmaxnreg for the registers. Included by
+// flash_attention_wide.cu and flash_attention_256.cu after
+// flash_attention.cu, whose helpers (Args, Shape, the band and mask
+// functions, split_bf16, store_row_bf16) it shares; launch() there sends
+// the wide bf16 dQ and dK/dV passes here.
 //
 // - flash_dq_wgmma_kernel   <- `_bwd_dq_kernel`  (kubeshare_tpu/ops/
 //                              flash_attention.py, launched by _flash_bwd)
@@ -66,6 +67,29 @@
 //   consumer skips a tile its 64 rows do not meet, and masks only a tile
 //   one of its warps does not fully see.
 //
+// The instance 256 (Gemma's head dim) keeps this design with two changes,
+// because 64 rows x 256 columns pass both the registers and the shared
+// memory that served 128:
+// - registers: a consumer's 64 x 256 fp32 accumulator alone is 128
+//   registers a thread (dK and dV together 256, past setmaxnreg's 232). So
+//   at 256 the two consumers take the SAME 64 rows, and each the half of
+//   the head dim its outputs' columns are (split_cols): both compute the
+//   scores S and dP over the whole head dim (the same bits: the same
+//   operands in the same order), and each adds dS.K, P^T.dO and dS^T.Q
+//   against its 128 columns of K, dO and Q (the B operand's descriptor
+//   starts two boxes on). A consumer's registers are then the 128
+//   instance's: 64 + 64 for dK and dV beside S^T and dP^T. The scores are
+//   computed twice, a third more products;
+// - shared memory: a 64-row tile is 32 KB. A block owns 64 rows (one row
+//   group, row_groups), so dQ holds Q and dO's two parts (96 KB) and a
+//   ring of two k/v stages (128 KB), 225 KB of the 227 a block can have;
+//   dK/dV holds K and V (64 KB) and ONE stage of q and dO's parts (96 KB;
+//   two would pass 227 KB), so its producer loads the next tile only once
+//   the consumers are done with this one (ring_stages).
+// A padded head dim (80 and 96 on 128, 200 on 256) does the instance's
+// tensor work on zero columns: 80 on 128 does 1.6x the products of an
+// exact kernel.
+//
 // The sums: each product's 16 terms go through the tensor core's fp32
 // accumulation as in the mma.sync kernels. dS's and P's parts go in small
 // first, a part over all its depth steps before the next (dQ, dK: dS lo
@@ -79,9 +103,7 @@
 
 namespace {
 
-constexpr int kBwdRows = 128;     // rows of a block: two consumers of 64
 constexpr int kBwdThreads = 384;  // a producer warpgroup, two consumers
-constexpr int kStages = 2;        // the ring of streamed tiles
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kBox = 64 * 128;    // bytes of a 64-row x 64-column box
 constexpr int kRowBytes = 1024;   // a stage's lse, D and lo flag (dK/dV)
@@ -97,14 +119,40 @@ __host__ __device__ constexpr int tile_bytes() {
   return kTile * D * 2;
 }
 
-// dynamic shared memory: the tiles, (dK/dV) each stage's rows, the
-// barriers, and 1 KB to align the tiles to the swizzle's 1,024 bytes
+// How a block of the wgmma kernels (these and the forward) splits its work:
+// up to 128 the two consumers own 64 rows each, two row groups a block; at
+// 256 both own the same 64 rows and each one half of the output columns
+// (the note at the top)
+template <int D>
+__host__ __device__ constexpr bool split_cols() {
+  static_assert(D == 64 || D == 128 || D == 256, "the wgmma instances");
+  return D > 128;
+}
+template <int D>
+__host__ __device__ constexpr int row_groups() {
+  return split_cols<D>() ? 1 : 2;
+}
+// a consumer's output columns (the N of its dQ, dK, dV or O products)
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return split_cols<D>() ? D / 2 : D;
+}
+// the ring of streamed tiles: two stages, one for dK/dV at 256
+template <int D>
+__host__ __device__ constexpr int ring_stages(Pass pass) {
+  return split_cols<D>() && pass == kDkv ? 1 : 2;
+}
+
+// dynamic shared memory: the rows' tiles, the ring, (dK/dV) each stage's
+// rows and the dS^T tiles, the barriers, and 1 KB to align the tiles to
+// the swizzle's 1,024 bytes
 template <int D>
 constexpr int wide_smem(Pass pass) {
-  const int tiles = pass == kDq ? 6 + 2 * kStages : 4 + 3 * kStages;
+  const int g = row_groups<D>(), st = ring_stages<D>(pass);
+  const int tiles = pass == kDq ? 3 * g + 2 * st : 2 * g + 3 * st;
   return tiles * tile_bytes<D>() +
-         (pass == kDkv ? kStages * kRowBytes + kDsBytes : 0) +
-         8 * (2 * kStages + 1) + 1024;
+         (pass == kDkv ? st * kRowBytes + kDsBytes : 0) + 8 * (2 * st + 1) +
+         1024;
 }
 
 // what the wide backward kernels take: the tensor maps (kTma), the
@@ -177,19 +225,31 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 
 // The same tile by plain loads of the producer's 128 threads, into the
 // layout TMA writes: element (r, c) at box c / 64, row r, 16-byte piece
-// (c % 64) / 8 XOR r % 8. Rows past n are zero.
+// (c % 64) / 8 XOR r % 8. Rows past n and columns from dd on are zero.
 template <int D>
 __device__ __forceinline__ void plain_tile(unsigned char* dst,
                                            const bf16* base, Strides st,
-                                           int bi, int hh, int row0, int n) {
-  constexpr int kStep = 128 / D;  // rows a pass: a thread keeps its column
-  const int c = threadIdx.x % D, cc = c % 64;
-  const bf16* col = base + bi * st.b + hh * st.h + c;
-  unsigned char* out = dst + (c / 64) * kBox + (cc % 8) * 2;
-  for (int r = threadIdx.x / D; r < kTile; r += kStep) {
-    const int pos = row0 + r;
-    const bf16 x = pos < n ? col[(long long)pos * st.s] : __float2bfloat16(0.f);
-    *reinterpret_cast<bf16*>(out + r * 128 + (((cc / 8) ^ (r % 8)) * 16)) = x;
+                                           int bi, int hh, int row0, int n,
+                                           int dd) {
+  constexpr int kCols = D < 128 ? D : 128;  // columns a pass of the rows
+  constexpr int kStep = 128 / kCols;  // rows a pass: a thread keeps a column
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += kCols) {
+    const int c = c0 + threadIdx.x % kCols, cc = c % 64;
+    const bf16* col = base + bi * st.b + hh * st.h + c;
+    unsigned char* out = dst + (c / 64) * kBox + (cc % 8) * 2;
+    // the rows this column reads: none past the head dim
+    const int n_in = c < dd ? n : row0;
+    // two loads in flight a thread: unrolled further, the producers' 40
+    // registers spilled (at every instance, with or without the mask)
+#pragma unroll 2
+    for (int r = threadIdx.x / kCols; r < kTile; r += kStep) {
+      const int pos = row0 + r;
+      const bf16 x =
+          pos < n_in ? col[(long long)pos * st.s] : __float2bfloat16(0.f);
+      *reinterpret_cast<bf16*>(out + r * 128 + (((cc / 8) ^ (r % 8)) * 16)) =
+          x;
+    }
   }
 }
 
@@ -535,97 +595,101 @@ __device__ __forceinline__ uint32_t aligned_smem(unsigned char*& p) {
 }
 
 __device__ __forceinline__ void init_barriers(uint32_t bars, int full_count,
-                                              int once_count) {
+                                              int once_count, int stages) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(bars + 8 * s, full_count);
-      mbar_init(bars + 8 * (kStages + s), 2 * 128);  // every consumer
+      mbar_init(bars + 8 * (stages + s), 2 * 128);  // every consumer
     }
-    mbar_init(bars + 16 * kStages, once_count);
+    mbar_init(bars + 16 * stages, once_count);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
 
-// dO's parts, dense (b, s_q, h, D) bf16: their strides
-template <int D>
-__device__ __forceinline__ Strides dense_strides(const Shape& sh) {
-  return {static_cast<long long>(sh.s_q) * sh.h * D,
-          static_cast<long long>(sh.h) * D, D};
+// dO's parts, dense (b, s_q, h, d) bf16 at the true head dim: their
+// strides
+__host__ __device__ __forceinline__ Strides dense_strides(const Shape& sh) {
+  return {static_cast<long long>(sh.s_q) * sh.h * sh.d,
+          static_cast<long long>(sh.h) * sh.d, sh.d};
 }
 
-// dQ, bf16 inputs, head dims 64 and 128: a block per (b*h row, 128 q
-// rows), the rows' Q and dO parts loaded once, the live k/v tiles
+// dQ, bf16 inputs, the instances 64 to 256: a block per (b*h row, 64 q rows
+// a row group), the rows' Q and dO parts loaded once, the live k/v tiles
 // streamed. dS = P (dO.V^T - D); dQ = scale dS.K.
 template <int D, bool kTma>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ WideParams p) {
   constexpr int kT = tile_bytes<D>();
+  constexpr int kG = row_groups<D>(), kN = out_cols<D>();
+  constexpr int kSt = ring_stages<D>(kDq);
   const Args& a = p.a;
   const Shape& sh = a.sh;
   unsigned char* sp;
   const uint32_t base = aligned_smem(sp);
-  // Q, dO hi and dO lo of the two consumers, then the k and v rings
-  const uint32_t q_s = base, hi_s = base + 2 * kT, lo_s = base + 4 * kT;
-  const uint32_t k_s = base + 6 * kT, v_s = k_s + kStages * kT;
-  const uint32_t bars = v_s + kStages * kT;  // full, empty, once
-  const uint32_t once = bars + 16 * kStages;
+  // Q, dO hi and dO lo of the row groups, then the k and v rings
+  const uint32_t q_s = base, hi_s = base + kG * kT, lo_s = base + 2 * kG * kT;
+  const uint32_t k_s = base + 3 * kG * kT, v_s = k_s + kSt * kT;
+  const uint32_t bars = v_s + kSt * kT;  // full, empty, once
+  const uint32_t once = bars + 16 * kSt;
 
   const int row = blockIdx.x;  // bi * h + hq
-  const int q_first = (gridDim.y - 1 - blockIdx.y) * kBwdRows;  // heaviest
+  // heaviest first
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * kG * kTile;
   const int bi = row / sh.h, hq = row % sh.h, hkv = hq / sh.group;
   int kt_lo, kt_hi;
-  live_run_rows(q_first, kBwdRows, (sh.s_kv + kTile - 1) / kTile, true, sh,
+  live_run_rows(q_first, kG * kTile, (sh.s_kv + kTile - 1) / kTile, true, sh,
                 kt_lo, kt_hi);
   const int n_qt = (sh.s_q + kTile - 1) / kTile;
-  auto lo_live = [&](int w) {  // does consumer w's dO have a lo part?
+  auto lo_live = [&](int w) {  // does row group w's dO have a lo part?
     const int t = q_first / kTile + w;
     return t < n_qt && a.lo_live[row * n_qt + t] != 0;
   };
-  init_barriers(bars, kTma ? 1 : 128, kTma ? 1 : 128);
+  init_barriers(bars, kTma ? 1 : 128, kTma ? 1 : 128, kSt);
 
   if (threadIdx.x < 128) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const bool lo0 = lo_live(0), lo1 = lo_live(1);
+    const bool lo0 = lo_live(0), lo1 = kG > 1 && lo_live(1);
     if constexpr (kTma) {
       if (threadIdx.x != 0) return;
-      mbar_expect(once, (4 + lo0 + lo1) * kT);
-      for (int w = 0; w < 2; ++w) {
+      mbar_expect(once, (2 * kG + lo0 + lo1) * kT);
+      for (int w = 0; w < kG; ++w) {
         const int r0 = q_first + w * kTile;
         tma_tile<D>(q_s + w * kT, &p.tq, once, hq, r0, bi);
         tma_tile<D>(hi_s + w * kT, &p.thi, once, hq, r0, bi);
         if (w ? lo1 : lo0) tma_tile<D>(lo_s + w * kT, &p.tlo, once, hq, r0, bi);
       }
       for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-        const int i = kt - kt_lo, s = i % kStages;
-        mbar_wait(bars + 8 * (kStages + s), ((i / kStages) & 1) ^ 1);
+        const int i = kt - kt_lo, s = i % kSt;
+        mbar_wait(bars + 8 * (kSt + s), ((i / kSt) & 1) ^ 1);
         mbar_expect(bars + 8 * s, 2 * kT);
         tma_tile<D>(k_s + s * kT, &p.tk, bars + 8 * s, hkv, kt * kTile, bi);
         tma_tile<D>(v_s + s * kT, &p.tv, bars + 8 * s, hkv, kt * kTile, bi);
       }
     } else {
-      const Strides sd = dense_strides<D>(sh);
+      const Strides sd = dense_strides(sh);
       const bf16* hi = static_cast<const bf16*>(a.do_hi);
       const bf16* lo = static_cast<const bf16*>(a.do_lo);
-      for (int w = 0; w < 2; ++w) {
+      for (int w = 0; w < kG; ++w) {
         const int r0 = q_first + w * kTile;
         plain_tile<D>(sp + w * kT, static_cast<const bf16*>(a.q), a.sq, bi,
-                      hq, r0, sh.s_q);
-        plain_tile<D>(sp + 2 * kT + w * kT, hi, sd, bi, hq, r0, sh.s_q);
+                      hq, r0, sh.s_q, sh.d);
+        plain_tile<D>(sp + (kG + w) * kT, hi, sd, bi, hq, r0, sh.s_q, sh.d);
         if (w ? lo1 : lo0) {
-          plain_tile<D>(sp + 4 * kT + w * kT, lo, sd, bi, hq, r0, sh.s_q);
+          plain_tile<D>(sp + (2 * kG + w) * kT, lo, sd, bi, hq, r0, sh.s_q,
+                        sh.d);
         }
       }
       fence_async_shared();
       mbar_arrive(once);
       for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-        const int i = kt - kt_lo, s = i % kStages;
-        mbar_wait(bars + 8 * (kStages + s), ((i / kStages) & 1) ^ 1);
-        plain_tile<D>(sp + (6 + s) * kT, static_cast<const bf16*>(a.k), a.sk,
-                      bi, hkv, kt * kTile, sh.s_kv);
-        plain_tile<D>(sp + (6 + kStages + s) * kT,
+        const int i = kt - kt_lo, s = i % kSt;
+        mbar_wait(bars + 8 * (kSt + s), ((i / kSt) & 1) ^ 1);
+        plain_tile<D>(sp + (3 * kG + s) * kT, static_cast<const bf16*>(a.k),
+                      a.sk, bi, hkv, kt * kTile, sh.s_kv, sh.d);
+        plain_tile<D>(sp + (3 * kG + kSt + s) * kT,
                       static_cast<const bf16*>(a.v), a.sv, bi, hkv,
-                      kt * kTile, sh.s_kv);
+                      kt * kTile, sh.s_kv, sh.d);
         fence_async_shared();
         mbar_arrive(bars + 8 * s);
       }
@@ -633,14 +697,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     return;
   }
 
-  // a consumer: 64 q rows
+  // a consumer: 64 q rows (row group rg), its kN output columns from c0
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int cw = threadIdx.x / 128 - 1;
+  const int rg = kG > 1 ? cw : 0, c0 = split_cols<D>() ? cw * kN : 0;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int w_first = q_first + cw * kTile;  // this consumer's rows
+  const int w_first = q_first + rg * kTile;  // this consumer's rows
   const int r_first = w_first + warp * 16;   // this warp's: 16 from here
   const int qpos0 = r_first + lane / 4;      // this thread's: and + 8
-  const bool lo = lo_live(cw);
+  const bool lo = lo_live(rg);
   const bool rows_in = w_first < sh.s_q;
   float lse2[2], dc[2];
 #pragma unroll
@@ -651,15 +716,16 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     dc[r] = qpos < sh.s_q ? a.dcap[rix] : 0.f;
   }
   // descriptor low words of this consumer's Q and dO parts
-  const uint32_t q_w = kdesc(q_s + cw * kT), hi_w = kdesc(hi_s + cw * kT);
-  const uint32_t lo_w = kdesc(lo_s + cw * kT);
+  const uint32_t q_w = kdesc(q_s + rg * kT), hi_w = kdesc(hi_s + rg * kT);
+  const uint32_t lo_w = kdesc(lo_s + rg * kT);
+  const uint32_t col_off = (c0 / 64) * kBox;  // K's columns from c0
   const float scale2 = sh.scale * kLog2e;
-  float acc[D / 8][4] = {};
+  float acc[kN / 8][4] = {};
   mbar_wait(once, 0);
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int i = kt - kt_lo, s = i % kStages;
-    mbar_wait(bars + 8 * s, (i / kStages) & 1);
+    const int i = kt - kt_lo, s = i % kSt;
+    mbar_wait(bars + 8 * s, (i / kSt) & 1);
     const int k_first = kt * kTile;
     const uint32_t ks = k_s + s * kT, vs = v_s + s * kT;  // addresses
     if (rows_in && band_meets(w_first, w_first + kTile - 1, k_first,
@@ -689,15 +755,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       keep(ds_hi);
       keep(ds_lo);
       wg_fence();
-      rs_steps<D>(acc, ds_lo, mndesc(ks));
-      rs_steps<D>(acc, ds_hi, mndesc(ks));
+      rs_steps<kN>(acc, ds_lo, mndesc(ks + col_off));
+      rs_steps<kN>(acc, ds_hi, mndesc(ks + col_off));
       wg_commit();
       wg_wait_all();
       keep(acc);
       keep(ds_hi);
       keep(ds_lo);
     }
-    mbar_arrive(bars + 8 * (kStages + s));  // this stage is free
+    mbar_arrive(bars + 8 * (kSt + s));  // this stage is free
   }
 
   bf16* dq = static_cast<bf16*>(a.dq);
@@ -705,87 +771,90 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int qpos = qpos0 + 8 * r;
     if (qpos >= sh.s_q) continue;
-    store_row_bf16<D>(dq + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * D,
-                      acc, r, sh.scale, lane);
+    store_row_bf16<kN>(
+        dq + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * sh.d + c0, acc,
+        r, sh.scale, lane, sh.d - c0);
   }
 }
 
-// dK/dV, bf16 inputs, head dims 64 and 128: a block per (b*hk row, 128
-// keys), its K and V loaded once, the kv head's group of q heads x the
-// live q tiles streamed (q, dO hi, dO lo where set, and the q rows' lse
-// and D), keys on the rows. dV = P^T.dO; dS^T = P^T (V.dO^T - D); dK =
-// scale dS^T.Q.
+// dK/dV, bf16 inputs, the instances 64 to 256: a block per (b*hk row, 64
+// keys a row group), its K and V loaded once, the kv head's group of q
+// heads x the live q tiles streamed (q, dO hi, dO lo where set, and the q
+// rows' lse and D), keys on the rows. dV = P^T.dO; dS^T = P^T (V.dO^T -
+// D); dK = scale dS^T.Q.
 template <int D, bool kTma>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ WideParams p) {
   constexpr int kT = tile_bytes<D>();
+  constexpr int kG = row_groups<D>(), kN = out_cols<D>();
+  constexpr int kSt = ring_stages<D>(kDkv);
   const Args& a = p.a;
   const Shape& sh = a.sh;
   unsigned char* sp;
   const uint32_t base = aligned_smem(sp);
-  // K and V of the two consumers, then the ring: stage s is q, dO hi, dO
-  // lo at base + (4 + 3s) tiles; each stage's rows after the tiles
-  const uint32_t rows_s = base + (4 + 3 * kStages) * kT;
-  const uint32_t ds_s = rows_s + kStages * kRowBytes;  // dS^T hi, lo by WG
+  // K and V of the row groups, then the ring: stage s is q, dO hi, dO lo
+  // at base + (2 kG + 3s) tiles; each stage's rows after the tiles
+  const uint32_t rows_s = base + (2 * kG + 3 * kSt) * kT;
+  const uint32_t ds_s = rows_s + kSt * kRowBytes;  // dS^T hi, lo by WG
   const uint32_t bars = ds_s + kDsBytes;  // full, empty, once
-  const uint32_t once = bars + 16 * kStages;
+  const uint32_t once = bars + 16 * kSt;
   auto stage_tile = [&](int s, int part) {
-    return base + (4 + 3 * s + part) * kT;
+    return base + (2 * kG + 3 * s + part) * kT;
   };
   // a stage's rows: lse log2 e [64], D [64], the dO lo flag
   auto stage_rows = [&](int s) {
-    return reinterpret_cast<float*>(sp + (4 + 3 * kStages) * kT +
+    return reinterpret_cast<float*>(sp + (2 * kG + 3 * kSt) * kT +
                                     s * kRowBytes);
   };
 
   const int row = blockIdx.x;  // bi * hk + hkv
   // causal: the first keys are seen by the most q tiles, and launch first
-  const int k_first = blockIdx.y * kBwdRows;
+  const int k_first = blockIdx.y * kG * kTile;
   const int bi = row / sh.hk, hkv = row % sh.hk;
   const int n_qt = (sh.s_q + kTile - 1) / kTile;
   int qt_lo, qt_hi;
-  live_run_rows(k_first, kBwdRows, n_qt, false, sh, qt_lo, qt_hi);
+  live_run_rows(k_first, kG * kTile, n_qt, false, sh, qt_lo, qt_hi);
   const int n_live = qt_hi - qt_lo + 1;
   const int n_it = n_live > 0 ? sh.group * n_live : 0;
   const int hq0 = hkv * sh.group;
-  init_barriers(bars, kTma ? 32 : 128, kTma ? 1 : 128);
+  init_barriers(bars, kTma ? 32 : 128, kTma ? 1 : 128, kSt);
 
   if (threadIdx.x < 128) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     // kTma: warp 0 (lane 0 the copies); else all 128 threads
-    constexpr int kN = kTma ? 32 : 128;
-    if (threadIdx.x >= kN) return;
+    constexpr int kPn = kTma ? 32 : 128;
+    if (threadIdx.x >= kPn) return;
     const int t = threadIdx.x;
     if constexpr (kTma) {
       if (t == 0) {
-        mbar_expect(once, 4 * kT);
-        for (int w = 0; w < 2; ++w) {
+        mbar_expect(once, 2 * kG * kT);
+        for (int w = 0; w < kG; ++w) {
           const int r0 = k_first + w * kTile;
           tma_tile<D>(base + w * kT, &p.tk, once, hkv, r0, bi);
-          tma_tile<D>(base + (2 + w) * kT, &p.tv, once, hkv, r0, bi);
+          tma_tile<D>(base + (kG + w) * kT, &p.tv, once, hkv, r0, bi);
         }
       }
     } else {
-      for (int w = 0; w < 2; ++w) {
+      for (int w = 0; w < kG; ++w) {
         const int r0 = k_first + w * kTile;
         plain_tile<D>(sp + w * kT, static_cast<const bf16*>(a.k), a.sk, bi,
-                      hkv, r0, sh.s_kv);
-        plain_tile<D>(sp + (2 + w) * kT, static_cast<const bf16*>(a.v), a.sv,
-                      bi, hkv, r0, sh.s_kv);
+                      hkv, r0, sh.s_kv, sh.d);
+        plain_tile<D>(sp + (kG + w) * kT, static_cast<const bf16*>(a.v),
+                      a.sv, bi, hkv, r0, sh.s_kv, sh.d);
       }
       fence_async_shared();
       mbar_arrive(once);
     }
-    const Strides sd = dense_strides<D>(sh);
+    const Strides sd = dense_strides(sh);
     for (int it = 0; it < n_it; ++it) {
-      const int s = it % kStages;
+      const int s = it % kSt;
       const int hq = hq0 + it / n_live, qt = qt_lo + it % n_live;
       const int q_first = qt * kTile;
       const int qrow = bi * sh.h + hq;
-      mbar_wait(bars + 8 * (kStages + s), ((it / kStages) & 1) ^ 1);
+      mbar_wait(bars + 8 * (kSt + s), ((it / kSt) & 1) ^ 1);
       // the q rows' lse (times log2 e) and D; rows past s_q are 0
       float* rw = stage_rows(s);
-      for (int i = t; i < 2 * kTile; i += kN) {
+      for (int i = t; i < 2 * kTile; i += kPn) {
         const int pos = q_first + i % kTile;
         const long long rix = (long long)qrow * sh.s_q + pos;
         rw[i] = pos >= sh.s_q ? 0.f
@@ -807,14 +876,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                       bi);
         }
       } else {
-        unsigned char* st = sp + (4 + 3 * s) * kT;
+        unsigned char* st = sp + (2 * kG + 3 * s) * kT;
         plain_tile<D>(st, static_cast<const bf16*>(a.q), a.sq, bi, hq,
-                      q_first, sh.s_q);
+                      q_first, sh.s_q, sh.d);
         plain_tile<D>(st + kT, static_cast<const bf16*>(a.do_hi), sd, bi, hq,
-                      q_first, sh.s_q);
+                      q_first, sh.s_q, sh.d);
         if (lo) {
           plain_tile<D>(st + 2 * kT, static_cast<const bf16*>(a.do_lo), sd,
-                        bi, hq, q_first, sh.s_q);
+                        bi, hq, q_first, sh.s_q, sh.d);
         }
         fence_async_shared();
         mbar_arrive(bars + 8 * s);
@@ -823,24 +892,26 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     return;
   }
 
-  // a consumer: 64 keys
+  // a consumer: 64 keys (row group rg), its kN output columns from c0
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int cw = threadIdx.x / 128 - 1;
+  const int rg = kG > 1 ? cw : 0, c0 = split_cols<D>() ? cw * kN : 0;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int tq = lane % 4;
-  const int w_first = k_first + cw * kTile;  // this consumer's keys
+  const int w_first = k_first + rg * kTile;  // this consumer's keys
   const int r_first = w_first + warp * 16;   // this warp's: 16 from here
   const int kpos0 = r_first + lane / 4;      // this thread's: and + 8
   // descriptor low words of this consumer's K and V
-  const uint32_t k_w = kdesc(base + cw * kT);
-  const uint32_t v_w = kdesc(base + (2 + cw) * kT);
+  const uint32_t k_w = kdesc(base + rg * kT);
+  const uint32_t v_w = kdesc(base + (kG + rg) * kT);
+  const uint32_t col_off = (c0 / 64) * kBox;  // Q's and dO's from c0
   const float scale2 = sh.scale * kLog2e;
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  float dk[kN / 8][4] = {}, dv[kN / 8][4] = {};
   mbar_wait(once, 0);
 
   for (int it = 0; it < n_it; ++it) {
-    const int s = it % kStages;
-    mbar_wait(bars + 8 * s, (it / kStages) & 1);
+    const int s = it % kSt;
+    mbar_wait(bars + 8 * s, (it / kSt) & 1);
     const int q_first = (qt_lo + it % n_live) * kTile;
     if (w_first < sh.s_kv &&
         band_meets(q_first, q_first + kTile - 1, w_first,
@@ -886,10 +957,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       // dV += P_lo.dO_hi + P_hi.dO_hi (+ P_hi.dO_lo); dK += (dS_lo +
       // dS_hi).Q, scaled at the end
       const uint32_t ds_w = ds_s + cw * 2 * kBox;
-      dkv_batch<D>(dk, dv, p_hi, p_lo, kdesc(ds_w), kdesc(ds_w + kBox),
-                   mndesc(dohi), mndesc(qs), lo, mndesc(dolo));
+      dkv_batch<kN>(dk, dv, p_hi, p_lo, kdesc(ds_w), kdesc(ds_w + kBox),
+                    mndesc(dohi + col_off), mndesc(qs + col_off), lo,
+                    mndesc(dolo + col_off));
     }
-    mbar_arrive(bars + 8 * (kStages + s));  // this stage is free
+    mbar_arrive(bars + 8 * (kSt + s));  // this stage is free
   }
 
   bf16* dk_out = static_cast<bf16*>(a.dk);
@@ -898,49 +970,55 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int kpos = kpos0 + 8 * r;
     if (kpos >= sh.s_kv) continue;
-    const long long at = (((long long)bi * sh.s_kv + kpos) * sh.hk + hkv) * D;
-    store_row_bf16<D>(dk_out + at, dk, r, sh.scale, lane);
-    store_row_bf16<D>(dv_out + at, dv, r, 1.f, lane);
+    const long long at =
+        (((long long)bi * sh.s_kv + kpos) * sh.hk + hkv) * sh.d + c0;
+    store_row_bf16<kN>(dk_out + at, dk, r, sh.scale, lane, sh.d - c0);
+    store_row_bf16<kN>(dv_out + at, dv, r, 1.f, lane, sh.d - c0);
   }
 }
 
 // --- the prologue --------------------------------------------------------------
 
 struct PrepArgs {
-  const float* dout;  // (b, s_q, h, D) fp32, strided, the head dim dense
+  const float* dout;  // (b, s_q, h, d) fp32, strided, the head dim dense
   Strides sdo;
-  const float* o;      // (b, s_q, h, D) fp32 dense
+  const float* o;      // (b, s_q, h, d) fp32 dense
   const float* g_lse;  // (b, s_q, h) fp32 dense, or null: none
-  bf16 *hi, *lo;       // (b, s_q, h, D) bf16 dense
+  bf16 *hi, *lo;       // (b, s_q, h, d) bf16 dense
   int* lo_live;        // (b*h, q tiles of 64)
   float* dcap;         // (b*h, s_q) fp32
-  int h, s_q;
+  int h, s_q, d;       // d: the true head dim, at most the instance's D
 };
 
 // One block of 256 threads per (b*h row, 64 q rows): dO's parts, the lo
-// flag of the rows, and D. A row's D / 4 threads each take 4 of its
-// values, D / 4 apart, so a warp's loads and stores are contiguous; a
-// thread starts the loads of all its rows before it uses one (the pass is
-// bound by bytes, and a row at a time left it waiting on each load).
-template <int D>
+// flag of the rows, and D. A row's kLanes threads (D / 4, at most a warp)
+// each take kVals of its values, kLanes apart, so a warp's loads and
+// stores are contiguous; a thread starts the loads of all its rows before
+// it uses one (the pass is bound by bytes, and a row at a time left it
+// waiting on each load). Columns from the true d on are neither read nor
+// written: they add 0 to D and set no flag. kExact: d is D, and the column
+// tests fold away.
+template <int D, bool kExact>
 __global__ void __launch_bounds__(256) flash_prep_kernel(PrepArgs p) {
-  constexpr int kLanes = D / 4;                  // threads a row
-  constexpr int kRowsPer = 256 / kLanes;         // rows a pass
-  constexpr int kRows = kTile / kRowsPer;        // a thread's rows
+  constexpr int kLanes = D / 4 < 32 ? D / 4 : 32;  // threads a row
+  constexpr int kVals = D / kLanes;                // values a thread a row
+  constexpr int kRowsPer = 256 / kLanes;           // rows a pass
+  constexpr int kRows = kTile / kRowsPer;          // a thread's rows
+  const int dd = kExact ? D : p.d;  // the true head dim
   const int row = blockIdx.x, bi = row / p.h, hh = row % p.h;
   const int q0 = blockIdx.y * kTile + threadIdx.x / kLanes;
   const int c0 = threadIdx.x % kLanes;
-  float x[kRows][4], y[kRows][4];
+  float x[kRows][kVals], y[kRows][kVals];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int pos = q0 + i * kRowsPer;
     const float* src = p.dout + bi * p.sdo.b + (long long)pos * p.sdo.s +
                        hh * p.sdo.h + c0;
-    const float* on = p.o + (((long long)bi * p.s_q + pos) * p.h + hh) * D +
-                      c0;
+    const float* on =
+        p.o + (((long long)bi * p.s_q + pos) * p.h + hh) * dd + c0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool in = pos < p.s_q;
+    for (int e = 0; e < kVals; ++e) {
+      const bool in = pos < p.s_q && c0 + e * kLanes < dd;
       x[i][e] = in ? src[e * kLanes] : 0.f;
       y[i][e] = in ? on[e * kLanes] : 0.f;
     }
@@ -950,13 +1028,13 @@ __global__ void __launch_bounds__(256) flash_prep_kernel(PrepArgs p) {
   for (int i = 0; i < kRows; ++i) {
     const int pos = q0 + i * kRowsPer;
     const long long at =
-        (((long long)bi * p.s_q + pos) * p.h + hh) * D + c0;
+        (((long long)bi * p.s_q + pos) * p.h + hh) * dd + c0;
     float dot = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < kVals; ++e) {
       const bf16 h = __float2bfloat16_rn(x[i][e]);
       const bf16 l = __float2bfloat16_rn(x[i][e] - __bfloat162float(h));
-      if (pos < p.s_q) {
+      if (pos < p.s_q && c0 + e * kLanes < dd) {
         p.hi[at + e * kLanes] = h;
         p.lo[at + e * kLanes] = l;
       }
@@ -976,6 +1054,28 @@ __global__ void __launch_bounds__(256) flash_prep_kernel(PrepArgs p) {
   }
   nz = __syncthreads_or(nz);
   if (threadIdx.x == 0) p.lo_live[row * gridDim.y + blockIdx.y] = nz;
+}
+
+// flash_prep_kernel on the narrowest instance D of Ds (ascending) that
+// holds p.d (its exact function at D's own width); past the widest,
+// refused
+template <int D>
+int launch_prep_at(const PrepArgs& p, dim3 grid, cudaStream_t s) {
+  if (p.d == D) {
+    flash_prep_kernel<D, true><<<grid, 256, 0, s>>>(p);
+  } else {
+    flash_prep_kernel<D, false><<<grid, 256, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int... Ds>
+int launch_prep(const PrepArgs& p, dim3 grid, cudaStream_t s) {
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  ((p.d >= 1 && p.d <= Ds ? (rc = launch_prep_at<Ds>(p, grid, s), true)
+                          : false) ||
+   ...);
+  return rc;
 }
 
 // --- launches ------------------------------------------------------------------
@@ -1017,9 +1117,11 @@ int encoder(EncodeTiled* out) {
   return 0;
 }
 
-// The map of a (b, s, heads, D) bf16 tensor with (b, s, h) strides st:
-// dims innermost first (D, heads, s, b), boxes of 64 columns x 1 head x 64
-// rows, 128-byte swizzle, rows past s zero-filled
+// The map of a (b, s, heads, d) bf16 tensor with (b, s, h) strides st:
+// dims innermost first (d, heads, s, b), boxes of 64 columns x 1 head x 64
+// rows, 128-byte swizzle, rows past s and columns past d (the true head
+// dim) zero-filled; a box counts its whole bytes on the barrier, filled or
+// not
 int encode_rows(EncodeTiled enc, CUtensorMap* map, const void* ptr,
                 Strides st, int b, int s, int heads, int d) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -1060,9 +1162,16 @@ int launch_wide(dim3 grid, int bytes, const WideParams& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide bf16 dQ or dK/dV pass: TMA when every q, k and v row is 16-byte
-// aligned (dO's parts always are), plain loads otherwise. A failed map
-// encode, attribute raise or launch returns its error; nothing falls back.
+// TMA for the wgmma kernels: every q, k and v row 16-byte aligned, and
+// rows of the true d a multiple of 16 bytes (dO's dense parts; else their
+// map cannot be encoded); plain loads otherwise
+bool tma_route(const Args& a) {
+  return rows_aligned(a) && a.sh.d % 8 == 0;
+}
+
+// The wide bf16 dQ or dK/dV pass, on TMA or plain loads (tma_route). A
+// failed map encode, attribute raise or launch returns its error; nothing
+// falls back.
 template <int D>
 int launch_wide_bwd(Pass pass, const Args& a, cudaStream_t stream) {
   if (a.do_hi == nullptr || a.do_lo == nullptr || a.lo_live == nullptr) {
@@ -1072,27 +1181,28 @@ int launch_wide_bwd(Pass pass, const Args& a, cudaStream_t stream) {
   WideParams p;
   std::memset(&p, 0, sizeof(p));
   p.a = a;
-  const bool tma = rows_aligned(a);
+  const bool tma = tma_route(a);
   if (tma) {
     EncodeTiled enc;
     int rc = encoder(&enc);
-    const Strides sd = {static_cast<long long>(sh.s_q) * sh.h * D,
-                        static_cast<long long>(sh.h) * D, D};
-    if (!rc) rc = encode_rows(enc, &p.tq, a.q, a.sq, sh.b, sh.s_q, sh.h, D);
-    if (!rc) rc = encode_rows(enc, &p.tk, a.k, a.sk, sh.b, sh.s_kv, sh.hk, D);
-    if (!rc) rc = encode_rows(enc, &p.tv, a.v, a.sv, sh.b, sh.s_kv, sh.hk, D);
-    if (!rc) rc = encode_rows(enc, &p.thi, a.do_hi, sd, sh.b, sh.s_q, sh.h, D);
-    if (!rc) rc = encode_rows(enc, &p.tlo, a.do_lo, sd, sh.b, sh.s_q, sh.h, D);
+    const Strides sd = dense_strides(sh);
+    const int d = sh.d;
+    if (!rc) rc = encode_rows(enc, &p.tq, a.q, a.sq, sh.b, sh.s_q, sh.h, d);
+    if (!rc) rc = encode_rows(enc, &p.tk, a.k, a.sk, sh.b, sh.s_kv, sh.hk, d);
+    if (!rc) rc = encode_rows(enc, &p.tv, a.v, a.sv, sh.b, sh.s_kv, sh.hk, d);
+    if (!rc) rc = encode_rows(enc, &p.thi, a.do_hi, sd, sh.b, sh.s_q, sh.h, d);
+    if (!rc) rc = encode_rows(enc, &p.tlo, a.do_lo, sd, sh.b, sh.s_q, sh.h, d);
     if (rc) return rc;
   }
+  constexpr int kRows = row_groups<D>() * kTile;  // rows of a block
   if (pass == kDq) {
-    const dim3 grid(sh.b * sh.h, (sh.s_q + kBwdRows - 1) / kBwdRows);
+    const dim3 grid(sh.b * sh.h, (sh.s_q + kRows - 1) / kRows);
     return tma ? launch_wide<flash_dq_wgmma_kernel<D, true>>(
                      grid, wide_smem<D>(kDq), p, stream)
                : launch_wide<flash_dq_wgmma_kernel<D, false>>(
                      grid, wide_smem<D>(kDq), p, stream);
   }
-  const dim3 grid(sh.b * sh.hk, (sh.s_kv + kBwdRows - 1) / kBwdRows);
+  const dim3 grid(sh.b * sh.hk, (sh.s_kv + kRows - 1) / kRows);
   return tma ? launch_wide<flash_dkv_wgmma_kernel<D, true>>(
                    grid, wide_smem<D>(kDkv), p, stream)
              : launch_wide<flash_dkv_wgmma_kernel<D, false>>(
@@ -1108,7 +1218,8 @@ extern "C" {
 // do_strides into hi and lo, dense bf16; lo_live (b*h, ceil(s_q / 64))
 // int32; D = rowsum(dO * O) into dcap (b*h, s_q) fp32, O dense fp32 as
 // the forward writes it, less g_lse ((b, s_q, h) dense fp32) when given.
-// Head dims 64 and 128.
+// d runs on the library's narrowest instance that holds it (64 or 128, or
+// 256); a d past its widest is refused.
 int kst_flash_prep(const void* dout, const long long* do_strides,
                    const void* o, const void* g_lse, void* hi, void* lo,
                    void* lo_live, void* dcap, int b, int h, int s_q, int d,
@@ -1126,17 +1237,15 @@ int kst_flash_prep(const void* dout, const long long* do_strides,
                 static_cast<int*>(lo_live),
                 static_cast<float*>(dcap),
                 h,
-                s_q};
+                s_q,
+                d};
   const dim3 grid(b * h, (s_q + kTile - 1) / kTile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) {
-    flash_prep_kernel<64><<<grid, 256, 0, s>>>(p);
-  } else if (d == 128) {
-    flash_prep_kernel<128><<<grid, 256, 0, s>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+#ifdef KST_FLASH_256
+  return launch_prep<256>(p, grid, s);
+#else
+  return launch_prep<64, 128>(p, grid, s);
+#endif
 }
 
 }  // extern "C"

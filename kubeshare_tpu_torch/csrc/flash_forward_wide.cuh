@@ -1,7 +1,8 @@
-// The bf16 flash forward at head dims 64 and 128, designed for Hopper
-// (sm_90a): wgmma for both products, TMA for the tiles, setmaxnreg for the
-// registers, and the softmax of one tile run under the tensor cores' work
-// on another. Included by flash_attention_wide.cu after
+// The bf16 flash forward at the instances 64, 128 and 256 (head dims 33 to
+// 256), designed for Hopper (sm_90a): wgmma for both products, TMA for the
+// tiles, setmaxnreg for the registers, and the softmax of one tile run
+// under the tensor cores' work on another. Included by
+// flash_attention_wide.cu and flash_attention_256.cu after
 // flash_backward_wide.cuh, whose barrier, copy, descriptor, wgmma and
 // tensor-map helpers it uses as they are; launch() in flash_attention.cu
 // sends the wide bf16 forward here.
@@ -74,6 +75,14 @@
 // 8192); a code path of its own for a consumer's first tile, without the
 // P.V of P = 0 (2% faster at (8, 256, 8, 128), 4% slower at seq 8192).
 //
+// At 256 (Gemma's head dim) a consumer's 64 x 256 fp32 O would be 128
+// registers a thread beside S and P's parts, so the block splits as the
+// backward's does (flash_backward_wide.cuh, split_cols): one row group of
+// 64 q rows, whose softmax both consumers run (the same bits), each adding
+// P.V for one half of V's columns and writing that half of O; the first
+// consumer writes the lse. The block's shared memory is then one 32 KB Q
+// tile and three k/v stages of 64 KB, 225 KB of the 227 it can have.
+//
 // The semantics are the mma.sync kernel's, operation for operation: the
 // scale folded into the exponent (p = 2^(s scale log2 e - m scale log2 e),
 // one fused multiply-add and one ex2 a score), the running max from the
@@ -84,7 +93,6 @@
 
 namespace {
 
-constexpr int kFwdRows = 128;    // q rows of a block: two consumers of 64
 constexpr int kFwdStages = 3;    // the ring of k/v stages
 // setmaxnreg with plain loads: the producer's 128 threads copy the tiles
 // themselves, and at 40 registers they spilled at head dim 128
@@ -93,13 +101,13 @@ static_assert(kPlainProducerRegs * 128 + kPlainConsumerRegs * 256 ==
                   168 * 384,
               "setmaxnreg: the two roles share the block's registers");
 
-// dynamic shared memory: the two Q tiles, a k and a v tile a stage, the
-// barriers (full and empty a stage, once), and 1 KB to align the tiles to
-// the swizzle's 1,024 bytes
+// dynamic shared memory: the row groups' Q tiles, a k and a v tile a
+// stage, the barriers (full and empty a stage, once), and 1 KB to align
+// the tiles to the swizzle's 1,024 bytes
 template <int D>
 constexpr int fwd_smem() {
-  return (2 + 2 * kFwdStages) * tile_bytes<D>() + 8 * (2 * kFwdStages + 1) +
-         1024;
+  return (row_groups<D>() + 2 * kFwdStages) * tile_bytes<D>() +
+         8 * (2 * kFwdStages + 1) + 1024;
 }
 
 // wait until at most one of this warpgroup's committed batches is running
@@ -213,15 +221,16 @@ struct FwdRows {
   uint32_t p_hi[4][4], p_lo[4][4];
 };
 
-// A live tile: S = Q.K^T for it (q_w and k the descriptor low words of
-// the consumer's Q and the tile's K) and O += P.V for the tile before (v
-// its V's descriptor low word, O first rescaled) as two batches; this
+// A live tile: S = Q.K^T over the head dim D for it (q_w and k the
+// descriptor low words of the consumer's Q and the tile's K) and O += P.V
+// for the tile before (v the descriptor low word of its V's N columns
+// that the consumer's O holds, O first rescaled) as two batches; this
 // tile's softmax while the second runs, then P's parts. No branch from
 // the first batch's fence to the last wait (kMasked picks the code
 // before). At a consumer's first tile P and alpha are 0, and the P.V adds
 // exactly 0
-template <int D, bool kMasked>
-__device__ __forceinline__ void live_tile(FwdRows<D>& t, uint32_t q_w,
+template <int D, int N, bool kMasked>
+__device__ __forceinline__ void live_tile(FwdRows<N>& t, uint32_t q_w,
                                           uint32_t k, uint32_t v,
                                           int r_first, int k_first,
                                           const Shape& sh, int lane,
@@ -235,49 +244,51 @@ __device__ __forceinline__ void live_tile(FwdRows<D>& t, uint32_t q_w,
   wg_fence();
   ss_steps<D>(sc, q_w, k);
   wg_commit();
-  pv_batch<D>(t.o, t.p_hi, t.p_lo, v);
+  pv_batch<N>(t.o, t.p_hi, t.p_lo, v);
   wg_wait_one();  // S; P.V runs on under the softmax
   keep(sc);
   if constexpr (kMasked) mask_scores(sc, r_first, k_first, sh, lane);
   online_softmax(sc, t.m, t.l, t.alpha, scale2);
   wg_wait_all();
-  pv_done<D>(t.o, t.p_hi, t.p_lo);
+  pv_done<N>(t.o, t.p_hi, t.p_lo);
   split_a(sc, t.p_hi, t.p_lo);
 }
 
 // after a consumer's last live tile: O += P.V for it
-template <int D>
-__device__ __forceinline__ void last_pv(FwdRows<D>& t, uint32_t v) {
+template <int N>
+__device__ __forceinline__ void last_pv(FwdRows<N>& t, uint32_t v) {
   rescale(t.o, t.alpha);
-  pv_batch<D>(t.o, t.p_hi, t.p_lo, v);
+  pv_batch<N>(t.o, t.p_hi, t.p_lo, v);
   wg_wait_all();
-  pv_done<D>(t.o, t.p_hi, t.p_lo);
+  pv_done<N>(t.o, t.p_hi, t.p_lo);
 }
 
-// Forward, bf16 inputs, head dims 64 and 128: a block per (b*h row, 128 q
-// rows), the rows' Q loaded once, the live k/v tiles streamed. O =
-// softmax(scale Q.K^T).V and lse, both fp32.
+// Forward, bf16 inputs, the instances 64 to 256: a block per (b*h row, 64
+// q rows a row group), the rows' Q loaded once, the live k/v tiles
+// streamed. O = softmax(scale Q.K^T).V and lse, both fp32.
 template <int D, bool kTma>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ WideParams p) {
   constexpr int kT = tile_bytes<D>();
+  constexpr int kG = row_groups<D>(), kN = out_cols<D>();
   const Args& a = p.a;
   const Shape& sh = a.sh;
   unsigned char* sp;
   const uint32_t base = aligned_smem(sp);
-  // the two consumers' Q, then stage s's k and v at base + (2 + 2s) tiles
-  const uint32_t bars = base + (2 + 2 * kFwdStages) * kT;  // full, empty
+  // the row groups' Q, then stage s's k and v at base + (kG + 2s) tiles
+  const uint32_t bars = base + (kG + 2 * kFwdStages) * kT;  // full, empty
   const uint32_t once = bars + 16 * kFwdStages;
-  auto k_tile = [&](int s) { return base + (2 + 2 * s) * kT; };
+  auto k_tile = [&](int s) { return base + (kG + 2 * s) * kT; };
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kFwdStages + s); };
 
   const int row = blockIdx.x;  // bi * h + hq
-  const int q_first = (gridDim.y - 1 - blockIdx.y) * kFwdRows;  // heaviest
+  // heaviest first
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * kG * kTile;
   const int bi = row / sh.h, hq = row % sh.h, hkv = hq / sh.group;
   const int n_kt = (sh.s_kv + kTile - 1) / kTile;
   int kt_lo, kt_hi;
-  live_run_rows(q_first, kFwdRows, n_kt, true, sh, kt_lo, kt_hi);
+  live_run_rows(q_first, kG * kTile, n_kt, true, sh, kt_lo, kt_hi);
   const int n_it = kt_hi - kt_lo + 1;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kFwdStages; ++s) {
@@ -294,8 +305,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         kTma ? kProducerRegs : kPlainProducerRegs));
     if constexpr (kTma) {
       if (threadIdx.x != 0) return;
-      // the second consumer's Q only where it has rows
-      const int q_tiles = q_first + kTile < sh.s_q ? 2 : 1;
+      // the second row group's Q only where it has rows
+      const int q_tiles = kG > 1 && q_first + kTile < sh.s_q ? 2 : 1;
       mbar_expect(once, q_tiles * kT);
       for (int w = 0; w < q_tiles; ++w) {
         tma_tile<D>(base + w * kT, &p.tq, once, hq, q_first + w * kTile, bi);
@@ -308,9 +319,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         tma_tile<D>(k_tile(s) + kT, &p.tv, full(s), hkv, k0, bi);
       }
     } else {
-      for (int w = 0; w < 2; ++w) {
+      for (int w = 0; w < kG; ++w) {
         plain_tile<D>(sp + w * kT, static_cast<const bf16*>(a.q), a.sq, bi,
-                      hq, q_first + w * kTile, sh.s_q);
+                      hq, q_first + w * kTile, sh.s_q, sh.d);
       }
       fence_async_shared();
       mbar_arrive(once);
@@ -319,9 +330,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         mbar_wait(empty(s), ((i / kFwdStages) & 1) ^ 1);
         unsigned char* st = sp + (k_tile(s) - base);
         plain_tile<D>(st, static_cast<const bf16*>(a.k), a.sk, bi, hkv, k0,
-                      sh.s_kv);
+                      sh.s_kv, sh.d);
         plain_tile<D>(st + kT, static_cast<const bf16*>(a.v), a.sv, bi, hkv,
-                      k0, sh.s_kv);
+                      k0, sh.s_kv, sh.d);
         fence_async_shared();
         mbar_arrive(full(s));
       }
@@ -329,24 +340,27 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     return;
   }
 
-  // a consumer: 64 q rows, which meet the run [c_lo, c_hi] of the block's
-  // k tiles (none when they lie past s_q)
+  // a consumer: 64 q rows (row group rg), which meet the run [c_lo, c_hi]
+  // of the block's k tiles (none when they lie past s_q), and the kN
+  // columns of O from c0
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
       kTma ? kConsumerRegs : kPlainConsumerRegs));
   const int cw = threadIdx.x / 128 - 1;
+  const int rg = kG > 1 ? cw : 0, c0 = split_cols<D>() ? cw * kN : 0;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int w_first = q_first + cw * kTile;  // this consumer's rows
+  const int w_first = q_first + rg * kTile;  // this consumer's rows
   const int r_first = w_first + warp * 16;   // this warp's: 16 from here
   const int qpos0 = r_first + lane / 4;      // this thread's: and + 8
   int c_lo = kt_hi + 1, c_hi = kt_hi;
   if (w_first < sh.s_q) {
     live_run_rows(w_first, kTile, n_kt, true, sh, c_lo, c_hi);
   }
-  const uint32_t q_w = kdesc(base + cw * kT);
+  const uint32_t q_w = kdesc(base + rg * kT);
+  const uint32_t v_off = kT + (c0 / 64) * kBox;  // V's columns from c0
   const float scale2 = sh.scale * kLog2e;  // exp(scale s) = 2^(scale2 s)
-  FwdRows<D> t;
+  FwdRows<kN> t;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) t.o[j][c] = 0.f;
   }
@@ -375,17 +389,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     // no gaps); at the first, this tile's V against P = 0
     const bool first = kt == c_lo;
     const int prev = first ? s : (i + kFwdStages - 1) % kFwdStages;
-    const uint32_t k = kdesc(k_tile(s)), v = mndesc(k_tile(prev) + kT);
+    const uint32_t k = kdesc(k_tile(s)), v = mndesc(k_tile(prev) + v_off);
     if (!pairs_full(w_first, w_first + kTile - 1, k_first,
                     k_first + kTile - 1, sh)) {
-      live_tile<D, true>(t, q_w, k, v, r_first, k_first, sh, lane, scale2);
+      live_tile<D, kN, true>(t, q_w, k, v, r_first, k_first, sh, lane,
+                             scale2);
     } else {
-      live_tile<D, false>(t, q_w, k, v, r_first, k_first, sh, lane,
-                          scale2);
+      live_tile<D, kN, false>(t, q_w, k, v, r_first, k_first, sh, lane,
+                              scale2);
     }
     if (!first) mbar_arrive(empty(prev));  // the tile before's stage
     if (kt == c_hi) {
-      last_pv<D>(t, mndesc(k_tile(s) + kT));
+      last_pv<kN>(t, mndesc(k_tile(s) + v_off));
       mbar_arrive(empty(s));
     }
   }
@@ -404,38 +419,40 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     // O = acc / l as acc times 1 / l, rounded (an ulp from the quotient;
     // D / 2 IEEE divisions a thread took ~5% of the time at the LM's shapes)
     const float inv = __frcp_rn(den);
-    float* orow = a.o + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * D;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<float2*>(orow + 8 * nd + 2 * tq) =
-          make_float2(t.o[nd][2 * r] * inv, t.o[nd][2 * r + 1] * inv);
-    }
-    if (tq == 0) {  // lse = scale m + log l; an empty row: MASK + log 1
+    float* orow =
+        a.o + (((long long)bi * sh.s_q + qpos) * sh.h + hq) * sh.d + c0;
+    store_row_f32<kN>(orow, tq, sh.d - c0, [&](int nd) {
+      return make_float2(t.o[nd][2 * r] * inv, t.o[nd][2 * r + 1] * inv);
+    });
+    // lse = scale m + log l; an empty row: MASK + log 1 (split columns:
+    // both consumers hold it, the first writes it)
+    if (tq == 0 && c0 == 0) {
       a.lse[(long long)row * sh.s_q + qpos] =
           (t.m[r] > 0.5f * kMask ? t.m[r] * sh.scale : kMask) + logf(den);
     }
   }
 }
 
-// The wide bf16 forward: TMA when every q, k and v row is 16-byte aligned,
-// plain loads otherwise. A failed map encode, attribute raise or launch
-// returns its error; nothing falls back.
+// The wide bf16 forward, on TMA or plain loads (tma_route). A failed map
+// encode, attribute raise or launch returns its error; nothing falls back.
 template <int D>
 int launch_wide_fwd(const Args& a, cudaStream_t stream) {
   const Shape& sh = a.sh;
   WideParams p;
   std::memset(&p, 0, sizeof(p));
   p.a = a;
-  const bool tma = rows_aligned(a);
+  const bool tma = tma_route(a);
   if (tma) {
     EncodeTiled enc;
     int rc = encoder(&enc);
-    if (!rc) rc = encode_rows(enc, &p.tq, a.q, a.sq, sh.b, sh.s_q, sh.h, D);
-    if (!rc) rc = encode_rows(enc, &p.tk, a.k, a.sk, sh.b, sh.s_kv, sh.hk, D);
-    if (!rc) rc = encode_rows(enc, &p.tv, a.v, a.sv, sh.b, sh.s_kv, sh.hk, D);
+    const int d = sh.d;
+    if (!rc) rc = encode_rows(enc, &p.tq, a.q, a.sq, sh.b, sh.s_q, sh.h, d);
+    if (!rc) rc = encode_rows(enc, &p.tk, a.k, a.sk, sh.b, sh.s_kv, sh.hk, d);
+    if (!rc) rc = encode_rows(enc, &p.tv, a.v, a.sv, sh.b, sh.s_kv, sh.hk, d);
     if (rc) return rc;
   }
-  const dim3 grid(sh.b * sh.h, (sh.s_q + kFwdRows - 1) / kFwdRows);
+  constexpr int kRows = row_groups<D>() * kTile;  // q rows of a block
+  const dim3 grid(sh.b * sh.h, (sh.s_q + kRows - 1) / kRows);
   return tma ? launch_wide<flash_fwd_wgmma_kernel<D, true>>(
                    grid, fwd_smem<D>(), p, stream)
              : launch_wide<flash_fwd_wgmma_kernel<D, false>>(

@@ -55,9 +55,9 @@ def _paths(name: str) -> tuple[str, str]:
 
 def _sources(src: str) -> list[str]:
     """``src`` and the files of ``csrc/`` it includes (``#include
-    "..."``; one level: flash_attention_wide.cu includes
-    flash_attention.cu, flash_backward_wide.cuh and
-    flash_forward_wide.cuh)."""
+    "..."``; one level: flash_attention_wide.cu and
+    flash_attention_256.cu include flash_attention.cu,
+    flash_backward_wide.cuh and flash_forward_wide.cuh)."""
     with open(src) as f:
         names = re.findall(r'^#include "([^"]+)"', f.read(), re.M)
     return [src] + [os.path.join(SRC_DIR, n) for n in names]

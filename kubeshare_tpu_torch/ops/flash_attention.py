@@ -5,9 +5,9 @@ Counterpart of ``kubeshare_tpu/ops/flash_attention.py``. Its three Pallas
 kernels become ``csrc/flash_attention.cu``: the forward (``_kernel``), dQ
 (``_bwd_dq_kernel``) and dK/dV (``_bwd_dkv_kernel``); the note at the top
 of that file says how the TPU grid translates, what bounds the kernels on
-an H100 (bytes) and what the designs do about it. In bf16 at head dims 64
-and 128 the passes are Hopper's own (wgmma, TMA): the forward in
-``csrc/flash_forward_wide.cuh``, dQ and dK/dV in
+an H100 (bytes) and what the designs do about it. In bf16 from head dim
+33 (the instances 64, 128 and 256) the passes are Hopper's own (wgmma,
+TMA): the forward in ``csrc/flash_forward_wide.cuh``, dQ and dK/dV in
 ``csrc/flash_backward_wide.cuh``. Two
 ``torch.autograd.Function``s stand in for the ``custom_vjp``s ``_flash`` and
 ``_flash_lse``.
@@ -38,13 +38,21 @@ matrix products. The bf16 kernels take each fp32 operand of a product
 ~16 bits: O stays inside the fp32 tolerance, dQ, dK and dV inside one
 bf16 ulp (``csrc`` says which products are split).
 
-The bf16 backward at head dims 64 and 128 (``csrc/flash_backward_wide.cuh``)
-has a prologue, a fourth op (``flash_prep``) that replaces the plain torch
-D = rowsum(dO ∘ O) − g_lse: in one pass over dO and O it writes D, dO's two
-bf16 parts and which 64-row q tiles have a nonzero lo part. ``flash_dq``
-and ``flash_dkv`` take the parts and flags as two optional trailing
-arguments, which their CUDA implementations require there (a ValueError
-without them); the plain versions read dO itself and ignore both.
+The bf16 backward on the instances 64, 128 and 256
+(``csrc/flash_backward_wide.cuh``) has a prologue, a fourth op
+(``flash_prep``) that replaces the plain torch D = rowsum(dO ∘ O) − g_lse:
+in one pass over dO and O it writes D, dO's two bf16 parts and which
+64-row q tiles have a nonzero lo part. ``flash_dq`` and ``flash_dkv`` take
+the parts and flags as two optional trailing arguments, which their CUDA
+implementations require there (a ValueError without them); the plain
+versions read dO itself and ignore both.
+
+Head dims: the JAX kernel takes any. The kernels are built for the
+instance widths ``INSTANCES`` (8, 16, 32, 64, 128, 256), and a head dim d
+runs on the narrowest instance D ≥ d (:func:`instance_head_dim`), with the
+true d passed in: the kernels read columns past d as zero and never write
+them, so nothing is padded or copied here. A head dim past 256 is
+refused on the card (no public model has one).
 """
 
 from __future__ import annotations
@@ -62,17 +70,25 @@ from .fused_adam import OP_LIBRARY, OP_NAMESPACE
 BLOCK_Q = 128
 BLOCK_K = 128
 
-#: the kernel library of each head dim the kernels are built for: 32 at
-#: the transformer's full width, 8 in its small preset, 64 (GPT-2's) and
-#: 128 (Llama's, Mistral's) at ``init(dim=512)`` and ``init(dim=1024)``
-#: under its 8 heads; the wide two are a library of their own
-#: (``csrc/flash_attention_wide.cu``), so that the halves build in parallel
-LIBRARY_OF_HEAD_DIM = {8: "flash_attention", 32: "flash_attention",
+#: the kernel library of each instance width the kernels are built for:
+#: 32 at the transformer's full width, 8 in its small preset, 16 at
+#: ``init(dim=128)``, 64 (GPT-2's) and 128 (Llama's, Mistral's) at
+#: ``init(dim=512)`` and ``init(dim=1024)`` under its 8 heads, 256
+#: (Gemma's) at ``init(dim=2048)``; a head dim between two runs on the
+#: wider (80, Phi-2's, and 96, Phi-3-mini's, on 128). The mma.sync widths
+#: (8, 16, 32), 64 and 128, and 256 are three libraries
+#: (``csrc/flash_attention.cu``, ``flash_attention_wide.cu``,
+#: ``flash_attention_256.cu``), so that they build in parallel
+LIBRARY_OF_HEAD_DIM = {8: "flash_attention", 16: "flash_attention",
+                       32: "flash_attention",
                        64: "flash_attention_wide",
-                       128: "flash_attention_wide"}
-HEAD_DIMS = tuple(LIBRARY_OF_HEAD_DIM)
-#: the head dims whose bf16 backward reads dO through the prologue
-WIDE_HEAD_DIMS = (64, 128)
+                       128: "flash_attention_wide",
+                       256: "flash_attention_256"}
+INSTANCES = tuple(LIBRARY_OF_HEAD_DIM)
+#: the widest head dim the kernels take
+MAX_HEAD_DIM = INSTANCES[-1]
+#: the instances whose bf16 backward reads dO through the prologue
+WIDE_HEAD_DIMS = (64, 128, 256)
 #: q rows a prologue flag covers (the kernels' tile)
 PREP_TILE = 64
 
@@ -85,8 +101,10 @@ PREP_TILE = 64
 KERNEL_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 2 ** -7)}
 
 #: kernel launches by pass, the prologue's as "prep" (plain-version calls
-#: on the CPU add nothing)
+#: on the CPU add nothing), and the same by (pass, instance width)
 launches = {"fwd": 0, "dq": 0, "dkv": 0, "prep": 0}
+instance_launches = {(name, inst): 0 for name in launches
+                     for inst in INSTANCES}
 _launch_lock = threading.Lock()
 
 
@@ -94,11 +112,24 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in launches:
             launches[name] = 0
+        for key in instance_launches:
+            instance_launches[key] = 0
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, inst: int) -> None:
     with _launch_lock:
         launches[name] += 1
+        instance_launches[name, inst] += 1
+
+
+def instance_head_dim(d: int) -> int:
+    """The instance width a head dim ``d`` runs on: the narrowest of
+    INSTANCES that is at least ``d``. Past MAX_HEAD_DIM a ValueError."""
+    for inst in INSTANCES:
+        if 1 <= d <= inst:
+            return inst
+    raise ValueError(f"the flash kernels take head dims 1 to {MAX_HEAD_DIM},"
+                     f" got {d}")
 
 
 def _blocks(s_q, s_kv, block_q, block_k, causal, window=None):
@@ -177,7 +208,7 @@ def flash_dq_reference(q, k, v, dout, lse, dcap, causal=True, window=None,
 
 
 def flash_prep_reference(dout, o, g_lse=None):
-    """Plain prologue of the backward at head dims 64 and 128: ``(split,
+    """Plain prologue of the bf16 backward from head dim 33: ``(split,
     lo_live, dcap)``. ``split`` is dO's bf16 parts, hi = bf16(dO) and lo =
     bf16(dO − hi), as one (2, b, s_q, h, d) tensor; ``lo_live`` int32
     (b·h, ⌈s_q / 64⌉), 1 where a 64-row q tile's lo part holds a nonzero
@@ -219,11 +250,11 @@ def flash_dkv_reference(q, k, v, dout, lse, dcap, causal=True, window=None,
 _fns: dict = {}
 
 
-def _kernel_fns(head_dim: int) -> dict:
+def _kernel_fns(inst: int) -> dict:
     """The entry points, with their C signatures, of the library built
-    for ``head_dim`` (once a library): the three passes, and the wide
-    library's prologue."""
-    name = LIBRARY_OF_HEAD_DIM[head_dim]
+    for the instance width ``inst`` (once a library): the three passes,
+    and the wgmma libraries' prologue."""
+    name = LIBRARY_OF_HEAD_DIM[inst]
     fns = _fns.get(name)
     if fns is None:
         from .build import load
@@ -245,7 +276,7 @@ def _kernel_fns(head_dim: int) -> dict:
                             "dq": lib.kst_flash_dq,
                             "dkv": lib.kst_flash_dkv,
                             "error": lib.kst_error_string}
-        if head_dim in WIDE_HEAD_DIMS:
+        if inst in WIDE_HEAD_DIMS:
             fn = fns["prep"] = lib.kst_flash_prep
             fn.restype = i32
             fn.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
@@ -267,9 +298,7 @@ def _check_cuda(q, k, v):
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the flash kernels take bfloat16 or float32, got "
                         f"{q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head dims {HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
+    instance_head_dim(q.shape[-1])
     if k.shape[-1] != q.shape[-1] or v.shape != k.shape:
         raise ValueError(f"k and v must be (b, s_kv, hk, {q.shape[-1]}), "
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
@@ -287,7 +316,8 @@ def _launch(name, pointers, tensors, q, k, causal, window, scale,
     q, k, v and (for the backward) dO, whose (b, s, h) strides the kernel
     takes; ``split`` the backward's pointers to dO's parts and flags."""
     b, s_q, h, d = q.shape
-    fns = _kernel_fns(d)
+    inst = instance_head_dim(d)
+    fns = _kernel_fns(inst)
     s_kv, hk = k.shape[1], k.shape[2]
     strides = [st for x in tensors for st in x.stride()[:3]]
     strides += [0] * (12 - len(strides))
@@ -296,14 +326,15 @@ def _launch(name, pointers, tensors, q, k, causal, window, scale,
         *pointers, arr, int(q.dtype == torch.bfloat16), b, h, hk, s_q, s_kv,
         d, int(causal), int(window or 0), scale, stream, *split))
     _raise_on(fns, name, rc)
-    _count_launch(name)
+    _count_launch(name, inst)
 
 
 def _launch_prep(dout, o, g_lse, split, lo_live, dcap) -> None:
     """The prologue on dout's device and current stream; ``g_lse`` may be
     None."""
     b, s_q, h, d = dout.shape
-    fns = _kernel_fns(d)
+    inst = instance_head_dim(d)
+    fns = _kernel_fns(inst)
     arr = (ctypes.c_longlong * 3)(*dout.stride()[:3])
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = launch_on(dout.device, lambda stream: fns["prep"](
@@ -311,13 +342,19 @@ def _launch_prep(dout, o, g_lse, split, lo_live, dcap) -> None:
         split[1].data_ptr(), lo_live.data_ptr(), ptr(dcap), b, h, s_q, d,
         stream))
     _raise_on(fns, "prep", rc)
-    _count_launch("prep")
+    _count_launch("prep", inst)
+
+
+def _on_wgmma(d: int) -> bool:
+    """Does head dim d run on a wgmma instance (64, 128, 256: d from 33
+    to 256)? False past 256, where only the plain versions run."""
+    return d <= MAX_HEAD_DIM and instance_head_dim(d) in WIDE_HEAD_DIMS
 
 
 def _takes_split(q) -> bool:
-    """Does q's backward read dO through the prologue (bf16 at head dims
-    64 and 128)?"""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in WIDE_HEAD_DIMS
+    """Does q's backward read dO through the prologue (bf16 on the wgmma
+    instances)?"""
+    return q.dtype == torch.bfloat16 and _on_wgmma(q.shape[-1])
 
 
 def _prep_outputs(dout):
@@ -346,7 +383,7 @@ def _split_pointers(q, dout, dout_split, lo_live):
             or not (dout_split.is_contiguous() and lo_live.is_contiguous())
             or dout_split.get_device() != q.get_device()
             or lo_live.get_device() != q.get_device()):
-        raise ValueError("bf16 at head dims 64 and 128 the pass needs "
+        raise ValueError("bf16 at head dims 33 to 256 the pass needs "
                          "dout_split, flash_prep's dense bf16 (2, "
                          f"{', '.join(map(str, shape))}) parts, and "
                          "lo_live, its int32 (b*h, ceil(s_q / 64)) flags, "
@@ -420,9 +457,10 @@ def _flash_dkv_cuda(q, k, v, dout, lse, dcap, causal, window, scale,
 
 
 def _flash_prep_cuda(dout, o, g_lse):
-    if dout.shape[-1] not in WIDE_HEAD_DIMS:
-        raise ValueError(f"the flash prologue takes head dims "
-                         f"{WIDE_HEAD_DIMS}, got {dout.shape[-1]}")
+    if not _on_wgmma(dout.shape[-1]):
+        raise ValueError(f"the flash prologue takes the head dims of the "
+                         f"instances {WIDE_HEAD_DIMS}, 33 to {MAX_HEAD_DIM}, "
+                         f"got {dout.shape[-1]}")
     for name, x in (("o", o), ("g_lse", g_lse)):
         if x is not None and x.device != dout.device:
             raise ValueError(f"{name} is on {x.device}, dout on "

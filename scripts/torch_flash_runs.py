@@ -11,12 +11,13 @@ report and its tensor-core instructions from the SASS (HMMA for mma.sync,
 HGMMA for wgmma; ``chip_smoke.check_flash_sass`` holds each function to
 its kind, and the wgmma passes and the prologue to 0 spill bytes); then
 runs the smoke's checks of the flash kernels against their plain versions at
-every head dim the kernels take (``chip_smoke.flash_check``,
-``flash_autograd_check``, ``lse_cotangent_check``) and, unless
-``--no-timing``, times the three passes (and, at head dims 64 and 128, the
-backward's prologue) beside their plain versions, SDPA and their bounds at
-the LM's shape (8, 256, 8, 32), at head dims 64 and 128
-(``chip_smoke.WIDE_SHAPES``) and at long context
+every instance width the kernels are built for (8 to 256) and at head dims
+between them (``chip_smoke.flash_check``, ``flash_autograd_check``,
+``lse_cotangent_check``) and, unless ``--no-timing``, times the three
+passes (and, from head dim 33, the backward's prologue) beside their plain
+versions, SDPA and their bounds at the LM's shape (8, 256, 8, 32), at
+(8, 256, 8, d) for d = 8, 16, 64, 80, 96, 128 and 256
+(``chip_smoke.WIDE_SHAPES``, ``OTHER_SHAPES``) and at long context
 (``LONG_SHAPE``, ``LONG_WIDE_SHAPE``). Every check is the smoke's. Prints
 one JSON object as its last line.
 """

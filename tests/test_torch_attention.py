@@ -157,13 +157,27 @@ FLASH_WIDE_CASES = [
     (False, None, 4, 16, 16, 128),
     (True, 5, 2, 8, 16, 128),
 ]
+# every other instance and head dims between them, as the kernels take
+# them on the card: 16 (dim 128), 20 (on the instance 32), Phi-2's 80 and
+# Phi-3-mini's 96 (on 128), Gemma's 256
+FLASH_OTHER_WIDTH_CASES = [
+    (True, None, 2, 16, 16, 16),
+    (True, 5, 2, 8, 16, 20),
+    (True, None, 2, 16, 16, 80),
+    (False, None, 4, 16, 16, 96),
+    (True, 5, 1, 8, 16, 256),
+]
+#: head dims past 8, 32, 64 and 128 that the kernels take on the card
+OTHER_WIDTHS = [16, 20, 80, 96, 256]
 
 
 @pytest.mark.parametrize(
     "causal,window,hk,bq,bk,d",
-    [c + (8,) for c in FLASH_CASES] + FLASH_WIDE_CASES,
+    [c + (8,) for c in FLASH_CASES] + FLASH_WIDE_CASES
+    + FLASH_OTHER_WIDTH_CASES,
     ids=["-".join(map(str, c[:5])) + ("" if c[5] == 8 else f"-d{c[5]}")
-         for c in [c + (8,) for c in FLASH_CASES] + FLASH_WIDE_CASES])
+         for c in [c + (8,) for c in FLASH_CASES] + FLASH_WIDE_CASES
+         + FLASH_OTHER_WIDTH_CASES])
 def test_flash_matches_jax(causal, window, hk, bq, bk, d):
     """Forward at 1e-5; q, k, v gradients of a weighted sum at 1e-4,
     through the port's autograd against jax.grad; head dim 8 and the wide
@@ -194,10 +208,10 @@ def test_flash_lse_matches_jax():
     _check_flash_lse_against_jax(8)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128] + OTHER_WIDTHS)
 def test_flash_lse_matches_jax_at_wide_head_dims(d):
     """As :func:`test_flash_lse_matches_jax`, at GPT-2's and Llama's head
-    dims."""
+    dims, and at the other instances and head dims between them."""
     _check_flash_lse_against_jax(d)
 
 
@@ -272,6 +286,42 @@ def test_flash_errors_match_jax(case):
                                **kw)
 
 
+def test_instance_head_dim_is_the_narrowest_instance_that_holds_d():
+    """Every head dim from 1 to 256 runs on the narrowest instance at
+    least as wide; the instances are the kernels' widths."""
+    assert tflash.INSTANCES == (8, 16, 32, 64, 128, 256)
+    assert tflash.MAX_HEAD_DIM == 256
+    for d in range(1, 257):
+        inst = tflash.instance_head_dim(d)
+        assert inst in tflash.INSTANCES and inst >= d
+        assert all(i < d for i in tflash.INSTANCES if i < inst)
+    assert [tflash.instance_head_dim(d) for d in (16, 20, 80, 96, 200)] == \
+        [16, 32, 128, 128, 256]
+
+
+@pytest.mark.parametrize("d", [257, 512, 0])
+def test_head_dims_the_kernels_do_not_take_are_refused(d):
+    """Past 256 (and below 1) the instance lookup and the CUDA wrappers'
+    check raise a ValueError naming the limit: a refusal, not a fallback.
+    The check runs here on CPU tensors, as it does before a launch."""
+    with pytest.raises(ValueError, match="1 to 256"):
+        tflash.instance_head_dim(d)
+    q = torch.zeros((1, 16, 2, d), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1 to 256"):
+        tflash._check_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("d,wide", [(16, False), (20, False), (33, True),
+                                    (80, True), (96, True), (200, True),
+                                    (256, True)])
+def test_the_prologue_follows_the_wgmma_instances(d, wide):
+    """bf16 reads dO through the prologue from head dim 33 (the instances
+    64, 128 and 256), padded widths included; fp32 never."""
+    q = torch.zeros((1, 16, 2, d), dtype=torch.bfloat16)
+    assert tflash._takes_split(q) is wide
+    assert tflash._takes_split(q.float()) is False
+
+
 def test_flash_launches_nothing_on_cpu():
     tflash.reset_launches()
     q, k, v = (torch.tensor(a, requires_grad=True) for a in _inputs())
@@ -285,11 +335,12 @@ def test_flash_plain_passes_agree_with_autograd_of_dense():
     _check_plain_passes_against_dense(8)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128] + OTHER_WIDTHS)
 def test_flash_plain_passes_agree_with_autograd_of_dense_at_wide_head_dims(
         d):
     """As :func:`test_flash_plain_passes_agree_with_autograd_of_dense`, at
-    head dims 64 and 128."""
+    head dims 64 and 128, and at the other instances and head dims between
+    them."""
     _check_plain_passes_against_dense(d)
 
 
@@ -422,6 +473,13 @@ def _bf16_backward_case(shape, hk, window, seed=0, exact_dout=False):
                   *tflash.flash_dkv_reference(*args))
 
 
+def _padded(xs, inst):
+    """q, k, v (and dO) as the kernels of the instance ``inst`` hold them:
+    the head dim zero-padded to the instance's width (a no-op at an
+    instance's own width)."""
+    return [torch.nn.functional.pad(x, (0, inst - x.shape[-1])) for x in xs]
+
+
 def _share_outside_bf16_tol(got, want):
     atol, rtol = tflash.KERNEL_TOL[torch.bfloat16]
     err = (got.float() - want.float()).abs()
@@ -433,22 +491,32 @@ def _share_outside_bf16_tol(got, want):
     [((1, 256, 8, 32), 8, None, False), ((1, 256, 8, 32), 2, 100, False),
      ((1, 128, 4, 128), 4, None, False), ((1, 128, 4, 128), 2, 50, False),
      ((1, 128, 4, 64), 4, None, False), ((1, 128, 4, 64), 2, 50, False),
-     ((1, 128, 4, 64), 2, 50, True), ((1, 128, 4, 128), 4, None, True)],
+     ((1, 128, 4, 64), 2, 50, True), ((1, 128, 4, 128), 4, None, True),
+     ((1, 128, 4, 80), 2, 50, False), ((1, 128, 4, 256), 4, None, False),
+     ((1, 128, 4, 256), 1, 50, True)],
     ids=["main-path", "gqa-window", "head-dim-128",
          "head-dim-128-gqa-window", "head-dim-64", "head-dim-64-gqa-window",
          "head-dim-64-gqa-window-bf16-exact-dout",
-         "head-dim-128-bf16-exact-dout"])
+         "head-dim-128-bf16-exact-dout", "head-dim-80-on-128-gqa-window",
+         "head-dim-256", "head-dim-256-mqa-window-bf16-exact-dout"])
 def test_mma_backward_arithmetic_holds_bf16_tolerance(shape, hk, window,
                                                       exact_dout):
     """The kernels' split products keep dQ, dK and dV (in bf16) within
-    KERNEL_TOL of the fp32 plain versions: one bf16 ulp. At head dims 64
-    and 128 with the wide kernels' arithmetic: dO's lo products last, and
-    skipped for all-zero lo tiles."""
+    KERNEL_TOL of the fp32 plain versions: one bf16 ulp. From head dim 33
+    with the wide kernels' arithmetic: dO's lo products last, and skipped
+    for all-zero lo tiles. A head dim between instances runs on the wider
+    one's zero-padded columns (80 on 128), the scale from its own."""
     args, want = _bf16_backward_case(shape, hk, window,
                                      exact_dout=exact_dout)
     atol, rtol = tflash.KERNEL_TOL[torch.bfloat16]
-    wide = shape[-1] in tflash.WIDE_HEAD_DIMS
-    for got, ref in zip(_emulated_mma_backward(*args, wide=wide), want):
+    d = shape[-1]
+    inst = tflash.instance_head_dim(d)
+    wide = inst in tflash.WIDE_HEAD_DIMS
+    emulated = _emulated_mma_backward(*_padded(args[:4], inst), *args[4:],
+                                      wide=wide)
+    for got, ref in zip(emulated, want):
+        assert not got[..., d:].any()
+        got = got[..., :d]
         assert got.dtype == ref.dtype and got.shape == ref.shape
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=rtol)
@@ -534,18 +602,28 @@ def _bf16_forward_case(b, s_q, s_kv, h, hk, d, seed=0):
      (1, 256, 256, 8, 8, 64, True, 100), (1, 200, 200, 8, 2, 128, True, 70),
      (1, 200, 200, 4, 4, 64, True, None), (1, 160, 200, 8, 2, 128, False,
                                            None),
-     (1, 130, 96, 4, 2, 64, False, None)],
+     (1, 130, 96, 4, 2, 64, False, None),
+     (1, 200, 200, 8, 2, 80, True, 70), (2, 128, 128, 4, 4, 96, True, None),
+     (1, 256, 256, 4, 1, 256, True, None),
+     (1, 130, 96, 4, 2, 256, False, None)],
     ids=["hd64-gqa", "hd128-gqa", "hd64-window", "hd128-ragged-gqa-window",
-         "hd64-ragged", "hd128-sq-ne-skv-gqa", "hd64-sq-ne-skv-ragged"])
+         "hd64-ragged", "hd128-sq-ne-skv-gqa", "hd64-sq-ne-skv-ragged",
+         "hd80-on-128-ragged-gqa-window", "hd96-on-128", "hd256-mqa",
+         "hd256-sq-ne-skv-ragged"])
 def test_wide_forward_arithmetic_holds_kernel_tolerance(b, s_q, s_kv, h, hk,
                                                         d, causal, window):
     """The wgmma forward's split P keeps O and the lse within KERNEL_TOL
     (fp32) of the plain forward: GQA, windows, ragged lengths and s_q ≠
-    s_kv, key tiles of 64."""
+    s_kv, key tiles of 64; a head dim between instances on the wider one's
+    zero-padded columns (80 and 96 on 128), the scale from its own; 256."""
     q, k, v = _bf16_forward_case(b, s_q, s_kv, h, hk, d)
     scale = 1.0 / np.sqrt(d)
     want = tflash.flash_fwd_reference(q, k, v, causal, window, scale)
-    got = _emulated_wide_forward(q, k, v, causal, window, scale)
+    o, lse = _emulated_wide_forward(
+        *_padded((q, k, v), tflash.instance_head_dim(d)), causal, window,
+        scale)
+    assert not o[..., d:].any()
+    got = (o[..., :d], lse)
     atol, rtol = tflash.KERNEL_TOL[torch.float32]
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
@@ -626,10 +704,10 @@ def test_flash_prep_op_passes_opcheck():
     assert lo_live.shape == (2, 2) and lo_live.dtype == torch.int32
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 80, 256])
 def test_flash_backward_reads_do_through_the_prologue_at_wide_head_dims(
         monkeypatch, d):
-    """bf16 at head dims 64 and 128: the backward calls the prologue once
+    """bf16 from head dim 33: the backward calls the prologue once
     and hands its D, parts and flags to both passes; the gradients are the
     plain versions' on the same inputs (the CPU passes read dO itself)."""
     seen = {}
@@ -662,10 +740,10 @@ def test_flash_backward_reads_do_through_the_prologue_at_wide_head_dims(
         torch.testing.assert_close(t.grad, ref, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 80, 256])
 def test_wide_passes_require_the_prologue_parts(d):
-    """The CUDA passes' check of dO's parts, run on CPU tensors: bf16 at
-    head dims 64 and 128 a pass given dO alone, or parts that do not fit,
+    """The CUDA passes' check of dO's parts, run on CPU tensors: bf16 from
+    head dim 33 a pass given dO alone, or parts that do not fit,
     raises (no prologue launched on its own); head dim 32 and fp32 take
     none; the prologue's own outputs pass."""
     rng = np.random.default_rng(44)

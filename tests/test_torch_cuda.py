@@ -141,7 +141,10 @@ ZOO = {"cifar10": (cifar10, {}, "loss_fn"), "resnet18": (resnet, {}, "loss_fn"),
        "vgg16": (vgg, {}, "loss_fn"), "lstm": (lstm, {}, "loss_fn"),
        "moe_lm": (transformer, {"n_experts": 4}, "flash_loss_fn"),
        "lm_hd64": (transformer, {"dim": 512}, "flash_loss_fn"),
-       "lm_hd128": (transformer, {"dim": 1024}, "flash_loss_fn")}
+       "lm_hd128": (transformer, {"dim": 1024}, "flash_loss_fn"),
+       "lm_hd80": (transformer, {"dim": 640}, "flash_loss_fn"),
+       "lm_hd256": (transformer, {"dim": 2048, "layers": 2},
+                    "flash_loss_fn")}
 
 
 @pytest.mark.parametrize("name", list(ZOO))
@@ -276,6 +279,23 @@ FLASH_SHAPES = [
     (1, 200, 4, 2, 128, torch.bfloat16, True, 70, "dense"),
     (1, 80, 2, 2, 128, torch.bfloat16, False, None, "fused"),
     (2, 80, 8, 8, 128, torch.float32, True, 7, "dense"),
+    # the instances 16 and 256 (256 with Gemma-2B's one kv head)
+    (8, 256, 8, 8, 16, torch.bfloat16, True, None, "dense"),
+    (2, 80, 4, 2, 16, torch.bfloat16, True, 7, "unaligned"),
+    (2, 80, 8, 8, 16, torch.float32, True, None, "dense"),
+    (8, 256, 8, 8, 256, torch.bfloat16, True, None, "dense"),
+    (8, 256, 8, 1, 256, torch.bfloat16, True, None, "fused"),
+    (1, 200, 4, 2, 256, torch.bfloat16, True, 70, "unaligned"),
+    (2, 80, 8, 8, 256, torch.float32, True, 7, "dense"),
+    # head dims between the instances, on the wider one's zero columns
+    (2, 80, 4, 2, 20, torch.bfloat16, True, None, "dense"),
+    (1, 48, 2, 1, 5, torch.bfloat16, True, None, "dense"),
+    (8, 256, 8, 8, 80, torch.bfloat16, True, None, "fused"),
+    (1, 200, 4, 2, 96, torch.bfloat16, True, 70, "unaligned"),
+    (1, 64, 2, 2, 33, torch.bfloat16, False, None, "unaligned"),
+    (8, 256, 8, 2, 200, torch.bfloat16, True, None, "dense"),
+    (2, 80, 8, 8, 80, torch.float32, True, None, "dense"),
+    (1, 64, 2, 2, 129, torch.float32, False, None, "dense"),
 ]
 
 
@@ -303,7 +323,7 @@ def test_flash_kernels_match_plain_on_card(cuda, b, s, h, hk, d, dtype,
     dcap = (dout * ro).sum(-1).transpose(1, 2)
     bwd = (q, k, v, dout, rlse, dcap, causal, window, scale)
     # the wide bf16 passes read dO's parts and flags from the prologue
-    wide = dtype == torch.bfloat16 and d in tfl.WIDE_HEAD_DIMS
+    wide = tfl._takes_split(q)
     extra = tfl.flash_prep(dout, ro, None)[:2] if wide else ()
     dq = tfl.flash_dq(*bwd, *extra)
     dk, dv = tfl.flash_dkv(*bwd, *extra)
@@ -411,13 +431,16 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
 
 
 def test_flash_refuses_what_the_kernels_do_not_take(cuda):
-    """Head dims outside HEAD_DIMS raise on the card (no fallback to the
-    plain version); 64 and 128 run their kernels."""
-    for d in (16, 256):
+    """Head dims past 256 raise on the card, naming the limit (no fallback
+    to the plain version, nothing launched); 16, 64, 128, 256 and a head
+    dim between instances run their kernels."""
+    for d in (257, 512):
         q, k, v = _qkv(cuda, 1, 32, 2, 2, d, torch.float32)
-        with pytest.raises(ValueError, match="head dims"):
+        before = dict(tfl.launches)
+        with pytest.raises(ValueError, match="1 to 256"):
             tfl.flash_attention(q, k, v)
-    for d in (64, 128):
+        assert tfl.launches == before
+    for d in (16, 64, 80, 128, 256):
         q, k, v = _qkv(cuda, 1, 32, 2, 2, d, torch.float32)
         before = tfl.launches["fwd"]
         o = tfl.flash_attention(q, k, v)
@@ -445,13 +468,19 @@ WIDE_BWD_CASES = [
     (1, 200, 4, 2, 128, 70, "unaligned", False),  # plain loads
     (8, 256, 8, 2, 64, None, "unaligned", True),
     (1, 2048, 8, 2, 128, 1024, "dense", True),    # seq 2048
+    (8, 256, 8, 1, 256, None, "dense", True),     # Gemma-2B's attention
+    (2, 80, 8, 8, 256, None, "fused", False),
+    (1, 200, 4, 2, 256, 70, "unaligned", False),
+    (8, 256, 8, 8, 80, None, "fused", True),      # Phi-2's, on 128
+    (1, 200, 4, 2, 96, 70, "dense", False),
+    (2, 80, 4, 2, 200, None, "unaligned", False),
 ]
 
 
 @pytest.mark.parametrize("b,s,h,hk,d,window,layout,exact", WIDE_BWD_CASES)
 def test_wide_backward_matches_plain_on_card(cuda, b, s, h, hk, d, window,
                                              layout, exact):
-    """The bf16 backward at head dims 64 and 128 through autograd, with a
+    """The bf16 backward from head dim 33 through autograd, with a
     nonzero lse cotangent: the prologue's D, parts and flags (against its
     plain version: parts and flags exactly, D at the fp32 tolerance), then
     dQ, dK and dV against the plain passes at KERNEL_TOL, dO exact in bf16
@@ -498,7 +527,7 @@ def test_wide_backward_matches_plain_on_card(cuda, b, s, h, hk, d, window,
 
 
 def test_wide_backward_runs_the_wgmma_kernels_on_card(cuda):
-    """bf16 at head dims 64 and 128 runs the wgmma forward, backward
+    """bf16 at the instances 64, 128 and 256 runs the wgmma forward, backward
     passes and the prologue, and no mma.sync kernel, read from the
     profiler's kernel names (warmed up first, as the dtype test does)."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -537,6 +566,12 @@ WIDE_FWD_CASES = [
     (1, 160, 200, 8, 2, 128, False, None, "dense"),   # s_q != s_kv
     (2, 130, 96, 4, 2, 64, False, None, "dense"),
     (1, 2048, 2048, 8, 2, 128, True, 1024, "dense"),  # seq 2048
+    (8, 256, 256, 8, 1, 256, True, None, "dense"),    # Gemma-2B's
+    (2, 50, 50, 4, 1, 256, True, None, "fused"),
+    (1, 160, 200, 8, 2, 256, False, None, "unaligned"),
+    (2, 200, 200, 8, 8, 96, True, None, "fused"),     # on 128
+    (1, 130, 96, 4, 2, 80, False, None, "unaligned"),
+    (2, 130, 130, 4, 2, 40, True, 50, "dense"),       # on 64
 ]
 
 
@@ -544,7 +579,7 @@ WIDE_FWD_CASES = [
                          WIDE_FWD_CASES)
 def test_wide_forward_matches_plain_on_card(cuda, b, s_q, s_kv, h, hk, d,
                                             causal, window, layout):
-    """The bf16 forward at head dims 64 and 128, O and the lse against the
+    """The bf16 forward from head dim 33, O and the lse against the
     plain forward at KERNEL_TOL, on TMA and on plain loads: ragged lengths
     (not a multiple of the block's 128 rows), s_q != s_kv, GQA and
     windows. One launch."""

@@ -159,12 +159,14 @@ def test_transformer_knobs_fp32_match_jax(monkeypatch):
                   grad_atol=1e-6, firm_at=1e-4)
 
 
-@pytest.mark.parametrize("dim", [512, 1024], ids=["head-dim-64",
-                                                  "head-dim-128"])
+@pytest.mark.parametrize("dim", [512, 1024, 640],
+                         ids=["head-dim-64", "head-dim-128", "head-dim-80"])
 def test_transformer_wide_head_dims_fp32_match_jax(monkeypatch, dim):
     """The LM at ``init(dim=512)`` and ``init(dim=1024)``: 8 heads of 64
     (GPT-2's) and of 128 (Llama's), the widths the flash kernels take on
-    the card beside 8 and 32; 1 layer, seq 32, vocab 64, fp32 activations.
+    the card beside 8 and 32; and at ``init(dim=640)``, 8 heads of 80
+    (Phi-2's), which the kernels run on the instance 128; 1 layer, seq 32,
+    vocab 64, fp32 activations.
     The JAX params carried over, logits, loss and every grad against the
     JAX LM with its flash kernel (interpret mode), held as the fp32 test
     holds them: sums that differ only in order."""

@@ -4,6 +4,7 @@
 PY ?= python
 
 .PHONY: all native test bench bench-proxy bench-recovery bench-health bench-autopilot bench-rightsize bench-elastic bench-slo bench-serving bench-fleet bench-chaos bench-gang bench-contention bench-preempt bench-profile bench-replay bench-shard bench-failover image clean obs-check
+.PHONY: native-torch test-torch smoke-torch obs-check-torch image-torch
 
 all: native
 
@@ -207,5 +208,50 @@ bench-failover:
 image:
 	docker build -f docker/Dockerfile -t kubeshare-tpu:latest .
 
+# --- the PyTorch/CUDA port (kubeshare_tpu_torch/, doc/deploy_torch.md) ---
+
+# Every CUDA library of kubeshare_tpu_torch/csrc/ for sm_90a (one nvcc
+# each, in parallel; no card needed) and the token scheduler's native
+# core (g++), into kubeshare_tpu_torch/_build/. Each is otherwise built
+# at its first use.
+native-torch:
+	$(PY) -m kubeshare_tpu_torch.ops.build
+	$(PY) -c "from kubeshare_tpu_torch.isolation import native; \
+		native.build('tokensched')"
+
+# The port's CPU tests (parity with the JAX package, which they import;
+# the card-only ones skip without a card: `pytest -m cuda
+# tests/test_torch_cuda.py` on one).
+test-torch:
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/test_torch_*.py -q -m "not slow"
+
+# The port's main paths on one CUDA card, each kernel against its plain
+# version; exits non-zero without a card.
+smoke-torch:
+	$(PY) chip_smoke.py
+
+# obs-check for the port: its observability tests, the self-validating
+# 3-pod trace smoke, a flight dump from the port's simulator, and the
+# fleet smoke.
+obs-check-torch:
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/test_torch_obs.py \
+		tests/test_torch_obs_runtime.py -x -q
+	$(PY) scripts/torch_trace_demo.py
+	dump=$$(mktemp "$${TMPDIR:-/tmp}/kubeshare-torch-flight.XXXXXX"); \
+	trap 'rm -f "$$dump"' EXIT; \
+	$(PY) -m kubeshare_tpu_torch.sim.simulator --synthetic 300 \
+		--slo 'queue-wait-p99<=500ms,availability>=99' \
+		--slow-tenant 'tenant-1@100:5' \
+		--flight-dump "$$dump" > /dev/null && \
+	$(PY) -c "import sys; \
+		from kubeshare_tpu_torch.obs.flight import parse_dump_jsonl; \
+		d = parse_dump_jsonl(open(sys.argv[1]).read()); \
+		assert d['entries'], 'empty flight dump'; \
+		print('flight dump ok: %d entries' % len(d['entries']))" "$$dump"
+	$(PY) scripts/torch_fleet_smoke.py
+
+image-torch:
+	docker build -f docker/Dockerfile.torch -t kubeshare-tpu-torch:latest .
+
 clean:
-	rm -rf kubeshare_tpu/isolation/native/_build
+	rm -rf kubeshare_tpu/isolation/native/_build kubeshare_tpu_torch/_build

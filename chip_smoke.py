@@ -186,9 +186,18 @@ failing the run (non-zero exit, no result line) when it fails:
       fragmentation, dry-run plans of the autopilot and the rightsizer,
       the doctor's checks of all three, and replays the leader's decision
       trace (its first background pods) through ``replay_trace`` and
-      ``topcli --replay-diff``.
-   The paths run in this order but for four: 5j's sweep, 5j-lm, 5k's
-   gangs and 5l-elastic run last and side by side, all started together
+      ``topcli --replay-diff``. 5i starts each daemon from its container's
+      argv in ``deploy/torch/*.yaml`` (``PLACE_MANIFESTS``): only the
+      host-local values of ``_place_argv`` are substituted and 5i's own
+      flags appended;
+   m. the standalone backend — ``tools/launch_backend_torch.py`` from a
+      config of the card and one client brings up a proxy on the card
+      and a pod manager; mnist's CLI, unmodified, attached in gate mode by
+      its env alone, trains 40 profiled steps: it must exit 0 below its
+      first loss with one Adam launch a step of its trace, charged by the
+      token scheduler, and the tool must stop every process on SIGTERM.
+   The paths run in this order but for five: 5j's sweep, 5j-lm, 5k's
+   gangs, 5l-elastic and 5m run last and side by side, all started together
    after 5l-quota (each checks correctness, in processes that count their
    own launches, and their start-ups, not the card, take their time); 5k's
    part in this process, the lse cotangent and the one-process run, runs
@@ -468,6 +477,50 @@ PLACE_PUSH_S = 1.0
 PLACE_REPLAY_PODS = 500
 PLACE_REPLAY_TICK_S = 0.002
 PLACE_REPLAY_DRAIN_S = 1.0
+# 5i starts each daemon as its manifest runs it: the container's argv in
+# deploy/torch/ (label: manifest, container, flags, appended). Of the
+# argv, only the flags named here change: each to this host's value (a
+# cluster's Service name to 127.0.0.1, a listening port to 0, the OS's
+# pick, where the daemon's READY line names the port it took, else to a
+# free one ({port}), a path under the daemon's temp dir ({dir})), or,
+# None, left out with its value: the webhook's TLS pair is the cluster's
+# Secret, and 5i's admission requests are plain HTTP. Then 5i's own flags are
+# appended: what one replica of each in a cluster does not need (a
+# follower, two sharded services in an election with every control
+# plane, a node name, the launcher's directory, a fast configd).
+PLACE_MANIFEST_DIR = os.path.join("deploy", "torch")
+_PLACE_REGISTRY = {"--registry-host": "127.0.0.1",
+                   "--registry-port": "{registry_port}"}
+_PLACE_SERVICE = ("scheduler.yaml", "scheduler",
+                  {**_PLACE_REGISTRY, "--port": "0"},
+                  ["--host", "127.0.0.1", "--health",
+                   "--shards", str(PLACE_SHARDS), "--shard-route", "cell",
+                   "--ha-ttl", str(PLACE_HA_TTL_S), "--ha-holder", "{label}",
+                   "--autopilot", "--autopilot-journal", "{dir}/ap.jsonl",
+                   "--elastic", "--elastic-journal", "{dir}/el.jsonl",
+                   "--rightsize", "--rightsize-journal", "{dir}/rz.jsonl",
+                   "--elastic-grow"])
+PLACE_MANIFESTS = {
+    "registry": ("registry.yaml", "registry",
+                 {"--port": "0", "--journal": "{dir}/registry.jsonl"},
+                 ["--host", "127.0.0.1"]),
+    "follower": ("registry.yaml", "registry",
+                 {"--port": "0", "--journal": "{dir}/registry.jsonl"},
+                 ["--host", "127.0.0.1",
+                  "--follower-of", "127.0.0.1:{registry_port}",
+                  "--replication-poll", str(PLACE_REPL_POLL_S)]),
+    "collector": ("collector.yaml", "collector",
+                  {**_PLACE_REGISTRY, "--metrics-port": "{port}"},
+                  ["--node", "{node}"]),
+    "configd": ("node-daemon.yaml", "configd", dict(_PLACE_REGISTRY),
+                ["--node", "{node}", "--base-dir", "{scheduler_dir}",
+                 "--period", "0.1"]),
+    "webhook": ("webhook.yaml", "webhook",
+                {"--port": "0", "--cert": None, "--key": None}, []),
+    **{holder: _PLACE_SERVICE for holder in PLACE_SERVICES},
+    "bridge": ("scheduler.yaml", "bridge", {"--service": "{services}"},
+               ["--kube-api", "{api}"]),
+}
 # phase 5j: the zoo. The JAX package's workload models at full width,
 # each through run_training: (label, model module, init keywords, loss)
 ZOO = (("cifar10", "cifar10", {}, "loss_fn"),
@@ -496,9 +549,15 @@ LM_MEMBER = ("lm_hd128_gqa_rope_window", "transformer", {"dim": 1024},
 LM_MEMBER_ENV = {"KUBESHARE_TPU_TRANSFORMER_KV_HEADS": "2",
                  "KUBESHARE_TPU_TRANSFORMER_ROPE": "1",
                  "KUBESHARE_TPU_TRANSFORMER_WINDOW": "128"}
-# timed steps of the exclusive run, and of the profiled one
+# timed steps of the exclusive run, and of the profiled one (the
+# profiler's warm-up, then TRACE_UNREAD traced steps, which the summary
+# does not read, then four read)
 ZOO_STEPS = 30
-ZOO_PROFILE_STEPS = 5
+ZOO_PROFILE_STEPS = 7
+# the traced steps a summary leaves out: the first may lack any kernel
+# that ran, its last Adam launch too, and the second's last Adam launch
+# is where the steps read begin
+TRACE_UNREAD = 2
 # the card-vs-CPU step: the first rows of the model's batch, fp32
 # activations; loss to 1e-5 relative, grads to ZOO_GRAD_RTOL times the
 # model's own largest |g| on the CPU (the worst reading, ResNet-50's,
@@ -622,6 +681,13 @@ ELASTIC_GANG = "sim/trainer"
 # by a fraction of ELASTIC_LR: 9.6e-4 with Adam's count restarted, 2.0e-3
 # with its moments zeroed (PERF.md)
 ELASTIC_PARAM_MEAN_ATOL = 1e-5
+# phase 5m: the standalone backend (BACKEND_TOOL, the reference's
+# launch-backend harness): a proxy on the card and one pod manager from a
+# hand-written config, then mnist's CLI, unmodified, attached in gate mode
+# by env alone for BACKEND_STEPS profiled steps
+BACKEND_TOOL = "tools/launch_backend_torch.py"
+BACKEND_POD = ("smoke/backend", 0.5)
+BACKEND_STEPS = 40
 
 
 def log(msg: str) -> None:
@@ -1799,23 +1865,65 @@ def tenant(out_path: str, seconds: float, seed: int, compiled: bool,
     return 0
 
 
+# every port _free_port has handed out in this process: the OS offers a
+# port again as soon as the probe socket closes, so two picks in a row
+# could name one port for two servers
+_ports_given: set = set()
+_ports_lock = threading.Lock()
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port free on this host and never handed out by this process."""
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        with _ports_lock:
+            if port not in _ports_given:
+                _ports_given.add(port)
+                return port
 
 
-def _wait_ready(log_path: str, what: str, timeout: float = 120.0) -> str:
-    """The first ``READY`` line a spawned process wrote to its log."""
+def _free_port_pair() -> int:
+    """A free port whose ``TOKEN_PORT_OFFSET`` above is free too (a
+    proxy's execution and token ports, as a launcher numbers them),
+    neither handed out before by :func:`_free_port`."""
+    from kubeshare_tpu_torch.nodeagent.launcherd import (
+        TOKEN_PORT_OFFSET as offset)
+
+    while True:
+        port = _free_port()
+        with _ports_lock:
+            if port + offset >= 65536 or port + offset in _ports_given:
+                continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port + offset))
+            except OSError:
+                continue
+        with _ports_lock:
+            _ports_given.add(port + offset)
+        return port
+
+
+def _wait_ready(log_path: str, what: str, timeout: float = 120.0,
+                proc=None, want: str = "") -> str:
+    """The first ``READY`` line a spawned process wrote to its log (the
+    line ``want``, when given, of a log several processes write); fails
+    at once if ``proc`` (that process, when given) ends first."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if os.path.exists(log_path):
             with open(log_path) as f:
                 for line in f:
-                    if line.startswith("READY"):
+                    if line.startswith("READY") and (
+                            not want or line.strip() == want):
                         return line.strip()
+        if proc is not None and proc.poll() is not None:
+            fail(f"{what} exited {proc.returncode} before "
+                 f"{want or 'READY'}: {_tail(log_path)}")
         time.sleep(0.1)
-    fail(f"{what} never printed READY: {_tail(log_path)}")
+    fail(f"{what} never printed {want or 'READY'}: {_tail(log_path)}")
 
 
 def _tail(path: str, n: int = 3000) -> str:
@@ -1824,6 +1932,32 @@ def _tail(path: str, n: int = 3000) -> str:
             return f.read()[-n:]
     except OSError:
         return "(no log)"
+
+
+def _tenant_env(root: str, chip_id: str, name: str, port: int,
+                request: float, gated: bool,
+                pod_env: dict | None = None) -> dict:
+    """A tenant process's env: this one's without any pod variable, the
+    port's shim first on the path, and a pod's env (``pod_env``, a
+    binding's, when given; else one for the manager on ``port``)."""
+    from kubeshare_tpu_torch import constants as C
+
+    shim = os.path.join(root, "kubeshare_tpu_torch", "_shim")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_")
+           and k != C.ENV_VISIBLE_CHIPS}
+    env["PYTHONPATH"] = os.pathsep.join([shim, root])
+    if pod_env is not None:
+        env.update(pod_env)
+    else:
+        env.update({C.ENV_POD_MANAGER_PORT: str(port),
+                    C.ENV_POD_NAME: name,
+                    C.ENV_TPU_REQUEST: str(request),
+                    C.ENV_TPU_LIMIT: "1.0",
+                    C.ENV_VISIBLE_CHIPS: chip_id})
+    if not gated:
+        env[C.ENV_ATTACH_MODE] = "off"
+    return env
 
 
 class _Node:
@@ -1899,27 +2033,9 @@ class _Node:
 
     def tenant_env(self, name: str, port: int, request: float, gated: bool,
                    pod_env: dict | None = None) -> dict:
-        """A tenant process's env: this one's without any pod variable, the
-        port's shim first on the path, and a pod's env (``pod_env``, a
-        binding's, when given; else one for the manager on ``port``)."""
-        from kubeshare_tpu_torch import constants as C
-
-        shim = os.path.join(self.root, "kubeshare_tpu_torch", "_shim")
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("KUBESHARE_TPU_")
-               and k != C.ENV_VISIBLE_CHIPS}
-        env["PYTHONPATH"] = os.pathsep.join([shim, self.root])
-        if pod_env is not None:
-            env.update(pod_env)
-        else:
-            env.update({C.ENV_POD_MANAGER_PORT: str(port),
-                        C.ENV_POD_NAME: name,
-                        C.ENV_TPU_REQUEST: str(request),
-                        C.ENV_TPU_LIMIT: "1.0",
-                        C.ENV_VISIBLE_CHIPS: self.chip.chip_id})
-        if not gated:
-            env[C.ENV_ATTACH_MODE] = "off"
-        return env
+        """A tenant process's env (:func:`_tenant_env`) on this node."""
+        return _tenant_env(self.root, self.chip.chip_id, name, port, request,
+                           gated, pod_env)
 
     def run(self, tenants, seconds: float, gated: bool,
             pod_envs: dict | None = None, meet: bool = False) -> dict:
@@ -3702,6 +3818,58 @@ class FakeKubeApi:
         self.server.server_close()
 
 
+def manifest_commands(path: str) -> dict:
+    """Each container's ``command:`` in a manifest of ``deploy/torch/``,
+    by container name. Read without PyYAML, which the card's machine
+    lacks: a container starts at its ``- name:`` line, and its command is
+    one JSON list (the manifests write it so)."""
+    commands, name, parts = {}, None, None
+    with open(path) as f:
+        for line in f:
+            text = line.strip()
+            if parts is not None:
+                parts.append(text)
+            elif text.startswith("- name:"):
+                name = text.split(":", 1)[1].strip()
+                continue
+            elif text.startswith("command:"):
+                parts = [text.split(":", 1)[1].strip()]
+            else:
+                continue
+            if text.endswith("]"):
+                commands[name] = json.loads(" ".join(parts))
+                parts = None
+    return commands
+
+
+def place_argv(root: str, base: str, label: str, **values) -> list:
+    """The ``python -m`` arguments of 5i's daemon ``label``: its
+    container's argv in ``PLACE_MANIFESTS``' manifest with that table's
+    host values (``{port}`` a free port, for the collector's metrics,
+    which it does not report; ``{dir}`` a directory of the
+    daemon's own under ``base``, the rest from ``values``) and 5i's flags
+    appended. Fails if the manifest's command is not ``python -m`` of
+    the port or lacks a flag the table changes."""
+    manifest, container, flags, extra = PLACE_MANIFESTS[label]
+    path = os.path.join(root, PLACE_MANIFEST_DIR, manifest)
+    argv = manifest_commands(path).get(container, [])
+    check(argv[:2] == ["python", "-m"] and len(argv) > 2
+          and argv[2].startswith("kubeshare_tpu_torch."),
+          f"5i: {manifest}'s {container} runs {argv}")
+    values = dict(values, label=label, dir=os.path.join(base, label))
+    os.makedirs(values["dir"], exist_ok=True)
+    args = argv[2:]
+    for flag, value in flags.items():
+        check(flag in args[:-1],
+              f"5i: {manifest}'s {container} has no {flag}: {argv}")
+        i = args.index(flag)
+        if value is None:
+            del args[i:i + 2]
+        else:
+            args[i + 1] = value.format(port=_free_port(), **values)
+    return args + [x.format(**values) for x in extra]
+
+
 def _start_daemon(root: str, base: str, label: str, args: list):
     """One daemon of the placement path as a process of its own (``python
     -m``), its output in a log under ``base``; returns (process, log)."""
@@ -4080,14 +4248,89 @@ def _same_registry(lead, follow) -> bool:
             and leases(follow) == leases(lead))
 
 
+def _replaced_by_dispatcher(pod: str, where: tuple, entries: list,
+                            span: tuple):
+    """The leader's last decision on ``pod`` in its decision trace, if it
+    is the dispatcher placing the pod on ``where``'s node (a bind,
+    ``outcome``, of a retried gang member, or its gang booked across
+    shards, ``gang-cross-shard``) and the pod's bind there was resolved
+    within ``span`` (monotonic seconds, the service's clock too; a
+    ``gang-cross-shard`` entry carries its protocol's start, its members'
+    ``outcome`` entries the commit). None otherwise: a plane's ``move`` or
+    ``resize``, an older bind, or none."""
+    mine = [e for e in entries
+            if e.get("pod") == pod or pod in e.get("members", {})]
+    if not mine:
+        return None
+    last = mine[-1]
+    if last.get("kind") == "outcome":
+        node = last.get("node") if last.get("status") == "bound" else None
+    elif last.get("kind") == "gang-cross-shard":
+        node = last["members"][pod]
+    else:
+        return None
+    bound = [e for e in mine if e.get("kind") == "outcome"
+             and e.get("status") == "bound" and e.get("node") == node]
+    return (last if node == where[0] and bound
+            and span[0] <= bound[-1]["t"] <= span[1] else None)
+
+
+def dry_run_changes(plan: dict, before: dict, after: dict, entries: list,
+                    span: tuple) -> tuple:
+    """What a plane's dry run (``POST /<plane>/plan``) may not have done:
+    of the pods placed at both reads, before and after it (within
+    ``span``, monotonic seconds), those whose node, devices or request
+    changed, split into those the live dispatcher placed meanwhile (a
+    pending gang member, which ``GET /state`` may list with a node
+    before its bind, bound at a retry or booked across shards with its
+    pair), as the leader's decision trace ``entries`` shows
+    (:func:`_replaced_by_dispatcher`), and the rest. A pod the plan names
+    is never the dispatcher's. Returns ``(replaced, wrong)``, a row a pod
+    with its decision."""
+    named = json.dumps(plan)
+    replaced, wrong = [], []
+    for pod in sorted(k for k in before.keys() & after.keys()
+                      if before[k] != after[k]):
+        decision = (None if json.dumps(pod) in named
+                    else _replaced_by_dispatcher(pod, after[pod], entries,
+                                                 span))
+        row = {"pod": pod, "before": before[pod], "after": after[pod],
+               "decision": decision}
+        (replaced if decision is not None else wrong).append(row)
+    return replaced, wrong
+
+
+def _check_dry_run(what: str, url: str, plan: dict, before: dict,
+                   after: dict, span: tuple) -> list:
+    """Fail 5i on a change :func:`dry_run_changes` does not put on the
+    dispatcher, read against the leader's decision trace at ``url``;
+    returns the pods the dispatcher re-placed."""
+    import urllib.request
+
+    from kubeshare_tpu_torch.obs.decisions import parse_trace_jsonl
+
+    if all(before[k] == after[k] for k in before.keys() & after.keys()):
+        return []
+    with urllib.request.urlopen(f"{url}/decisions/trace", timeout=60) as r:
+        entries = parse_trace_jsonl(r.read().decode())["entries"]
+    replaced, wrong = dry_run_changes(plan, before, after, entries, span)
+    pods = {json.dumps(w["pod"]) for w in wrong}
+    check(not wrong, f"5i: {what} moved or resized pods: {wrong[:5]}; the "
+                     f"trace's entries on them: " + json.dumps(
+                         [e for e in entries
+                          if any(p in json.dumps(e) for p in pods)][-20:]))
+    return replaced
+
+
 def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
     """Phase 5i: a pod from a Kubernetes object to a tenant on the card,
     through a leader failover. The port's registry and a follower of it,
     collector (``--backend cuda``), configd, two scheduler services
     (``svc-a``, ``svc-b``: four cell-routed shards, health watch, a
     ``leader:scheduler`` election), pod-event bridge (over both services)
-    and admission webhook run as processes, a fake kube-apiserver here.
-    The launcher and its proxy remote-write their metrics to the
+    and admission webhook run as processes, each from its container's
+    argv in ``deploy/torch/`` (:func:`place_argv`), a fake kube-apiserver
+    here. The launcher and its proxy remote-write their metrics to the
     registry. The fleet is the real node and PLACE_FAKE_NODES fake ones;
     the background pods go to the leader over HTTP; the LM pods are
     labels-only objects that pass the webhook and are created on the
@@ -4119,32 +4362,23 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         done = sum(out["stages_s"].values())
         out["stages_s"][stage] = time.monotonic() - t_phase - done
 
-    def start(label, args):
-        daemons[label] = _start_daemon(root, node.base, label, args)
+    values = {"node": chip.host, "scheduler_dir": node.base}
+
+    def start(label):
+        """Start PLACE_MANIFESTS' daemon ``label`` from its manifest."""
+        daemons[label] = _start_daemon(root, node.base, label, place_argv(
+            root, node.base, label, **values))
 
     def ready(label):
-        return _wait_ready(daemons[label][1], f"the {label}")
+        proc, log_path = daemons[label]
+        return _wait_ready(log_path, f"the {label}", proc=proc)
 
     try:
-        start("registry", ["kubeshare_tpu_torch.telemetry.registry",
-                           "--host", "127.0.0.1", "--port", "0"])
-        reg_port = int(ready("registry").split()[1])
+        start("registry")
+        reg_port = values["registry_port"] = int(ready("registry").split()[1])
         # the daemons that need only the registry start together
-        start("follower", ["kubeshare_tpu_torch.telemetry.registry",
-                           "--host", "127.0.0.1", "--port", "0",
-                           "--follower-of", f"127.0.0.1:{reg_port}",
-                           "--replication-poll", str(PLACE_REPL_POLL_S)])
-        registry_args = ["--registry-host", "127.0.0.1", "--registry-port",
-                         str(reg_port)]
-        node_args = [*registry_args, "--node", chip.host, "--backend",
-                     "cuda"]
-        start("collector", ["kubeshare_tpu_torch.telemetry.collector",
-                            *node_args])
-        start("configd", ["kubeshare_tpu_torch.nodeagent.configd",
-                          *node_args, "--base-dir", node.base, "--period",
-                          "0.1"])
-        start("webhook", ["kubeshare_tpu_torch.scheduler.webhook",
-                          "--port", "0"])
+        for label in ("follower", "collector", "configd", "webhook"):
+            start(label)
         follow_port = int(ready("follower").split()[1])
         for label in ("collector", "configd"):
             ready(label)
@@ -4159,18 +4393,7 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         fake = _fake_capacity(rc)
         urls = {}
         for holder in PLACE_SERVICES:
-            start(holder, ["kubeshare_tpu_torch.scheduler.service",
-                           *registry_args, "--host", "127.0.0.1", "--port",
-                           "0", "--health", "--shards", str(PLACE_SHARDS),
-                           "--shard-route", "cell", "--ha-ttl",
-                           str(PLACE_HA_TTL_S), "--ha-holder", holder,
-                           "--autopilot", "--autopilot-journal",
-                           os.path.join(node.base, f"{holder}-ap.jsonl"),
-                           "--elastic", "--elastic-journal",
-                           os.path.join(node.base, f"{holder}-el.jsonl"),
-                           "--rightsize", "--rightsize-journal",
-                           os.path.join(node.base, f"{holder}-rz.jsonl"),
-                           "--elastic-grow"])
+            start(holder)
             urls[holder] = f"http://127.0.0.1:{ready(holder).split()[1]}"
             if holder == PLACE_SERVICES[0]:
                 # the first leads, unfrozen, before the second contests
@@ -4180,9 +4403,8 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
                     f"{holder}'s election", 30)
         lead_url, standby_url = (urls[h] for h in PLACE_SERVICES)
         api = FakeKubeApi()
-        start("bridge", ["kubeshare_tpu_torch.scheduler.bridge",
-                         "--service", f"{lead_url},{standby_url}",
-                         "--kube-api", api.url])
+        values.update(services=f"{lead_url},{standby_url}", api=api.url)
+        start("bridge")
         hook_port = int(ready("webhook").split()[1])
         ready("bridge")
         node.proxy_args = ["--remote-write", f"127.0.0.1:{reg_port}",
@@ -4292,15 +4514,13 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
               and 0.0 <= ap.get("fragmentation", -1.0) <= 1.0,
               f"5i: GET /autopilot: {json.dumps(ap)[:2000]}")
         # a placed pod's node, chips and request; the live dispatcher may
-        # bind a pending pair between two reads, so a dry run is held to
-        # the pods placed in both
+        # bind or re-book a pending pair between two reads, so a dry run
+        # is held to the pods placed in both (_check_dry_run)
         def placed():
             return {k: (v["node"], v["chips"], v["request"])
                     for k, v in state()["pods"].items() if v["node"]}
 
-        def changed(a, b):
-            return sorted(k for k in a.keys() & b.keys() if a[k] != b[k])
-
+        t_read = time.monotonic()
         pods0 = placed()
         t0 = time.perf_counter()
         code, body = client._call("POST", "/autopilot/plan", {})
@@ -4308,10 +4528,11 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
         check(code == 200 and "plan" in body,
               f"5i: POST /autopilot/plan answered {code}: {body}")
         plan = body["plan"]
-        pods1 = placed()
-        moved = changed(pods0, pods1)
-        check(not moved and client.autopilot().get("applied_total") == 0,
-              f"5i: the dry-run plan moved pods: {moved[:5]}")
+        replaced = _check_dry_run("the autopilot's dry-run plan", lead_url,
+                                  plan, pods0, placed(),
+                                  (t_read, time.monotonic()))
+        check(client.autopilot().get("applied_total") == 0,
+              "5i: the autopilot's dry run applied a plan")
         el = client.elastic()
         check(el.get("attached") is True and el.get("enabled") is True
               and el.get("resizes_total") == 0,
@@ -4321,6 +4542,7 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
               and rz.get("enabled") is True
               and rz["config"]["elastic_grow"] is True,
               f"5i: GET /rightsize answered {code}: {json.dumps(rz)[:2000]}")
+        t_read = time.monotonic()
         pods2 = placed()
         t0 = time.perf_counter()
         code, body = client._call("POST", "/rightsize/plan", {})
@@ -4329,13 +4551,13 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
               f"5i: POST /rightsize/plan answered {code}: {body}")
         rz_plan = body["plan"]
         pods3 = placed()
-        moved = changed(pods2, pods3)
         bound_between = len(pods3.keys() - pods2.keys())
         gone_between = len(pods2.keys() - pods3.keys())
-        check(not moved
-              and client._call("GET", "/rightsize")[1]["applied_total"] == 0,
-              f"5i: the rightsizer's dry-run plan moved or resized pods: "
-              f"{[(k, pods2[k], pods3[k]) for k in moved[:5]]}")
+        replaced += _check_dry_run("the rightsizer's dry-run plan", lead_url,
+                                   rz_plan, pods2, pods3,
+                                   (t_read, time.monotonic()))
+        check(client._call("GET", "/rightsize")[1]["applied_total"] == 0,
+              "5i: the rightsizer's dry run applied a plan")
         out["planes"] = {
             "fragmentation": ap["fragmentation"],
             "stranded_free": ap["stranded_free"],
@@ -4350,6 +4572,7 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             "rightsize_plan_ms": rz_plan_ms,
             "rightsize_plan_bound_between": bound_between,
             "rightsize_plan_gone_between": gone_between,
+            "replaced_between": replaced,
             "rightsize_plan": {k: rz_plan.get(k) for k in (
                 "resizes", "moves", "skipped", "chip_equivalents",
                 "elastic")}}
@@ -4367,7 +4590,9 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
             f"moves, {len(rz_plan.get('elastic', []))} elastic grows, "
             f"chip-equivalents {rz_plan['chip_equivalents']}, nothing "
             f"moved, resized or applied ({bound_between} pods bound and "
-            f"{gone_between} gone meanwhile) (host numbers)")
+            f"{gone_between} gone meanwhile; re-placed by the dispatcher "
+            f"during the dry runs, each with its decision: "
+            f"{json.dumps(replaced)}) (host numbers)")
         lap("planes")
 
         out["replay"] = _replay_phase(traces[0], node.base)
@@ -4633,8 +4858,7 @@ def place_phase(root: str, adam_per_step: int, layers: int) -> dict:
 
         # a fresh collector beats the node again; its SIGTERM withdraws
         # the capacity and the lease (the quarantine keeps pods off)
-        start("collector", ["kubeshare_tpu_torch.telemetry.collector",
-                            *node_args])
+        start("collector")
         ready("collector")
         lease = rc.leases()["leases"].get(chip.host, {})
         check(rc.capacity().get(chip.host, {}).get("healthy") is True
@@ -4749,33 +4973,58 @@ def zoo_step_check(dev, label: str) -> dict:
                             grad_rtol=ZOO_GRAD_RTOL)
 
 
-def _trace_summary(trace_dir: str, steps: int) -> dict:
+def _trace_summary(trace_dir: str, traced: int, adam_per_step: int) -> dict:
     """Device ms a step (kernels, copies and memsets), kernels a step and
     the port's kernels' launches a step, from the chrome trace that
-    ``run_training``'s profiler wrote into ``trace_dir``."""
+    ``run_training``'s profiler wrote into ``trace_dir``. The trace holds
+    ``traced`` steps, its ``ProfilerStep#N`` spans (the first profiled
+    step is the profiler's warm-up, not traced), and the summary reads
+    all but the first ``TRACE_UNREAD`` of them: the first traced step
+    may lack a kernel that ran (``scripts/torch_trace_drops.py``). The
+    steps are cut on the card's own clock, not against the host's spans
+    (whose offset to the kernels' times once moved a step's forward into
+    the step before): a step ends with its ``adam_per_step`` Adam
+    launches, so the steps read are the device events after the last
+    ``(traced - TRACE_UNREAD) * adam_per_step`` Adam launches'
+    predecessor, the last of the second traced step."""
     import glob
 
     (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    device = [e for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    spans = sum(e.get("cat") == "user_annotation"
+                and e.get("name", "").startswith("ProfilerStep#")
+                for e in events)
+    check(spans == traced, f"the trace in {trace_dir} holds {spans} "
+                           f"steps, expected {traced}")
     tags = {"fused_adam": "adam_multi_tensor_kernel",
             "flash_fwd": "flash_fwd_", "flash_dq": "flash_dq_",
             "flash_dkv": "flash_dkv_", "flash_prep": "flash_prep_"}
+    steps = traced - TRACE_UNREAD
+    adams = sorted(e["ts"] for e in events if e.get("cat") == "kernel"
+                   and tags["fused_adam"] in e["name"])
+    check(len(adams) > steps * adam_per_step,
+          f"the trace in {trace_dir} holds {len(adams)} Adam launches for "
+          f"{traced} steps of {adam_per_step}")
+    cut = adams[-steps * adam_per_step - 1]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e["ts"] > cut]
+    kernels = [e["name"] for e in device if e.get("cat") == "kernel"]
     return {"device_ms": sum(e.get("dur", 0.0) for e in device) / 1e3
             / steps,
             "kernels": len(kernels) / steps,
             "ours": {k: sum(tag in n for n in kernels) / steps
                      for k, tag in tags.items()},
-            "trace_bytes": os.path.getsize(path)}
+            "trace_bytes": os.path.getsize(path), "steps": steps}
 
 
-def zoo_run(dev, label: str, trace_dir: str) -> dict:
+def zoo_run(dev, label: str, trace_dir: str, adam_per_step: int) -> dict:
     """The model alone on the card through ``run_training``: ZOO_STEPS
     timed steps (steps/s, wall ms a step), then ZOO_PROFILE_STEPS under
-    its profiler (device ms, idle share and kernels a step)."""
+    its profiler (device ms, idle share and kernels a step over the steps
+    :func:`_trace_summary` reads; ``adam_per_step`` Adam launches end a
+    step)."""
     from kubeshare_tpu_torch.models import common
 
     mod, init_fn, loss_fn = _zoo_model(label)
@@ -4787,7 +5036,7 @@ def zoo_run(dev, label: str, trace_dir: str) -> dict:
                                steps=ZOO_PROFILE_STEPS, device=dev,
                                profile_dir=trace_dir)
     check(math.isfinite(prof.final_loss), f"5j {label}: profiled loss")
-    trace = _trace_summary(trace_dir, ZOO_PROFILE_STEPS)
+    trace = _trace_summary(trace_dir, ZOO_PROFILE_STEPS - 1, adam_per_step)
     wall_ms = 1e3 / res.steps_per_sec
     return {"steps_per_sec": res.steps_per_sec, "wall_ms": wall_ms,
             "first_loss": res.first_loss, "final_loss": res.final_loss,
@@ -4998,7 +5247,7 @@ def lm_member(out_path: str) -> int:
     trace_dir = tempfile.mkdtemp(prefix="kubeshare-lm-member-")
     try:
         _reset_counts()
-        rec.update(zoo_run(dev, label, trace_dir))
+        rec.update(zoo_run(dev, label, trace_dir, rec["adam_per_step"]))
         rec["launches"] = _counts()
         rec["instance_launches"] = dict(INSTANCE_LAUNCHES)
     finally:
@@ -5071,7 +5320,8 @@ def zoo_phase(dev, rng) -> dict:
                                                          leaves)
             torch.cuda.empty_cache()
             _reset_counts()
-            rec.update(zoo_run(dev, label, os.path.join(trace_root, label)))
+            rec.update(zoo_run(dev, label, os.path.join(trace_root, label),
+                               rec["adam_per_step"]))
             rec["launches"] = got = _counts()
             _check_zoo_launches(label, rec)
             for kernel in out["launches"]:
@@ -6105,22 +6355,139 @@ def elastic_phase(root: str, adam_per_step: int, layers: int) -> dict:
         "seconds": time.monotonic() - t_phase}
 
 
+# --- phase 5m: the standalone backend ------------------------------------
+
+def backend_phase(root: str) -> dict:
+    """Phase 5m: ``tools/launch_backend_torch.py`` from a config of one
+    device (the card) and one client, as an operator runs it with no
+    cluster: its launcher brings up a proxy on the card and the client's
+    pod manager. ``python -m kubeshare_tpu_torch.models.mnist``, unmodified,
+    is attached to that manager in gate mode by its env alone and trains
+    BACKEND_STEPS steps under its profiler. The tenant must exit 0 below
+    its first loss with one Adam launch a step of its trace, the proxy's
+    token scheduler must have charged it, and the tool must stop
+    everything it started on SIGTERM."""
+    import torch
+
+    from kubeshare_tpu_torch.isolation import protocol
+    from kubeshare_tpu_torch.models import common, mnist
+    from kubeshare_tpu_torch.topology.discovery import discover_chips
+
+    t0 = time.monotonic()
+    name, request = BACKEND_POD
+    chip = discover_chips("cuda")[0]
+    base = tempfile.mkdtemp(prefix="kubeshare-backend-")
+    port = _free_port()
+    cfg = os.path.join(base, "backend.json")
+    with open(cfg, "w") as f:
+        json.dump({"chips": [chip.chip_id],
+                   "clients": [{"name": name, "chip": chip.chip_id,
+                                "request": request, "limit": 1.0,
+                                "port": port}]}, f)
+    tool_log = os.path.join(base, "tool.log")
+    tenant_log = os.path.join(base, "tenant.log")
+    trace_dir = os.path.join(base, "trace")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_")}
+    env["PYTHONPATH"] = root
+    out: dict = {"chip_id": chip.chip_id}
+    tool = tenant = None
+    try:
+        with open(tool_log, "w") as log_file:
+            tool = subprocess.Popen(
+                [sys.executable, os.path.join(root, BACKEND_TOOL),
+                 "--config", cfg, "--base-dir", base, "--port-start",
+                 str(_free_port_pair())], env=env, cwd=root,
+                stdout=log_file, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        _wait_ready(tool_log, "the backend tool", proc=tool,
+                    want=f"READY {port}")
+        with open(tool_log) as f:
+            info = json.loads(next(x for x in f if x.startswith("{")))
+        check(info["manager_ports"] == {name: port}
+              and list(info["exec_ports"]) == [chip.chip_id],
+              f"5m: the tool printed {info}")
+        out["ready_s"] = time.monotonic() - t0
+        with open(tenant_log, "w") as log_file:
+            tenant = subprocess.Popen(
+                [sys.executable, "-m", "kubeshare_tpu_torch.models.mnist",
+                 "--steps", str(BACKEND_STEPS), "--profile", trace_dir],
+                env=_tenant_env(root, chip.chip_id, name, port, request,
+                                True), cwd=root, stdout=log_file,
+                stderr=subprocess.STDOUT)
+        conn = protocol.Connection("127.0.0.1",
+                                   info["token_ports"][chip.chip_id])
+        conn.call({"op": "attach", "name": name})
+        charged = 0.0
+        while tenant.poll() is None and time.monotonic() - t0 < 300:
+            charged = max(charged, conn.call({"op": "usage"})[0]["used_ms"])
+            time.sleep(0.1)
+        conn.close()
+        rc = tenant.wait(timeout=60)
+        text = _tail(tenant_log, 20000)
+        check(rc == 0, f"5m: the tenant exited {rc}: {text[-3000:]}")
+        out["tenant_s"] = time.monotonic() - t0 - out["ready_s"]
+        params = common.to_device(mnist.init(0), "cuda")
+        batch = common.to_device(mnist.batch_fn(1), "cuda")
+        with torch.no_grad():
+            first = float(mnist.loss_fn(params, batch))
+        final = _final_loss(text)
+        check(f"mnist: {BACKEND_STEPS} steps in" in text
+              and math.isfinite(final) and final < first,
+              f"5m: the tenant's loss {first} -> {final}: {text[-3000:]}")
+        trace = _trace_summary(trace_dir, BACKEND_STEPS - 1, 1)
+        check(trace["ours"]["fused_adam"] == 1.0,
+              f"5m: {trace['ours']['fused_adam']} Adam launches a step of "
+              f"the trace")
+        check(charged > 0, f"5m: the token scheduler charged {name} "
+                           f"{charged} ms")
+        t_stop = time.monotonic()
+        tool.send_signal(signal.SIGTERM)
+        rc = tool.wait(timeout=20)
+        out["stop_s"] = time.monotonic() - t_stop
+        check(rc == 0, f"5m: the tool exited {rc}: {_tail(tool_log)}")
+        left = []
+        for p in (port, info["exec_ports"][chip.chip_id],
+                  info["token_ports"][chip.chip_id]):
+            with socket.socket() as s:
+                if s.connect_ex(("127.0.0.1", p)) == 0:
+                    left.append(p)
+        check(not left, f"5m: ports {left} still served after the tool's "
+                        f"stop: {_tail(tool_log)}")
+        out.update(first_loss=first, final_loss=final, charged_ms=charged,
+                   adam_per_traced_step=trace["ours"]["fused_adam"],
+                   device_ms=trace["device_ms"],
+                   kernels_per_step=trace["kernels"],
+                   steps_line=next(x for x in text.splitlines()
+                                   if x.startswith("mnist: ")))
+    finally:
+        for proc in (tenant, tool):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(base, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def side_by_side_phase(root: str, local: dict, adam_per_step: int,
                        layers: int) -> dict:
     """5j-cli (:func:`sweep_phase`), 5j-lm (:func:`lm_member_phase`), 5k's
-    gangs (:func:`gang_phase`, after :func:`gang_local`) and 5l-elastic
-    (:func:`elastic_phase`), all started together: each checks
-    correctness, its processes count their own launches, and their
-    start-ups, not the card, take their time. Returns the four phases'
-    results and the seconds of the whole."""
+    gangs (:func:`gang_phase`, after :func:`gang_local`), 5l-elastic
+    (:func:`elastic_phase`) and 5m (:func:`backend_phase`), all started
+    together: each checks correctness, its processes count their own
+    launches, and their start-ups, not the card, take their time. Returns
+    the five phases' results and the seconds of the whole."""
     t0 = time.monotonic()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         lm = pool.submit(lm_member_phase, root)
         sweep = pool.submit(sweep_phase, root)
         elastic = pool.submit(elastic_phase, root, adam_per_step, layers)
+        backend = pool.submit(backend_phase, root)
         gang = gang_phase(root, local, adam_per_step, layers)
         return {"sweep": sweep.result(), "gang": gang,
                 "elastic": elastic.result(), "lm_member": lm.result(),
+                "backend": backend.result(),
                 "seconds": time.monotonic() - t0}
 
 
@@ -6679,9 +7046,19 @@ def main(argv=None) -> int:
     phases["elastic"] = el
     for k in launches:
         launches[k] += el["launches"][k]
-    log(f"5j-cli, 5j-lm, 5k and 5l-elastic side by side: "
+    bk = phases["backend"] = side["backend"]
+    log(f"5m: {BACKEND_TOOL} READY (a proxy on {bk['chip_id']}, manager of "
+        f"{BACKEND_POD[0]}) in {bk['ready_s']:.1f} s; mnist's CLI as its "
+        f"gate-mode tenant in {bk['tenant_s']:.1f} s: {bk['steps_line']!r}, "
+        f"loss {bk['first_loss']:.4f} -> {bk['final_loss']:.4f}, "
+        f"{bk['adam_per_traced_step']:.0f} Adam launch a step of its trace, "
+        f"device {bk['device_ms']:.3f} ms a step, charged "
+        f"{bk['charged_ms']:.1f} ms by the token scheduler; SIGTERM to "
+        f"every process gone in {bk['stop_s']:.2f} s; {bk['seconds']:.1f} s "
+        f"in all")
+    log(f"5j-cli, 5j-lm, 5k, 5l-elastic and 5m side by side: "
         f"{side['seconds']:.1f} s")
-    mark("5j-cli, 5j-lm, 5k, 5l-elastic")
+    mark("5j-cli, 5j-lm, 5k, 5l-elastic, 5m")
     out.update(phases=phases, launches=launches, phase_s=phase_s,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -437,6 +437,18 @@ class Connection:
             wire[TRACE_KEY] = self.trace_id
         try:
             parts = _frame(wire, blob)
+        except FrameTooLarge:
+            with self._plock:            # nothing hit the wire
+                self._pending.pop(seq, None)
+            raise
+        # an injected kill is decided before the bytes leave, and the
+        # request leaves the pending table first: its reply, racing the
+        # kill back from the peer, must not answer it
+        killed = self._kill_injected()
+        if killed:
+            with self._plock:
+                self._pending.pop(seq, None)
+        try:
             with self._lock:
                 # every frame passes the outbox, so corked requests keep
                 # their submission order on the wire
@@ -446,32 +458,23 @@ class Connection:
                     bufs, self._outbox = self._outbox, []
                     self._ncorked = 0
                     _send_buffers(self.sock, bufs)
-        except FrameTooLarge:
-            with self._plock:            # nothing hit the wire
-                self._pending.pop(seq, None)
-            raise
         except OSError as e:
             self._break(e)
             raise
-        self._maybe_kill_after_send()
+        if killed:
+            exc = ProtocolError("fault injection: connection killed")
+            self._break(exc)
+            rep._fail(ProtocolError(f"connection broken: {exc}"))
         return rep
 
-    def _maybe_kill_after_send(self, nframes: int = 1) -> None:
-        """Fault-injection hook, after a request's bytes left: the peer
-        may or may not have handled it, which is the case replay exists
-        for. Nothing without an injector."""
+    def _kill_injected(self, nframes: int = 1) -> bool:
+        """Fault-injection hook: True when the installed injector kills
+        this connection right after its next ``nframes`` frames leave.
+        The peer may or may not handle them, which is the case replay
+        exists for. False without an injector."""
         inj = _faults.active()
-        if inj is None:
-            return
-        if inj.should_kill_connection(self.fault_tag, nframes):
-            if self._reader is not None:
-                self._break(ProtocolError("fault injection: connection "
-                                          "killed"))
-            else:
-                try:
-                    self.sock.shutdown(socket.SHUT_RDWR)
-                except OSError:
-                    pass
+        return inj is not None and inj.should_kill_connection(
+            self.fault_tag, nframes)
 
     def flush(self) -> None:
         """Send every corked frame."""
@@ -496,7 +499,12 @@ class Connection:
         with self._lock:
             try:
                 send_msg(self.sock, msg, blob)
-                self._maybe_kill_after_send()
+                if self._kill_injected():
+                    # the reply is read on this thread: it cannot come first
+                    try:
+                        self.sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
                 reply, rblob = recv_msg(self.sock, sink=sink)
             except OSError:
                 # a failure mid-exchange leaves the stream desynced

@@ -106,17 +106,28 @@ def synthetic_token_batch(seed: int, batch_size: int, seq_len: int,
     return tokens[:, :-1], tokens[:, 1:]
 
 
-def _profiler(profile_dir: str, device: torch.device):
-    """``torch.profiler`` over the host and, on the card, its kernels; the
-    trace lands in ``profile_dir`` as ``<host>_<pid>.<time>.pt.trace.json``
-    (TensorBoard's profile plugin and Perfetto read it)."""
-    from torch.profiler import (ProfilerActivity, profile,
+def _profiler(profile_dir: str, device: torch.device, steps: int):
+    """``torch.profiler`` over ``steps`` steps of the host and, on the
+    card, its kernels; the trace lands in ``profile_dir`` as
+    ``<host>_<pid>.<time>.pt.trace.json`` (TensorBoard's profile plugin
+    and Perfetto read it). The caller calls ``step()`` after each step.
+    The first of two or more steps is the profiler's warm-up and is not
+    in the trace; each traced step is a ``ProfilerStep#N`` span. The
+    first traced step may still lack a kernel that ran (on an H100, 1 of
+    75 five-step runs with the warm-up, 1 of 75 without:
+    ``scripts/torch_trace_drops.py``), so a reader that must see every
+    launch reads from the second traced step on."""
+    from torch.profiler import (ProfilerActivity, profile, schedule,
                                 tensorboard_trace_handler)
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    warmup = 1 if steps > 1 else 0
     return profile(activities=activities,
+                   schedule=schedule(wait=0, warmup=warmup,
+                                     active=max(1, steps - warmup),
+                                     repeat=1),
                    on_trace_ready=tensorboard_trace_handler(profile_dir))
 
 
@@ -145,7 +156,8 @@ def run_training(init_fn: Callable, loss_fn: Callable, batch_fn: Callable,
     with the same arguments continues the same trajectory.
 
     ``profile_dir`` wraps only the timed loop in ``torch.profiler`` and
-    writes its trace there.
+    writes its trace there: every timed step but the first, the
+    profiler's warm-up (of one step, the one).
 
     ``mesh`` (a DeviceMesh over the group's ranks) trains the sharded
     step: params and Adam's state laid out per ``param_sharding``, the
@@ -204,21 +216,23 @@ def run_training(init_fn: Callable, loss_fn: Callable, batch_fn: Callable,
     float(loss)
     synchronize(device)
 
+    remaining = max(0, steps - done)
     # profile only the timed loop: set-up, warm-up and restore would
     # dwarf the steady steps in the trace
-    trace_ctx = (_profiler(profile_dir, device) if profile_dir
+    trace_ctx = (_profiler(profile_dir, device, remaining) if profile_dir
                  else contextlib.nullcontext())
     writer_ctx = (AsyncCheckpointWriter() if checkpoint and checkpoint_every
                   else contextlib.nullcontext())
-    remaining = max(0, steps - done)
     first = float("nan")
     start = time.perf_counter()
-    with trace_ctx, writer_ctx as writer:
+    with trace_ctx as prof, writer_ctx as writer:
         for i in range(1, remaining + 1):
             if gate is not None:
                 gate()
             params, opt_state, loss = step(params, opt_state, batch)
             value = float(loss)       # host read: the completion barrier
+            if prof is not None:
+                prof.step()
             if i == 1:
                 first = value
             if writer is not None and i % checkpoint_every == 0:

@@ -35,10 +35,11 @@ DEFAULT_POLL_S = 0.5
 TOKEN_PORT_OFFSET = 1000
 
 
-def exec_port_map(chip_ids: list[str]) -> dict[str, int]:
+def exec_port_map(chip_ids: list[str],
+                  start: int = C.SCHD_PORT_START) -> dict[str, int]:
     """device → proxy execution port, by discovery order (gem-schd's
-    49901+i rule, ``launcher.py:27-29``)."""
-    return {chip: C.SCHD_PORT_START + i for i, chip in enumerate(chip_ids)}
+    49901+i rule, ``launcher.py:27-29``; ``start`` in place of 49901)."""
+    return {chip: start + i for i, chip in enumerate(chip_ids)}
 
 
 def _daemon_env() -> dict:
@@ -85,14 +86,15 @@ class LauncherDaemon:
     def __init__(self, chip_ids: list[str], base_dir: str = C.SCHEDULER_DIR,
                  poll_s: float = DEFAULT_POLL_S,
                  proxy_cmd=default_proxy_cmd, pmgr_cmd=default_pmgr_cmd,
-                 spawn_proxies: bool = True):
+                 spawn_proxies: bool = True,
+                 port_start: int = C.SCHD_PORT_START):
         self.chip_ids = list(chip_ids)
         self.base_dir = base_dir
         self.poll_s = poll_s
         self.proxy_cmd = proxy_cmd
         self.pmgr_cmd = pmgr_cmd
         self.spawn_proxies = spawn_proxies
-        self.exec_ports = exec_port_map(self.chip_ids)
+        self.exec_ports = exec_port_map(self.chip_ids, port_start)
         self._proxies: dict[str, subprocess.Popen] = {}
         # (chip_id, client name) -> (port, process)
         self._managers: dict[tuple[str, str], tuple[int, subprocess.Popen]] = {}

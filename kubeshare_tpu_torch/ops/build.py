@@ -100,3 +100,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
     return lib
+
+
+def libraries() -> list[str]:
+    """Every library of ``csrc/``: one a ``.cu`` (a ``.cuh`` is included
+    by them)."""
+    return sorted(f[:-3] for f in os.listdir(SRC_DIR) if f.endswith(".cu"))
+
+
+def main() -> None:
+    """``python -m kubeshare_tpu_torch.ops.build``: build every library,
+    one ``nvcc`` each, all at once, and print each one's ptxas report.
+    Needs ``nvcc`` and no card: an image builds its kernels here so that
+    its pods do not at first use."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = libraries()
+    with ThreadPoolExecutor(len(names)) as pool:
+        for name, report in zip(names, pool.map(build, names)):
+            print(f"== {name}: {_paths(name)[1]}\n{report}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1277,3 +1277,68 @@ def test_an_elastic_resize_on_card_keeps_the_state_and_runs_flash(cuda):
         assert rec["backend"] == "gloo" and rec["step"] == 3
         assert rec["stats"]["resharded"] == 3 * len(
             tree_leaves(transformer.init(0))) + 1
+
+
+def test_the_standalone_backend_runs_its_proxy_on_the_card(cuda, tmp_path):
+    """``tools/launch_backend_torch.py`` with no ``--device``: the proxy
+    it brings up serves the card, a gate is granted the token through the
+    client's pod manager, and SIGTERM stops the tool and every process it
+    started."""
+    import json
+    import signal
+    import socket
+
+    import chip_smoke
+    from kubeshare_tpu_torch.isolation.client import ExecutionGate
+    from kubeshare_tpu_torch.nodeagent.launcherd import TOKEN_PORT_OFFSET
+    from kubeshare_tpu_torch.topology.discovery import discover_chips
+
+    chip = discover_chips("cuda")[0].chip_id
+    port = chip_smoke._free_port()
+    start = chip_smoke._free_port_pair()
+    (tmp_path / "cfg.json").write_text(json.dumps({
+        "chips": [chip], "clients": [{"name": "ns/a", "chip": chip,
+                                      "request": 0.5, "limit": 1.0,
+                                      "port": port}]}))
+    log = tmp_path / "tool.log"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBESHARE_TPU_")}
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "tools" / "launch_backend_torch.py"),
+             "--config", str(tmp_path / "cfg.json"), "--base-dir",
+             str(tmp_path), "--port-start", str(start)],
+            stdout=out, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+
+    def line(match, what):
+        """The first line of the log that ``match`` takes (several
+        processes write the log: the tool, its proxy and its manager)."""
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            for x in log.read_text().splitlines():
+                if match(x):
+                    return x
+            assert proc.poll() is None, log.read_text()[-3000:]
+            time.sleep(0.05)
+        raise AssertionError(f"no {what}: {log.read_text()[-3000:]}")
+
+    try:
+        info = line(lambda x: x.startswith('{"base_dir"'), "JSON line")
+        assert json.loads(info)["exec_ports"] == {chip: start}
+        line(lambda x: x == f"READY {start} TOKENS {start + TOKEN_PORT_OFFSET}",
+             "proxy READY")
+        line(lambda x: "chip proxy serving cuda" in x, "proxy on the card")
+        line(lambda x: x == f"READY {port}", "manager READY")
+        gate = ExecutionGate.connect("127.0.0.1", port, "ns/a", 0.5, 1.0)
+        try:
+            gate()
+            assert gate.stats()["acquires"] == 1
+        finally:
+            gate.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+    assert rc == 0, log.read_text()[-3000:]
+    for p in (start, start + TOKEN_PORT_OFFSET, port):
+        with socket.socket() as s:
+            assert s.connect_ex(("127.0.0.1", p)) != 0, p

@@ -229,7 +229,9 @@ def test_pipelined_connection_fails_all_pending_on_death():
         release.wait(10)
         return {"ok": True}
 
-    server = protocol.serve_framed("127.0.0.1", 0, slow)
+    drained = threading.Event()
+    server = protocol.serve_framed("127.0.0.1", 0, slow,
+                                   cleanup=lambda state: drained.set())
     conn = protocol.Connection("127.0.0.1", server.server_address[1])
     conn.start_pipeline()
     try:
@@ -245,8 +247,14 @@ def test_pipelined_connection_fails_all_pending_on_death():
             conn.submit({"op": "after"})
     finally:
         release.set()
+        # the handler still answers the four requests once released, and
+        # its writer consults the process-wide fault injector: it must be
+        # done before a later test installs one (a drop of seq 2 would
+        # go to this dead connection's reply)
+        drained.wait(10)
         server.shutdown()
         server.server_close()
+    assert drained.is_set()
 
 
 def test_submit_needs_a_pipelined_connection(echo_server):
@@ -276,6 +284,45 @@ def test_a_dropped_reply_and_a_killed_connection_are_injected(echo_server):
             conn.submit({"op": "d"}).result(timeout=5)
         with pytest.raises(protocol.ProtocolError):
             lost.result(timeout=5)       # failed with the connection
+    finally:
+        conn.close()
+
+
+def test_an_injected_kill_fails_its_request_even_when_its_reply_wins(
+        echo_server, monkeypatch):
+    """The killed request's reply fails even when the peer's reply reaches
+    the reader before the kill runs: the injector decides before the
+    bytes leave, and the request leaves the pending table first (a
+    divergence on purpose: the JAX connection decides after the send, so
+    its reader may answer the request, and the fault did not happen)."""
+    port, _ = echo_server
+    conn = protocol.Connection("127.0.0.1", port, fault_tag="victim")
+    conn.start_pipeline()
+    read = threading.Event()
+
+    class Pending(dict):
+        def pop(self, *args):
+            if threading.current_thread() is conn._reader:
+                read.set()            # the reader took a reply's slot
+            return super().pop(*args)
+
+    send = protocol._send_buffers
+
+    def send_then_let_the_reply_in(sock, bufs):
+        send(sock, bufs)
+        assert read.wait(5)
+
+    try:
+        assert conn.submit({"op": "warm"}).result(timeout=5)[0]["op"] == "warm"
+        with conn._plock:
+            conn._pending = Pending(conn._pending)
+        monkeypatch.setattr(protocol, "_send_buffers",
+                            send_then_let_the_reply_in)
+        faults.install(faults.Injector(faults.FaultSpec(
+            kill_conn_after_frames=1, kill_conn_tag="victim")))
+        rep = conn.submit({"op": "d"})
+        with pytest.raises(protocol.ProtocolError, match="fault injection"):
+            rep.result(timeout=5)
     finally:
         conn.close()
 

@@ -230,7 +230,9 @@ def test_every_model_cli_defaults_to_cuda(no_cuda, name):
 
 def test_profile_writes_a_trace_on_the_cpu(tmp_path):
     """``--profile DIR`` wraps the timed loop in ``torch.profiler`` and
-    writes its trace into DIR: the timed steps' ops, not the warm-up's."""
+    writes its trace into DIR: the timed steps' ops, not the warm-up's,
+    from the second timed step on (the first is the profiler's own
+    warm-up), each step a ``ProfilerStep#N`` span."""
     import json
 
     from kubeshare_tpu_torch.models import common, tinymlp
@@ -242,9 +244,13 @@ def test_profile_writes_a_trace_on_the_cpu(tmp_path):
     assert res.steps == 3
     (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
     events = json.loads(trace.read_text())["traceEvents"]
+    steps = sorted(e["name"] for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("ProfilerStep#"))
+    assert steps == ["ProfilerStep#1", "ProfilerStep#2"], steps
     mms = [e for e in events if e.get("name") == "aten::mm"]
     # tinymlp's step: 2 matmuls forward, 3 backward (none for the input)
-    assert len(mms) == 3 * 5, len(mms)
+    assert len(mms) == len(steps) * 5, len(mms)
 
 
 _GANG_RANK = """
